@@ -1,0 +1,120 @@
+"""3DGUT forward renderer: UT projection -> binning -> raster
+(port of threedgrut_tpu/render/gut.py:34-82, 137-320, forward only).
+
+Serving mode of the JAX renderer: pinhole camera with a global shutter
+(one shared ray origin), SH features evaluated per particle, unsorted
+global-Z compositing with the reference's exact kill. The raster kernel
+gathers each pair's record from the per-particle table itself, so no
+[P, 16] records array is built, and writes straight into [H, W, .]
+images, so no tile-packed rays or outputs exist either.
+
+Returned dict mirrors the JAX package: ``pred_features`` [H,W,3],
+``pred_opacity`` [H,W,1], ``pred_dist`` [H,W,1], ``hits_count`` [H,W,1],
+``mog_visibility`` [C], ``num_pairs`` and ``pairs_overflow``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..models.gaussians import GaussianModel
+from ..ops import binning as binning_ops
+from ..ops import ut as ut_ops
+from ..ops.cameras import CameraModel
+from ..ops.cuda.raster import rasterize_tiles
+from ..ops.quaternion import quat_normalize, quat_to_rotmat
+from ..ops.sh import eval_sh_radiance
+from ..ops.ut import TILE_X, TILE_Y, UTConfig
+from .common import RasterConfig, camera_rays_world
+
+
+def _scene_aabb(model: GaussianModel):
+    """Conservative AABB of the active particles (+-3 sigma); stands in
+    for the reference's objectAABB ray clip (rayPayload.cuh:96-99)."""
+    mask = model.active_mask()[:, None]
+    pos = model.positions
+    rad = 3.0 * torch.amax(model.get_scale(), dim=-1, keepdim=True)
+    big = torch.full_like(pos, 3e37)
+    lo = torch.amin(torch.where(mask, pos - rad, big), dim=0)
+    hi = torch.amax(torch.where(mask, pos + rad, -big), dim=0)
+    return lo, hi
+
+
+def _ray_aabb(ray_o, ray_d, lo, hi):
+    """Slab test -> (tmin, tmax) per ray; tmin clamped at 0."""
+    tiny = torch.where(ray_d >= 0, torch.full_like(ray_d, 1e-12),
+                       torch.full_like(ray_d, -1e-12))
+    inv = 1.0 / torch.where(torch.abs(ray_d) < 1e-12, tiny, ray_d)
+    t0 = (lo - ray_o) * inv
+    t1 = (hi - ray_o) * inv
+    tmin = torch.amax(torch.minimum(t0, t1), dim=-1)
+    tmax = torch.amin(torch.maximum(t0, t1), dim=-1)
+    return torch.clamp(tmin, min=0.0), tmax
+
+
+def particle_table(model: GaussianModel, origin: torch.Tensor,
+                   feats: torch.Tensor) -> torch.Tensor:
+    """[C, 16] per-particle records of the shared-origin hit model:
+    a = M (o - p), M = diag(1/s) R^T (row-major), density, rgb
+    (gut.py:233-247)."""
+    rot = quat_to_rotmat(quat_normalize(model.rotation))   # [C,3,3]
+    m_mat = (1.0 / model.get_scale())[:, :, None] * rot.transpose(1, 2)
+    delta = origin - model.positions
+    gro = (m_mat[:, :, 0] * delta[:, 0:1] + m_mat[:, :, 1] * delta[:, 1:2]
+           + m_mat[:, :, 2] * delta[:, 2:3])
+    return torch.cat([gro, m_mat.reshape(-1, 9), model.get_density(),
+                      feats], dim=1).contiguous()
+
+
+class ViewInputs(NamedTuple):
+    """What the raster kernel takes for one view (see ``prepare_view``)."""
+    proj: ut_ops.Projection
+    binning: binning_ops.Binning
+    table: torch.Tensor     # [C, 16]
+    ray_d: torch.Tensor     # [H, W, 3]
+    tmin: torch.Tensor      # [H, W]
+    tmax: torch.Tensor      # [H, W]
+
+
+def prepare_view(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
+                 model: GaussianModel, sh_degree: int) -> ViewInputs:
+    """UT projection, SH features, binning, the particle table and the
+    camera rays with their scene-AABB t-ranges."""
+    w, h = cam.resolution
+    grid = ((w + TILE_X - 1) // TILE_X, (h + TILE_Y - 1) // TILE_Y)
+    proj = ut_ops.unscented_projection(
+        cam, ut_cfg, model.positions, model.rotation, model.get_scale(),
+        model.get_density()[:, 0], model.active_mask())
+    # per-particle radiance from the sensor->particle direction, clamped
+    # at 0 like the renderer's max(features, 0) fetch
+    feats = torch.clamp(eval_sh_radiance(model.sh_coeffs(), proj.view_dir,
+                                         sh_degree), min=0.0)
+    b = binning_ops.bin_particles(
+        proj, grid, raster_cfg.max_pairs,
+        tile_culling=raster_cfg.tile_culling,
+        alpha_threshold=ut_cfg.alpha_threshold)
+    table = particle_table(model, ut_ops.sensor_position(cam), feats)
+    ray_o, ray_d = camera_rays_world(cam)
+    tmin, tmax = _ray_aabb(ray_o, ray_d, *_scene_aabb(model))
+    return ViewInputs(proj, b, table, ray_d.contiguous(), tmin.contiguous(),
+                      tmax.contiguous())
+
+
+def render_gut(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
+               model: GaussianModel, sh_degree: int):
+    """Render one view. Forward only: call under ``torch.no_grad()``."""
+    v = prepare_view(cam, ut_cfg, raster_cfg, model, sh_degree)
+    feat, opacity, depth, hits = rasterize_tiles(
+        v.table, v.binning.pair_particle, v.binning.tile_start, v.ray_d,
+        v.tmin, v.tmax, raster_cfg)
+    return {
+        "pred_features": feat,
+        "pred_opacity": opacity,
+        "pred_dist": depth,
+        "hits_count": hits,
+        "mog_visibility": v.proj.valid,
+        "num_pairs": v.binning.num_pairs,
+        "pairs_overflow": v.binning.overflow,
+    }

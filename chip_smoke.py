@@ -7,13 +7,14 @@ Phases, one line each; any failure raises and the script exits non-zero
 without printing the final result line:
 
 1. device  - a CUDA device is present; its name and power limit.
-2. build   - both kernels compile with nvcc from csrc/ (sm_90a).
+2. build   - the four kernels compile with nvcc from csrc/ (sm_90a), one
+   nvcc process per source, all started together.
 3. kernel A vs plain - bin_decode on the 100k bench cloud, one 800x800
    view: pair_tile, pair_particle and tile_start EQUAL to the plain
    PyTorch version.
-4. kernel B vs plain - raster_fwd on the same view and pairs: features
-   and opacity within 1e-4, depth within 1e-3 relative, hit counts
-   differing on < 1% of pixels.
+4. kernel B vs plain - raster_fwd on the same view and pairs: features,
+   opacity and T_final within 1e-4, depth within 1e-3 relative, hit
+   counts differing on < 1% of pixels.
 5. JAX values - render_gut against the JAX outputs saved in
    tests/fixtures/torch_port_gut_small.npz, at the CPU test tolerances.
 6. serving slice - make_serving_renderer on the 100k cloud, 8 orbit
@@ -21,8 +22,27 @@ without printing the final result line:
    the number of views; outputs finite with real coverage; ms/frame.
 7. oracle probe - 200x200, the first 60k particles, the port's oracle
    against render_gut: bulk >= 80 dB and flip_frac <= 0.01.
+8. kernel C vs plain - raster_bwd on the phase-4 view with seeded random
+   upstream gradients: per record field group (a, M, density, rgb)
+   cosine >= 0.9999 and relative L2 <= 1e-3 against the float64
+   autograd plain version.
+9. kernel D vs plain - fold on kernel C's output: max |diff| <= 1e-5 of
+   max |ref|, and two runs bitwise equal.
+10. gradients vs JAX - render_gut's gradients of the six parameter
+   leaves against tests/fixtures/torch_port_grad_small.npz:
+   max-normalised error <= 2e-3 and cosine >= 0.9999.
+11. train step - scripts/bench_train_torch.py's step (100k, 800x800,
+   SH 3, L1 + DSSIM, Adam): 3 warm-up steps, then 20 timed steps in
+   which kernels A-D launch 20 times each; loss finite; every parameter
+   gradient finite and non-zero; ms/step and it/s.
+12. trainer - Trainer from 100k random Gaussians (capacity headroom 4)
+   on 8 teacher views at 800x800, 260 steps: densify grows the cloud,
+   n_active changes, the mean train PSNR of steps 230-249 beats steps
+   1-20 by >= 2 dB, the density reset at step 250 clamps every active
+   density, and a checkpoint round trip repeats the next step's loss.
 
-Then a JSON line with each kernel's launches, error and times, the
+Then a JSON line with each kernel's launches (from phase 11), error and
+times (phases 3, 4, 8, 9), the
 card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX. Needs one card; there is no CPU fallback.
@@ -40,6 +60,21 @@ import torch
 
 N_VIEWS = 8
 SIDE = 800
+TRAIN_STEPS = 20
+REPO = os.path.dirname(os.path.abspath(__file__))
+PARAM_NAMES = ("positions", "rotation", "scale", "density",
+               "features_albedo", "features_specular")
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "bin_decode": ("threedgrut_tpu_torch/csrc/bin_decode.cu",
+                   "threedgrut_tpu/ops/pallas/expand.py:86"),
+    "raster_fwd": ("threedgrut_tpu_torch/csrc/raster_fwd.cu",
+                   "threedgrut_tpu/ops/pallas/raster.py:1147"),
+    "raster_bwd": ("threedgrut_tpu_torch/csrc/raster_bwd.cu",
+                   "threedgrut_tpu/ops/pallas/raster.py:1981"),
+    "fold": ("threedgrut_tpu_torch/csrc/fold.cu",
+             "threedgrut_tpu/ops/pallas/fold.py:76"),
+}
 
 
 def phase(name, msg):
@@ -67,6 +102,101 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def fixture_scene(f, dev):
+    """(model, camera) of a JAX parity fixture (tests/fixtures)."""
+    from threedgrut_tpu_torch.models.gaussians import (GaussianModel,
+                                                       GaussianModelConfig)
+    from threedgrut_tpu_torch.ops.cameras import make_pinhole
+
+    cfg = GaussianModelConfig(
+        density_activation=str(f["density_activation"]),
+        scale_activation=str(f["scale_activation"]),
+        max_sh_degree=int(f["n_active_features"]))
+    model = GaussianModel.from_numpy(
+        {k: f[f"params/{k}"] for k in PARAM_NAMES},
+        int(f["n_active"]), int(f["n_active_features"]), cfg, dev)
+    cam = make_pinhole(tuple(int(x) for x in f["resolution"]), f["focal"],
+                       f["principal"], t=f["t"], q=f["q"], device=dev)
+    return model, cam
+
+
+def fixture_loss(out):
+    """The loss of tests/test_render_parity.py:49-61 (zero target)."""
+    return (out["pred_features"].square().mean()
+            + 0.1 * out["pred_opacity"].mean()
+            + 0.01 * out["pred_dist"].mean())
+
+
+def trainer_phase(dev):
+    """Phase 12: a Trainer from 100k random Gaussians on 8 teacher views
+    at 800x800 (white background), 260 steps with the GS events moved
+    early: densify and prune at steps 100 and 200, a density reset at
+    250."""
+    from threedgrut_tpu_torch.models.background import BackgroundConfig
+    from threedgrut_tpu_torch.models.gaussians import (
+        GaussianModelConfig, default_capacity_for, random_initialization)
+    from threedgrut_tpu_torch.synthetic import build_teacher, teacher_dataset
+    from threedgrut_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    ds = teacher_dataset(build_teacher(60000, seed=0, device=dev),
+                         n_views=8, side=SIDE)
+    extent = ds.get_scene_extent()
+
+    def fresh_model():
+        return random_initialization(
+            GaussianModelConfig(), 100_000, extent=extent, seed=42,
+            capacity=default_capacity_for(100_000, headroom=4.0),
+            device=dev)
+
+    conf = TrainerConfig(background=BackgroundConfig(color="white"))
+    conf.gs = conf.gs.replace(
+        densify_start=50, densify_frequency=100, densify_end=210,
+        prune_start=50, prune_frequency=100, prune_end=210,
+        reset_density_start=240, reset_density_frequency=250,
+        reset_density_end=260)
+    trainer = Trainer(conf, ds, fresh_model())
+    n0 = trainer.model.n_active
+    hist = trainer.run_training(250)
+    dens = trainer.model.get_density()[:trainer.model.n_active]
+    reset_ok = bool((dens <= conf.gs.new_max_density).all())
+    hist += trainer.run_training(260)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    events = trainer.event_stats
+    densified = [st for _, kind, st in events if kind == "densify"]
+    grown = sum(st["n_cloned"] + st["n_split"] for st in densified)
+    counts = [n0] + [st["n"] for _, _, st in events]
+    early = float(np.mean([h["psnr"] for h in hist[0:20]]))
+    late = float(np.mean([h["psnr"] for h in hist[229:249]]))
+    ckpt = os.path.join(REPO, "build", "smoke_trainer_ckpt.npz")
+    trainer.save_checkpoint(ckpt)
+    frame = ds[0]
+    loss_a = trainer.train_iteration(frame, frame_idx=0)["total"]
+    again = Trainer(conf, ds, fresh_model())
+    again.load_checkpoint(ckpt)
+    loss_b = again.train_iteration(frame, frame_idx=0)["total"]
+    os.remove(ckpt)
+    checks = {
+        "densify grew": len(densified) == 2 and grown > 0,
+        "n_active changed": len(set(counts)) > 1,
+        "psnr +2 dB": late >= early + 2.0,
+        "reset clamps density": reset_ok,
+        "checkpoint round trip": abs(loss_a - loss_b) <= 1e-6,
+        "finite": all(np.isfinite(h["total"]) for h in hist),
+    }
+    summary = (f"{len(hist)} steps in {train_s:.1f} s; events "
+               + "; ".join(f"[{s_}] {k} " + " ".join(
+                   f"{a}={b}" for a, b in st.items())
+                   for s_, k, st in events)
+               + f"; psnr steps 1-20 {early:.2f} dB, 230-249 {late:.2f} dB;"
+               f" resumed loss |d| {abs(loss_a - loss_b):.3g}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"trainer: {failed} ({summary})")
+    phase("trainer", summary)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -82,8 +212,12 @@ def main():
     from threedgrut_tpu_torch.ops.cuda import build
     from threedgrut_tpu_torch.ops.cuda.expand import (
         expand_decode_pairs, expand_decode_pairs_plain)
-    from threedgrut_tpu_torch.ops.cuda.raster import (rasterize_tiles,
-                                                      rasterize_tiles_plain)
+    from threedgrut_tpu_torch.ops.cuda.fold import (fold_pairs,
+                                                    fold_pairs_plain)
+    from threedgrut_tpu_torch.ops.cuda.raster import (
+        rasterize_tiles, rasterize_tiles_backward,
+        rasterize_tiles_backward_plain, rasterize_tiles_forward,
+        rasterize_tiles_plain)
     from threedgrut_tpu_torch.ops.ut import UTConfig
     from threedgrut_tpu_torch.models.gaussians import (GaussianModel,
                                                        GaussianModelConfig)
@@ -93,11 +227,10 @@ def main():
     from threedgrut_tpu_torch.render.serve import make_serving_renderer
     from threedgrut_tpu_torch.synthetic import bench_cloud, orbit_geometry
 
-    # 2. build
+    # 2. build: one nvcc per kernel source, all started together
     t0 = time.perf_counter()
-    for name in ("bin_decode", "raster_fwd"):
-        build.load(name, verbose=True)
-    phase("build", f"bin_decode + raster_fwd for sm_90a in "
+    build.load_all(list(KERNELS), verbose=True)
+    phase("build", f"{' + '.join(KERNELS)} for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s (nvcc: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in build.BUILD_SECONDS.items())
           + f") -> {build.BUILD_DIR}")
@@ -140,42 +273,35 @@ def main():
     with torch.no_grad():
         b_args = (v.table, v.binning.pair_particle, v.binning.tile_start,
                   v.ray_d, v.tmin, v.tmax, rc)
-        got = rasterize_tiles(*b_args)
+        got = rasterize_tiles_forward(*b_args)
         ref = rasterize_tiles_plain(*b_args)
         torch.cuda.synchronize()
         err_f = float((got[0] - ref[0]).abs().max())
         err_o = float((got[1] - ref[1]).abs().max())
+        err_t = float((got[4] - ref[4]).abs().max())
         err_d = float(((got[2] - ref[2]).abs()
                        / ref[2].abs().clamp(min=1e-3)).max())
         flips = float((got[3] != ref[3]).float().mean())
-        b_ms = cuda_ms(lambda: rasterize_tiles(*b_args), 20)
+        b_ms = cuda_ms(lambda: rasterize_tiles_forward(*b_args), 20)
         b_plain_ms = cuda_ms(lambda: rasterize_tiles_plain(*b_args), 3)
-    if not (err_f <= 1e-4 and err_o <= 1e-4 and err_d <= 1e-3
-            and flips < 0.01):
+    if not (err_f <= 1e-4 and err_o <= 1e-4 and err_t <= 1e-4
+            and err_d <= 1e-3 and flips < 0.01):
         raise AssertionError(
             f"kernel B vs plain: features {err_f:.3g}, opacity {err_o:.3g},"
-            f" depth rel {err_d:.3g}, hits flip {flips:.4f}")
-    report["raster_fwd"] = dict(max_abs_err=max(err_f, err_o), ms=b_ms,
-                                plain_ms=b_plain_ms)
+            f" T_final {err_t:.3g}, depth rel {err_d:.3g}, "
+            f"hits flip {flips:.4f}")
+    report["raster_fwd"] = dict(max_abs_err=max(err_f, err_o, err_t),
+                                ms=b_ms, plain_ms=b_plain_ms)
     phase("kernel B", f"features |d| {err_f:.3g}, opacity |d| {err_o:.3g}, "
-          f"depth rel {err_d:.3g}, hits flip {flips:.5f}; "
+          f"T_final |d| {err_t:.3g}, depth rel {err_d:.3g}, "
+          f"hits flip {flips:.5f}; "
           f"kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms")
+    fwd = got
 
     # 5. against the JAX package's values
-    fx = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                      "fixtures", "torch_port_gut_small.npz")
+    fx = os.path.join(REPO, "tests", "fixtures", "torch_port_gut_small.npz")
     with np.load(fx) as f:
-        cfg = GaussianModelConfig(
-            density_activation=str(f["density_activation"]),
-            scale_activation=str(f["scale_activation"]),
-            max_sh_degree=int(f["n_active_features"]))
-        small = GaussianModel.from_numpy(
-            {k[len("params/"):]: f[k] for k in f.files
-             if k.startswith("params/")},
-            int(f["n_active"]), int(f["n_active_features"]), cfg, dev)
-        small_cam = make_pinhole(tuple(int(x) for x in f["resolution"]),
-                                 f["focal"], f["principal"], t=f["t"],
-                                 q=f["q"], device=dev)
+        small, small_cam = fixture_scene(f, dev)
         with torch.no_grad():
             out = render_gut(small_cam, ut_cfg, rc, small,
                              int(f["sh_degree"]))
@@ -259,16 +385,120 @@ def main():
     phase("oracle", f"{side}x{side}, {n} particles: bulk {bulk:.1f} dB, "
           f"raw {raw:.1f} dB, flip_frac {flip:.5f}")
 
-    kernels = [
-        dict(name="bin_decode", route="cuda",
-             source="threedgrut_tpu_torch/csrc/bin_decode.cu",
-             replaces="threedgrut_tpu/ops/pallas/expand.py:86",
-             launches=launches["bin_decode"], **report["bin_decode"]),
-        dict(name="raster_fwd", route="cuda",
-             source="threedgrut_tpu_torch/csrc/raster_fwd.cu",
-             replaces="threedgrut_tpu/ops/pallas/raster.py:1147",
-             launches=launches["raster_fwd"], **report["raster_fwd"]),
-    ]
+    # 8. kernel C vs plain: seeded upstream gradients on the same view
+    rng = np.random.default_rng(7)
+    g_feat, g_opac, g_dep = (
+        torch.tensor(rng.normal(size=(SIDE, SIDE, c)).astype(np.float32),
+                     device=dev) for c in (3, 1, 1))
+    c_args = b_args[:6] + (fwd[0], fwd[2], fwd[4], g_feat, g_opac, g_dep,
+                           rc)
+    with torch.no_grad():
+        d_rec = rasterize_tiles_backward(*c_args)
+        d_ref = rasterize_tiles_backward_plain(*c_args)
+        torch.cuda.synchronize()
+        c_stats = {}
+        for nm, sl in (("a", slice(0, 3)), ("M", slice(3, 12)),
+                       ("density", slice(12, 13)), ("rgb", slice(13, 16))):
+            x = d_rec[:, sl].double().flatten()
+            y = d_ref[:, sl].double().flatten()
+            cos = float(x @ y / (x.norm() * y.norm()).clamp(min=1e-300))
+            rel = float((x - y).norm() / y.norm().clamp(min=1e-300))
+            c_stats[nm] = (cos, rel)
+        c_err = float((d_rec - d_ref).abs().max())
+        c_ms = cuda_ms(lambda: rasterize_tiles_backward(*c_args), 10)
+        c_plain_ms = cuda_ms(lambda: rasterize_tiles_backward_plain(*c_args),
+                             1)
+    bad = {k: v for k, v in c_stats.items()
+           if not (v[0] >= 0.9999 and v[1] <= 1e-3)}
+    if bad:
+        raise AssertionError(f"kernel C vs plain (cosine, rel L2): {bad}")
+    report["raster_bwd"] = dict(max_abs_err=c_err, ms=c_ms,
+                                plain_ms=c_plain_ms)
+    phase("kernel C", ", ".join(f"{k} cos {v[0]:.8f} relL2 {v[1]:.3g}"
+                                for k, v in c_stats.items())
+          + f"; max |d| {c_err:.3g}; kernel {c_ms:.4f} ms, "
+          f"plain {c_plain_ms:.4f} ms")
+
+    # 9. kernel D vs plain, and bitwise determinism
+    vb = v.binning
+    d_args = (d_rec, vb.perm, vb.order, vb.excl, vb.counts, vb.limit,
+              model.capacity)
+    with torch.no_grad():
+        d1 = fold_pairs(*d_args)
+        d2 = fold_pairs(*d_args)
+        d_ref = fold_pairs_plain(*d_args)
+        torch.cuda.synchronize()
+        d_err = float((d1 - d_ref).abs().max())
+        d_scale = float(d_ref.abs().max())
+        same = bool(torch.equal(d1, d2))
+        d_ms = cuda_ms(lambda: fold_pairs(*d_args), 20)
+        d_plain_ms = cuda_ms(lambda: fold_pairs_plain(*d_args), 5)
+    if not (d_err <= 1e-5 * d_scale and same):
+        raise AssertionError(f"kernel D vs plain: max |d| {d_err:.3g} "
+                             f"(max |ref| {d_scale:.3g}); bitwise "
+                             f"deterministic {same}")
+    report["fold"] = dict(max_abs_err=d_err, ms=d_ms, plain_ms=d_plain_ms)
+    phase("kernel D", f"max |d| {d_err:.3g} of max |ref| {d_scale:.3g}; "
+          f"two runs bitwise equal; kernel {d_ms:.4f} ms, "
+          f"plain {d_plain_ms:.4f} ms")
+
+    # 10. render gradients against the JAX package's
+    grad_fx = os.path.join(REPO, "tests", "fixtures",
+                           "torch_port_grad_small.npz")
+    with np.load(grad_fx) as f:
+        gmodel, gcam = fixture_scene(f, dev)
+        out = render_gut(gcam, ut_cfg, rc, gmodel, int(f["sh_degree"]))
+        fixture_loss(out).backward()
+        g_errs = {}
+        for k in PARAM_NAMES:
+            got_g = getattr(gmodel, k).grad.double().cpu().numpy()
+            ref_g = f[f"grad/{k}"].astype(np.float64)
+            scale = np.abs(ref_g).max() + 1e-12
+            cos = float((got_g * ref_g).sum() / max(
+                np.linalg.norm(got_g) * np.linalg.norm(ref_g), 1e-300))
+            g_errs[k] = (float(np.abs(got_g - ref_g).max() / scale), cos)
+    bad = {k: v for k, v in g_errs.items()
+           if not (v[0] <= 2e-3 and v[1] >= 0.9999)}
+    if bad:
+        raise AssertionError(f"gradients vs JAX (max-normalised error, "
+                             f"cosine): {bad}")
+    phase("grad vs JAX", f"fixture {os.path.basename(grad_fx)}: " + ", ".join(
+        f"{k} {v[0]:.2g}/{v[1]:.7f}" for k, v in g_errs.items()))
+
+    # 11. train step: bench.py's step at 100k / 800x800 / SH 3
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from bench_train_torch import BenchStep, time_steps
+
+    step = BenchStep(dev)
+    time_steps(step, 3)                       # warm-up
+    counters = (expand_decode_pairs, rasterize_tiles,
+                rasterize_tiles_backward, fold_pairs)
+    for fn in counters:
+        fn.launches = 0
+    step_ms, losses = time_steps(step, TRAIN_STEPS)
+    launches = dict(zip(KERNELS, (fn.launches for fn in counters)))
+    if any(n != TRAIN_STEPS for n in launches.values()):
+        raise AssertionError(f"train-step launches {launches}, expected "
+                             f"{TRAIN_STEPS} each")
+    if not all(bool(torch.isfinite(x)) for x in losses):
+        raise AssertionError("train-step loss not finite")
+    for k, p in step.params.items():
+        if not (bool(torch.isfinite(p.grad).all())
+                and float(p.grad.abs().max()) > 0.0):
+            raise AssertionError(f"train-step gradient of {k} is not "
+                                 "finite and non-zero")
+    phase("train step", f"100k Gaussians, {SIDE}x{SIDE}, SH 3, L1+DSSIM, "
+          f"Adam: {step_ms:.3f} ms/step ({1e3 / step_ms:.2f} it/s) host "
+          f"clock over {TRAIN_STEPS} steps; loss {float(losses[0]):.5f} -> "
+          f"{float(losses[-1]):.5f}; launches {launches}")
+    del step
+
+    # 12. trainer: GS densify / prune / reset on teacher views
+    trainer_phase(dev)
+
+    kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
+                    launches=launches.get(k, 0), **report[k])
+               for k, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -118,10 +118,19 @@ def test_render_gut_matches_jax(scenes, seed):
 
 
 def test_render_requires_no_grad(scenes):
+    """Serving needs no autograd: under no_grad the render builds no
+    graph and gives the same values as the differentiable render."""
     cam, state, _ = scenes[0]
     tcam, model = torch_scene(cam, state)
-    with pytest.raises(RuntimeError, match="no backward"):
-        render_gut(tcam, UT, RC, model, sh_degree=3)
+    with torch.no_grad():
+        plain = render_gut(tcam, UT, RC, model, sh_degree=3)
+    graded = render_gut(tcam, UT, RC, model, sh_degree=3)
+    assert all(plain[k].grad_fn is None for k in KEYS)
+    assert graded["pred_features"].grad_fn is not None
+    assert graded["hits_count"].grad_fn is None      # no gradient to hits
+    for k in KEYS:
+        torch.testing.assert_close(graded[k].detach(), plain[k], rtol=0,
+                                   atol=0)
 
 
 def test_oracle_matches_jax_oracle(scenes):
@@ -211,12 +220,16 @@ def test_fixture_is_current():
 
 
 def test_port_imports_no_jax():
-    """The port and its serving path load without JAX. A subprocess:
-    this process already imported jax through tests/conftest.py."""
+    """The port, its serving path and its trainer load without JAX, yaml
+    or PIL. A subprocess: this process already imported jax through
+    tests/conftest.py."""
     code = ("import sys; import threedgrut_tpu_torch.render.serve, "
             "threedgrut_tpu_torch.render.oracle, "
             "threedgrut_tpu_torch.convert, "
-            "threedgrut_tpu_torch.ops.cuda.build; "
+            "threedgrut_tpu_torch.ops.cuda.build, "
+            "threedgrut_tpu_torch.train.trainer, "
+            "threedgrut_tpu_torch.strategy.gs, "
+            "threedgrut_tpu_torch.synthetic; "
             "bad = [m for m in ('jax', 'flax', 'yaml', 'PIL') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,13 +1,13 @@
 // Kernel B: forward compositing of one 16x16 tile's depth-ordered pairs.
 //
 // Replaces threedgrut_tpu/ops/pallas/raster.py:_fwd_strip_kernel (reached
-// through rasterize_tiles -> _pallas_forward) in its serving mode:
-// shared ray origin, constant per-particle RGB, unsorted global-Z order,
-// exact kill, kernel degree 2. The TPU kernel evaluates [256 pixels x 128
-// candidates] register tiles with matmuls and a log-space prefix scan for
-// transmittance; this kernel takes the reference renderer's shape instead
-// (gutKBufferRenderer.cuh, K = 0): one 256-thread block per tile, one
-// thread per pixel, a sequential front-to-back walk per pixel with the
+// through rasterize_tiles -> _pallas_forward) in its serving and training
+// mode: shared ray origin, constant per-particle RGB, unsorted global-Z
+// order, exact kill, kernel degree 2. The TPU kernel evaluates [256 pixels
+// x 128 candidates] register tiles with matmuls and a log-space prefix scan
+// for transmittance; this kernel takes the reference renderer's shape
+// instead (gutKBufferRenderer.cuh, K = 0): one 256-thread block per tile,
+// one thread per pixel, a sequential front-to-back walk per pixel with the
 // transmittance carried in a register.
 //
 // Pair batches: the block walks [tile_start[t], tile_start[t+1]) in
@@ -19,13 +19,17 @@
 //
 // Bound on this card: the per-(pixel, pair) arithmetic (~40 flops and one
 // expf) and the latency of the one dependent gather per batch; device
-// memory traffic is small (64 B per pair and block, 24 B per pixel out).
+// memory traffic is small (64 B per pair and block, 28 B per pixel out).
 // Dead pixels drop out of the walk, and the block leaves once every pixel
 // of the tile is dead (__syncthreads_count), as the reference does.
 //
-// Numerics: fp32 throughout, expf (no fast math). Acceptance uses the
-// squared-distance threshold of raster.py:_sq_accept_threshold, so the
-// accept decision matches the TPU kernel's form.
+// Outputs: features, opacity = 1 - T_final, depth, hit count and T_final
+// itself (raster.py lane f+3), which the backward (kernel C,
+// raster_bwd.cu) reads as saved: rebuilding it as 1 - opacity would lose
+// its relative precision where T is near the kill threshold.
+//
+// Numerics: fp32 throughout, expf (no fast math). The hit math is
+// common.cuh:eval_hit, shared with kernel C.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,19 +37,12 @@
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kBlock = kTile * kTile;  // pixels per tile == threads per block
-constexpr int kBatch = 256;            // pairs staged per batch
-constexpr int kRec = 16;               // a(3) M(9) density(1) rgb(3)
-constexpr int kStaged = kRec + 1;      // + squared-distance threshold
+using gut::kBlock;
+using gut::kRec;
+using gut::kTile;
 
-struct RasterParams {
-  int width, height, grid_x;
-  float min_transmittance, max_alpha;
-  float sq_thr_response;  // ln(min_response) / s
-  float log_min_alpha;    // ln(min_alpha)
-  float gg_scale;         // s = -0.5 for degree 2
-};
+constexpr int kBatch = 256;            // pairs staged per batch
+constexpr int kStaged = kRec + 1;      // + squared-distance threshold
 
 __global__ void __launch_bounds__(kBlock)
 raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
@@ -54,11 +51,12 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
                   const float* __restrict__ ray_d,        // [H, W, 3]
                   const float* __restrict__ ray_tmin,     // [H, W]
                   const float* __restrict__ ray_tmax,     // [H, W]
-                  RasterParams p,
+                  gut::RasterParams p,
                   float* __restrict__ out_feat,           // [H, W, 3]
                   float* __restrict__ out_opacity,        // [H, W]
                   float* __restrict__ out_depth,          // [H, W]
-                  float* __restrict__ out_hits) {         // [H, W]
+                  float* __restrict__ out_hits,           // [H, W]
+                  float* __restrict__ out_tfinal) {       // [H, W]
   __shared__ float s_rec[kStaged][kBatch];
 
   const int tile = blockIdx.x;
@@ -92,36 +90,23 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
                                 v2.x, v2.y, v2.z, v2.w, v3.x, v3.y, v3.z, v3.w};
 #pragma unroll
       for (int f = 0; f < kRec; ++f) s_rec[f][threadIdx.x] = vals[f];
-      // resp > min_response and resp * density > min_alpha  <=>
-      // sq < min(ln(min_response), ln(min_alpha) - ln(density)) / s
-      s_rec[kRec][threadIdx.x] = fminf(
-          p.sq_thr_response,
-          (p.log_min_alpha - logf(fmaxf(v3.x, 1e-30f))) / p.gg_scale);
+      s_rec[kRec][threadIdx.x] = gut::sq_threshold(v3.x, p);
     }
     __syncthreads();
     const int nb = min(kBatch, end - base);
     for (int j = 0; alive && j < nb; ++j) {
-      const float ax = s_rec[0][j], ay = s_rec[1][j], az = s_rec[2][j];
-      const float bx = s_rec[3][j] * dx + s_rec[4][j] * dy + s_rec[5][j] * dz;
-      const float by = s_rec[6][j] * dx + s_rec[7][j] * dy + s_rec[8][j] * dz;
-      const float bz = s_rec[9][j] * dx + s_rec[10][j] * dy + s_rec[11][j] * dz;
-      const float cx = ay * bz - az * by;
-      const float cy = az * bx - ax * bz;
-      const float cz = ax * by - ay * bx;
-      const float inv_m = 1.0f / fmaxf(bx * bx + by * by + bz * bz, 1e-30f);
-      const float sq = (cx * cx + cy * cy + cz * cz) * inv_m;
-      if (!(sq < s_rec[kRec][j])) continue;
-      const float hit_t = -(ax * bx + ay * by + az * bz) * inv_m;
-      if (!(hit_t > tmin && hit_t < tmax)) continue;
-      const float alpha =
-          fminf(p.max_alpha, expf(p.gg_scale * sq) * s_rec[12][j]);
-      const float w = alpha * trans;
-      f0 += w * s_rec[13][j];
-      f1 += w * s_rec[14][j];
-      f2 += w * s_rec[15][j];
-      depth += w * hit_t;
+      gut::Hit h;
+      if (!gut::eval_hit(&s_rec[0][j], kBatch, dx, dy, dz, tmin, tmax,
+                         s_rec[kRec][j], p, h)) {
+        continue;
+      }
+      const float w = h.alpha * trans;
+      f0 += w * s_rec[gut::kRgb + 0][j];
+      f1 += w * s_rec[gut::kRgb + 1][j];
+      f2 += w * s_rec[gut::kRgb + 2][j];
+      depth += w * h.hit_t;
       hits += w > 0.f ? 1.f : 0.f;
-      trans *= 1.0f - alpha;
+      trans *= 1.0f - h.alpha;
       // exact kill: the ray stops once T drops below the threshold
       if (trans < p.min_transmittance) alive = false;
     }
@@ -134,6 +119,7 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
     out_opacity[pix] = 1.0f - trans;
     out_depth[pix] = depth;
     out_hits[pix] = hits;
+    out_tfinal[pix] = trans;
   }
 }
 
@@ -145,14 +131,14 @@ extern "C" int raster_fwd_launch(
     const float* ray_tmax, int width, int height, int grid_x, int num_tiles,
     float min_transmittance, float max_alpha, float sq_thr_response,
     float log_min_alpha, float gg_scale, float* out_feat, float* out_opacity,
-    float* out_depth, float* out_hits, void* stream) {
-  RasterParams p{width, height, grid_x, min_transmittance, max_alpha,
-                 sq_thr_response, log_min_alpha, gg_scale};
+    float* out_depth, float* out_hits, float* out_tfinal, void* stream) {
+  gut::RasterParams p{width, height, grid_x, min_transmittance, max_alpha,
+                      sq_thr_response, log_min_alpha, gg_scale};
   if (num_tiles > 0) {
     raster_fwd_kernel<<<num_tiles, kBlock, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         table, pair_particle, tile_start, ray_d, ray_tmin, ray_tmax, p,
-        out_feat, out_opacity, out_depth, out_hits);
+        out_feat, out_opacity, out_depth, out_hits, out_tfinal);
   }
   return static_cast<int>(cudaGetLastError());
 }

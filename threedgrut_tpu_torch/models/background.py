@@ -1,5 +1,5 @@
-"""Background models (port of threedgrut_tpu/models/background.py, eval
-path): ``pred = features + bg * (1 - opacity)``."""
+"""Background models (port of threedgrut_tpu/models/background.py):
+``pred = features + bg * (1 - opacity)``."""
 
 from __future__ import annotations
 
@@ -16,11 +16,17 @@ class BackgroundConfig:
 
 
 def background_color(cfg: BackgroundConfig,
+                     generator: Optional[torch.Generator] = None,
+                     train: bool = False,
                      device="cpu") -> Optional[torch.Tensor]:
-    """Eval-time background RGB [3], or None for skip-background
-    (a random training background evaluates to mid-grey)."""
+    """Per-call background RGB [3], or None for skip-background. A
+    ``random`` color is drawn from ``generator`` in a training call and is
+    mid-grey otherwise."""
     if cfg.name == "skip-background":
         return None
+    if cfg.color == "random" and train and generator is not None:
+        return torch.rand((3,), generator=generator,
+                          device=generator.device).to(device)
     values = {"black": 0.0, "white": 1.0, "random": 0.5}
     if cfg.color not in values:
         raise ValueError(f"unknown background color {cfg.color}")

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.sh import num_sh_coeffs
+from ..ops.sh import SH_C0, num_sh_coeffs
 
 PARAM_NAMES = ("positions", "rotation", "scale", "density",
                "features_albedo", "features_specular")
@@ -26,6 +26,11 @@ PARAM_NAMES = ("positions", "rotation", "scale", "density",
 ACTIVATIONS = {
     "sigmoid": torch.sigmoid,
     "exp": torch.exp,
+    "none": lambda x: x,
+}
+INVERSE_ACTIVATIONS = {
+    "sigmoid": lambda x: torch.log(x / (1.0 - x)),
+    "exp": torch.log,
     "none": lambda x: x,
 }
 
@@ -37,11 +42,92 @@ class GaussianModelConfig:
     scale_activation: str = "exp"
     feature_type: str = "sh"
     max_sh_degree: int = 3
+    default_density: float = 0.1
+    default_scale_factor: float = 1.0
 
 
-def default_capacity_for(n_points: int) -> int:
-    """Capacity rounded up to a multiple of 256 (as the JAX package)."""
-    return max(int(np.ceil(n_points / 256.0)) * 256, 256)
+def default_capacity_for(n_points: int, headroom: float = 1.0) -> int:
+    """Capacity for ``n_points`` times ``headroom`` (the GS trainer leaves
+    room to densify), rounded up to a multiple of 256 as in the JAX
+    package."""
+    c = int(np.ceil(n_points * headroom / 256.0)) * 256
+    return max(c, 256)
+
+
+def _inverse_activation_np(name: str, x: np.ndarray) -> np.ndarray:
+    """INVERSE_ACTIVATIONS on a float32 numpy array, computed in fp32."""
+    return INVERSE_ACTIVATIONS[name](
+        torch.from_numpy(np.asarray(x, np.float32))).numpy()
+
+
+def initialize_from_points(cfg: GaussianModelConfig, points: np.ndarray,
+                           colors: Optional[np.ndarray] = None,
+                           observer_scale: Optional[np.ndarray] = None,
+                           capacity: Optional[int] = None, seed: int = 42,
+                           device="cpu") -> "GaussianModel":
+    """Default initialization from a point cloud (JAX
+    models/gaussians.py:initialize_from_points, reference model.py:708):
+    random rotations, scales from kNN or observer distances, the default
+    density, SH DC from the colors. The numpy draws are the JAX
+    package's, in the same order, so both give equal arrays."""
+    if cfg.feature_type != "sh":
+        raise NotImplementedError("only SH features are ported")
+    n = points.shape[0]
+    cap = capacity or default_capacity_for(n)
+    rng = np.random.default_rng(seed)
+
+    positions = np.zeros((cap, 3), np.float32)
+    positions[:n] = points.astype(np.float32)
+    rotation = np.zeros((cap, 4), np.float32)
+    rotation[:, 0] = 1.0
+    rotation[:n] = rng.random((n, 4), dtype=np.float32)
+    if observer_scale is None:
+        observer_scale = _knn_mean_dist(points)
+    observer_scale = np.maximum(observer_scale * cfg.default_scale_factor,
+                                1e-7)
+    scale = np.full((cap, 3), -10.0, np.float32)
+    scale[:n] = _inverse_activation_np(cfg.scale_activation,
+                                       observer_scale)[:, None]
+    density = np.full((cap, 1), _inverse_activation_np(
+        cfg.density_activation, np.float32(cfg.default_density)),
+        np.float32)
+    if colors is None:
+        colors = rng.integers(0, 256, (n, 3)).astype(np.float32) / 255.0
+    else:
+        colors = colors.astype(np.float32)
+        if colors.max() > 1.5:
+            colors = colors / 255.0
+    albedo = np.zeros((cap, 3), np.float32)
+    albedo[:n] = (colors - 0.5) / np.float32(SH_C0)
+    spec = np.zeros((cap, 3 * (num_sh_coeffs(cfg.max_sh_degree) - 1)),
+                    np.float32)
+    arrays = dict(positions=positions, rotation=rotation, scale=scale,
+                  density=density, features_albedo=albedo,
+                  features_specular=spec)
+    return GaussianModel.from_numpy(arrays, n, 0, cfg, device)
+
+
+def random_initialization(cfg: GaussianModelConfig, n: int,
+                          extent: float = 1.0, seed: int = 42,
+                          capacity: Optional[int] = None,
+                          device="cpu") -> "GaussianModel":
+    """Uniform random points in a cube of half-size ``extent``
+    (configs/initialization/random.yaml), as the JAX package draws them."""
+    rng = np.random.default_rng(seed)
+    pts = (rng.random((n, 3)).astype(np.float32) * 2.0 - 1.0) * extent
+    colors = rng.random((n, 3)).astype(np.float32)
+    scale0 = np.full((n,), 0.02 * extent, np.float32)
+    return initialize_from_points(cfg, pts, colors, observer_scale=scale0,
+                                  capacity=capacity, seed=seed,
+                                  device=device)
+
+
+def _knn_mean_dist(points: np.ndarray, k: int = 4) -> np.ndarray:
+    """sqrt(mean squared distance to the 3 nearest neighbours)."""
+    from scipy.spatial import cKDTree
+
+    d, _ = cKDTree(points).query(points, k=k)
+    return np.sqrt((d[:, 1:] ** 2).mean(axis=1)).astype(np.float32)
 
 
 class GaussianModel(nn.Module):
@@ -137,6 +223,17 @@ class GaussianModel(nn.Module):
 
     def get_density(self) -> torch.Tensor:
         return ACTIVATIONS[self.config.density_activation](self.density)
+
+    def params(self) -> Dict[str, nn.Parameter]:
+        """The raw parameters by name (the optimizer's groups)."""
+        return {k: getattr(self, k) for k in PARAM_NAMES}
+
+    @torch.no_grad()
+    def set_params(self, **tensors: torch.Tensor):
+        """Replace the values of named parameters in place (same shapes),
+        keeping the Parameter objects."""
+        for k, v in tensors.items():
+            getattr(self, k).copy_(v)
 
     def sh_coeffs(self) -> torch.Tensor:
         """[C, K, 3] SH coefficients, coefficient-major (DC first)."""

@@ -1,5 +1,5 @@
 """Tile binning: per-tile depth-ordered (tile, particle) pair lists
-(port of threedgrut_tpu/ops/binning.py:52-184, forward only).
+(port of threedgrut_tpu/ops/binning.py:39-45, 52-184).
 
 The reference's pipeline (gutRenderer.cu:241-421): count the tiles each
 particle covers, depth-sort the particles, exclusive scan, expand every
@@ -11,6 +11,12 @@ The pair buffer is sized per view from the scan total: one host read of
 that total per view, as the reference does (gutRenderer.cu:314-323).
 ``max_pairs`` stays an optional cap: over it the farthest particles'
 pairs are dropped and counted in ``overflow``.
+
+The binning is structural (no gradient flows through it), and it also
+returns the fold metadata of the JAX package's ``carry_perm``: the
+tile-sort permutation and the depth-rank slot runs, with which the
+backward maps each tile-sorted pair back to its particle
+(``ops/cuda/fold.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +36,12 @@ class Binning(NamedTuple):
     tile_start: torch.Tensor     # [T+1] i32 segment boundaries
     num_pairs: torch.Tensor      # [] i32 pairs that survived the cull
     overflow: torch.Tensor       # [] i32 pairs dropped by max_pairs
+    # fold metadata (the arguments of ops/cuda/fold.py:fold_pairs)
+    perm: torch.Tensor           # [P] i32 tile-sorted position -> pre slot
+    order: torch.Tensor          # [N] i32 depth rank -> particle
+    excl: torch.Tensor           # [N] i32 first pre slot per depth rank
+    counts: torch.Tensor         # [N] i32 slot count per depth rank
+    limit: int                   # pair slots kept (P)
 
 
 class PairSlots(NamedTuple):
@@ -85,14 +97,15 @@ def pair_slots(proj: Projection, tile_grid,
 def sort_pairs(pair_tile: torch.Tensor, pair_particle: torch.Tensor,
                num_tiles: int):
     """STABLE sort of the pairs by tile (keeps the depth order within
-    each tile) and the tile segment boundaries."""
+    each tile): (pair_tile, pair_particle, tile_start, perm), with perm
+    [P] i32 the pre-sort slot of each sorted position."""
     pair_tile, perm = torch.sort(pair_tile, stable=True)
     pair_particle = pair_particle[perm]
     tile_start = torch.searchsorted(
         pair_tile, torch.arange(num_tiles + 1, dtype=torch.int32,
                                 device=pair_tile.device),
         side="left").to(torch.int32)
-    return pair_tile, pair_particle, tile_start
+    return pair_tile, pair_particle, tile_start, perm.to(torch.int32)
 
 
 def bin_particles(proj: Projection, tile_grid, max_pairs: Optional[int] = None,
@@ -106,10 +119,12 @@ def bin_particles(proj: Projection, tile_grid, max_pairs: Optional[int] = None,
     pair_tile, pair_particle = expand_decode_pairs(
         slots.rows, slots.order, slots.excl, slots.counts, limit, tile_grid,
         tile_culling)
-    pair_tile, pair_particle, tile_start = sort_pairs(
+    pair_tile, pair_particle, tile_start, perm = sort_pairs(
         pair_tile, pair_particle, gx * gy)
     return Binning(
         pair_particle=pair_particle, pair_tile=pair_tile,
         tile_start=tile_start, num_pairs=tile_start[-1].clone(),
         overflow=torch.tensor(slots.total - limit, dtype=torch.int32,
-                              device=tile_start.device))
+                              device=tile_start.device),
+        perm=perm, order=slots.order, excl=slots.excl, counts=slots.counts,
+        limit=limit)

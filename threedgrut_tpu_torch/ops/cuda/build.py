@@ -31,10 +31,13 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # integers that its plain PyTorch version must reproduce exactly, and
 # raster_fwd's accept decisions (sq < threshold) then match the plain
 # version's too, instead of flipping one ~1/255 contribution on tens of
-# pixels per view.
+# pixels per view. raster_bwd shares raster_fwd's hit math
+# (common.cuh:eval_hit) and must take the same decisions; fold only adds.
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "bin_decode": ["-fmad=false"],
     "raster_fwd": ["-fmad=false"],
+    "raster_bwd": ["-fmad=false"],
+    "fold": ["-fmad=false"],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -66,28 +69,44 @@ def library_path(name: str) -> Path:
 
 def load(name: str, verbose: bool = False) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    out = library_path(name)
-    BUILD_SECONDS[name] = 0.0
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path()] + _flags(name) + (
-            ["-Xptxas", "-v"] if verbose else []) + [
-            "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+    return load_all([name], verbose)[name]
+
+
+def load_all(names: List[str], verbose: bool = False
+             ) -> Dict[str, ctypes.CDLL]:
+    """Load the kernel libraries ``names``; those not built yet are built
+    by one nvcc process each, all started together."""
+    todo = {}
+    for name in names:
+        if name in _LIBS:
+            continue
+        out = library_path(name)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path()] + _flags(name) + (
+                ["-Xptxas", "-v"] if verbose else []) + [
+                "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            todo[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True), tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in todo.items():
+        _, err = proc.communicate()
         BUILD_SECONDS[name] = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{err}")
+            continue
         if verbose:
-            print(res.stderr, end="")
+            print(err, end="")
         os.replace(tmp, out)   # atomic: concurrent builders never see half
-    lib = ctypes.CDLL(str(out))
-    _LIBS[name] = lib
-    return lib
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _LIBS:
+            BUILD_SECONDS.setdefault(name, 0.0)
+            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return {name: _LIBS[name] for name in names}
 
 
 def check_launch(name: str, err: int, lib: Optional[ctypes.CDLL] = None):
@@ -103,7 +122,7 @@ def check_launch(name: str, err: int, lib: Optional[ctypes.CDLL] = None):
 
 def check_tensor(name: str, t: torch.Tensor, dtype, shape, device):
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device`` that does not require grad (no kernel has a backward yet)."""
+    ``device``."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -112,7 +131,3 @@ def check_tensor(name: str, t: torch.Tensor, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.requires_grad:
-        raise RuntimeError(
-            f"{name} requires grad: the kernels have no backward yet; "
-            "render under torch.no_grad()")

@@ -49,6 +49,31 @@ def particle_response(sq_dist: torch.Tensor, kernel_degree: int) -> torch.Tensor
     raise ValueError(f"unsupported kernel degree {kernel_degree}")
 
 
+def particle_response_dsq(sq_dist: torch.Tensor, response: torch.Tensor,
+                          kernel_degree: int) -> torch.Tensor:
+    """d(particle_response)/d(sq_dist) given the forward response (the
+    raster backward's pullback; csrc/raster_bwd.cu has degree 2)."""
+    d = sq_dist
+    if kernel_degree == 0:
+        inv_sqrt = torch.rsqrt(torch.clamp(d, min=1e-18))
+        return torch.where(response > 0.0, 0.5 * _LINEAR_SCALE * inv_sqrt,
+                           torch.zeros_like(d))
+    s = _GG_SCALE[kernel_degree]
+    if kernel_degree == 1:
+        return response * s * 0.5 * torch.rsqrt(torch.clamp(d, min=1e-18))
+    if kernel_degree == 2:
+        return response * s
+    if kernel_degree == 3:
+        return response * s * 1.5 * torch.sqrt(d)
+    if kernel_degree == 4:
+        return response * s * 2.0 * d
+    if kernel_degree == 5:
+        return response * s * 2.5 * d * torch.sqrt(d)
+    if kernel_degree == 8:
+        return response * s * 4.0 * d * d * d
+    raise ValueError(f"unsupported kernel degree {kernel_degree}")
+
+
 class HitResult(NamedTuple):
     alpha: torch.Tensor      # compositing alpha (0 where rejected)
     hit_t: torch.Tensor      # world-space distance of max response

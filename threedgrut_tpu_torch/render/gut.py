@@ -1,12 +1,19 @@
-"""3DGUT forward renderer: UT projection -> binning -> raster
-(port of threedgrut_tpu/render/gut.py:34-82, 137-320, forward only).
+"""3DGUT renderer: UT projection -> binning -> raster
+(port of threedgrut_tpu/render/gut.py:34-82, 110-131, 137-320).
 
-Serving mode of the JAX renderer: pinhole camera with a global shutter
-(one shared ray origin), SH features evaluated per particle, unsorted
-global-Z compositing with the reference's exact kill. The raster kernel
-gathers each pair's record from the per-particle table itself, so no
-[P, 16] records array is built, and writes straight into [H, W, .]
-images, so no tile-packed rays or outputs exist either.
+The training and serving mode of the JAX renderer: pinhole camera with a
+global shutter (one shared ray origin), SH features evaluated per
+particle, unsorted global-Z compositing with the reference's exact kill.
+The raster kernel gathers each pair's record from the per-particle table
+itself, so no [P, 16] records array is built, and writes straight into
+[H, W, .] images, so no tile-packed rays or outputs exist either.
+
+Differentiable in the model parameters: the table and the SH features
+are built with autograd, and the raster's backward (kernels C and D)
+returns the table's gradient. The projection enters the binning only
+structurally (detached), as in JAX; rays and t-ranges get no gradient.
+Under ``torch.no_grad()`` (the serving path) the same kernels run
+without saving anything for a backward.
 
 Returned dict mirrors the JAX package: ``pred_features`` [H,W,3],
 ``pred_opacity`` [H,W,1], ``pred_dist`` [H,W,1], ``hits_count`` [H,W,1],
@@ -23,7 +30,7 @@ from ..models.gaussians import GaussianModel
 from ..ops import binning as binning_ops
 from ..ops import ut as ut_ops
 from ..ops.cameras import CameraModel
-from ..ops.cuda.raster import rasterize_tiles
+from ..ops.cuda.raster import FoldMeta, rasterize_tiles
 from ..ops.quaternion import quat_normalize, quat_to_rotmat
 from ..ops.sh import eval_sh_radiance
 from ..ops.ut import TILE_X, TILE_Y, UTConfig
@@ -97,18 +104,20 @@ def prepare_view(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
         alpha_threshold=ut_cfg.alpha_threshold)
     table = particle_table(model, ut_ops.sensor_position(cam), feats)
     ray_o, ray_d = camera_rays_world(cam)
-    tmin, tmax = _ray_aabb(ray_o, ray_d, *_scene_aabb(model))
+    with torch.no_grad():   # rays and t-ranges carry no gradient
+        tmin, tmax = _ray_aabb(ray_o, ray_d, *_scene_aabb(model))
     return ViewInputs(proj, b, table, ray_d.contiguous(), tmin.contiguous(),
                       tmax.contiguous())
 
 
 def render_gut(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
                model: GaussianModel, sh_degree: int):
-    """Render one view. Forward only: call under ``torch.no_grad()``."""
+    """Render one view (differentiable in the model's parameters)."""
     v = prepare_view(cam, ut_cfg, raster_cfg, model, sh_degree)
+    b = v.binning
     feat, opacity, depth, hits = rasterize_tiles(
-        v.table, v.binning.pair_particle, v.binning.tile_start, v.ray_d,
-        v.tmin, v.tmax, raster_cfg)
+        v.table, b.pair_particle, b.tile_start, v.ray_d, v.tmin, v.tmax,
+        raster_cfg, FoldMeta(b.perm, b.order, b.excl, b.counts, b.limit))
     return {
         "pred_features": feat,
         "pred_opacity": opacity,

@@ -41,9 +41,39 @@ without printing the final result line:
    1-20 by >= 2 dB, the density reset at step 250 clamps every active
    density, and a checkpoint round trip repeats the next step's loss.
 
-Then a JSON line with each kernel's launches (from phase 11), error and
-times (phases 3, 4, 8, 9), the
-card's name and power limit, and the last line
+The 3DGRT and sorted-3DGUT path (sorted compositing: per-ray windows of
+W candidates; render/grt.py):
+
+The two sorted settings are those train_torch.py composes for
+apps/nerf_synthetic_3dgrt (3DGRT: degree 4, min_transmittance 1e-3,
+W = 16) and paper/3dgut/sorted_nerf_synthetic (sorted 3DGUT: degree 2,
+min_transmittance 1e-4, W = 16), read from the sorted gradient fixture,
+whose settings tests/test_torch_grt.py holds to the YAML.
+
+13. sorted kernel B vs plain - raster_fwd on the phase-3 view and pairs
+   with both sorted settings: the tolerances of phase 4; then 3DGRT
+   serving, 8 views at 800x800 through make_serving_renderer (ms/frame).
+14. sorted kernel C vs plain - raster_bwd at both settings against the
+   float64 autograd plain version: cosine >= 0.9999 and relative L2
+   <= 1e-3 per field group, and two runs bitwise equal.
+15. kernel E vs plain - wmax (the blend-weight telemetry) on the same
+   view, global-Z and both sorted settings: max |diff| <= 1e-6, two runs
+   bitwise equal.
+16. sorted gradients vs JAX - render_gut's gradients with both sorted
+   settings against tests/fixtures/torch_port_grt_grad_small.npz:
+   max-normalised error <= 2e-3 and cosine >= 0.9999.
+17. 3DGRT and sorted-3DGUT train steps - phase 11's step with each sorted
+   setting: 20 timed steps in which kernels A-D launch 20 times each (B
+   and C in the sorted mode) and E never; ms/step; 5 traced steps:
+   device busy, idle share and device kernels per step.
+18. 3DGRT trainer - phase 12's run with the 3DGRT settings and weight
+   pruning on (telemetry every 10 steps from step 100, a prune at 150):
+   >= 2 dB, the weight prune drops particles, kernel E launched.
+
+Then a JSON line with each kernel's launches (A-D from phase 11, sorted
+B and C of each setting from phase 17, E from phase 18), error and times
+(phases 3, 4, 8, 9, 13-15), the card's name and power limit, and the last
+line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX. Needs one card; there is no CPU fallback.
 """
@@ -64,7 +94,9 @@ TRAIN_STEPS = 20
 REPO = os.path.dirname(os.path.abspath(__file__))
 PARAM_NAMES = ("positions", "rotation", "scale", "density",
                "features_albedo", "features_specular")
-# kernel -> (source, the TPU kernel it replaces)
+# kernel libraries built from csrc/
+LIBS = ("bin_decode", "raster_fwd", "raster_bwd", "fold", "wmax")
+# reported kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "bin_decode": ("threedgrut_tpu_torch/csrc/bin_decode.cu",
                    "threedgrut_tpu/ops/pallas/expand.py:86"),
@@ -74,6 +106,21 @@ KERNELS = {
                    "threedgrut_tpu/ops/pallas/raster.py:1981"),
     "fold": ("threedgrut_tpu_torch/csrc/fold.cu",
              "threedgrut_tpu/ops/pallas/fold.py:76"),
+    # kernel B in the sorted mode, 3DGRT (W = 16, degree 4):
+    # bitonic_sort_by_key and bitonic_replay_unsort in the forward strip
+    # kernel
+    "raster_fwd_sorted": ("threedgrut_tpu_torch/csrc/raster_fwd.cu",
+                          "threedgrut_tpu/ops/pallas/raster.py:686"),
+    # kernel C in the sorted mode, 3DGRT: _bwd_chunk_fast_sorted
+    "raster_bwd_sorted": ("threedgrut_tpu_torch/csrc/raster_bwd.cu",
+                          "threedgrut_tpu/ops/pallas/raster.py:1814"),
+    # the same in the sorted 3DGUT setting (W = 16, degree 2)
+    "raster_fwd_sorted_3dgut": ("threedgrut_tpu_torch/csrc/raster_fwd.cu",
+                                "threedgrut_tpu/ops/pallas/raster.py:686"),
+    "raster_bwd_sorted_3dgut": ("threedgrut_tpu_torch/csrc/raster_bwd.cu",
+                                "threedgrut_tpu/ops/pallas/raster.py:1814"),
+    "wmax": ("threedgrut_tpu_torch/csrc/wmax.cu",
+             "threedgrut_tpu/ops/pallas/raster.py:2199"),
 }
 
 
@@ -127,12 +174,15 @@ def fixture_loss(out):
             + 0.01 * out["pred_dist"].mean())
 
 
-def trainer_phase(dev):
-    """Phase 12: a Trainer from 100k random Gaussians on 8 teacher views
-    at 800x800 (white background), 260 steps with the GS events moved
-    early: densify and prune at steps 100 and 200, a density reset at
-    250."""
+def trainer_phase(dev, raster=None, prune_weight=False):
+    """Phases 12 and 18: a Trainer from 100k random Gaussians on 8 teacher
+    views at 800x800 (white background), 260 steps with the GS events
+    moved early: densify and prune at steps 100 and 200, a density reset
+    at 250; with ``prune_weight``, blend-weight telemetry every 10 steps
+    after step 100 and a weight prune at 150. ``raster`` is the student's
+    RasterConfig (default: 3DGUT). Returns the launches of kernel E."""
     from threedgrut_tpu_torch.models.background import BackgroundConfig
+    from threedgrut_tpu_torch.ops.cuda.wmax import pair_weight_max
     from threedgrut_tpu_torch.models.gaussians import (
         GaussianModelConfig, default_capacity_for, random_initialization)
     from threedgrut_tpu_torch.synthetic import build_teacher, teacher_dataset
@@ -150,12 +200,20 @@ def trainer_phase(dev):
             device=dev)
 
     conf = TrainerConfig(background=BackgroundConfig(color="white"))
+    if raster is not None:
+        conf.raster = raster
     conf.gs = conf.gs.replace(
         densify_start=50, densify_frequency=100, densify_end=210,
         prune_start=50, prune_frequency=100, prune_end=210,
         reset_density_start=240, reset_density_frequency=250,
         reset_density_end=260)
+    if prune_weight:
+        conf.gs = conf.gs.replace(
+            prune_weight_start=100, prune_weight_frequency=50,
+            prune_weight_end=160, weight_telemetry_frequency=10,
+            prune_weight_threshold=0.01)
     trainer = Trainer(conf, ds, fresh_model())
+    pair_weight_max.launches = 0
     n0 = trainer.model.n_active
     hist = trainer.run_training(250)
     dens = trainer.model.get_density()[:trainer.model.n_active]
@@ -163,6 +221,7 @@ def trainer_phase(dev):
     hist += trainer.run_training(260)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    e_launches = pair_weight_max.launches
     events = trainer.event_stats
     densified = [st for _, kind, st in events if kind == "densify"]
     grown = sum(st["n_cloned"] + st["n_split"] for st in densified)
@@ -185,16 +244,272 @@ def trainer_phase(dev):
         "checkpoint round trip": abs(loss_a - loss_b) <= 1e-6,
         "finite": all(np.isfinite(h["total"]) for h in hist),
     }
-    summary = (f"{len(hist)} steps in {train_s:.1f} s; events "
+    if prune_weight:
+        wpruned = [st for _, kind, st in events if kind == "weight-pruned"]
+        checks["weight prune dropped particles"] = (
+            len(wpruned) == 1 and wpruned[0]["n_pruned"] > 0)
+        checks["kernel E launched"] = e_launches > 0
+    summary = (f"{len(hist)} steps in {train_s:.1f} s; kernel E launches "
+               f"{e_launches}; events "
                + "; ".join(f"[{s_}] {k} " + " ".join(
                    f"{a}={b}" for a, b in st.items())
                    for s_, k, st in events)
                + f"; psnr steps 1-20 {early:.2f} dB, 230-249 {late:.2f} dB;"
                f" resumed loss |d| {abs(loss_a - loss_b):.3g}")
     failed = [k for k, ok in checks.items() if not ok]
+    name = "3DGRT trainer" if prune_weight else "trainer"
     if failed:
-        raise AssertionError(f"trainer: {failed} ({summary})")
-    phase("trainer", summary)
+        raise AssertionError(f"{name}: {failed} ({summary})")
+    phase(name, summary)
+    return e_launches
+
+
+def grad_agreement(got, ref):
+    """(cosine, relative L2) per record field group of per-pair
+    gradients."""
+    stats = {}
+    for nm, sl in (("a", slice(0, 3)), ("M", slice(3, 12)),
+                   ("density", slice(12, 13)), ("rgb", slice(13, 16))):
+        x = got[:, sl].double().flatten()
+        y = ref[:, sl].double().flatten()
+        cos = float(x @ y / (x.norm() * y.norm()).clamp(min=1e-300))
+        rel = float((x - y).norm() / y.norm().clamp(min=1e-300))
+        stats[nm] = (cos, rel)
+    return stats
+
+
+GRT_GRAD_FIXTURE = os.path.join(REPO, "tests", "fixtures",
+                                "torch_port_grt_grad_small.npz")
+# label -> (fixture mode, report-name suffix) of the two sorted settings
+SORTED = {"3DGRT": ("grt", ""), "sorted 3DGUT": ("sorted3dgut", "_3dgut")}
+
+
+def sorted_settings():
+    """{label: RasterConfig} of the two sorted settings, as the gradient
+    fixture records them (tests/test_torch_grt.py holds them to
+    train_torch.py's composition of the two configs)."""
+    from threedgrut_tpu_torch.render.common import RasterConfig
+    from threedgrut_tpu_torch.render.grt import grt_raster_config
+
+    with np.load(GRT_GRAD_FIXTURE) as f:
+        out = {label: RasterConfig(**{
+            k: f[f"{mode}/raster/{k}"].item() for k in (
+                "kernel_degree", "min_transmittance", "sorted_compositing",
+                "sort_window")}) for label, (mode, _) in SORTED.items()}
+    if out["3DGRT"] != grt_raster_config():
+        raise AssertionError(f"fixture's 3DGRT settings {out['3DGRT']} are "
+                             "not grt_raster_config()")
+    return out
+
+
+def sorted_kernel_phases(dev, b_args, fwd, c_args, v, model, ut_cfg):
+    """Phases 13-15: kernels B and C in the sorted mode and kernel E
+    against their plain versions on the phase-3 view, and 3DGRT serving.
+    Returns the report entries of the sorted kernels B and C of each
+    setting and of wmax."""
+    from threedgrut_tpu_torch.ops.cameras import orbit_camera
+    from threedgrut_tpu_torch.ops.cuda.raster import (
+        rasterize_tiles_backward, rasterize_tiles_backward_plain,
+        rasterize_tiles_forward, rasterize_tiles_plain)
+    from threedgrut_tpu_torch.ops.cuda.wmax import (pair_weight_max,
+                                                    pair_weight_max_plain)
+    from threedgrut_tpu_torch.render.common import RasterConfig
+    from threedgrut_tpu_torch.render.grt import grt_raster_config
+    from threedgrut_tpu_torch.render.serve import make_serving_renderer
+    from threedgrut_tpu_torch.synthetic import orbit_geometry
+
+    settings = sorted_settings()
+    report = {}
+    # 13. sorted kernel B
+    msgs = []
+    for label, rc in settings.items():
+        args = b_args[:6] + (rc,)
+        with torch.no_grad():
+            got = rasterize_tiles_forward(*args)
+            ref = rasterize_tiles_plain(*args)
+            torch.cuda.synchronize()
+            err_f = float((got[0] - ref[0]).abs().max())
+            err_o = float((got[1] - ref[1]).abs().max())
+            err_t = float((got[4] - ref[4]).abs().max())
+            err_d = float(((got[2] - ref[2]).abs()
+                           / ref[2].abs().clamp(min=1e-3)).max())
+            flips = float((got[3] != ref[3]).float().mean())
+            # how far the windows move the image from global-Z order
+            moved = float((got[0] - rasterize_tiles_forward(
+                *b_args[:6], rc.replace(sorted_compositing=False))[0]
+                           ).abs().max())
+            ms = cuda_ms(lambda: rasterize_tiles_forward(*args), 20)
+            plain_ms = cuda_ms(lambda: rasterize_tiles_plain(*args), 2)
+        if not (err_f <= 1e-4 and err_o <= 1e-4 and err_t <= 1e-4
+                and err_d <= 1e-3 and flips < 0.01):
+            raise AssertionError(
+                f"sorted kernel B ({label}) vs plain: features {err_f:.3g},"
+                f" opacity {err_o:.3g}, T_final {err_t:.3g}, depth rel "
+                f"{err_d:.3g}, hits flip {flips:.4f}")
+        report["raster_fwd_sorted" + SORTED[label][1]] = dict(
+            max_abs_err=max(err_f, err_o, err_t), ms=ms, plain_ms=plain_ms)
+        msgs.append(f"{label} (degree {rc.kernel_degree}, W "
+                    f"{rc.sort_window}): features |d| {err_f:.3g}, opacity |d| "
+                    f"{err_o:.3g}, T_final |d| {err_t:.3g}, depth rel "
+                    f"{err_d:.3g}, hits flip {flips:.5f} (sorted vs "
+                    f"global-Z features |d| {moved:.3g}); kernel {ms:.4f} "
+                    f"ms, plain {plain_ms:.4f} ms")
+    phase("sorted kernel B", "; ".join(msgs))
+
+    # 3DGRT serving: 8 orbit views through make_serving_renderer
+    center, dist = orbit_geometry(model)
+    cams = [orbit_camera(az, 0.35, dist, center=center,
+                         resolution=(SIDE, SIDE), device=dev)
+            for az in np.linspace(0.0, 2 * math.pi, N_VIEWS, endpoint=False)]
+    serve = make_serving_renderer(model, grt_raster_config(), sh_degree=3,
+                                  ut_cfg=ut_cfg)
+    serve(cams)
+    per_batch = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs = serve(cams)
+        torch.cuda.synchronize()
+        per_batch.append((time.perf_counter() - t0) * 1e3 / N_VIEWS)
+    if not bool(torch.isfinite(imgs).all()):
+        raise AssertionError("3DGRT serving output has non-finite values")
+    phase("3DGRT serving", f"{N_VIEWS} views {SIDE}x{SIDE}, 100k, SH 3: "
+          f"median {float(np.median(per_batch)):.3f} ms/frame host clock "
+          f"over 3 batches ({', '.join(f'{x:.3f}' for x in per_batch)})")
+
+    # 14. sorted kernel C, and bitwise repeatability
+    msgs = []
+    for label, rc in settings.items():
+        with torch.no_grad():
+            sfwd = rasterize_tiles_forward(*b_args[:6], rc)
+            args = c_args[:6] + (sfwd[0], sfwd[2], sfwd[4]) + c_args[9:12] \
+                + (rc,)
+            d1 = rasterize_tiles_backward(*args)
+            d2 = rasterize_tiles_backward(*args)
+            d_ref = rasterize_tiles_backward_plain(*args)
+            torch.cuda.synchronize()
+            stats = grad_agreement(d1, d_ref)
+            same = bool(torch.equal(d1, d2))
+            err = float((d1 - d_ref).abs().max())
+            ms = cuda_ms(lambda: rasterize_tiles_backward(*args), 10)
+            plain_ms = cuda_ms(lambda: rasterize_tiles_backward_plain(*args),
+                               1)
+        bad = {k: x for k, x in stats.items()
+               if not (x[0] >= 0.9999 and x[1] <= 1e-3)}
+        if bad or not same:
+            raise AssertionError(f"sorted kernel C ({label}) vs plain "
+                                 f"(cosine, rel L2): {bad}; bitwise "
+                                 f"repeatable {same}")
+        report["raster_bwd_sorted" + SORTED[label][1]] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        msgs.append(f"{label}: " + ", ".join(
+            f"{k} cos {x[0]:.8f} relL2 {x[1]:.3g}" for k, x in stats.items())
+            + f"; max |d| {err:.3g}; two runs bitwise equal; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    phase("sorted kernel C", "; ".join(msgs))
+
+    # 15. kernel E
+    msgs = []
+    for label, rc in (("global-Z", RasterConfig()), *settings.items()):
+        args = b_args[:6] + (rc,)
+        with torch.no_grad():
+            w1 = pair_weight_max(*args)
+            w2 = pair_weight_max(*args)
+            w_ref = pair_weight_max_plain(*args)
+            torch.cuda.synchronize()
+            err = float((w1 - w_ref).abs().max())
+            same = bool(torch.equal(w1, w2))
+            live = float((w1 > 0).float().mean())
+            ms = cuda_ms(lambda: pair_weight_max(*args), 20)
+            plain_ms = cuda_ms(lambda: pair_weight_max_plain(*args), 2)
+        if not (err <= 1e-6 and same):
+            raise AssertionError(f"kernel E ({label}) vs plain: max |d| "
+                                 f"{err:.3g}; bitwise repeatable {same}")
+        if label == "3DGRT":
+            report["wmax"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        msgs.append(f"{label}: max |d| {err:.3g}, two runs bitwise equal, "
+                    f"{live:.3f} of the pairs weighted; kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms")
+    phase("kernel E", "; ".join(msgs))
+    return report
+
+
+def grt_grad_phase(dev, ut_cfg):
+    """Phase 16: the sorted render's gradients against the JAX fixture."""
+    from threedgrut_tpu_torch.render.gut import render_gut
+
+    fx = GRT_GRAD_FIXTURE
+    msgs = []
+    with np.load(fx) as f:
+        for label, rc in sorted_settings().items():
+            mode = SORTED[label][0]
+            gmodel, gcam = fixture_scene(f, dev)
+            out = render_gut(gcam, ut_cfg, rc, gmodel, int(f["sh_degree"]))
+            fixture_loss(out).backward()
+            errs = {}
+            for k in PARAM_NAMES:
+                got_g = getattr(gmodel, k).grad.double().cpu().numpy()
+                ref_g = f[f"{mode}/grad/{k}"].astype(np.float64)
+                scale = np.abs(ref_g).max() + 1e-12
+                cos = float((got_g * ref_g).sum() / max(
+                    np.linalg.norm(got_g) * np.linalg.norm(ref_g), 1e-300))
+                errs[k] = (float(np.abs(got_g - ref_g).max() / scale), cos)
+            bad = {k: x for k, x in errs.items()
+                   if not (x[0] <= 2e-3 and x[1] >= 0.9999)}
+            if bad:
+                raise AssertionError(f"sorted gradients vs JAX ({mode}; "
+                                     f"max-normalised error, cosine): {bad}")
+            msgs.append(f"{mode} (W {rc.sort_window}, degree "
+                        f"{rc.kernel_degree}): " + ", ".join(
+                            f"{k} {x[0]:.2g}/{x[1]:.7f}"
+                            for k, x in errs.items()))
+    phase("sorted grad vs JAX", f"fixture {os.path.basename(fx)}: "
+          + "; ".join(msgs))
+
+
+def sorted_train_step_phase(dev, label, rc):
+    """Phase 17: the bench train step with one sorted setting. Returns the
+    sorted kernels' launches under their report names."""
+    from bench_train_torch import BenchStep, profile_steps, time_steps
+    from threedgrut_tpu_torch.ops.cuda.expand import expand_decode_pairs
+    from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs
+    from threedgrut_tpu_torch.ops.cuda.raster import (
+        rasterize_tiles, rasterize_tiles_backward)
+    from threedgrut_tpu_torch.ops.cuda.wmax import pair_weight_max
+
+    suffix = SORTED[label][1]
+    step = BenchStep(dev, rc)
+    time_steps(step, 3)                       # warm-up
+    counters = {"bin_decode": expand_decode_pairs,
+                "raster_fwd_sorted" + suffix: rasterize_tiles,
+                "raster_bwd_sorted" + suffix: rasterize_tiles_backward,
+                "fold": fold_pairs, "wmax": pair_weight_max}
+    for fn in counters.values():
+        fn.launches = 0
+    step_ms, losses = time_steps(step, TRAIN_STEPS)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = dict.fromkeys(counters, TRAIN_STEPS)
+    want["wmax"] = 0
+    if launches != want:
+        raise AssertionError(f"{label} train-step launches {launches}, "
+                             f"expected {want}")
+    if not all(bool(torch.isfinite(x)) for x in losses):
+        raise AssertionError(f"{label} train-step loss not finite")
+    for k, p in step.params.items():
+        if not (bool(torch.isfinite(p.grad).all())
+                and float(p.grad.abs().max()) > 0.0):
+            raise AssertionError(f"{label} train-step gradient of {k} is "
+                                 "not finite and non-zero")
+    wall_us, busy_us, n_device = profile_steps(step, 5, top=12)
+    phase(f"{label} train step", f"100k Gaussians, {SIDE}x{SIDE}, SH 3, "
+          f"L1+DSSIM, Adam, degree {rc.kernel_degree}, W {rc.sort_window}: "
+          f"{step_ms:.3f} ms/step ({1e3 / step_ms:.2f} it/s) host clock over "
+          f"{TRAIN_STEPS} steps; loss {float(losses[0]):.5f} -> "
+          f"{float(losses[-1]):.5f}; launches {launches}; 5 traced steps: "
+          f"wall {wall_us:.1f} us/step, device busy {busy_us:.1f} us/step, "
+          f"idle share {1.0 - busy_us / wall_us:.3f}, {n_device:.1f} device "
+          f"kernels per step")
+    return {k: launches[k] for k in counters if k.startswith("raster")}
 
 
 def main():
@@ -222,6 +537,7 @@ def main():
     from threedgrut_tpu_torch.models.gaussians import (GaussianModel,
                                                        GaussianModelConfig)
     from threedgrut_tpu_torch.render.common import RasterConfig
+    from threedgrut_tpu_torch.render.grt import grt_raster_config
     from threedgrut_tpu_torch.render.gut import prepare_view, render_gut
     from threedgrut_tpu_torch.render.oracle import parity_db, render_oracle
     from threedgrut_tpu_torch.render.serve import make_serving_renderer
@@ -229,8 +545,8 @@ def main():
 
     # 2. build: one nvcc per kernel source, all started together
     t0 = time.perf_counter()
-    build.load_all(list(KERNELS), verbose=True)
-    phase("build", f"{' + '.join(KERNELS)} for sm_90a in "
+    build.load_all(list(LIBS), verbose=True)
+    phase("build", f"{' + '.join(LIBS)} for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s (nvcc: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in build.BUILD_SECONDS.items())
           + f") -> {build.BUILD_DIR}")
@@ -476,7 +792,8 @@ def main():
     for fn in counters:
         fn.launches = 0
     step_ms, losses = time_steps(step, TRAIN_STEPS)
-    launches = dict(zip(KERNELS, (fn.launches for fn in counters)))
+    launches = dict(zip(("bin_decode", "raster_fwd", "raster_bwd", "fold"),
+                        (fn.launches for fn in counters)))
     if any(n != TRAIN_STEPS for n in launches.values()):
         raise AssertionError(f"train-step launches {launches}, expected "
                              f"{TRAIN_STEPS} each")
@@ -496,9 +813,21 @@ def main():
     # 12. trainer: GS densify / prune / reset on teacher views
     trainer_phase(dev)
 
+    # 13-18. the 3DGRT and sorted-3DGUT path
+    report.update(sorted_kernel_phases(dev, b_args, fwd, c_args, v, model,
+                                       ut_cfg))
+    grt_grad_phase(dev, ut_cfg)
+    for label, src in sorted_settings().items():
+        launches.update(sorted_train_step_phase(dev, label, src))
+    launches["wmax"] = trainer_phase(dev, grt_raster_config(),
+                                     prune_weight=True)
+
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches.get(k, 0), **report[k])
                for k, (src, rep) in KERNELS.items()]
+    if not all(k["launches"] > 0 for k in kernels):
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,11 @@ port sizes its pair buffer per view, so there is no budget calibration.
 
     python scripts/eval_fps_torch.py --synthetic 100000
     python scripts/eval_fps_torch.py --checkpoint ckpt.npz   # or .ply
+    python scripts/eval_fps_torch.py --synthetic 100000 \
+        --config-name apps/nerf_synthetic_3dgrt
+
+``--config-name`` renders with the render settings of a YAML config
+(train_torch.py's mapping): the 3DGRT frame, or the sorted 3DGUT one.
 
 ``--profile`` traces one more batch with torch.profiler and prints the
 device time by kernel and the device's busy and idle shares of the
@@ -41,6 +46,8 @@ def main():
     ap.add_argument("--sh-degree", type=int, default=3)
     ap.add_argument("--profile", action="store_true",
                     help="trace one extra batch: device time by kernel")
+    ap.add_argument("--config-name", default=None,
+                    help="take the render settings of this YAML config")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -69,7 +76,11 @@ def main():
                          device=dev)
             for az in np.linspace(0.0, 2 * math.pi, args.batch,
                                   endpoint=False)]
-    serve = make_serving_renderer(model, RasterConfig(), args.sh_degree)
+    from bench_train_torch import config_raster, render_tag
+
+    rc = config_raster(args.config_name) if args.config_name else \
+        RasterConfig()
+    serve = make_serving_renderer(model, rc, args.sh_degree)
     t0 = time.perf_counter()
     serve(cams)                      # first batch: kernel build + warm-up
     torch.cuda.synchronize()
@@ -90,7 +101,8 @@ def main():
           f"over {args.reps} batches (min {min(per_batch):.3f}, max "
           f"{max(per_batch):.3f}; first batch {first_s:.2f} s) on {smi}")
     print(json.dumps({
-        "metric": f"3dgut_serve_ms_per_frame_{res[0]}x{res[1]}",
+        "metric": f"{render_tag(rc)}_serve_ms_per_frame_{res[0]}x{res[1]}",
+        "config": args.config_name or "render/3dgut defaults",
         "value": ms, "unit": "ms/frame (median over batches)",
         "min": min(per_batch), "max": max(per_batch),
         "n_particles": model.n_active,

@@ -203,8 +203,15 @@ def test_check_step_condition_matches_jax(step, start, end, freq):
 
 
 def test_prune_weight_is_not_ported():
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        t_gs.prune_weight()
+    """prune_weight, ported with the blend-weight telemetry kernel, keeps
+    the rows, moments and gradient buffers JAX gs.prune_weight keeps."""
+    (js, jo, jb), (model, to, tb) = _both(7)
+    wmax = np.random.default_rng(7).uniform(0.0, 0.03, CAP).astype(
+        np.float32)
+    js, jo, jb, j_n = j_gs.prune_weight(js, jo, jb, jnp.asarray(wmax), 0.01)
+    tb, t_n = t_gs.prune_weight(model, to, tb, torch.tensor(wmax), 0.01)
+    assert t_n == int(j_n) > 0
+    assert_same(js, jo, model, to, jb, tb)
 
 
 @pytest.mark.parametrize("n,headroom", [(1, 1.0), (1000, 1.0), (100_000, 4.0),

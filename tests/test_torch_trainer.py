@@ -243,11 +243,27 @@ def test_selective_adam_keeps_invisible_rows(views):
 
 
 def test_prune_weight_is_refused(views):
-    conf = t_tr.TrainerConfig()
-    conf.gs = conf.gs.replace(prune_weight_frequency=100,
-                              prune_weight_start=500)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        t_tr.Trainer(conf, views, model_from_state(_init_state()))
+    """Weight pruning is no longer refused now that the telemetry kernel
+    (kernel E) is ported: both trainers sample the blend weights every
+    step and prune by them at step 2, beside the clone and the density
+    prune, and agree on the rows kept and on the running max after."""
+    jt, tt = _trainers(views)
+    for tr in (jt, tt):
+        tr.conf.gs = tr.conf.gs.replace(
+            prune_weight_frequency=2, prune_weight_start=1,
+            prune_weight_end=100, weight_telemetry_frequency=1,
+            prune_weight_threshold=0.02)
+    for step in range(STEPS):
+        batch = views[step % len(views)]
+        jt.train_iteration(batch)
+        tt.train_iteration(batch)
+        assert tt.model.n_active == int(jt.model.n_active), step
+    kinds = [k for _, k, _ in tt.event_stats]
+    assert kinds == ["densify", "weight-pruned", "pruned"]
+    assert tt.event_stats[1][2]["n_pruned"] > 0
+    np.testing.assert_allclose(tt.gs_weight_buf.numpy(),
+                               np.asarray(jt.gs_weight_buf), atol=1e-4,
+                               rtol=0)
 
 
 def _write_nerf_dataset(root, side=48):

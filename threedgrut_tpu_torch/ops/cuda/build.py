@@ -32,12 +32,14 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # raster_fwd's accept decisions (sq < threshold) then match the plain
 # version's too, instead of flipping one ~1/255 contribution on tens of
 # pixels per view. raster_bwd shares raster_fwd's hit math
-# (common.cuh:eval_hit) and must take the same decisions; fold only adds.
+# (common.cuh:eval_hit) and must take the same decisions, as must wmax;
+# fold only adds.
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "bin_decode": ["-fmad=false"],
     "raster_fwd": ["-fmad=false"],
     "raster_bwd": ["-fmad=false"],
     "fold": ["-fmad=false"],
+    "wmax": ["-fmad=false"],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

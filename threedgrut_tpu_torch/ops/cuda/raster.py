@@ -3,10 +3,14 @@
 Kernel B (``csrc/raster_fwd.cu``) replaces
 threedgrut_tpu/ops/pallas/raster.py:_fwd_strip_kernel and kernel C
 (``csrc/raster_bwd.cu``) replaces its _bwd_strip_kernel, both in the
-training and serving mode: shared ray origin, constant RGB, unsorted,
-exact kill, kernel degree 2. Their headers say what bounds them and how
-they are laid out. On CPU tensors the wrappers run the plain PyTorch
-versions ``rasterize_tiles_plain`` and ``rasterize_tiles_backward_plain``.
+training and serving mode: shared ray origin, constant RGB, exact kill,
+kernel degree 2 (3DGUT) or 4 (3DGRT), unsorted global-Z order or the
+sorted mode (``cfg.sorted_compositing``: per-ray windows of
+``cfg.sort_window`` = 16 candidates, the 3DGRT k-buffer; raster.py
+bitonic_sort_by_key, bitonic_replay_unsort, _bwd_chunk_fast_sorted).
+Their headers say what bounds them and how they are laid out. On CPU
+tensors the wrappers run the plain PyTorch versions
+``rasterize_tiles_plain`` and ``rasterize_tiles_backward_plain``.
 
 ``rasterize_tiles`` is differentiable in ``table`` (the JAX
 ``rasterize_tiles`` custom_vjp, raster.py:2477-2519): its backward runs
@@ -22,7 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..hit import _GG_SCALE
+from ..hit import _GG_SCALE, particle_response
 from ..ut import TILE_PIXELS, TILE_X, TILE_Y
 from . import build
 from .fold import fold_pairs
@@ -40,14 +44,42 @@ class FoldMeta(NamedTuple):
     limit: int             # pair slots kept (P)
 
 
+# the kernels are built for these degrees and sorted-mode windows: every
+# shipped sorted config (3DGRT and the paper's sorted 3DGUT) composes
+# sort_window 16 from configs/render/3dgrt.yaml
+DEGREES = (2, 4)
+WINDOWS = (16,)
+
+
 def _thresholds(cfg):
     """(s, ln(min_response)/s, ln(min_alpha)) of the squared-distance
-    acceptance test (raster.py:_sq_accept_threshold, degree 2)."""
-    if cfg.kernel_degree != 2:
+    acceptance test (raster.py:_sq_accept_threshold)."""
+    if cfg.kernel_degree not in DEGREES:
         raise NotImplementedError(
-            f"kernel_degree {cfg.kernel_degree}: only degree 2 is ported")
-    s = _GG_SCALE[2]
+            f"kernel_degree {cfg.kernel_degree}: the raster kernels take "
+            f"degrees {DEGREES}")
+    s = _GG_SCALE[cfg.kernel_degree]
     return s, math.log(cfg.min_response) / s, math.log(cfg.min_alpha)
+
+
+def _window(cfg) -> int:
+    """The kernels' window: 0 in global-Z order, else cfg.sort_window."""
+    if not cfg.sorted_compositing:
+        return 0
+    if cfg.sort_window not in WINDOWS:
+        raise NotImplementedError(
+            f"sort_window {cfg.sort_window}: the raster kernels are built "
+            f"for {WINDOWS}")
+    return cfg.sort_window
+
+
+def _mode(cfg):
+    """The launch arguments (degree, window, then the float parameters)
+    shared by kernels B, C and E."""
+    s, thr_resp, log_min_alpha = _thresholds(cfg)
+    return ((cfg.kernel_degree, _window(cfg)),
+            (cfg.min_transmittance, cfg.max_alpha, thr_resp, log_min_alpha,
+             s))
 
 
 def _grid(h, w):
@@ -110,7 +142,7 @@ def rasterize_tiles_forward(table, pair_particle, tile_start, ray_d, tmin,
     [H, W, 1]. No autograd."""
     h, w, gx, gy, dev = _check_inputs(table, pair_particle, tile_start,
                                       ray_d, tmin, tmax)
-    s, thr_resp, log_min_alpha = _thresholds(cfg)
+    ints, floats = _mode(cfg)
     if dev.type == "cpu":
         return rasterize_tiles_plain(table, pair_particle, tile_start,
                                      ray_d, tmin, tmax, cfg)
@@ -122,8 +154,7 @@ def rasterize_tiles_forward(table, pair_particle, tile_start, ray_d, tmin,
     err = lib.raster_fwd_launch(
         table.data_ptr(), pair_particle.data_ptr(), tile_start.data_ptr(),
         ray_d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), w, h, gx,
-        gx * gy, cfg.min_transmittance, cfg.max_alpha, thr_resp,
-        log_min_alpha, s, feat.data_ptr(), opacity.data_ptr(),
+        gx * gy, *ints, *floats, feat.data_ptr(), opacity.data_ptr(),
         depth.data_ptr(), hits.data_ptr(), t_final.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("raster_fwd", err, lib)
@@ -145,7 +176,7 @@ def rasterize_tiles_backward(table, pair_particle, tile_start, ray_d, tmin,
                        ("t_final", t_final, 1), ("g_feat", g_feat, 3),
                        ("g_opacity", g_opacity, 1), ("g_depth", g_depth, 1)):
         build.check_tensor(name, t, torch.float32, (h, w, c), dev)
-    s, thr_resp, log_min_alpha = _thresholds(cfg)
+    ints, floats = _mode(cfg)
     if dev.type == "cpu":
         return rasterize_tiles_backward_plain(
             table, pair_particle, tile_start, ray_d, tmin, tmax, feat, depth,
@@ -158,8 +189,8 @@ def rasterize_tiles_backward(table, pair_particle, tile_start, ray_d, tmin,
         ray_d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), feat.data_ptr(),
         depth.data_ptr(), t_final.data_ptr(), g_feat.data_ptr(),
         g_opacity.data_ptr(), g_depth.data_ptr(), w, h, gx, gx * gy,
-        cfg.min_transmittance, cfg.max_alpha, thr_resp, log_min_alpha, s,
-        d_records.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        *ints, *floats, d_records.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("raster_bwd", err, lib)
     rasterize_tiles_backward.launches += 1
     return d_records
@@ -207,8 +238,9 @@ class _Rasterize(torch.autograd.Function):
 
 _SIGNATURES = {
     # ptrs, ints, floats, ptrs (outputs), stream
-    "raster_fwd": (6, 4, 5, 5),
-    "raster_bwd": (12, 4, 5, 1),
+    "raster_fwd": (6, 6, 5, 5),
+    "raster_bwd": (12, 6, 5, 1),
+    "wmax": (6, 6, 5, 1),      # kernel E, ops/cuda/wmax.py
 }
 
 
@@ -304,16 +336,40 @@ def _hit_terms(rec, d):
     return sq, hit_t
 
 
-def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None):
+def _window_order(keep, hit_t, p0, tile, window):
+    """[P, 256] per-pixel composite order of the sorted mode: the group's
+    pairs (global index p0 + i, tile ``tile``) in windows of ``window``
+    aligned on the global index and cut to each tile, each window in
+    ascending hit_t of its accepted candidates (rejected ones last); equal
+    keys keep pair order. Entry [k, px] is the pair composited k-th."""
+    dev = hit_t.device
+    n = hit_t.shape[0]
+    gidx = torch.arange(n, device=dev) + p0
+    seg = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                     ((tile[1:] != tile[:-1])
+                      | (gidx[1:] // window != gidx[:-1] // window)
+                      ).to(torch.int64)]).cumsum(0)
+    key = torch.where(keep, hit_t, torch.full_like(hit_t, 3.0e38))
+    by_key = torch.sort(key, dim=0, stable=True).indices
+    by_seg = torch.sort(seg[by_key], dim=0, stable=True).indices
+    return by_key.gather(0, by_seg)
+
+
+def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
+                     pair_weights=False):
     """Composite tiles [t0, t1) of pair records ``rec`` [P_g, 16] (the
     group's pairs, f32). Returns (acc [G, 256, 5] = rgb, depth, hits;
-    T_final [G, 256]) in float64.
+    T_final [G, 256]) in float64, and with ``pair_weights`` also the
+    weights w = alpha T [P_g, 256] of each (pair, pixel).
 
     Accept and kill decisions come from ``rec`` in fp32. The values
     (alpha, hit distance, rgb) do too, rounded to float64 afterwards,
     unless ``rec64`` (the same records in float64) is given: then they are
     computed from it in float64, and autograd can differentiate the
-    result with respect to ``rec64``."""
+    result with respect to ``rec64``. In the sorted mode each pixel's
+    candidates are permuted into ``_window_order`` first (the sort key is
+    the fp32 hit distance), composited in that order, and the weights put
+    back in pair order."""
     s, thr_resp, log_min_alpha = _thresholds(cfg)
     dev = rec.device
     p0, p1 = int(starts[t0]), int(starts[t1])
@@ -325,17 +381,27 @@ def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None):
     dens = rec[:, 12:13]
     thr = torch.clamp((log_min_alpha - torch.log(torch.clamp(dens, min=1e-30)))
                       / s, max=thr_resp)
+    if cfg.kernel_degree == 4:
+        thr = torch.sqrt(torch.clamp(thr, min=0.0))
     keep = (sq < thr) & (hit_t > rays.tmin[tile]) & (hit_t < rays.tmax[tile])
+    order = (_window_order(keep, hit_t, p0, tile, _window(cfg))
+             if cfg.sorted_compositing else None)
     if rec64 is None:
-        alpha = torch.clamp(torch.exp(s * sq) * dens, max=cfg.max_alpha)
+        alpha = torch.clamp(particle_response(sq, cfg.kernel_degree) * dens,
+                            max=cfg.max_alpha)
         alpha = torch.where(keep, alpha, torch.zeros_like(alpha)).double()
         hit_t, rgb = hit_t.double(), rec[:, 13:16].double()
     else:
         sq64, hit_t = _hit_terms(rec64, d.double())
-        alpha = torch.clamp(torch.exp(s * sq64) * rec64[:, 12:13],
-                            max=cfg.max_alpha)
+        alpha = torch.clamp(particle_response(sq64, cfg.kernel_degree)
+                            * rec64[:, 12:13], max=cfg.max_alpha)
         alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
         rgb = rec64[:, 13:16]
+    if order is None:
+        rgb = [rgb[:, c:c + 1] for c in range(3)]
+    else:
+        alpha, hit_t = alpha.gather(0, order), hit_t.gather(0, order)
+        rgb = [rgb[:, c][order] for c in range(3)]
 
     # exclusive transmittance within each tile segment, in log space
     log1m = torch.log1p(-alpha)
@@ -350,7 +416,7 @@ def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None):
     wgt = torch.where(alive, alpha * t_prev, torch.zeros_like(t_prev))
 
     contrib = torch.stack([
-        wgt * rgb[:, 0:1], wgt * rgb[:, 1:2], wgt * rgb[:, 2:3],
+        wgt * rgb[0], wgt * rgb[1], wgt * rgb[2],
         wgt * hit_t, (wgt > 0.0).double()], dim=-1)        # [P, 256, 5]
     acc = torch.zeros((t1 - t0, TILE_PIXELS, 5), dtype=torch.float64,
                       device=dev).index_add(0, local, contrib)
@@ -363,7 +429,12 @@ def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None):
     nonempty = (counts > 0)[:, None]
     t_end = torch.where(nonempty, torch.exp(incl[seg_last] - base),
                         torch.ones_like(base))
-    return acc, torch.where(frozen >= 0.0, frozen, t_end)
+    t_final = torch.where(frozen >= 0.0, frozen, t_end)
+    if not pair_weights:
+        return acc, t_final
+    if order is not None:
+        wgt = torch.zeros_like(wgt).scatter(0, order, wgt)
+    return acc, t_final, wgt
 
 
 def rasterize_tiles_plain(table, pair_particle, tile_start, ray_d, tmin,

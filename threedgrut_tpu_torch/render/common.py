@@ -31,6 +31,20 @@ class RasterConfig:
     # pair buffer from the view's own count. Over the cap the farthest
     # pairs are dropped and reported as overflow.
     max_pairs: Optional[int] = None
+    # per-ray depth re-sort of each window of ``sort_window`` candidates
+    # (3DGRT, and 3DGUT with k_buffer_size > 0): windows are aligned on
+    # the global pair index, pair // sort_window, and cut to each tile's
+    # pairs (JAX raster.py:_chunk_composite)
+    sorted_compositing: bool = False
+    sort_window: int = 16
+
+    def __post_init__(self):
+        w = self.sort_window
+        if not (0 < w <= 128 and w & (w - 1) == 0):
+            raise ValueError(f"sort_window {w}: a power of two <= 128")
+
+    def replace(self, **kw) -> "RasterConfig":
+        return dataclasses.replace(self, **kw)
 
 
 def camera_rays_world(cam: CameraModel):

@@ -3,7 +3,9 @@
 
 The training and serving mode of the JAX renderer: pinhole camera with a
 global shutter (one shared ray origin), SH features evaluated per
-particle, unsorted global-Z compositing with the reference's exact kill.
+particle, compositing with the reference's exact kill in global-Z order
+or, with ``raster_cfg.sorted_compositing``, in per-ray sorted windows
+(3DGRT, ``render/grt.py``, and sorted 3DGUT).
 The raster kernel gathers each pair's record from the per-particle table
 itself, so no [P, 16] records array is built, and writes straight into
 [H, W, .] images, so no tile-packed rays or outputs exist either.
@@ -31,6 +33,7 @@ from ..ops import binning as binning_ops
 from ..ops import ut as ut_ops
 from ..ops.cameras import CameraModel
 from ..ops.cuda.raster import FoldMeta, rasterize_tiles
+from ..ops.cuda.wmax import pair_weight_max, particle_weight_max
 from ..ops.quaternion import quat_normalize, quat_to_rotmat
 from ..ops.sh import eval_sh_radiance
 from ..ops.ut import TILE_X, TILE_Y, UTConfig
@@ -111,8 +114,22 @@ def prepare_view(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
 
 
 def render_gut(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
-               model: GaussianModel, sh_degree: int):
-    """Render one view (differentiable in the model's parameters)."""
+               model: GaussianModel, sh_degree: int,
+               weight_telemetry: bool = False):
+    """Render one view (differentiable in the model's parameters).
+
+    ``weight_telemetry``: run the blend-weight kernel (kernel E) instead
+    of the compositing and return {"particle_wmax": [C]}, the
+    per-particle max over pixels of alpha * T that the GS strategy's
+    weight pruning reads (JAX render/gut.py:291-297)."""
+    if weight_telemetry:
+        with torch.no_grad():
+            v = prepare_view(cam, ut_cfg, raster_cfg, model, sh_degree)
+            b = v.binning
+            wpair = pair_weight_max(v.table, b.pair_particle, b.tile_start,
+                                    v.ray_d, v.tmin, v.tmax, raster_cfg)
+            return {"particle_wmax": particle_weight_max(
+                wpair, b.pair_particle, model.capacity)}
     v = prepare_view(cam, ut_cfg, raster_cfg, model, sh_degree)
     b = v.binning
     feat, opacity, depth, hits = rasterize_tiles(

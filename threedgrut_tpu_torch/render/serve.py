@@ -2,7 +2,8 @@
 
 Renders a frozen model for a batch of views, the deployment and eval hot
 path. The body is a plain eager loop over the views under
-``torch.inference_mode()``; each view runs the whole 3DGUT pipeline.
+``torch.inference_mode()``; each view runs the whole 3DGUT pipeline, or
+the 3DGRT one with ``render/grt.py:grt_raster_config()``.
 """
 
 from __future__ import annotations

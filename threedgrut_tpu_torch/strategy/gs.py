@@ -11,9 +11,12 @@ threedgrut_tpu/strategy/gs.py; reference threedgrut/strategy/gs.py).
 - prune by density or by screen footprint, density decay, density reset
   with the density moments zeroed.
 
+- prune by blend weight: particles whose running max of alpha * T over
+  the sampled views (``render_gut(weight_telemetry=True)``, kernel E)
+  stayed below the threshold.
+
 Row counts change through ``strategy/base.py``; everything updates the
-model and the Adam state in place. Weight pruning needs the blend-weight
-telemetry kernel (raster.py:_wmax_kernel), which is not ported yet.
+model and the Adam state in place.
 """
 
 from __future__ import annotations
@@ -183,12 +186,15 @@ def prune_scale(model: GaussianModel, opt: AdamState, buffers: GSBuffers,
     return _prune(model, opt, buffers, keep)
 
 
-def prune_weight(*args, **kwargs):
-    """Weight pruning needs the per-particle max blend weight of the
-    telemetry kernel (raster.py:_wmax_kernel), not ported yet."""
-    raise NotImplementedError(
-        "prune_weight needs the blend-weight telemetry kernel "
-        "(threedgrut_tpu/ops/pallas/raster.py:_wmax_kernel), not ported")
+@torch.no_grad()
+def prune_weight(model: GaussianModel, opt: AdamState, buffers: GSBuffers,
+                 max_weights: torch.Tensor, threshold: float = 0.01):
+    """gs.py:179-191: drop particles whose max blend weight over the
+    sampled views stayed below ``threshold`` (``max_weights`` [C], the
+    trainer's running max of ``particle_wmax``). Returns (buffers,
+    n_pruned)."""
+    keep = model.active_mask() & (max_weights >= threshold)
+    return _prune(model, opt, buffers, keep)
 
 
 @torch.no_grad()

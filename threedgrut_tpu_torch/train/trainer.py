@@ -11,7 +11,8 @@ Contracts kept from the JAX trainer (reference threedgrut/trainer.py):
 - per-group learning rates, the positions one scaled by the scene extent
   with an exponential decay, and the cosine tail on the constant groups,
 - GS hooks: the gradient buffer after the backward, densify / prune /
-  reset / decay after the optimizer step,
+  reset / decay / prune by scale / blend-weight telemetry and prune by
+  weight after the optimizer step,
 - progressive SH degree every ``increase_frequency`` steps,
 - SelectiveAdam visibility masking (``optimizer.type: selective_adam``),
 - checkpoints with the JAX trainer's npz keys, so either package loads
@@ -137,16 +138,15 @@ def _as_image(rgb, device) -> torch.Tensor:
 
 
 class Trainer:
-    """3DGUT training with the GS strategy over one dataset."""
+    """GS training over one dataset, with the 3DGUT or, through
+    ``conf.raster`` (``render/grt.py:grt_raster_config``, sorted
+    compositing), the 3DGRT and sorted-3DGUT renderers."""
 
     def __init__(self, conf: TrainerConfig, dataset, model: GaussianModel,
                  val_dataset=None, raw_conf: Optional[dict] = None):
         if conf.strategy != "gs":
             raise NotImplementedError(f"strategy {conf.strategy}: only GS "
                                       "is ported")
-        c = conf.gs
-        if c.prune_weight_frequency > 0 and c.prune_weight_start >= 0:
-            gs_strategy.prune_weight()    # raises: not ported
         self.conf = conf
         self.raw_conf = raw_conf
         self.dataset = dataset
@@ -161,6 +161,11 @@ class Trainer:
         self.opt_state = adam_mod.init_adam_state(model.params())
         self.gs_buffers = gs_strategy.init_buffers(model.capacity,
                                                    self.device)
+        # running max of the sampled views' blend weights, per particle
+        # row, between weight-prune events (the JAX trainer's
+        # gs_weight_buf)
+        self.gs_weight_buf = torch.zeros(model.capacity, dtype=torch.float32,
+                                         device=self.device)
         self.n_active_features = conf.init_n_features
         oc = conf.optimizer
         self._positions_lr = adam_mod.exp_scheduler(
@@ -321,6 +326,24 @@ class Trainer:
                 c.prune_scale_threshold)
             self._event(step, "scale-pruned", dict(n_pruned=n_pruned,
                                                    n=model.n_active))
+        if c.prune_weight_frequency > 0 and strat_base.check_step_condition(
+                step, c.prune_weight_start, c.prune_weight_end,
+                c.weight_telemetry_frequency):
+            # sample the step's view into the running max (kernel E)
+            out = render_gut(self._last_cam, self.conf.ut, self.conf.raster,
+                             model, self.sh_degree(), weight_telemetry=True)
+            torch.maximum(self.gs_weight_buf, out["particle_wmax"],
+                          out=self.gs_weight_buf)
+        if strat_base.check_step_condition(step, c.prune_weight_start,
+                                           c.prune_weight_end,
+                                           c.prune_weight_frequency):
+            self.gs_buffers, n_pruned = gs_strategy.prune_weight(
+                model, opt, self.gs_buffers, self.gs_weight_buf,
+                c.prune_weight_threshold)
+            # the next window accumulates fresh telemetry
+            self.gs_weight_buf.zero_()
+            self._event(step, "weight-pruned", dict(n_pruned=n_pruned,
+                                                    n=model.n_active))
 
     def _event(self, step, kind, stats):
         self.event_stats.append((step, kind, stats))

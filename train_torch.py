@@ -4,13 +4,18 @@
     python train_torch.py --config-name apps/nerf_synthetic_3dgut \\
         path=/data/lego [key=value ...] [--device cuda]
 
-The counterpart of train.py for the port's GS trainer. It composes the
+The counterpart of train.py for the port's GS trainer, with the 3DGUT
+renderer (``apps/nerf_synthetic_3dgut``), the 3DGRT one
+(``apps/nerf_synthetic_3dgrt``) or the sorted 3DGUT of the paper
+(``paper/3dgut/sorted_nerf_synthetic``). It composes the
 YAML configs with threedgrut_tpu.config.loader (yaml and numpy only) and
 reads NeRF-synthetic datasets with threedgrut_tpu.data.nerf (numpy, and
 PIL for PNG files), both imported here, so that the port's package stays
 free of yaml and PIL. The port always renders with the reference's
-exact kill (the YAML's ``exact_kill`` is a TPU setting) and sizes its
-pair buffer per view (``max_pairs`` and ``auto_max_pairs`` are ignored).
+exact kill: where the YAML sets ``exact_kill: false`` (the TPU package's
+relaxed kill, configs/render/3dgrt.yaml and 3dgut.yaml), trainer_config
+says so on stderr and composes the exact kill. The port sizes its pair
+buffer per view (``max_pairs`` and ``auto_max_pairs`` are ignored).
 """
 
 import argparse
@@ -45,10 +50,13 @@ def trainer_config(conf):
     strat = conf.get("strategy", {})
     if "MCMC" in str(strat.get("method", "GSStrategy")):
         raise NotImplementedError("the MCMC strategy is not ported")
-    if render.get("method", "3dgut") != "3dgut" or \
-            splat.get("k_buffer_size", 0) > 0:
-        raise NotImplementedError("only the unsorted 3DGUT renderer is "
-                                  "ported")
+    if render.get("method", "3dgut") not in ("3dgut", "3dgrt"):
+        raise NotImplementedError(f"render.method {render.get('method')}: "
+                                  "the port has 3dgut and 3dgrt")
+    if not render.get("exact_kill", True):
+        print("render.exact_kill is false: the port composites with the "
+              "exact kill only, so it trains with exact_kill true",
+              file=sys.stderr)
     d, p, r = (strat.get(k, {}) for k in ("densify", "prune",
                                            "reset_density"))
     decay, pscale, pweight = (strat.get(k, {}) for k in (
@@ -80,7 +88,10 @@ def trainer_config(conf):
         prune_weight_frequency=pweight.get("frequency", 0),
         prune_weight_start=pweight.get("start_iteration", -1),
         prune_weight_end=pweight.get("end_iteration", -1),
-        prune_weight_threshold=pweight.get("threshold", 0.01))
+        # configs/strategy/gs.yaml names it weight_threshold (the JAX
+        # loader reads "threshold" and so falls back to 0.01)
+        prune_weight_threshold=pweight.get("weight_threshold", 0.01),
+        weight_telemetry_frequency=pweight.get("telemetry_frequency", 10))
     ut = UTConfig(
         alpha=splat.get("ut_alpha", 1.0), beta=splat.get("ut_beta", 2.0),
         kappa=splat.get("ut_kappa", 0.0),
@@ -97,7 +108,12 @@ def trainer_config(conf):
         min_alpha=render.get("particle_kernel_min_alpha", 1.0 / 255.0),
         max_alpha=render.get("particle_kernel_max_alpha", 0.99),
         min_transmittance=render.get("min_transmittance", 1e-4),
-        tile_culling=splat.get("tile_based_culling", True))
+        tile_culling=splat.get("tile_based_culling", True),
+        # config/loader.py:312-314: 3DGRT and the k-buffer 3DGUT configs
+        # composite in per-ray sorted windows
+        sorted_compositing=(splat.get("k_buffer_size", 0) > 0
+                            or render.get("method") == "3dgrt"),
+        sort_window=render.get("sort_window", 64))
     bgc = model.get("background", {})
     return TrainerConfig(
         n_iterations=conf.get("n_iterations", 30000),

@@ -70,10 +70,49 @@ whose settings tests/test_torch_grt.py holds to the YAML.
    pruning on (telemetry every 10 steps from step 100, a prune at 150):
    >= 2 dB, the weight prune drops particles, kernel E launched.
 
+The rolling-shutter and fisheye path (the general-geometry mode of
+kernels B, C and E, the TPU's kernel 5: a per-pixel ray origin; a
+rolling-shutter camera takes it, a fisheye one the shared-origin mode):
+
+19. general kernel B vs plain - the 100k cloud through the NCore-like
+   1920x1280 rolling shutter of synthetic.py:bench_camera, 3DGUT
+   (degree 2, W 0) and 3DGRT (degree 4, W 16): phase 4's tolerances,
+   except on at most 8 kill-flip pixels (T within rounding of
+   min_transmittance: one candidate more in one version, at most
+   max_alpha * min_transmittance apart); and general B on those rays (all from the mid-shutter centre)
+   against shared-origin B with the table built at that centre, within
+   1e-4.
+20. general kernel C vs float64 plain - cosine >= 0.9999 and relative L2
+   <= 1e-3 per field group (p, M, density, rgb), two runs bitwise equal;
+   kernel D folds the result, beside index_add_.
+21. general kernel E vs plain - within 1e-6 (at most 8 pairs, those of
+   kill-flip pixels, within max_alpha * min_transmittance), two runs
+   bitwise equal.
+22. general gradients vs JAX - both settings against
+   tests/fixtures/torch_port_shutter_grad_small.npz: phase 10's
+   tolerances.
+23. train steps at full width - phase 11's step through the rolling
+   shutter (3DGUT and 3DGRT settings: general B and C launch 20 times in
+   20 steps, shared-origin B and C never, A and D 20 times) and through
+   the ScanNet++-like 1752x1168 fisheye (shared-origin B and C 20 times);
+   ms/step; 5 traced steps: device busy, idle share.
+24. rolling-shutter trainer and serving - phase 12's run on 8 rolling
+   teacher views at 1920x1280 with weight pruning on (general E
+   launched): >= 2 dB, densify, prune and reset firing; then
+   make_serving_renderer on 8 rolling and 8 fisheye orbit views: ms/frame,
+   general (rolling) and shared-origin (fisheye) B launched once per view.
+25. CLI - train_torch.py --config-name apps/scannetpp_3dgut on a
+   generated 6-view fisheye ScanNet++ capture at 1752x1168 with COLMAP
+   init, 30 steps: exit 0, checkpoint written.
+
 Then a JSON line with each kernel's launches (A-D from phase 11, sorted
-B and C of each setting from phase 17, E from phase 18), error and times
-(phases 3, 4, 8, 9, 13-15), the card's name and power limit, and the last
-line
+B and C of each setting from phase 17, E from phase 18, the general
+kernels from phases 23-24), error and times (phases 3, 4, 8, 9, 13-15,
+19-21), its bound (the larger of the fp32 operations over 67 TFLOP/s
+and the bytes it must read and write over 3.35 TB/s, from this run's
+inputs: for B, C and E the accept test on every (pair, pixel) of the
+tiles and the response of each candidate the plain forward composited) and, for kernel D, the time of
+index_add_; the card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX. Needs one card; there is no CPU fallback.
 """
@@ -96,6 +135,25 @@ PARAM_NAMES = ("positions", "rotation", "scale", "density",
                "features_albedo", "features_specular")
 # kernel libraries built from csrc/
 LIBS = ("bin_decode", "raster_fwd", "raster_bwd", "fold", "wmax")
+# the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor
+# cores, and HBM3
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 operations of one common.cuh hit evaluation. Every evaluation runs
+# hit_from_a up to its accept test: b = M d 15, c = a x b 9, m and 1/m 7,
+# |c|^2 5, sq 1, the test 1 (38); eval_hit_general first forms e = o - p 3
+# and a = M e 15 (56). By general:
+TEST_FLOPS = {False: 38, True: 56}
+# what an accepted candidate adds: q 5, hit_t 2, its range test 2, the
+# response 2 (3 at degree 4), alpha 2, and in the general mode the |d|
+# scale 1. By (degree, general):
+ACCEPT_FLOPS = {(2, False): 13, (4, False): 14, (2, True): 14, (4, True): 15}
+# pixels of a 1920x1280 general-mode view whose kernel and plain versions
+# kill one candidate apart (phase 19; 1 seen at 3DGRT in 2,457,600)
+KILL_FLIP_CAP = 8
+# operations of kernel A's conic cull per pair slot
+# (ops/ut.py:tile_min_power_response)
+CULL_FLOPS = 60
 # reported kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "bin_decode": ("threedgrut_tpu_torch/csrc/bin_decode.cu",
@@ -121,11 +179,78 @@ KERNELS = {
                                 "threedgrut_tpu/ops/pallas/raster.py:1814"),
     "wmax": ("threedgrut_tpu_torch/csrc/wmax.cu",
              "threedgrut_tpu/ops/pallas/raster.py:2199"),
+    # the general-geometry mode (kernel 5): chunk_hits_general and the
+    # general pullback of _bwd_chunk_grads, in kernels B, C and E; 3DGUT
+    # (degree 2, W 0) and, with the _grt suffix, 3DGRT (degree 4, W 16)
+    "raster_fwd_general": ("threedgrut_tpu_torch/csrc/raster_fwd.cu",
+                           "threedgrut_tpu/ops/pallas/raster.py:378"),
+    "raster_bwd_general": ("threedgrut_tpu_torch/csrc/raster_bwd.cu",
+                           "threedgrut_tpu/ops/pallas/raster.py:1899"),
+    "raster_fwd_general_grt": ("threedgrut_tpu_torch/csrc/raster_fwd.cu",
+                               "threedgrut_tpu/ops/pallas/raster.py:378"),
+    "raster_bwd_general_grt": ("threedgrut_tpu_torch/csrc/raster_bwd.cu",
+                               "threedgrut_tpu/ops/pallas/raster.py:1899"),
+    "wmax_general": ("threedgrut_tpu_torch/csrc/wmax.cu",
+                     "threedgrut_tpu/ops/pallas/raster.py:378"),
 }
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes, flops):
+    """(bound_ms, bound_by): the least time of the card for this work,
+    the larger of its bytes over the memory rate and its fp32 operations
+    over the fp32 rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_FP32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def raster_bound(args, outputs, rc, general, accepted):
+    """The bound of kernel B, C or E on ``args`` (the wrapper's tensors),
+    writing ``outputs``: every pair of the tiles tested on the tile's 256
+    pixels, and the ``accepted`` candidates (the plain forward's hit
+    count summed over the view: those it composited) carried through
+    the response. Candidates that pass the test but miss the ray's range
+    are charged the test only, so this is a floor."""
+    pairs = int(args[2][-1])
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    return bound(nbytes(*tensors, *outputs),
+                 pairs * 256 * TEST_FLOPS[general]
+                 + accepted * ACCEPT_FLOPS[(rc.kernel_degree, general)])
+
+
+def composited(fwd):
+    """The candidates a forward output (features, opacity, depth, hits,
+    T_final) composited: its hit counts summed."""
+    return float(fwd[3].double().sum())
 
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def bound_keys(b, library_ms=None):
+    """The report keys of a kernel's bound (and its library yardstick)."""
+    return dict(bound_ms=b[0], bound_by=b[1], library_ms=library_ms)
+
+
+def index_add_ms(d_args):
+    """Kernel D's yardstick: the time of the one PyTorch call that sums
+    each particle's pair rows, torch.zeros(N, 16).index_add_(0,
+    particle_of_pair, d_records), on the fold's own inputs (timed only;
+    the port never calls it)."""
+    d_rec, perm, order, _, counts, limit, capacity = d_args
+    owner = torch.repeat_interleave(
+        torch.arange(order.shape[0], device=d_rec.device),
+        counts.to(torch.int64))[:limit]
+    particle = order.to(torch.int64)[owner][perm.to(torch.int64)]
+    return cuda_ms(lambda: torch.zeros(
+        (capacity, 16), dtype=torch.float32,
+        device=d_rec.device).index_add_(0, particle, d_rec), 20)
 
 
 def nvidia_smi_line():
@@ -149,19 +274,25 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def fixture_scene(f, dev):
-    """(model, camera) of a JAX parity fixture (tests/fixtures)."""
+def fixture_model(f, dev):
+    """The model of a JAX parity fixture (tests/fixtures)."""
     from threedgrut_tpu_torch.models.gaussians import (GaussianModel,
                                                        GaussianModelConfig)
-    from threedgrut_tpu_torch.ops.cameras import make_pinhole
 
     cfg = GaussianModelConfig(
         density_activation=str(f["density_activation"]),
         scale_activation=str(f["scale_activation"]),
         max_sh_degree=int(f["n_active_features"]))
-    model = GaussianModel.from_numpy(
+    return GaussianModel.from_numpy(
         {k: f[f"params/{k}"] for k in PARAM_NAMES},
         int(f["n_active"]), int(f["n_active_features"]), cfg, dev)
+
+
+def fixture_scene(f, dev):
+    """(model, camera) of a JAX parity fixture (tests/fixtures)."""
+    from threedgrut_tpu_torch.ops.cameras import make_pinhole
+
+    model = fixture_model(f, dev)
     cam = make_pinhole(tuple(int(x) for x in f["resolution"]), f["focal"],
                        f["principal"], t=f["t"], q=f["q"], device=dev)
     return model, cam
@@ -174,13 +305,16 @@ def fixture_loss(out):
             + 0.01 * out["pred_dist"].mean())
 
 
-def trainer_phase(dev, raster=None, prune_weight=False):
-    """Phases 12 and 18: a Trainer from 100k random Gaussians on 8 teacher
-    views at 800x800 (white background), 260 steps with the GS events
-    moved early: densify and prune at steps 100 and 200, a density reset
-    at 250; with ``prune_weight``, blend-weight telemetry every 10 steps
-    after step 100 and a weight prune at 150. ``raster`` is the student's
-    RasterConfig (default: 3DGUT). Returns the launches of kernel E."""
+def trainer_phase(dev, raster=None, prune_weight=False, camera="pinhole"):
+    """Phases 12, 18 and 24: a Trainer from 100k random Gaussians on 8
+    teacher views (white background) at 800x800, or through the
+    rolling shutter of synthetic.py:CAMERA_KINDS at 1920x1280, 260 steps
+    with the GS events moved early: densify and prune at steps 100 and
+    200, a density reset at 250; with ``prune_weight``, blend-weight
+    telemetry every 10 steps after step 100 and a weight prune at 150.
+    ``raster`` is the student's RasterConfig (default: 3DGUT). Returns
+    the launches of kernel E (in the general mode for the rolling
+    shutter)."""
     from threedgrut_tpu_torch.models.background import BackgroundConfig
     from threedgrut_tpu_torch.ops.cuda.wmax import pair_weight_max
     from threedgrut_tpu_torch.models.gaussians import (
@@ -190,7 +324,7 @@ def trainer_phase(dev, raster=None, prune_weight=False):
 
     t0 = time.perf_counter()
     ds = teacher_dataset(build_teacher(60000, seed=0, device=dev),
-                         n_views=8, side=SIDE)
+                         n_views=8, side=SIDE, camera=camera)
     extent = ds.get_scene_extent()
 
     def fresh_model():
@@ -213,7 +347,7 @@ def trainer_phase(dev, raster=None, prune_weight=False):
             prune_weight_end=160, weight_telemetry_frequency=10,
             prune_weight_threshold=0.01)
     trainer = Trainer(conf, ds, fresh_model())
-    pair_weight_max.launches = 0
+    pair_weight_max.launches = pair_weight_max.launches_general = 0
     n0 = trainer.model.n_active
     hist = trainer.run_training(250)
     dens = trainer.model.get_density()[:trainer.model.n_active]
@@ -221,7 +355,8 @@ def trainer_phase(dev, raster=None, prune_weight=False):
     hist += trainer.run_training(260)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    e_launches = pair_weight_max.launches
+    e_launches = (pair_weight_max.launches_general if camera == "rolling"
+                  else pair_weight_max.launches)
     events = trainer.event_stats
     densified = [st for _, kind, st in events if kind == "densify"]
     grown = sum(st["n_cloned"] + st["n_split"] for st in densified)
@@ -249,7 +384,9 @@ def trainer_phase(dev, raster=None, prune_weight=False):
         checks["weight prune dropped particles"] = (
             len(wpruned) == 1 and wpruned[0]["n_pruned"] > 0)
         checks["kernel E launched"] = e_launches > 0
-    summary = (f"{len(hist)} steps in {train_s:.1f} s; kernel E launches "
+    w, h = ds[0].resolution
+    summary = (f"{w}x{h}, {len(hist)} steps in {train_s:.1f} s; kernel E "
+               f"launches "
                f"{e_launches}; events "
                + "; ".join(f"[{s_}] {k} " + " ".join(
                    f"{a}={b}" for a, b in st.items())
@@ -257,18 +394,19 @@ def trainer_phase(dev, raster=None, prune_weight=False):
                + f"; psnr steps 1-20 {early:.2f} dB, 230-249 {late:.2f} dB;"
                f" resumed loss |d| {abs(loss_a - loss_b):.3g}")
     failed = [k for k, ok in checks.items() if not ok]
-    name = "3DGRT trainer" if prune_weight else "trainer"
+    name = ("rolling trainer" if camera == "rolling" else
+            "3DGRT trainer" if prune_weight else "trainer")
     if failed:
         raise AssertionError(f"{name}: {failed} ({summary})")
     phase(name, summary)
     return e_launches
 
 
-def grad_agreement(got, ref):
+def grad_agreement(got, ref, first="a"):
     """(cosine, relative L2) per record field group of per-pair
-    gradients."""
+    gradients; ``first`` names rows 0-2 (a, or the general mode's p)."""
     stats = {}
-    for nm, sl in (("a", slice(0, 3)), ("M", slice(3, 12)),
+    for nm, sl in ((first, slice(0, 3)), ("M", slice(3, 12)),
                    ("density", slice(12, 13)), ("rgb", slice(13, 16))):
         x = got[:, sl].double().flatten()
         y = ref[:, sl].double().flatten()
@@ -319,7 +457,7 @@ def sorted_kernel_phases(dev, b_args, fwd, c_args, v, model, ut_cfg):
     from threedgrut_tpu_torch.synthetic import orbit_geometry
 
     settings = sorted_settings()
-    report = {}
+    report, accepted = {}, {}
     # 13. sorted kernel B
     msgs = []
     for label, rc in settings.items():
@@ -346,8 +484,11 @@ def sorted_kernel_phases(dev, b_args, fwd, c_args, v, model, ut_cfg):
                 f"sorted kernel B ({label}) vs plain: features {err_f:.3g},"
                 f" opacity {err_o:.3g}, T_final {err_t:.3g}, depth rel "
                 f"{err_d:.3g}, hits flip {flips:.4f}")
+        accepted[label] = composited(ref)
         report["raster_fwd_sorted" + SORTED[label][1]] = dict(
-            max_abs_err=max(err_f, err_o, err_t), ms=ms, plain_ms=plain_ms)
+            max_abs_err=max(err_f, err_o, err_t), ms=ms, plain_ms=plain_ms,
+            **bound_keys(raster_bound(args, got, rc, False,
+                                      accepted[label])))
         msgs.append(f"{label} (degree {rc.kernel_degree}, W "
                     f"{rc.sort_window}): features |d| {err_f:.3g}, opacity |d| "
                     f"{err_o:.3g}, T_final |d| {err_t:.3g}, depth rel "
@@ -401,7 +542,9 @@ def sorted_kernel_phases(dev, b_args, fwd, c_args, v, model, ut_cfg):
                                  f"(cosine, rel L2): {bad}; bitwise "
                                  f"repeatable {same}")
         report["raster_bwd_sorted" + SORTED[label][1]] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **bound_keys(raster_bound(args, [d1], rc, False,
+                                      accepted[label])))
         msgs.append(f"{label}: " + ", ".join(
             f"{k} cos {x[0]:.8f} relL2 {x[1]:.3g}" for k, x in stats.items())
             + f"; max |d| {err:.3g}; two runs bitwise equal; kernel "
@@ -426,7 +569,10 @@ def sorted_kernel_phases(dev, b_args, fwd, c_args, v, model, ut_cfg):
             raise AssertionError(f"kernel E ({label}) vs plain: max |d| "
                                  f"{err:.3g}; bitwise repeatable {same}")
         if label == "3DGRT":
-            report["wmax"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            report["wmax"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  **bound_keys(raster_bound(
+                                      args, [w1], rc, False,
+                                      accepted[label])))
         msgs.append(f"{label}: max |d| {err:.3g}, two runs bitwise equal, "
                     f"{live:.3f} of the pairs weighted; kernel {ms:.4f} ms, "
                     f"plain {plain_ms:.4f} ms")
@@ -512,6 +658,381 @@ def sorted_train_step_phase(dev, label, rc):
     return {k: launches[k] for k in counters if k.startswith("raster")}
 
 
+SHUTTER_GRAD_FIXTURE = os.path.join(REPO, "tests", "fixtures",
+                                    "torch_port_shutter_grad_small.npz")
+# label -> (report-name suffix, RasterConfig factory) of the general mode's
+# two settings: 3DGUT (degree 2, W 0) and 3DGRT (degree 4, W 16)
+GENERAL = {"3DGUT": "", "3DGRT": "_grt"}
+
+
+def general_settings():
+    from threedgrut_tpu_torch.render.common import RasterConfig
+    from threedgrut_tpu_torch.render.grt import grt_raster_config
+
+    return {"3DGUT": RasterConfig(), "3DGRT": grt_raster_config()}
+
+
+def general_kernel_phases(dev, model, ut_cfg):
+    """Phases 19-21: kernels B, C and E in the general-geometry mode on
+    the rolling-shutter bench view, against their plain versions; B also
+    against shared-origin B with the table built at the rays' common
+    origin; kernel D on C's output beside index_add_. Returns the report
+    entries."""
+    from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs
+    from threedgrut_tpu_torch.ops.cuda.raster import (
+        rasterize_tiles_backward, rasterize_tiles_backward_plain,
+        rasterize_tiles_forward, rasterize_tiles_plain)
+    from threedgrut_tpu_torch.ops.cuda.wmax import (pair_weight_max,
+                                                    pair_weight_max_plain)
+    from threedgrut_tpu_torch.render.gut import prepare_view
+    from threedgrut_tpu_torch.synthetic import bench_camera
+
+    cam = bench_camera("rolling", device=dev)
+    w, h = cam.resolution
+    rng = np.random.default_rng(8)
+    upstream = [torch.tensor(rng.normal(size=(h, w, c)).astype(np.float32),
+                             device=dev) for c in (3, 1, 1)]
+    report, msg_b, msg_c, msg_e = {}, [], [], []
+    for label, rc in general_settings().items():
+        suffix = GENERAL[label]
+        with torch.no_grad():
+            v = prepare_view(cam, ut_cfg, rc, model, 3)
+            if v.ray_o is None:
+                raise AssertionError("a rolling shutter took the "
+                                     "shared-origin mode")
+            vb = v.binning
+            args = (v.table, vb.pair_particle, vb.tile_start, v.ray_d,
+                    v.tmin, v.tmax, rc, v.ray_o)
+            # 19. general B
+            got = rasterize_tiles_forward(*args)
+            ref = rasterize_tiles_plain(*args)
+            torch.cuda.synchronize()
+            # kill flips: a pixel whose T lands within rounding of
+            # min_transmittance stops one candidate earlier or later in
+            # one version (the kernel's fp32 product, the plain version's
+            # float64 log-space sum); the one extra contribution is at
+            # most max_alpha * min_transmittance and both T_final lie
+            # under the threshold. Counted (at most KILL_FLIP_CAP),
+            # phase 4's 1e-4 holding on every other pixel.
+            pix = torch.maximum(torch.maximum(
+                (got[0] - ref[0]).abs().amax(-1),
+                (got[1] - ref[1]).abs()[..., 0]),
+                (got[4] - ref[4]).abs()[..., 0])
+            kill = pix > 1e-4
+            n_kill = int(kill.sum())
+            cap = rc.max_alpha * rc.min_transmittance
+            kill_ok = (n_kill <= KILL_FLIP_CAP
+                       and float(pix.max()) <= cap
+                       and bool((torch.maximum(got[4], ref[4])[..., 0][kill]
+                                 < rc.min_transmittance).all()))
+            keep = ~kill
+            err_f = float((got[0] - ref[0]).abs()[keep].max())
+            err_o = float((got[1] - ref[1]).abs()[..., 0][keep].max())
+            err_t = float((got[4] - ref[4]).abs()[..., 0][keep].max())
+            err_d = float(((got[2] - ref[2]).abs()
+                           / ref[2].abs().clamp(min=1e-3)).max())
+            flips = float((got[3] != ref[3]).float().mean())
+            # every ray starts at the mid-shutter centre: the shared-origin
+            # table a = M (o - p) at that centre gives the same image
+            center = v.ray_o[0, 0]
+            shared = v.table.clone()
+            m_mat = v.table[:, 3:12].reshape(-1, 3, 3)
+            delta = center - v.table[:, 0:3]
+            shared[:, 0:3] = (m_mat[:, :, 0] * delta[:, 0:1]
+                              + m_mat[:, :, 1] * delta[:, 1:2]
+                              + m_mat[:, :, 2] * delta[:, 2:3])
+            same_origin = bool((v.ray_o == center).all())
+            cross = float((rasterize_tiles_forward(shared, *args[1:7])[0]
+                           - got[0]).abs().max())
+            b_ms = cuda_ms(lambda: rasterize_tiles_forward(*args), 20)
+            b_plain_ms = cuda_ms(lambda: rasterize_tiles_plain(*args), 2)
+            if not (err_f <= 1e-4 and err_o <= 1e-4 and err_t <= 1e-4
+                    and err_d <= 1e-3 and flips < 0.01 and kill_ok
+                    and cross <= 1e-4 and same_origin):
+                raise AssertionError(
+                    f"general kernel B ({label}) vs plain: features "
+                    f"{err_f:.3g}, opacity {err_o:.3g}, T_final {err_t:.3g},"
+                    f" depth rel {err_d:.3g}, hits flip {flips:.4f}, kill "
+                    f"flips {n_kill} (max |d| {float(pix.max()):.3g}, cap "
+                    f"{cap:.3g}); vs shared-origin B {cross:.3g} (one "
+                    f"origin {same_origin})")
+            n_acc = composited(ref)
+            report["raster_fwd_general" + suffix] = dict(
+                max_abs_err=float(pix.max()), ms=b_ms,
+                plain_ms=b_plain_ms,
+                **bound_keys(raster_bound(args, got, rc, True, n_acc)))
+            msg_b.append(
+                f"{label} (degree {rc.kernel_degree}, W "
+                f"{rc.sort_window if rc.sorted_compositing else 0}), "
+                f"{int(vb.num_pairs)} pairs: features |d| {err_f:.3g}, "
+                f"opacity |d| {err_o:.3g}, T_final |d| {err_t:.3g}, depth "
+                f"rel {err_d:.3g}, hits flip {flips:.5f}, kill flips "
+                f"{n_kill} of {pix.numel()} pixels (max |d| "
+                f"{float(pix.max()):.3g}); vs shared-origin "
+                f"B at the mid-shutter centre |d| {cross:.3g}; kernel "
+                f"{b_ms:.4f} ms, plain {b_plain_ms:.4f} ms")
+            # 20. general C, and D on its output
+            c_args = args[:6] + (got[0], got[2], got[4], *upstream, rc,
+                                 v.ray_o)
+            d1 = rasterize_tiles_backward(*c_args)
+            d2 = rasterize_tiles_backward(*c_args)
+            d_ref = rasterize_tiles_backward_plain(*c_args)
+            torch.cuda.synchronize()
+            stats = grad_agreement(d1, d_ref, first="p")
+            same = bool(torch.equal(d1, d2))
+            c_err = float((d1 - d_ref).abs().max())
+            c_ms = cuda_ms(lambda: rasterize_tiles_backward(*c_args), 10)
+            c_plain_ms = cuda_ms(
+                lambda: rasterize_tiles_backward_plain(*c_args), 1)
+            bad = {k: x for k, x in stats.items()
+                   if not (x[0] >= 0.9999 and x[1] <= 1e-3)}
+            if bad or not same:
+                raise AssertionError(f"general kernel C ({label}) vs plain "
+                                     f"(cosine, rel L2): {bad}; bitwise "
+                                     f"repeatable {same}")
+            report["raster_bwd_general" + suffix] = dict(
+                max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
+                **bound_keys(raster_bound(c_args, [d1], rc, True, n_acc)))
+            d_args = (d1, vb.perm, vb.order, vb.excl, vb.counts, vb.limit,
+                      model.capacity)
+            fold_ms = cuda_ms(lambda: fold_pairs(*d_args), 20)
+            lib_ms = index_add_ms(d_args)
+            msg_c.append(f"{label}: " + ", ".join(
+                f"{k} cos {x[0]:.8f} relL2 {x[1]:.3g}"
+                for k, x in stats.items())
+                + f"; max |d| {c_err:.3g}; two runs bitwise equal; kernel "
+                f"{c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; kernel D on it "
+                f"{fold_ms:.4f} ms, index_add_ {lib_ms:.4f} ms")
+            # 21. general E
+            e_args = args[:7] + (v.ray_o,)
+            w1 = pair_weight_max(*e_args)
+            w2 = pair_weight_max(*e_args)
+            w_ref = pair_weight_max_plain(*e_args)
+            torch.cuda.synchronize()
+            # pairs of phase 19's kill-flip pixels may differ by up to
+            # one contribution at the kill; 1e-6 holds on the others
+            e_diff = (w1 - w_ref).abs()
+            e_flip = e_diff > 1e-6
+            n_e_flip = int(e_flip.sum())
+            e_err = float(e_diff[~e_flip].max())
+            e_same = bool(torch.equal(w1, w2))
+            e_ms = cuda_ms(lambda: pair_weight_max(*e_args), 20)
+            e_plain_ms = cuda_ms(lambda: pair_weight_max_plain(*e_args), 2)
+            if not (e_same and n_e_flip <= KILL_FLIP_CAP
+                    and float(e_diff.max()) <= cap):
+                raise AssertionError(f"general kernel E ({label}) vs plain: "
+                                     f"max |d| {float(e_diff.max()):.3g}, "
+                                     f"{n_e_flip} pairs over 1e-6; bitwise "
+                                     f"repeatable {e_same}")
+            if label == "3DGUT":
+                report["wmax_general"] = dict(
+                    max_abs_err=float(e_diff.max()), ms=e_ms,
+                    plain_ms=e_plain_ms,
+                    **bound_keys(raster_bound(e_args, [w1], rc, True,
+                                              n_acc)))
+            msg_e.append(f"{label}: max |d| {e_err:.3g} ({n_e_flip} pairs "
+                         f"of kill-flip pixels up to "
+                         f"{float(e_diff.max()):.3g}), two runs bitwise "
+                         f"equal, {float((w1 > 0).float().mean()):.3f} of "
+                         f"the pairs weighted; kernel {e_ms:.4f} ms, plain "
+                         f"{e_plain_ms:.4f} ms")
+            del v, got, ref, d1, d2, d_ref
+    phase("general kernel B", f"rolling shutter {w}x{h}, 100k: "
+          + "; ".join(msg_b))
+    phase("general kernel C", "; ".join(msg_c))
+    phase("general kernel E", "; ".join(msg_e))
+    return report
+
+
+def general_grad_phase(dev, ut_cfg):
+    """Phase 22: the rolling-shutter render's gradients (general B, C,
+    then D) against the JAX fixture, both settings."""
+    from threedgrut_tpu_torch.ops.cameras import make_pinhole
+    from threedgrut_tpu_torch.render.common import RasterConfig
+    from threedgrut_tpu_torch.render.gut import render_gut
+
+    msgs = []
+    with np.load(SHUTTER_GRAD_FIXTURE) as f:
+        for mode in ("3dgut", "grt"):
+            rc = RasterConfig(**{
+                k: f[f"{mode}/raster/{k}"].item() for k in (
+                    "kernel_degree", "min_transmittance",
+                    "sorted_compositing", "sort_window")
+                if f"{mode}/raster/{k}" in f})
+            gmodel = fixture_model(f, dev)
+            cam = make_pinhole(
+                tuple(int(x) for x in f["resolution"]), f["camera/focal"],
+                f["camera/principal"], t=f["camera/t_start"],
+                q=f["camera/q_start"], t_end=f["camera/t_end"],
+                q_end=f["camera/q_end"],
+                shutter_type=int(f["shutter_type"]), device=dev)
+            out = render_gut(cam, ut_cfg, rc, gmodel, int(f["sh_degree"]))
+            fixture_loss(out).backward()
+            errs = {}
+            for k in PARAM_NAMES:
+                got_g = getattr(gmodel, k).grad.double().cpu().numpy()
+                ref_g = f[f"{mode}/grad/{k}"].astype(np.float64)
+                scale = np.abs(ref_g).max() + 1e-12
+                cos = float((got_g * ref_g).sum() / max(
+                    np.linalg.norm(got_g) * np.linalg.norm(ref_g), 1e-300))
+                errs[k] = (float(np.abs(got_g - ref_g).max() / scale), cos)
+            bad = {k: x for k, x in errs.items()
+                   if not (x[0] <= 2e-3 and x[1] >= 0.9999)}
+            if bad:
+                raise AssertionError(f"rolling-shutter gradients vs JAX "
+                                     f"({mode}; max-normalised error, "
+                                     f"cosine): {bad}")
+            msgs.append(f"{mode}: " + ", ".join(
+                f"{k} {x[0]:.2g}/{x[1]:.7f}" for k, x in errs.items()))
+    phase("rolling grad vs JAX", f"fixture "
+          f"{os.path.basename(SHUTTER_GRAD_FIXTURE)}: " + "; ".join(msgs))
+
+
+def camera_train_step_phase(dev, label, rc, camera, general):
+    """Phase 23: the bench train step through ``camera`` (rolling or
+    fisheye, synthetic.py:bench_camera) with ``rc``: 20 timed steps in
+    which A and D launch 20 times, B and C 20 times in the expected mode
+    and never in the other; 5 traced steps. Returns the general kernels'
+    launches under their report names."""
+    from bench_train_torch import BenchStep, profile_steps, time_steps
+    from threedgrut_tpu_torch.ops.cuda.expand import expand_decode_pairs
+    from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs
+    from threedgrut_tpu_torch.ops.cuda.raster import (
+        rasterize_tiles, rasterize_tiles_backward)
+
+    step = BenchStep(dev, rc, camera)
+    time_steps(step, 3)                       # warm-up
+    fns = (expand_decode_pairs, rasterize_tiles, rasterize_tiles_backward,
+           fold_pairs)
+    for fn in fns:
+        fn.launches = 0
+    for fn in fns[1:3]:
+        fn.launches_general = 0
+    step_ms, losses = time_steps(step, TRAIN_STEPS)
+    fwd, bwd = rasterize_tiles, rasterize_tiles_backward
+    launches = {"bin_decode": expand_decode_pairs.launches,
+                "raster_fwd": fwd.launches, "raster_bwd": bwd.launches,
+                "raster_fwd_general": fwd.launches_general,
+                "raster_bwd_general": bwd.launches_general,
+                "fold": fold_pairs.launches}
+    n = TRAIN_STEPS
+    want = dict(bin_decode=n, raster_fwd=0 if general else n,
+                raster_bwd=0 if general else n,
+                raster_fwd_general=n if general else 0,
+                raster_bwd_general=n if general else 0, fold=n)
+    if launches != want:
+        raise AssertionError(f"{label} train-step launches {launches}, "
+                             f"expected {want}")
+    if not all(bool(torch.isfinite(x)) for x in losses):
+        raise AssertionError(f"{label} train-step loss not finite")
+    for k, p in step.params.items():
+        if not (bool(torch.isfinite(p.grad).all())
+                and float(p.grad.abs().max()) > 0.0):
+            raise AssertionError(f"{label} train-step gradient of {k} is "
+                                 "not finite and non-zero")
+    wall_us, busy_us, n_device = profile_steps(step, 5, top=8)
+    w, h = step.cam.resolution
+    phase(f"{label} train step", f"100k Gaussians, {w}x{h}, SH 3, "
+          f"L1+DSSIM, Adam, degree {rc.kernel_degree}, W "
+          f"{rc.sort_window if rc.sorted_compositing else 0}: "
+          f"{step_ms:.3f} ms/step ({1e3 / step_ms:.2f} it/s) host clock over "
+          f"{TRAIN_STEPS} steps; loss {float(losses[0]):.5f} -> "
+          f"{float(losses[-1]):.5f}; launches {launches}; 5 traced steps: "
+          f"wall {wall_us:.1f} us/step, device busy {busy_us:.1f} us/step, "
+          f"idle share {1.0 - busy_us / wall_us:.3f}, {n_device:.1f} device "
+          f"kernels per step")
+    return launches
+
+
+def camera_serving_phase(dev, model, ut_cfg, camera, general):
+    """Phase 24's serving: 8 orbit views of ``camera`` through
+    make_serving_renderer; kernel B launched once per view, in the
+    general mode for the rolling shutter."""
+    from threedgrut_tpu_torch.ops.cuda.raster import rasterize_tiles
+    from threedgrut_tpu_torch.render.common import RasterConfig
+    from threedgrut_tpu_torch.render.serve import make_serving_renderer
+    from threedgrut_tpu_torch.synthetic import orbit_cameras
+
+    cams = orbit_cameras(model, N_VIEWS, camera, device=dev)
+    serve = make_serving_renderer(model, RasterConfig(), sh_degree=3,
+                                  ut_cfg=ut_cfg)
+    serve(cams)
+    torch.cuda.synchronize()
+    rasterize_tiles.launches = rasterize_tiles.launches_general = 0
+    t0 = time.perf_counter()
+    imgs = serve(cams)
+    torch.cuda.synchronize()
+    per_batch = [(time.perf_counter() - t0) * 1e3 / N_VIEWS]
+    got = (rasterize_tiles.launches, rasterize_tiles.launches_general)
+    want = (0, N_VIEWS) if general else (N_VIEWS, 0)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        serve(cams)
+        torch.cuda.synchronize()
+        per_batch.append((time.perf_counter() - t0) * 1e3 / N_VIEWS)
+    w, h = cams[0].resolution
+    if got != want:
+        raise AssertionError(f"{camera} serving launches (shared-origin, "
+                             f"general) {got}, expected {want}")
+    if tuple(imgs.shape) != (N_VIEWS, h, w, 3) or not bool(
+            torch.isfinite(imgs).all()):
+        raise AssertionError(f"{camera} serving output {tuple(imgs.shape)} "
+                             "not finite or of the wrong shape")
+    coverage = min(float((im.amax(dim=-1) > 1e-3).float().mean())
+                   for im in imgs)
+    if coverage < 0.05:
+        raise AssertionError(f"{camera} serving coverage {coverage}")
+    phase(f"{camera} serving", f"{N_VIEWS} views {w}x{h}, 100k, SH 3: "
+          f"median {float(np.median(per_batch)):.3f} ms/frame host clock "
+          f"over 3 batches ({', '.join(f'{x:.3f}' for x in per_batch)}); "
+          f"kernel B launches (shared-origin, general) {got}; coverage min "
+          f"{coverage:.3f}")
+    return got
+
+
+def cli_phase(dev):
+    """Phase 25: train_torch.py --config-name apps/scannetpp_3dgut on a
+    generated 6-view fisheye ScanNet++ capture at 1752x1168 (COLMAP
+    points from the teacher), 30 steps: exit 0, checkpoint written."""
+    import shutil
+
+    from threedgrut_tpu_torch.synthetic import (build_teacher,
+                                                teacher_dataset,
+                                                write_colmap_scene)
+
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, "build", "smoke_scannetpp")
+    shutil.rmtree(root, ignore_errors=True)
+    teacher = build_teacher(60000, seed=0, device=dev)
+    # on black, the background the config trains against
+    ds = teacher_dataset(teacher, n_views=6, camera="fisheye",
+                         background=0.0)
+    write_colmap_scene(os.path.join(root, "data"), ds, teacher,
+                       n_points=20000)
+    gen_s = time.perf_counter() - t0
+    out = os.path.join(root, "out")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.join(REPO, "train_torch.py"),
+         "--config-name", "apps/scannetpp_3dgut",
+         f"path={os.path.join(root, 'data')}", "n_iterations=30",
+         f"out_dir={out}", "experiment_name=smoke", "log_frequency=0.1"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    ckpt = os.path.join(out, "smoke", "ckpt_last.npz")
+    if res.returncode != 0 or not os.path.exists(ckpt):
+        raise AssertionError(f"scannetpp CLI: exit {res.returncode}\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    with np.load(ckpt) as f:
+        steps, n_active = int(f["global_step"]), int(f["n_active"])
+    last = [ln for ln in res.stdout.splitlines() if ln.strip()][-1:]
+    phase("scannetpp CLI", f"6 fisheye views 1752x1168 written in "
+          f"{gen_s:.1f} s; train_torch.py apps/scannetpp_3dgut, COLMAP init "
+          f"({n_active} Gaussians at the end), {steps} steps, exit 0 in "
+          f"{cli_s:.1f} s; {last}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -579,8 +1100,11 @@ def main():
         a_ms = cuda_ms(lambda: expand_decode_pairs(*a_args), 20)
         a_plain_ms = cuda_ms(lambda: expand_decode_pairs_plain(*a_args), 5)
     n_pairs = int(got[2][-1])
-    report["bin_decode"] = dict(max_abs_err=a_err, ms=a_ms,
-                                plain_ms=a_plain_ms)
+    report["bin_decode"] = dict(
+        max_abs_err=a_err, ms=a_ms, plain_ms=a_plain_ms,
+        **bound_keys(bound(nbytes(*a_args[:4],
+                                  *expand_decode_pairs(*a_args)),
+                           s.total * CULL_FLOPS)))
     phase("kernel A", f"{s.total} slots, {n_pairs} pairs after the cull: "
           f"pair_tile, pair_particle, tile_start equal to plain; "
           f"kernel {a_ms:.4f} ms, plain {a_plain_ms:.4f} ms")
@@ -606,8 +1130,11 @@ def main():
             f"kernel B vs plain: features {err_f:.3g}, opacity {err_o:.3g},"
             f" T_final {err_t:.3g}, depth rel {err_d:.3g}, "
             f"hits flip {flips:.4f}")
+    b_accepted = composited(ref)
     report["raster_fwd"] = dict(max_abs_err=max(err_f, err_o, err_t),
-                                ms=b_ms, plain_ms=b_plain_ms)
+                                ms=b_ms, plain_ms=b_plain_ms,
+                                **bound_keys(raster_bound(b_args, got, rc,
+                                                          False, b_accepted)))
     phase("kernel B", f"features |d| {err_f:.3g}, opacity |d| {err_o:.3g}, "
           f"T_final |d| {err_t:.3g}, depth rel {err_d:.3g}, "
           f"hits flip {flips:.5f}; "
@@ -729,7 +1256,10 @@ def main():
     if bad:
         raise AssertionError(f"kernel C vs plain (cosine, rel L2): {bad}")
     report["raster_bwd"] = dict(max_abs_err=c_err, ms=c_ms,
-                                plain_ms=c_plain_ms)
+                                plain_ms=c_plain_ms,
+                                **bound_keys(raster_bound(c_args, [d_rec],
+                                                          rc, False,
+                                                          b_accepted)))
     phase("kernel C", ", ".join(f"{k} cos {v[0]:.8f} relL2 {v[1]:.3g}"
                                 for k, v in c_stats.items())
           + f"; max |d| {c_err:.3g}; kernel {c_ms:.4f} ms, "
@@ -749,14 +1279,18 @@ def main():
         same = bool(torch.equal(d1, d2))
         d_ms = cuda_ms(lambda: fold_pairs(*d_args), 20)
         d_plain_ms = cuda_ms(lambda: fold_pairs_plain(*d_args), 5)
+        d_lib_ms = index_add_ms(d_args)
     if not (d_err <= 1e-5 * d_scale and same):
         raise AssertionError(f"kernel D vs plain: max |d| {d_err:.3g} "
                              f"(max |ref| {d_scale:.3g}); bitwise "
                              f"deterministic {same}")
-    report["fold"] = dict(max_abs_err=d_err, ms=d_ms, plain_ms=d_plain_ms)
+    report["fold"] = dict(
+        max_abs_err=d_err, ms=d_ms, plain_ms=d_plain_ms,
+        **bound_keys(bound(nbytes(*d_args[:5], d1), d_rec.numel()),
+                     library_ms=d_lib_ms))
     phase("kernel D", f"max |d| {d_err:.3g} of max |ref| {d_scale:.3g}; "
           f"two runs bitwise equal; kernel {d_ms:.4f} ms, "
-          f"plain {d_plain_ms:.4f} ms")
+          f"plain {d_plain_ms:.4f} ms, index_add_ {d_lib_ms:.4f} ms")
 
     # 10. render gradients against the JAX package's
     grad_fx = os.path.join(REPO, "tests", "fixtures",
@@ -821,6 +1355,22 @@ def main():
         launches.update(sorted_train_step_phase(dev, label, src))
     launches["wmax"] = trainer_phase(dev, grt_raster_config(),
                                      prune_weight=True)
+
+    # 19-25. the rolling-shutter and fisheye path
+    report.update(general_kernel_phases(dev, model, ut_cfg))
+    general_grad_phase(dev, ut_cfg)
+    for label, grc in general_settings().items():
+        got = camera_train_step_phase(dev, f"rolling {label}", grc,
+                                      "rolling", general=True)
+        for k in ("raster_fwd_general", "raster_bwd_general"):
+            launches[k + GENERAL[label]] = got[k]
+    camera_train_step_phase(dev, "fisheye 3DGUT", rc, "fisheye",
+                            general=False)
+    launches["wmax_general"] = trainer_phase(dev, prune_weight=True,
+                                             camera="rolling")
+    camera_serving_phase(dev, model, ut_cfg, "rolling", general=True)
+    camera_serving_phase(dev, model, ut_cfg, "fisheye", general=False)
+    cli_phase(dev)
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches.get(k, 0), **report[k])

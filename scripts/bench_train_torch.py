@@ -10,6 +10,13 @@ ms/step and the card's name and power limit.
 
     python scripts/bench_train_torch.py [--steps 20] [--profile]
     python scripts/bench_train_torch.py --config-name apps/nerf_synthetic_3dgrt
+    python scripts/bench_train_torch.py --camera rolling
+
+``--camera`` swaps the 800x800 pinhole for the ScanNet++-like fisheye at
+1752x1168 (shared-origin kernels) or the NCore-like rolling shutter at
+1920x1280 (the general-geometry kernels) of
+``threedgrut_tpu_torch/synthetic.py:bench_camera``; the GT is seeded
+noise at that resolution.
 
 ``--config-name`` takes the render settings (kernel degree, thresholds,
 sorted compositing and its window) of a YAML config, through
@@ -34,7 +41,6 @@ import numpy as np
 import torch
 
 N_GAUSSIANS = 100_000
-SIDE = 800
 WARMUP_STEPS = 3     # kernel build, allocator, caches
 PROFILE_STEPS = 5
 
@@ -51,18 +57,17 @@ class BenchStep:
     uniform GT, L1 0.8 + DSSIM 0.2, Adam (lr 1e-3 on every group) over the
     active rows."""
 
-    def __init__(self, device, raster_cfg=None):
-        from threedgrut_tpu_torch.ops.cameras import make_pinhole
+    def __init__(self, device, raster_cfg=None, camera="pinhole"):
         from threedgrut_tpu_torch.ops.ut import UTConfig
         from threedgrut_tpu_torch.optimizers.adam import init_adam_state
         from threedgrut_tpu_torch.render.common import RasterConfig
-        from threedgrut_tpu_torch.synthetic import bench_cloud
+        from threedgrut_tpu_torch.synthetic import bench_camera, bench_cloud
 
         self.model = bench_cloud(N_GAUSSIANS, seed=0, device=device)
-        self.cam = make_pinhole((SIDE, SIDE), (1.1 * SIDE, 1.1 * SIDE),
-                                (SIDE / 2, SIDE / 2), device=device)
+        self.cam = bench_camera(camera, device=device)
+        w, h = self.cam.resolution
         rng = np.random.default_rng(1)
-        self.gt = torch.tensor(rng.uniform(0, 1, (SIDE, SIDE, 3)).astype(
+        self.gt = torch.tensor(rng.uniform(0, 1, (h, w, 3)).astype(
             np.float32), device=device)
         self.ut_cfg, self.rc = UTConfig(), raster_cfg or RasterConfig()
         self.params = self.model.params()
@@ -101,7 +106,7 @@ def time_steps(step, n_steps: int):
 
 def config_raster(name: str):
     """The RasterConfig of a YAML config (train_torch.py's mapping)."""
-    from threedgrut_tpu.config.loader import load_config
+    from threedgrut_tpu_torch.config.loader import load_config
     from train_torch import trainer_config
 
     return trainer_config(load_config(name, overrides=["path=none"])).raster
@@ -149,18 +154,25 @@ def main():
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--config-name", default=None,
                     help="take the render settings of this YAML config")
+    ap.add_argument("--camera", default="pinhole",
+                    choices=("pinhole", "fisheye", "rolling"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_train_torch.py needs a CUDA device")
     rc = config_raster(args.config_name) if args.config_name else None
-    step = BenchStep(torch.device("cuda:0"), rc)
+    step = BenchStep(torch.device("cuda:0"), rc, args.camera)
+    w, h = step.cam.resolution
+    metric = (f"{render_tag(step.rc)}_train_iters_per_sec_100k_800px"
+              if args.camera == "pinhole" else
+              f"{render_tag(step.rc)}_{args.camera}_train_iters_per_sec_"
+              f"100k_{w}x{h}")
     t0 = time.perf_counter()
     time_steps(step, WARMUP_STEPS)
     warm_s = time.perf_counter() - t0
     ms, losses = time_steps(step, args.steps)
     smi = nvidia_smi_line()
     print(json.dumps({
-        "metric": f"{render_tag(step.rc)}_train_iters_per_sec_100k_800px",
+        "metric": metric, "camera": args.camera,
         "config": args.config_name or "render/3dgut defaults",
         "raster": {k: getattr(step.rc, k) for k in (
             "kernel_degree", "min_transmittance", "sorted_compositing",

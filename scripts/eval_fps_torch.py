@@ -13,6 +13,12 @@ port sizes its pair buffer per view, so there is no budget calibration.
 
 ``--config-name`` renders with the render settings of a YAML config
 (train_torch.py's mapping): the 3DGRT frame, or the sorted 3DGUT one.
+``--camera fisheye`` or ``rolling`` (the general-geometry kernels)
+serves the orbit views with the intrinsics of
+``threedgrut_tpu_torch/synthetic.py:bench_camera`` instead of the
+pinhole's. ``--width`` and ``--height`` set the resolution of any camera
+(default: 800x800 for the pinhole, 1752x1168 for the fisheye, 1920x1280
+for the rolling shutter).
 
 ``--profile`` traces one more batch with torch.profiler and prints the
 device time by kernel and the device's busy and idle shares of the
@@ -21,7 +27,6 @@ batch's wall time. Needs a CUDA device; it does not fall back to the CPU.
 
 import argparse
 import json
-import math
 import os
 import subprocess
 import sys
@@ -39,8 +44,8 @@ def main():
     src.add_argument("--checkpoint", help="trainer .npz or 3DGS .ply")
     src.add_argument("--synthetic", type=int, metavar="N",
                      help="the bench.py cloud of N Gaussians (seed 0)")
-    ap.add_argument("--width", type=int, default=800)
-    ap.add_argument("--height", type=int, default=800)
+    ap.add_argument("--width", type=int, default=None)
+    ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--batch", type=int, default=8, help="views per call")
     ap.add_argument("--reps", type=int, default=20, help="timed batches")
     ap.add_argument("--sh-degree", type=int, default=3)
@@ -48,17 +53,20 @@ def main():
                     help="trace one extra batch: device time by kernel")
     ap.add_argument("--config-name", default=None,
                     help="take the render settings of this YAML config")
+    ap.add_argument("--camera", default="pinhole",
+                    choices=("pinhole", "fisheye", "rolling"))
     args = ap.parse_args()
+    if (args.width is None) != (args.height is None):
+        raise SystemExit("give both --width and --height, or neither")
 
     if not torch.cuda.is_available():
         raise SystemExit("eval_fps_torch.py needs a CUDA device")
     dev = torch.device("cuda:0")
 
     from threedgrut_tpu_torch.models.gaussians import GaussianModel
-    from threedgrut_tpu_torch.ops.cameras import orbit_camera
     from threedgrut_tpu_torch.render.common import RasterConfig
     from threedgrut_tpu_torch.render.serve import make_serving_renderer
-    from threedgrut_tpu_torch.synthetic import bench_cloud, orbit_geometry
+    from threedgrut_tpu_torch.synthetic import bench_cloud, orbit_cameras
 
     if args.synthetic:
         model = bench_cloud(args.synthetic, seed=0, device=dev)
@@ -70,12 +78,10 @@ def main():
         model = GaussianModel.from_checkpoint(args.checkpoint, device=dev)
         source = args.checkpoint
 
-    center, dist = orbit_geometry(model)
-    res = (args.width, args.height)
-    cams = [orbit_camera(az, 0.35, dist, center=center, resolution=res,
+    cams = orbit_cameras(model, args.batch, args.camera,
+                         args.width and (args.width, args.height),
                          device=dev)
-            for az in np.linspace(0.0, 2 * math.pi, args.batch,
-                                  endpoint=False)]
+    res = cams[0].resolution
     from bench_train_torch import config_raster, render_tag
 
     rc = config_raster(args.config_name) if args.config_name else \
@@ -101,7 +107,11 @@ def main():
           f"over {args.reps} batches (min {min(per_batch):.3f}, max "
           f"{max(per_batch):.3f}; first batch {first_s:.2f} s) on {smi}")
     print(json.dumps({
-        "metric": f"{render_tag(rc)}_serve_ms_per_frame_{res[0]}x{res[1]}",
+        "metric": (f"{render_tag(rc)}_serve_ms_per_frame_{res[0]}x{res[1]}"
+                   if args.camera == "pinhole" else
+                   f"{render_tag(rc)}_{args.camera}_serve_ms_per_frame_"
+                   f"{res[0]}x{res[1]}"),
+        "camera": args.camera,
         "config": args.config_name or "render/3dgut defaults",
         "value": ms, "unit": "ms/frame (median over batches)",
         "min": min(per_batch), "max": max(per_batch),

@@ -289,15 +289,17 @@ def test_grt_grad_fixture_is_current():
 # the kernels' walk, emulated
 # ---------------------------------------------------------------------------
 
-def _walk_tile(rec, start, rd, tmin, tmax, cfg, up=None):
+def _walk_tile(rec, start, rd, tmin, tmax, cfg, up=None, ro=None):
     """Kernels B, E and C on one tile as the CUDA sources compute them:
     fp32; the lanes [start, start + L) in windows of W aligned on the
     global pair index, each pixel's accepted candidates of a window in
     stable hit_t order; T, the kill and (with ``up`` = (g_feat, g_t, gd,
     phi_total, t_final), per pixel) the suffix cotangents along that
     walk; then raster_bwd.cu's pullback per (pair, pixel), summed over
-    the pixels. Returns (rgb [256, 3], depth, hits, T [256], w [L, 256],
-    d_rec [L, 16] or None)."""
+    the pixels. With per-pixel origins ``ro`` [256, 3], the general mode
+    (common.cuh:eval_hit_general): a = M (o - p), hit_t times |d|, and
+    the pullback on to p and M. Returns (rgb [256, 3], depth, hits,
+    T [256], w [L, 256], d_rec [L, 16] or None)."""
     s, thr_resp, log_min_alpha = t_raster._thresholds(cfg)
     n = rec.shape[0]
     window = cfg.sort_window if cfg.sorted_compositing else 1
@@ -306,13 +308,22 @@ def _walk_tile(rec, start, rd, tmin, tmax, cfg, up=None):
     bx = col[3] * dx + col[4] * dy + col[5] * dz
     by = col[6] * dx + col[7] * dy + col[8] * dz
     bz = col[9] * dx + col[10] * dy + col[11] * dz
-    ax, ay, az = col[0], col[1], col[2]
+    if ro is None:
+        ax, ay, az = col[0], col[1], col[2]
+    else:
+        ex, ey, ez = ro[:, 0] - col[0], ro[:, 1] - col[1], ro[:, 2] - col[2]
+        ax = col[3] * ex + col[4] * ey + col[5] * ez
+        ay = col[6] * ex + col[7] * ey + col[8] * ez
+        az = col[9] * ex + col[10] * ey + col[11] * ez
+        dn = torch.sqrt(dx * dx + dy * dy + dz * dz)
     cx, cy, cz = ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx
     inv_m = 1.0 / torch.clamp(bx * bx + by * by + bz * bz, min=1e-30)
     c2 = cx * cx + cy * cy + cz * cz
     sq = c2 * inv_m
     q = ax * bx + ay * by + az * bz
     hit_t = -q * inv_m
+    if ro is not None:
+        hit_t = hit_t * dn
     t = torch.clamp((log_min_alpha - torch.log(torch.clamp(col[12],
                                                            min=1e-30))) / s,
                     max=thr_resp)
@@ -366,7 +377,7 @@ def _walk_tile(rec, start, rd, tmin, tmax, cfg, up=None):
 
     gf, g_t, gd, _, _ = up
     touched = w_all > 0
-    g_ht = gd * w_all
+    g_ht = gd * w_all if ro is None else gd * w_all * dn
     g_eff = torch.where(alpha_raw < cfg.max_alpha, g_alpha,
                         torch.zeros_like(g_alpha))
     if cfg.kernel_degree == 4:
@@ -382,12 +393,21 @@ def _walk_tile(rec, start, rd, tmin, tmax, cfg, up=None):
     dbx = gcy * az - gcz * ay + d_q * ax + 2.0 * d_m * bx
     dby = gcz * ax - gcx * az + d_q * ay + 2.0 * d_m * by
     dbz = gcx * ay - gcy * ax + d_q * az + 2.0 * d_m * bz
-    d = torch.stack([
-        by * gcz - bz * gcy + d_q * bx, bz * gcx - bx * gcz + d_q * by,
-        bx * gcy - by * gcx + d_q * bz,
-        dbx * dx, dbx * dy, dbx * dz, dby * dx, dby * dy, dby * dz,
-        dbz * dx, dbz * dy, dbz * dz, g_eff * resp,
-        gf[:, 0] * w_all, gf[:, 1] * w_all, gf[:, 2] * w_all], dim=-1)
+    dax = by * gcz - bz * gcy + d_q * bx
+    day = bz * gcx - bx * gcz + d_q * by
+    daz = bx * gcy - by * gcx + d_q * bz
+    if ro is None:
+        geo = [dax, day, daz, dbx * dx, dbx * dy, dbx * dz, dby * dx,
+               dby * dy, dby * dz, dbz * dx, dbz * dy, dbz * dz]
+    else:   # a = M e, e = o - p: d_p = -M^T d_a, d_M += d_a e^T
+        geo = [-(col[3] * dax + col[6] * day + col[9] * daz),
+               -(col[4] * dax + col[7] * day + col[10] * daz),
+               -(col[5] * dax + col[8] * day + col[11] * daz)]
+        geo += [da * e + db * dk for da, db in ((dax, dbx), (day, dby),
+                                                (daz, dbz))
+                for e, dk in ((ex, dx), (ey, dy), (ez, dz))]
+    d = torch.stack(geo + [g_eff * resp, gf[:, 0] * w_all,
+                           gf[:, 1] * w_all, gf[:, 2] * w_all], dim=-1)
     d = torch.where(touched[..., None], d, torch.zeros_like(d))
     return feat, depth, hits, trans, w_all, d.sum(dim=1)
 
@@ -397,7 +417,7 @@ def walk_reference(v, cfg, upstream):
     (features, opacity, depth, hits, T_final) images, d_records [P, 16],
     wpair [P])."""
     b = v.binning
-    rays = t_raster._tilize_rays(v.ray_d, v.tmin, v.tmax)
+    rays = t_raster._tilize_rays(v.ray_d, v.tmin, v.tmax, v.ray_o)
     gx, gy = rays.gx, rays.gy
     h, w = v.ray_d.shape[:2]
     ts = b.tile_start.tolist()
@@ -412,9 +432,10 @@ def walk_reference(v, cfg, upstream):
         if s1 == s0:
             continue
         rec = v.table[b.pair_particle[s0:s1].long()]
+        ro = None if rays.ro is None else rays.ro[t]
         f, dep, hits, tr, w_all, _ = _walk_tile(rec, s0, rays.rd[t],
                                                 rays.tmin[t], rays.tmax[t],
-                                                cfg)
+                                                cfg, ro=ro)
         out[t, :, 0:3], out[t, :, 3], out[t, :, 4] = f, dep, hits
         out[t, :, 5] = tr
         wpair[s0:s1] = w_all.amax(dim=1)
@@ -427,7 +448,8 @@ def walk_reference(v, cfg, upstream):
         phi = (gf[t, :, 0] * out[t, :, 0] + gf[t, :, 1] * out[t, :, 1]
                + gf[t, :, 2] * out[t, :, 2] + gd[t] * out[t, :, 3])
         *_, dr = _walk_tile(rec, s0, rays.rd[t], rays.tmin[t], rays.tmax[t],
-                            cfg, (gf[t], g_t[t], gd[t], phi, out[t, :, 5]))
+                            cfg, (gf[t], g_t[t], gd[t], phi, out[t, :, 5]),
+                            None if rays.ro is None else rays.ro[t])
         d_rec[s0:s1] = dr
     fwd = (img[..., 0:3], 1.0 - img[..., 5:6], img[..., 3:4], img[..., 4:5],
            img[..., 5:6])

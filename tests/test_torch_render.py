@@ -219,11 +219,25 @@ def test_fixture_is_current():
     assert os.path.getsize(FIXTURE) < 200_000
 
 
+def _port_modules():
+    """Every module of threedgrut_tpu_torch, by dotted name."""
+    pkg = os.path.join(REPO, "threedgrut_tpu_torch")
+    names = []
+    for root, _, files in os.walk(pkg):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), REPO)[:-3]
+                names.append(rel.replace(os.sep, ".").removesuffix(
+                    ".__init__"))
+    return sorted(names)
+
+
 def test_port_imports_no_jax():
     """The port, its serving path and its trainer load without JAX, yaml
-    or PIL. A subprocess: this process already imported jax through
-    tests/conftest.py."""
-    code = ("import sys; import threedgrut_tpu_torch.render.serve, "
+    or PIL; and every module of the port loads without JAX and without
+    any module of the JAX package (threedgrut_tpu). A subprocess: this
+    process already imported jax through tests/conftest.py."""
+    code = ("import sys, importlib; import threedgrut_tpu_torch.render.serve, "
             "threedgrut_tpu_torch.render.oracle, "
             "threedgrut_tpu_torch.convert, "
             "threedgrut_tpu_torch.ops.cuda.build, "
@@ -231,10 +245,60 @@ def test_port_imports_no_jax():
             "threedgrut_tpu_torch.strategy.gs, "
             "threedgrut_tpu_torch.synthetic; "
             "bad = [m for m in ('jax', 'flax', 'yaml', 'PIL') "
-            "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
+            "if m in sys.modules]; print(bad); "
+            f"[importlib.import_module(m) for m in {_port_modules()!r}]; "
+            "import train_torch; "
+            "bad += [m for m in sys.modules if m in ('jax', 'flax') or "
+            "m == 'threedgrut_tpu' or m.startswith('threedgrut_tpu.')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    assert len(_port_modules()) > 30
+
+
+def _imports_of_jax_package(path):
+    """(line, module) of every import of threedgrut_tpu or a submodule
+    of it in the file at ``path``, at any depth (lazy imports inside
+    functions included); threedgrut_tpu_torch does not count."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        found += [(node.lineno, m) for m in mods
+                  if m == "threedgrut_tpu" or m.startswith("threedgrut_tpu.")]
+    return found
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """A static check of every .py under threedgrut_tpu_torch/, of
+    train_torch.py, chip_smoke.py and scripts/*_torch.py: no import of
+    threedgrut_tpu, lazy or not. The JAX package stays the reference; the
+    port keeps its own copies of what it needs."""
+    paths = [os.path.join(root, f) for root, _, files in os.walk(
+        os.path.join(REPO, "threedgrut_tpu_torch")) for f in files
+        if f.endswith(".py")]
+    paths += [os.path.join(REPO, f) for f in ("train_torch.py",
+                                              "chip_smoke.py")]
+    scripts = os.path.join(REPO, "scripts")
+    paths += [os.path.join(scripts, f) for f in sorted(os.listdir(scripts))
+              if f.endswith("_torch.py")]
+    assert len(paths) > 30
+    bad = {os.path.relpath(p, REPO): _imports_of_jax_package(p)
+           for p in paths}
+    assert not {k: v for k, v in bad.items() if v}, bad
+    # the check sees an import inside a function (train.py's lazy
+    # ``from threedgrut_tpu.export.ply import import_model``)
+    assert any(m == "threedgrut_tpu.export.ply" for _, m in
+               _imports_of_jax_package(os.path.join(REPO, "train.py")))
 
 
 if __name__ == "__main__":

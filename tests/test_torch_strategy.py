@@ -202,7 +202,7 @@ def test_check_step_condition_matches_jax(step, start, end, freq):
         j_base.check_step_condition(step, start, end, freq)
 
 
-def test_prune_weight_is_not_ported():
+def test_prune_weight_matches_jax():
     """prune_weight, ported with the blend-weight telemetry kernel, keeps
     the rows, moments and gradient buffers JAX gs.prune_weight keeps."""
     (js, jo, jb), (model, to, tb) = _both(7)

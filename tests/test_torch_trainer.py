@@ -193,18 +193,53 @@ def test_checkpoints_load_across_packages(views, tmp_path):
     assert loss_a == loss_b
 
 
+def _camera_batches(views):
+    """The views' pinhole batches, and fisheye, FTheta (both reference
+    polynomials) and rolling-shutter batches on the first view's pose."""
+    b0 = views.batches[0]
+    end = np.array(b0.T_to_world, np.float64)
+    end[:3, 3] += [0.05, -0.02, 0.01]
+    c, s = np.cos(0.01), np.sin(0.01)
+    end[:3, :3] = end[:3, :3] @ np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+
+    def like(**kw):
+        return Batch(rays_ori=b0.rays_ori, rays_dir=b0.rays_dir,
+                     T_to_world=b0.T_to_world, intrinsics=b0.intrinsics,
+                     **kw)
+
+    fish = dict(fx=30.0, fy=31.0, cx=24.0, cy=16.0,
+                radial=np.array([-0.03, -0.005, 0.001, -0.0002]),
+                max_angle=np.pi / 2)
+    out = list(views.batches[:2])
+    out.append(like(intrinsics_OpenCVFisheyeCameraModelParameters=fish))
+    for ref in (0, 1):
+        out.append(like(intrinsics_FThetaCameraModelParameters=dict(
+            cx=24.0, cy=16.0, angle_to_pixeldist=[0.0, 30.0, 0.0, -1.0],
+            pixeldist_to_angle=[0.0, 1 / 30.0, 0.0, 1e-6],
+            reference_poly=ref, linear_cde=(1.0, 0.001, -0.002),
+            max_angle=1.2)))
+    for shutter in ("rolling_top_to_bottom", "rolling_right_to_left"):
+        out.append(like(T_to_world_end=end, shutter_type=shutter))
+    out.append(like(T_to_world_end=end, shutter_type=shutter,
+                    intrinsics_OpenCVFisheyeCameraModelParameters=fish))
+    return out
+
+
 def test_camera_from_batch_matches_jax(views):
-    for b in views.batches[:2]:
+    """Pinhole, fisheye, FTheta and rolling-shutter batches give the JAX
+    trainer's camera, field for field."""
+    from torch_port_utils import CAMERA_TENSORS
+
+    for b in _camera_batches(views):
         jc = j_tr.camera_from_batch(b, JUTConfig())
         tc = t_tr.camera_from_batch(b)
-        for a, r in ((tc.t_start, jc.t_start), (tc.q_start, jc.q_start),
-                     (tc.focal, jc.focal), (tc.principal, jc.principal)):
-            np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-7)
-    fish = Batch(rays_ori=np.zeros((4, 4, 3)), rays_dir=np.zeros((4, 4, 3)),
-                 T_to_world=np.eye(4),
-                 intrinsics_OpenCVFisheyeCameraModelParameters={"fx": 1.0})
-    with pytest.raises(NotImplementedError, match="Fisheye"):
-        t_tr.camera_from_batch(fish)
+        for k in ("resolution", "model_type", "shutter_type",
+                  "ftheta_reference_poly"):
+            assert getattr(tc, k) == getattr(jc, k), k
+        for k in CAMERA_TENSORS:
+            np.testing.assert_allclose(getattr(tc, k).numpy(),
+                                       np.asarray(getattr(jc, k)),
+                                       atol=1e-7, err_msg=k)
 
 
 def test_validate_matches_jax(views):
@@ -242,7 +277,7 @@ def test_selective_adam_keeps_invisible_rows(views):
     assert not torch.equal(after[8:96], before[8:96])
 
 
-def test_prune_weight_is_refused(views):
+def test_trainer_prunes_by_weight_like_jax(views):
     """Weight pruning is no longer refused now that the telemetry kernel
     (kernel E) is ported: both trainers sample the blend weights every
     step and prune by them at step 2, beside the clone and the density
@@ -304,21 +339,24 @@ def _write_nerf_dataset(root, side=48):
 
 def test_cli_decodes_with_pil_when_native_library_fails(monkeypatch,
                                                        tmp_path):
-    """A prebuilt native decoder that cannot load (a missing libjpeg)
-    must not stop the CLI: it reads the PNG files with PIL."""
-    import train_torch
+    """The port's NeRF loader decodes with PIL alone, so a prebuilt native
+    decoder that cannot load (a missing libjpeg) cannot stop the CLI: it
+    reads what the JAX loader reads through its PIL path."""
     from threedgrut_tpu.data import native_loader
-    from threedgrut_tpu.data.nerf import NeRFDataset
+    from threedgrut_tpu.data.nerf import NeRFDataset as JNeRFDataset
+    from threedgrut_tpu_torch.data.nerf import NeRFDataset
 
-    def broken():
-        raise OSError("libjpeg.so.62: cannot open shared object file")
-
-    monkeypatch.setattr(native_loader, "_load_lib", broken)
-    train_torch.use_pil_if_native_broken()
-    assert not native_loader.native_available()
+    monkeypatch.setattr(native_loader, "_load_lib", lambda: None)
     _write_nerf_dataset(str(tmp_path))
-    ds = NeRFDataset(str(tmp_path), "val", bg_color="white")
-    assert ds[0].rgb_gt.shape == (48, 48, 3)
+    for split in ("train", "val"):
+        ds = NeRFDataset(str(tmp_path), split, bg_color="white")
+        ref = JNeRFDataset(str(tmp_path), split, bg_color="white")
+        assert len(ds) == len(ref) and ds.focal == ref.focal
+        np.testing.assert_array_equal(ds.get_poses(), ref.get_poses())
+        for i in range(len(ds)):
+            assert ds[i].rgb_gt.shape == (48, 48, 3)
+            np.testing.assert_array_equal(ds[i].rgb_gt, ref[i].rgb_gt)
+            np.testing.assert_array_equal(ds[i].rays_dir, ref[i].rays_dir)
 
 
 def test_train_cli_runs_five_steps(tmp_path):

@@ -5,16 +5,23 @@ import numpy as np
 import torch
 
 from threedgrut_tpu_torch.convert import model_from_state
-from threedgrut_tpu_torch.ops.cameras import make_pinhole as t_make_pinhole
+from threedgrut_tpu_torch.ops.cameras import CameraModel
+
+CAMERA_TENSORS = ("focal", "principal", "radial", "tangential", "thin_prism",
+                  "max_angle", "ftheta_angle_to_pixeldist",
+                  "ftheta_pixeldist_to_angle", "ftheta_linear_cde",
+                  "t_start", "q_start", "t_end", "q_end")
 
 
-def torch_camera(cam):
-    """A JAX pinhole CameraModel (global shutter) as the port's camera."""
-    return t_make_pinhole(
-        cam.resolution, np.asarray(cam.focal), np.asarray(cam.principal),
-        radial=np.asarray(cam.radial), tangential=np.asarray(cam.tangential),
-        thin_prism=np.asarray(cam.thin_prism), t=np.asarray(cam.t_start),
-        q=np.asarray(cam.q_start))
+def torch_camera(cam, device="cpu"):
+    """A JAX CameraModel (any model and shutter) as the port's camera,
+    field for field."""
+    return CameraModel(
+        resolution=tuple(cam.resolution), model_type=int(cam.model_type),
+        shutter_type=int(cam.shutter_type),
+        ftheta_reference_poly=int(cam.ftheta_reference_poly),
+        **{k: torch.tensor(np.asarray(getattr(cam, k), np.float32),
+                           device=device) for k in CAMERA_TENSORS})
 
 
 def torch_scene(cam, state):

@@ -42,9 +42,21 @@ __device__ __forceinline__ float sq_threshold(float density,
   return t;
 }
 
+// One pixel's ray: its origin (the general mode only), direction, |d|
+// (the general mode's hit distance scale) and t-range.
+struct Ray {
+  float ox, oy, oz;
+  float dx, dy, dz;
+  float dn;
+  float tmin, tmax;
+};
+
 // Intermediates of one ray against one particle record in the shared-origin
-// factorisation: b = M d, c = a x b, m = |b|^2, q = a . b.
+// factorisation: b = M d, c = a x b, m = |b|^2, q = a . b. The general mode
+// also keeps e = o - p, from which it formed a = M e.
 struct Hit {
+  float ax, ay, az;
+  float ex, ey, ez;
   float bx, by, bz;
   float cx, cy, cz;
   float inv_m;      // 1 / max(m, 1e-30)
@@ -56,6 +68,40 @@ struct Hit {
   float alpha_raw;  // resp * density
   float alpha;      // min(max_alpha, alpha_raw)
 };
+
+// The hit of a ray with canonical origin h.a = (ax, ay, az) already set:
+// everything after a, shared by both modes. kGen scales the hit distance
+// by dn = |d|.
+template <int kDeg, bool kGen>
+__device__ __forceinline__ bool hit_from_a(const float* r, int stride,
+                                           float dx, float dy, float dz,
+                                           float dn, float tmin, float tmax,
+                                           float thr, const RasterParams& p,
+                                           Hit& h) {
+  const float ax = h.ax, ay = h.ay, az = h.az;
+  h.bx = r[3 * stride] * dx + r[4 * stride] * dy + r[5 * stride] * dz;
+  h.by = r[6 * stride] * dx + r[7 * stride] * dy + r[8 * stride] * dz;
+  h.bz = r[9 * stride] * dx + r[10 * stride] * dy + r[11 * stride] * dz;
+  h.cx = ay * h.bz - az * h.by;
+  h.cy = az * h.bx - ax * h.bz;
+  h.cz = ax * h.by - ay * h.bx;
+  h.inv_m = 1.0f / fmaxf(h.bx * h.bx + h.by * h.by + h.bz * h.bz, 1e-30f);
+  h.c2 = h.cx * h.cx + h.cy * h.cy + h.cz * h.cz;
+  h.sq = h.c2 * h.inv_m;
+  if (!(h.sq < thr)) return false;
+  h.q = ax * h.bx + ay * h.by + az * h.bz;
+  h.hit_t = -h.q * h.inv_m;
+  if (kGen) h.hit_t = h.hit_t * dn;
+  if (!(h.hit_t > tmin && h.hit_t < tmax)) return false;
+  if (kDeg == 4) {
+    h.resp = expf(p.gg_scale * h.sq * h.sq);
+  } else {
+    h.resp = expf(p.gg_scale * h.sq);
+  }
+  h.alpha_raw = h.resp * r[kDensity * stride];
+  h.alpha = fminf(p.max_alpha, h.alpha_raw);
+  return true;
+}
 
 // Evaluate record ``r`` (field f at r[f * stride]) on the unit ray
 // direction d. Returns whether the candidate is accepted (sq below the
@@ -69,28 +115,71 @@ __device__ __forceinline__ bool eval_hit(const float* r, int stride, float dx,
                                          float dy, float dz, float tmin,
                                          float tmax, float thr,
                                          const RasterParams& p, Hit& h) {
-  const float ax = r[0], ay = r[stride], az = r[2 * stride];
-  h.bx = r[3 * stride] * dx + r[4 * stride] * dy + r[5 * stride] * dz;
-  h.by = r[6 * stride] * dx + r[7 * stride] * dy + r[8 * stride] * dz;
-  h.bz = r[9 * stride] * dx + r[10 * stride] * dy + r[11 * stride] * dz;
-  h.cx = ay * h.bz - az * h.by;
-  h.cy = az * h.bx - ax * h.bz;
-  h.cz = ax * h.by - ay * h.bx;
-  h.inv_m = 1.0f / fmaxf(h.bx * h.bx + h.by * h.by + h.bz * h.bz, 1e-30f);
-  h.c2 = h.cx * h.cx + h.cy * h.cy + h.cz * h.cz;
-  h.sq = h.c2 * h.inv_m;
-  if (!(h.sq < thr)) return false;
-  h.q = ax * h.bx + ay * h.by + az * h.bz;
-  h.hit_t = -h.q * h.inv_m;
-  if (!(h.hit_t > tmin && h.hit_t < tmax)) return false;
-  if (kDeg == 4) {
-    h.resp = expf(p.gg_scale * h.sq * h.sq);
+  h.ax = r[0];
+  h.ay = r[stride];
+  h.az = r[2 * stride];
+  return hit_from_a<kDeg, false>(r, stride, dx, dy, dz, 1.f, tmin, tmax, thr,
+                                 p, h);
+}
+
+// The general-geometry mode (raster.py:chunk_hits_general, the TPU's
+// kernel 5): the record holds the particle position p in slots 0-2 and the
+// ray its own origin o, so a = M (o - p) is formed per (pixel, pair): 3
+// subtractions and 9 products more than eval_hit. Forming M o - M p
+// instead would cancel most of fp32's digits at world coordinates of
+// hundreds of metres. The hit distance is JAX's general one, |d| times
+// the shared-origin -(a . b) / |b|^2: the two agree for unit directions.
+// The fp32 operation order is ops/cuda/raster.py:_hit_terms with ``o``.
+template <int kDeg>
+__device__ __forceinline__ bool eval_hit_general(const float* r, int stride,
+                                                 const Ray& ray, float thr,
+                                                 const RasterParams& p,
+                                                 Hit& h) {
+  h.ex = ray.ox - r[0];
+  h.ey = ray.oy - r[stride];
+  h.ez = ray.oz - r[2 * stride];
+  h.ax = r[3 * stride] * h.ex + r[4 * stride] * h.ey + r[5 * stride] * h.ez;
+  h.ay = r[6 * stride] * h.ex + r[7 * stride] * h.ey + r[8 * stride] * h.ez;
+  h.az = r[9 * stride] * h.ex + r[10 * stride] * h.ey + r[11 * stride] * h.ez;
+  return hit_from_a<kDeg, true>(r, stride, ray.dx, ray.dy, ray.dz, ray.dn,
+                                ray.tmin, ray.tmax, thr, p, h);
+}
+
+// The hit of record ``r`` in either mode: eval_hit, or eval_hit_general
+// (kGen).
+template <int kDeg, bool kGen>
+__device__ __forceinline__ bool eval_ray(const float* r, int stride,
+                                         const Ray& ray, float thr,
+                                         const RasterParams& p, Hit& h) {
+  if constexpr (kGen) {
+    return eval_hit_general<kDeg>(r, stride, ray, thr, p, h);
   } else {
-    h.resp = expf(p.gg_scale * h.sq);
+    return eval_hit<kDeg>(r, stride, ray.dx, ray.dy, ray.dz, ray.tmin,
+                          ray.tmax, thr, p, h);
   }
-  h.alpha_raw = h.resp * r[kDensity * stride];
-  h.alpha = fminf(p.max_alpha, h.alpha_raw);
-  return true;
+}
+
+// The ray's fields for pixel ``pix`` (tmax = -1: an empty range, for
+// pixels off the image).
+template <bool kGen>
+__device__ __forceinline__ Ray load_ray(const float* ray_o, const float* ray_d,
+                                        const float* ray_tmin,
+                                        const float* ray_tmax, bool inside,
+                                        int64_t pix) {
+  Ray ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 0.f, -1.f};
+  if (!inside) return ray;
+  ray.dx = ray_d[3 * pix + 0];
+  ray.dy = ray_d[3 * pix + 1];
+  ray.dz = ray_d[3 * pix + 2];
+  ray.tmin = ray_tmin[pix];
+  ray.tmax = ray_tmax[pix];
+  if constexpr (kGen) {
+    ray.ox = ray_o[3 * pix + 0];
+    ray.oy = ray_o[3 * pix + 1];
+    ray.oz = ray_o[3 * pix + 2];
+    ray.dn = sqrtf(ray.dx * ray.dx + ray.dy * ray.dy + ray.dz * ray.dz);
+  }
+  return ray;
 }
 
 // d resp / d sq (ops/hit.py:particle_response_dsq): resp s (degree 2),
@@ -109,19 +198,17 @@ __device__ __forceinline__ float response_dsq(const Hit& h,
 // (the plain version's stable sort). Returns the count; the caller
 // re-evaluates each lane's hit from shared memory, which gives the same
 // values bit for bit, so only the key and an 8-bit lane ride the sort.
-template <int kDeg, int kW>
+template <int kDeg, int kW, bool kGen>
 __device__ __forceinline__ int sort_window(const float* rec, int stride,
                                            const float* thr, int lo, int hi,
-                                           float dx, float dy, float dz,
-                                           float tmin, float tmax,
+                                           const Ray& ray,
                                            const RasterParams& p,
                                            float (&key)[kW],
                                            uint8_t (&lane)[kW]) {
   int n = 0;
   for (int j = lo; j < hi; ++j) {
     Hit h;
-    if (!eval_hit<kDeg>(rec + j, stride, dx, dy, dz, tmin, tmax, thr[j], p,
-                        h)) {
+    if (!eval_ray<kDeg, kGen>(rec + j, stride, ray, thr[j], p, h)) {
       continue;
     }
     int i = n++;
@@ -136,23 +223,36 @@ __device__ __forceinline__ int sort_window(const float* rec, int stride,
   return n;
 }
 
-// Call launch(deg, win) with the kernel degree and sort window of a raster
-// launch as compile-time constants (std::integral_constant): degree 2 or
-// 4, window 0 (global-Z order) or 16 (the window every shipped sorted
-// config composes), the instantiations that ops/cuda/raster.py:DEGREES and
-// WINDOWS name. Returns the launch's error, or cudaErrorInvalidValue for a
-// pair that is not built.
+// Call launch(deg, win, gen) with the kernel degree, sort window and
+// geometry mode of a raster launch as compile-time constants
+// (std::integral_constant): degree 2 or 4, window 0 (global-Z order) or 16
+// (the window every shipped sorted config composes), shared origin
+// (general 0) or the general mode (1), the instantiations that
+// ops/cuda/raster.py:DEGREES and WINDOWS name. Returns the launch's error,
+// or cudaErrorInvalidValue for a combination that is not built.
 template <typename F>
-int launch_mode(int degree, int window, F&& launch) {
+int launch_mode(int degree, int window, int general, F&& launch) {
   using D2 = std::integral_constant<int, 2>;
   using D4 = std::integral_constant<int, 4>;
   using W0 = std::integral_constant<int, 0>;
   using W16 = std::integral_constant<int, 16>;
+  using G0 = std::integral_constant<bool, false>;
+  using G1 = std::integral_constant<bool, true>;
+  auto with_gen = [&](auto deg, auto win) {
+    if (general) {
+      launch(deg, win, G1{});
+    } else {
+      launch(deg, win, G0{});
+    }
+  };
+  if (general != 0 && general != 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (degree * 100 + window) {
-    case 200: launch(D2{}, W0{}); break;
-    case 216: launch(D2{}, W16{}); break;
-    case 400: launch(D4{}, W0{}); break;
-    case 416: launch(D4{}, W16{}); break;
+    case 200: with_gen(D2{}, W0{}); break;
+    case 216: with_gen(D2{}, W16{}); break;
+    case 400: with_gen(D4{}, W0{}); break;
+    case 416: with_gen(D4{}, W16{}); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -26,6 +26,14 @@
 // sq = |a x b|^2 / |b|^2, hit_t = -(a . b) / |b|^2, b = M d to the 16
 // record fields a (3), M (9), density, rgb (3).
 //
+// General-geometry mode (kGen, the TPU's kernel 5): the hit is
+// common.cuh:eval_hit_general, a = M (o - p) per (pixel, pair), and the
+// pullback goes on from d_a to the record's position and M:
+// d_p = -M^T d_a, d_M = d_a (o - p)^T + d_b d^T, summed over the tile's
+// pixels in the same fixed order, so still bitwise repeatable. Kernel D
+// folds the rows unchanged and autograd maps (p, M) back to the
+// parameters.
+//
 // Reduction over pixels: each pair's 16 gradients are summed over the
 // block's 256 pixels in a fixed order (xor-butterfly inside each warp, then
 // the 8 warp partials in warp order through shared memory) and written
@@ -79,14 +87,20 @@ constexpr unsigned kFull = 0xffffffffu;
 // candidate back to its 16 record fields (_fast_pullback) through
 // alpha = min(max_alpha, resp(sq) density), sq = |a x b|^2 / |b|^2,
 // hit_t = -(a . b) / |b|^2 and b = M d.
-template <int kDeg>
+//
+// The general mode (kGen; raster.py:_bwd_chunk_grads' pullback of
+// chunk_hits_general) goes on from d_a and d_b through a = M (o - p),
+// hit_t scaled by |d|: d_p = -M^T d_a, d_M = d_a (o - p)^T + d_b d^T, and
+// writes d_p in rows 0-2 of the general record.
+template <int kDeg, bool kGen>
 __device__ __forceinline__ void pullback(const gut::Hit& h, const float* r,
                                          int stride, float g_alpha, float w,
                                          float gf0, float gf1, float gf2,
-                                         float gd, float dx, float dy,
-                                         float dz, const gut::RasterParams& p,
+                                         float gd, const gut::Ray& ray,
+                                         const gut::RasterParams& p,
                                          float (&d)[kRec]) {
-  const float g_ht = gd * w;
+  const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
+  const float g_ht = kGen ? gd * w * ray.dn : gd * w;
   // alpha = min(max_alpha, alpha_raw): no gradient when clamped
   const float g_eff = h.alpha_raw < p.max_alpha ? g_alpha : 0.f;
   const float dens = r[gut::kDensity * stride];
@@ -100,24 +114,43 @@ __device__ __forceinline__ void pullback(const gut::Hit& h, const float* r,
   const float gcx = 2.0f * d_c2 * h.cx;
   const float gcy = 2.0f * d_c2 * h.cy;
   const float gcz = 2.0f * d_c2 * h.cz;
-  const float ax = r[0], ay = r[stride], az = r[2 * stride];
+  const float ax = h.ax, ay = h.ay, az = h.az;
   // c = a x b: d_a = b x g_c, d_b = g_c x a; q = a . b; m = |b|^2
-  d[0] = h.by * gcz - h.bz * gcy + d_q * h.bx;
-  d[1] = h.bz * gcx - h.bx * gcz + d_q * h.by;
-  d[2] = h.bx * gcy - h.by * gcx + d_q * h.bz;
+  const float dax = h.by * gcz - h.bz * gcy + d_q * h.bx;
+  const float day = h.bz * gcx - h.bx * gcz + d_q * h.by;
+  const float daz = h.bx * gcy - h.by * gcx + d_q * h.bz;
   const float dbx = gcy * az - gcz * ay + d_q * ax + 2.0f * d_m * h.bx;
   const float dby = gcz * ax - gcx * az + d_q * ay + 2.0f * d_m * h.by;
   const float dbz = gcx * ay - gcy * ax + d_q * az + 2.0f * d_m * h.bz;
-  // b = M d: d_M[i][k] = d_b[i] * d[k] (row-major M)
-  d[3] = dbx * dx;
-  d[4] = dbx * dy;
-  d[5] = dbx * dz;
-  d[6] = dby * dx;
-  d[7] = dby * dy;
-  d[8] = dby * dz;
-  d[9] = dbz * dx;
-  d[10] = dbz * dy;
-  d[11] = dbz * dz;
+  if constexpr (kGen) {
+    // a = M e, e = o - p: d_p = -M^T d_a, d_M[i][k] += d_a[i] e[k]
+    d[0] = -(r[3 * stride] * dax + r[6 * stride] * day + r[9 * stride] * daz);
+    d[1] = -(r[4 * stride] * dax + r[7 * stride] * day + r[10 * stride] * daz);
+    d[2] = -(r[5 * stride] * dax + r[8 * stride] * day + r[11 * stride] * daz);
+    d[3] = dax * h.ex + dbx * dx;
+    d[4] = dax * h.ey + dbx * dy;
+    d[5] = dax * h.ez + dbx * dz;
+    d[6] = day * h.ex + dby * dx;
+    d[7] = day * h.ey + dby * dy;
+    d[8] = day * h.ez + dby * dz;
+    d[9] = daz * h.ex + dbz * dx;
+    d[10] = daz * h.ey + dbz * dy;
+    d[11] = daz * h.ez + dbz * dz;
+  } else {
+    d[0] = dax;
+    d[1] = day;
+    d[2] = daz;
+    // b = M d: d_M[i][k] = d_b[i] * d[k] (row-major M)
+    d[3] = dbx * dx;
+    d[4] = dbx * dy;
+    d[5] = dbx * dz;
+    d[6] = dby * dx;
+    d[7] = dby * dy;
+    d[8] = dby * dz;
+    d[9] = dbz * dx;
+    d[10] = dbz * dy;
+    d[11] = dbz * dz;
+  }
   d[12] = g_eff * h.resp;
   d[13] = gf0 * w;
   d[14] = gf1 * w;
@@ -147,11 +180,12 @@ __device__ __forceinline__ void warp_publish(float (&d)[kRec], bool touched,
   }
 }
 
-template <int kDeg, int kW>
+template <int kDeg, int kW, bool kGen>
 __global__ void __launch_bounds__(kBlock)
 raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
                   const int32_t* __restrict__ pair_particle,  // [P]
                   const int32_t* __restrict__ tile_start,     // [T + 1]
+                  const float* __restrict__ ray_o,     // [H, W, 3], kGen
                   const float* __restrict__ ray_d,            // [H, W, 3]
                   const float* __restrict__ ray_tmin,         // [H, W]
                   const float* __restrict__ ray_tmax,         // [H, W]
@@ -176,15 +210,11 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
   const bool inside = px < p.width && py < p.height;
   const int64_t pix = static_cast<int64_t>(py) * p.width + px;
 
-  float dx = 0.f, dy = 0.f, dz = 0.f, tmin = 0.f, tmax = -1.f;
+  const gut::Ray ray =
+      gut::load_ray<kGen>(ray_o, ray_d, ray_tmin, ray_tmax, inside, pix);
   float gf0 = 0.f, gf1 = 0.f, gf2 = 0.f, g_t = 0.f, gd = 0.f;
   float t_final = 0.f, phi_total = 0.f;
   if (inside) {
-    dx = ray_d[3 * pix + 0];
-    dy = ray_d[3 * pix + 1];
-    dz = ray_d[3 * pix + 2];
-    tmin = ray_tmin[pix];
-    tmax = ray_tmax[pix];
     gf0 = g_feat[3 * pix + 0];
     gf1 = g_feat[3 * pix + 1];
     gf2 = g_feat[3 * pix + 2];
@@ -242,14 +272,14 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
           for (int f = 0; f < kRec; ++f) d[f] = 0.f;
           bool touched = false;
           gut::Hit h;
-          if (alive && gut::eval_hit<kDeg>(&s_rec[0][j], kBatch, dx, dy, dz,
-                                           tmin, tmax, s_rec[kRec][j], p, h)) {
+          if (alive && gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
+                                                 s_rec[kRec][j], p, h)) {
             const float w = h.alpha * trans;
             const float g_alpha = g_alpha_of(h, j, w);
             if (w > 0.f) {
               touched = true;
-              pullback<kDeg>(h, &s_rec[0][j], kBatch, g_alpha, w, gf0, gf1,
-                             gf2, gd, dx, dy, dz, p, d);
+              pullback<kDeg, kGen>(h, &s_rec[0][j], kBatch, g_alpha, w, gf0,
+                                   gf1, gf2, gd, ray, p, d);
             }
             trans *= 1.0f - h.alpha;
             // exact kill: T_final froze here in the forward too
@@ -282,14 +312,14 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
         if (alive) {
           float key[kWin];
           uint8_t order[kWin];
-          const int n = gut::sort_window<kDeg, kWin>(
+          const int n = gut::sort_window<kDeg, kWin, kGen>(
               &s_rec[0][0], kBatch, s_rec[kRec], max(w0, lo0),
-              min(w0 + kWin, nb), dx, dy, dz, tmin, tmax, p, key, order);
+              min(w0 + kWin, nb), ray, p, key, order);
           for (int i = 0; alive && i < n; ++i) {
             const int j = order[i];
             gut::Hit h;
-            gut::eval_hit<kDeg>(&s_rec[0][j], kBatch, dx, dy, dz, tmin, tmax,
-                                s_rec[kRec][j], p, h);
+            gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
+                                      s_rec[kRec][j], p, h);
             const float w = h.alpha * trans;
             const float g_alpha = g_alpha_of(h, j, w);
             if (w > 0.f) {
@@ -312,10 +342,10 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
             const bool touched = wv[k] > 0.f;
             if (touched) {
               gut::Hit h;
-              gut::eval_hit<kDeg>(&s_rec[0][j], kBatch, dx, dy, dz, tmin,
-                                  tmax, s_rec[kRec][j], p, h);
-              pullback<kDeg>(h, &s_rec[0][j], kBatch, ga[k], wv[k], gf0, gf1,
-                             gf2, gd, dx, dy, dz, p, d);
+              gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
+                                        s_rec[kRec][j], p, h);
+              pullback<kDeg, kGen>(h, &s_rec[0][j], kBatch, ga[k], wv[k], gf0,
+                                   gf1, gf2, gd, ray, p, d);
             }
             warp_publish(d, touched, lane, part[warp][jj]);
           }
@@ -339,23 +369,28 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
 
 }  // namespace
 
-// degree: 2 or 4; window: 0 (global-Z order) or 16 (sorted mode).
+// degree: 2 or 4; window: 0 (global-Z order) or 16 (sorted mode); general:
+// 1 reads ray_o (the general-geometry mode), 0 ignores it.
 extern "C" int raster_bwd_launch(
     const float* table, const int32_t* pair_particle,
-    const int32_t* tile_start, const float* ray_d, const float* ray_tmin,
-    const float* ray_tmax, const float* fwd_feat, const float* fwd_depth,
-    const float* fwd_tfinal, const float* g_feat, const float* g_opacity,
-    const float* g_depth, int width, int height, int grid_x, int num_tiles,
-    int degree, int window, float min_transmittance, float max_alpha,
+    const int32_t* tile_start, const float* ray_o, const float* ray_d,
+    const float* ray_tmin, const float* ray_tmax, const float* fwd_feat,
+    const float* fwd_depth, const float* fwd_tfinal, const float* g_feat,
+    const float* g_opacity, const float* g_depth, int width, int height,
+    int grid_x, int num_tiles, int degree, int window, int general,
+    float min_transmittance, float max_alpha,
     float sq_thr_response, float log_min_alpha, float gg_scale,
     float* d_records, void* stream) {
   gut::RasterParams p{width, height, grid_x, min_transmittance, max_alpha,
                       sq_thr_response, log_min_alpha, gg_scale};
   if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
-  return gut::launch_mode(degree, window, [&](auto deg, auto win) {
-    raster_bwd_kernel<decltype(deg)::value, decltype(win)::value>
+  return gut::launch_mode(degree, window, general, [&](auto deg, auto win,
+                                                       auto gen) {
+    raster_bwd_kernel<decltype(deg)::value, decltype(win)::value,
+                      decltype(gen)::value>
         <<<num_tiles, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-            table, pair_particle, tile_start, ray_d, ray_tmin, ray_tmax,
+            table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
+            ray_tmax,
             fwd_feat, fwd_depth, fwd_tfinal, g_feat, g_opacity, g_depth, p,
             d_records);
   });

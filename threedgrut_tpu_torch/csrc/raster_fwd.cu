@@ -23,6 +23,13 @@
 // composites them in that order with the kill. Windows follow each other
 // in pair order, so T carries from one to the next as in the TPU kernel.
 //
+// General-geometry mode (kGen; raster.py:chunk_hits_general, the TPU's
+// kernel 5, which a rolling-shutter camera or a caller's own rays take):
+// every pixel has its own ray origin o, the record carries the particle
+// position p in slots 0-2, and each (pixel, pair) forms a = M (o - p)
+// (common.cuh:eval_hit_general); the hit distance is scaled by |d| as
+// JAX's general one is. Everything else is the shared-origin walk.
+//
 // Pair batches: the block walks [tile_start[t], tile_start[t+1]) in
 // batches of 256 pairs. Each thread stages one pair's 16-float record into
 // shared memory, gathering it from the per-particle table through
@@ -59,11 +66,12 @@ using gut::kTile;
 constexpr int kBatch = 256;            // pairs staged per batch
 constexpr int kStaged = kRec + 1;      // + squared-distance threshold
 
-template <int kDeg, int kW>
+template <int kDeg, int kW, bool kGen>
 __global__ void __launch_bounds__(kBlock)
 raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
                   const int32_t* __restrict__ pair_particle,  // [P]
                   const int32_t* __restrict__ tile_start,     // [T + 1]
+                  const float* __restrict__ ray_o,        // [H, W, 3], kGen
                   const float* __restrict__ ray_d,        // [H, W, 3]
                   const float* __restrict__ ray_tmin,     // [H, W]
                   const float* __restrict__ ray_tmax,     // [H, W]
@@ -81,14 +89,8 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
   const bool inside = px < p.width && py < p.height;
   const int64_t pix = static_cast<int64_t>(py) * p.width + px;
 
-  float dx = 0.f, dy = 0.f, dz = 0.f, tmin = 0.f, tmax = -1.f;
-  if (inside) {
-    dx = ray_d[3 * pix + 0];
-    dy = ray_d[3 * pix + 1];
-    dz = ray_d[3 * pix + 2];
-    tmin = ray_tmin[pix];
-    tmax = ray_tmax[pix];
-  }
+  const gut::Ray ray =
+      gut::load_ray<kGen>(ray_o, ray_d, ray_tmin, ray_tmax, inside, pix);
   bool alive = inside;
   float trans = 1.f, f0 = 0.f, f1 = 0.f, f2 = 0.f, depth = 0.f, hits = 0.f;
   constexpr int kWin = kW > 0 ? kW : 1;
@@ -128,8 +130,8 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
     if constexpr (kW == 0) {
       for (int j = 0; alive && j < nb; ++j) {
         gut::Hit h;
-        if (!gut::eval_hit<kDeg>(&s_rec[0][j], kBatch, dx, dy, dz, tmin, tmax,
-                                 s_rec[kRec][j], p, h)) {
+        if (!gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
+                                       s_rec[kRec][j], p, h)) {
           continue;
         }
         composite(h, j);
@@ -139,14 +141,14 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
       for (int w0 = 0; alive && w0 < nb; w0 += kWin) {
         float key[kWin];
         uint8_t lane[kWin];
-        const int n = gut::sort_window<kDeg, kWin>(
+        const int n = gut::sort_window<kDeg, kWin, kGen>(
             &s_rec[0][0], kBatch, s_rec[kRec], max(w0, lo0),
-            min(w0 + kWin, nb), dx, dy, dz, tmin, tmax, p, key, lane);
+            min(w0 + kWin, nb), ray, p, key, lane);
         for (int i = 0; alive && i < n; ++i) {
           const int j = lane[i];
           gut::Hit h;
-          gut::eval_hit<kDeg>(&s_rec[0][j], kBatch, dx, dy, dz, tmin, tmax,
-                              s_rec[kRec][j], p, h);
+          gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray, s_rec[kRec][j],
+                                    p, h);
           composite(h, j);
         }
       }
@@ -166,22 +168,27 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
 
 }  // namespace
 
-// degree: 2 or 4; window: 0 (global-Z order) or 16 (sorted mode).
+// degree: 2 or 4; window: 0 (global-Z order) or 16 (sorted mode); general:
+// 1 reads ray_o (the general-geometry mode), 0 ignores it.
 extern "C" int raster_fwd_launch(
     const float* table, const int32_t* pair_particle,
-    const int32_t* tile_start, const float* ray_d, const float* ray_tmin,
-    const float* ray_tmax, int width, int height, int grid_x, int num_tiles,
-    int degree, int window, float min_transmittance, float max_alpha,
+    const int32_t* tile_start, const float* ray_o, const float* ray_d,
+    const float* ray_tmin, const float* ray_tmax, int width, int height,
+    int grid_x, int num_tiles, int degree, int window, int general,
+    float min_transmittance, float max_alpha,
     float sq_thr_response, float log_min_alpha, float gg_scale,
     float* out_feat, float* out_opacity, float* out_depth, float* out_hits,
     float* out_tfinal, void* stream) {
   gut::RasterParams p{width, height, grid_x, min_transmittance, max_alpha,
                       sq_thr_response, log_min_alpha, gg_scale};
   if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
-  return gut::launch_mode(degree, window, [&](auto deg, auto win) {
-    raster_fwd_kernel<decltype(deg)::value, decltype(win)::value>
+  return gut::launch_mode(degree, window, general, [&](auto deg, auto win,
+                                                       auto gen) {
+    raster_fwd_kernel<decltype(deg)::value, decltype(win)::value,
+                      decltype(gen)::value>
         <<<num_tiles, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-            table, pair_particle, tile_start, ray_d, ray_tmin, ray_tmax, p,
+            table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
+            ray_tmax, p,
             out_feat, out_opacity, out_depth, out_hits, out_tfinal);
   });
 }

@@ -24,6 +24,9 @@
 // past the last tile, keep the zeros the wrapper allocates, as the TPU
 // kernel's zero rows do (raster.py:2272-2287).
 //
+// In the general-geometry mode (kGen) the hit is common.cuh:
+// eval_hit_general with the pixel's own ray origin, as in kernel B.
+//
 // Bound on this card: kernel B's per-(pixel, pair) arithmetic plus one
 // warp reduction per pair; 64 B gathered and 4 B written per pair.
 //
@@ -44,11 +47,12 @@ constexpr int kBatch = 256;        // pairs staged per batch
 constexpr int kStaged = kRec + 1;  // + squared-distance threshold
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int kDeg, int kW>
+template <int kDeg, int kW, bool kGen>
 __global__ void __launch_bounds__(kBlock)
 wmax_kernel(const float* __restrict__ table,            // [C, 16]
             const int32_t* __restrict__ pair_particle,  // [P]
             const int32_t* __restrict__ tile_start,     // [T + 1]
+            const float* __restrict__ ray_o,            // [H, W, 3], kGen
             const float* __restrict__ ray_d,            // [H, W, 3]
             const float* __restrict__ ray_tmin,         // [H, W]
             const float* __restrict__ ray_tmax,         // [H, W]
@@ -64,14 +68,8 @@ wmax_kernel(const float* __restrict__ table,            // [C, 16]
   const bool inside = px < p.width && py < p.height;
   const int64_t pix = static_cast<int64_t>(py) * p.width + px;
 
-  float dx = 0.f, dy = 0.f, dz = 0.f, tmin = 0.f, tmax = -1.f;
-  if (inside) {
-    dx = ray_d[3 * pix + 0];
-    dy = ray_d[3 * pix + 1];
-    dz = ray_d[3 * pix + 2];
-    tmin = ray_tmin[pix];
-    tmax = ray_tmax[pix];
-  }
+  const gut::Ray ray =
+      gut::load_ray<kGen>(ray_o, ray_d, ray_tmin, ray_tmax, inside, pix);
   bool alive = inside;
   float trans = 1.f;
   constexpr int kWin = kW > 0 ? kW : 1;
@@ -114,8 +112,8 @@ wmax_kernel(const float* __restrict__ table,            // [C, 16]
       for (int j = 0; j < nb; ++j) {
         float w = 0.f;
         gut::Hit h;
-        if (alive && gut::eval_hit<kDeg>(&s_rec[0][j], kBatch, dx, dy, dz,
-                                         tmin, tmax, s_rec[kRec][j], p, h)) {
+        if (alive && gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
+                                               s_rec[kRec][j], p, h)) {
           w = blend(h);
         }
         reduce(w, j);
@@ -128,14 +126,14 @@ wmax_kernel(const float* __restrict__ table,            // [C, 16]
         if (alive) {
           float key[kWin];
           uint8_t order[kWin];
-          const int n = gut::sort_window<kDeg, kWin>(
+          const int n = gut::sort_window<kDeg, kWin, kGen>(
               &s_rec[0][0], kBatch, s_rec[kRec], max(w0, lo0),
-              min(w0 + kWin, nb), dx, dy, dz, tmin, tmax, p, key, order);
+              min(w0 + kWin, nb), ray, p, key, order);
           for (int i = 0; alive && i < n; ++i) {
             const int j = order[i];
             gut::Hit h;
-            gut::eval_hit<kDeg>(&s_rec[0][j], kBatch, dx, dy, dz, tmin, tmax,
-                                s_rec[kRec][j], p, h);
+            gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
+                                      s_rec[kRec][j], p, h);
             wv[j - w0] = blend(h);
           }
         }
@@ -152,22 +150,27 @@ wmax_kernel(const float* __restrict__ table,            // [C, 16]
 
 }  // namespace
 
-// degree: 2 or 4; window: 0 (global-Z order) or 16 (sorted mode).
+// degree: 2 or 4; window: 0 (global-Z order) or 16 (sorted mode); general:
+// 1 reads ray_o (the general-geometry mode), 0 ignores it.
 extern "C" int wmax_launch(const float* table, const int32_t* pair_particle,
-                           const int32_t* tile_start, const float* ray_d,
-                           const float* ray_tmin, const float* ray_tmax,
-                           int width, int height, int grid_x, int num_tiles,
-                           int degree, int window, float min_transmittance,
+                           const int32_t* tile_start, const float* ray_o,
+                           const float* ray_d, const float* ray_tmin,
+                           const float* ray_tmax, int width, int height,
+                           int grid_x, int num_tiles, int degree, int window,
+                           int general, float min_transmittance,
                            float max_alpha, float sq_thr_response,
                            float log_min_alpha, float gg_scale, float* wpair,
                            void* stream) {
   gut::RasterParams p{width, height, grid_x, min_transmittance, max_alpha,
                       sq_thr_response, log_min_alpha, gg_scale};
   if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
-  return gut::launch_mode(degree, window, [&](auto deg, auto win) {
-    wmax_kernel<decltype(deg)::value, decltype(win)::value>
+  return gut::launch_mode(degree, window, general, [&](auto deg, auto win,
+                                                       auto gen) {
+    wmax_kernel<decltype(deg)::value, decltype(win)::value,
+                decltype(gen)::value>
         <<<num_tiles, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-            table, pair_particle, tile_start, ray_d, ray_tmin, ray_tmax, p,
+            table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
+            ray_tmax, p,
             wpair);
   });
 }

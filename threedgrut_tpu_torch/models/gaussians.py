@@ -184,7 +184,7 @@ class GaussianModel(nn.Module):
                  config=None, device="cpu"):
         """From a 3DGS ``.ply`` (raw parameters), padded to capacity the
         way the JAX package's ``export/ply.import_model`` pads."""
-        from threedgrut_tpu.export.ply import import_ply  # numpy only
+        from .ply import import_ply
 
         raw = import_ply(path)
         n = raw["positions"].shape[0]

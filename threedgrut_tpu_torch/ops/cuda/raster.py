@@ -12,6 +12,14 @@ Their headers say what bounds them and how they are laid out. On CPU
 tensors the wrappers run the plain PyTorch versions
 ``rasterize_tiles_plain`` and ``rasterize_tiles_backward_plain``.
 
+The general-geometry mode (``ray_o`` given; raster.py chunk_hits_general
+and the general pullback of _bwd_chunk_grads, the TPU's kernel 5) takes
+a per-pixel ray origin: a rolling-shutter camera, or a caller's own rays.
+Its table holds the particle position p in slots 0-2 instead of
+a = M (o - p), and each (pixel, pair) forms a = M (o_pix - p); the rest
+of the record, the walk, the windows and the reduction are the
+shared-origin mode's. Its launches count apart, in ``launches_general``.
+
 ``rasterize_tiles`` is differentiable in ``table`` (the JAX
 ``rasterize_tiles`` custom_vjp, raster.py:2477-2519): its backward runs
 kernel C, then kernel D (``ops/cuda/fold.py``) to fold the per-pair
@@ -31,7 +39,8 @@ from ..ut import TILE_PIXELS, TILE_X, TILE_Y
 from . import build
 from .fold import fold_pairs
 
-RECORD_DIM = 16  # a = M(o - p) (3), M = diag(1/s) R^T (9), density, rgb(3)
+# a = M(o - p) (general mode: p) (3), M = diag(1/s) R^T (9), density, rgb(3)
+RECORD_DIM = 16
 
 
 class FoldMeta(NamedTuple):
@@ -73,11 +82,11 @@ def _window(cfg) -> int:
     return cfg.sort_window
 
 
-def _mode(cfg):
-    """The launch arguments (degree, window, then the float parameters)
-    shared by kernels B, C and E."""
+def _mode(cfg, general: bool):
+    """The launch arguments (degree, window, general, then the float
+    parameters) shared by kernels B, C and E."""
     s, thr_resp, log_min_alpha = _thresholds(cfg)
-    return ((cfg.kernel_degree, _window(cfg)),
+    return ((cfg.kernel_degree, _window(cfg), int(general)),
             (cfg.min_transmittance, cfg.max_alpha, thr_resp, log_min_alpha,
              s))
 
@@ -86,7 +95,8 @@ def _grid(h, w):
     return (w + TILE_X - 1) // TILE_X, (h + TILE_Y - 1) // TILE_Y
 
 
-def _check_inputs(table, pair_particle, tile_start, ray_d, tmin, tmax):
+def _check_inputs(table, pair_particle, tile_start, ray_d, tmin, tmax,
+                  ray_o=None):
     h, w = ray_d.shape[:2]
     gx, gy = _grid(h, w)
     dev = table.device
@@ -96,6 +106,8 @@ def _check_inputs(table, pair_particle, tile_start, ray_d, tmin, tmax):
           (pair_particle.shape[0],), dev)
     check("tile_start", tile_start, torch.int32, (gx * gy + 1,), dev)
     check("ray_d", ray_d, torch.float32, (h, w, 3), dev)
+    if ray_o is not None:
+        check("ray_o", ray_o, torch.float32, (h, w, 3), dev)
     check("tmin", tmin, torch.float32, (h, w), dev)
     check("tmax", tmax, torch.float32, (h, w), dev)
     if dev.type not in ("cpu", "cuda"):
@@ -106,18 +118,25 @@ def _check_inputs(table, pair_particle, tile_start, ray_d, tmin, tmax):
 def rasterize_tiles(table: torch.Tensor, pair_particle: torch.Tensor,
                     tile_start: torch.Tensor, ray_d: torch.Tensor,
                     tmin: torch.Tensor, tmax: torch.Tensor, cfg,
-                    fold: Optional[FoldMeta] = None):
+                    fold: Optional[FoldMeta] = None,
+                    ray_o: Optional[torch.Tensor] = None):
     """Composite each tile's depth-ordered pairs front to back.
 
     Args:
-        table: [C, 16] f32 per-particle record (a, M, density, rgb).
+        table: [C, 16] f32 per-particle record (a, M, density, rgb; in
+            the general mode p, M, density, rgb).
         pair_particle: [P] i32 particle of each pair, tile-sorted.
         tile_start: [T + 1] i32 pair-segment boundaries per tile.
-        ray_d: [H, W, 3] f32 unit world ray directions (shared origin).
+        ray_d: [H, W, 3] f32 world ray directions (unit length for a
+            shared origin; the general mode's hit distance scales with
+            |d|, as JAX's does).
         tmin, tmax: [H, W] f32 per-ray t-range.
         cfg: RasterConfig.
         fold: the binning's FoldMeta; needed when ``table`` requires
             grad, for the backward's fold into the table.
+        ray_o: [H, W, 3] f32 per-pixel world ray origins: the general
+            mode. None: every ray starts at the origin the table's a was
+            built from.
 
     Returns (features [H,W,3], opacity [H,W,1], depth [H,W,1],
     hits [H,W,1]), all f32; hits carries no gradient.
@@ -127,25 +146,38 @@ def rasterize_tiles(table: torch.Tensor, pair_particle: torch.Tensor,
             raise ValueError("table requires grad: pass the binning's "
                              "FoldMeta, which the backward needs")
         return _Rasterize.apply(table, pair_particle, tile_start, ray_d,
-                                tmin, tmax, cfg, fold)
+                                tmin, tmax, cfg, fold, ray_o)
     return rasterize_tiles_forward(table, pair_particle, tile_start, ray_d,
-                                   tmin, tmax, cfg)[:4]
+                                   tmin, tmax, cfg, ray_o)[:4]
 
 
-# kernel B launches (by rasterize_tiles and rasterize_tiles_forward)
+# kernel B launches (by rasterize_tiles and rasterize_tiles_forward), in
+# the shared-origin and in the general mode
 rasterize_tiles.launches = 0
+rasterize_tiles.launches_general = 0
+
+
+def _count(fn, ray_o):
+    if ray_o is None:
+        fn.launches += 1
+    else:
+        fn.launches_general += 1
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def rasterize_tiles_forward(table, pair_particle, tile_start, ray_d, tmin,
-                            tmax, cfg):
+                            tmax, cfg, ray_o=None):
     """Kernel B: (features, opacity, depth, hits, T_final), the last four
     [H, W, 1]. No autograd."""
     h, w, gx, gy, dev = _check_inputs(table, pair_particle, tile_start,
-                                      ray_d, tmin, tmax)
-    ints, floats = _mode(cfg)
+                                      ray_d, tmin, tmax, ray_o)
+    ints, floats = _mode(cfg, ray_o is not None)
     if dev.type == "cpu":
         return rasterize_tiles_plain(table, pair_particle, tile_start,
-                                     ray_d, tmin, tmax, cfg)
+                                     ray_d, tmin, tmax, cfg, ray_o)
     feat = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     opacity, depth, hits, t_final = (
         torch.empty((h, w, 1), dtype=torch.float32, device=dev)
@@ -153,50 +185,55 @@ def rasterize_tiles_forward(table, pair_particle, tile_start, ray_d, tmin,
     lib = _lib("raster_fwd")
     err = lib.raster_fwd_launch(
         table.data_ptr(), pair_particle.data_ptr(), tile_start.data_ptr(),
-        ray_d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), w, h, gx,
-        gx * gy, *ints, *floats, feat.data_ptr(), opacity.data_ptr(),
-        depth.data_ptr(), hits.data_ptr(), t_final.data_ptr(),
+        _ptr(ray_o), ray_d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+        w, h, gx, gx * gy, *ints, *floats, feat.data_ptr(),
+        opacity.data_ptr(), depth.data_ptr(), hits.data_ptr(),
+        t_final.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("raster_fwd", err, lib)
-    rasterize_tiles.launches += 1
+    _count(rasterize_tiles, ray_o)
     return feat, opacity, depth, hits, t_final
 
 
 def rasterize_tiles_backward(table, pair_particle, tile_start, ray_d, tmin,
                              tmax, feat, depth, t_final, g_feat, g_opacity,
-                             g_depth, cfg) -> torch.Tensor:
+                             g_depth, cfg, ray_o=None) -> torch.Tensor:
     """Kernel C: per-pair record gradients d_records [P, 16] f32 in
     tile-sorted pair order, from the saved forward outputs (features
     [H,W,3], depth and T_final [H,W,1]) and the upstream gradients of
     features [H,W,3], opacity and depth [H,W,1]. Pairs past the last tile
-    (culled) and pairs behind every pixel's kill read zero."""
+    (culled) and pairs behind every pixel's kill read zero. In the
+    general mode (``ray_o``) rows 0-2 are d/dp and 3-11 d/dM of the
+    general table."""
     h, w, gx, gy, dev = _check_inputs(table, pair_particle, tile_start,
-                                      ray_d, tmin, tmax)
+                                      ray_d, tmin, tmax, ray_o)
     for name, t, c in (("feat", feat, 3), ("depth", depth, 1),
                        ("t_final", t_final, 1), ("g_feat", g_feat, 3),
                        ("g_opacity", g_opacity, 1), ("g_depth", g_depth, 1)):
         build.check_tensor(name, t, torch.float32, (h, w, c), dev)
-    ints, floats = _mode(cfg)
+    ints, floats = _mode(cfg, ray_o is not None)
     if dev.type == "cpu":
         return rasterize_tiles_backward_plain(
             table, pair_particle, tile_start, ray_d, tmin, tmax, feat, depth,
-            t_final, g_feat, g_opacity, g_depth, cfg)
+            t_final, g_feat, g_opacity, g_depth, cfg, ray_o)
     p = pair_particle.shape[0]
     d_records = torch.zeros((p, RECORD_DIM), dtype=torch.float32, device=dev)
     lib = _lib("raster_bwd")
     err = lib.raster_bwd_launch(
         table.data_ptr(), pair_particle.data_ptr(), tile_start.data_ptr(),
-        ray_d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), feat.data_ptr(),
-        depth.data_ptr(), t_final.data_ptr(), g_feat.data_ptr(),
-        g_opacity.data_ptr(), g_depth.data_ptr(), w, h, gx, gx * gy,
+        _ptr(ray_o), ray_d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+        feat.data_ptr(), depth.data_ptr(), t_final.data_ptr(),
+        g_feat.data_ptr(), g_opacity.data_ptr(), g_depth.data_ptr(), w, h,
+        gx, gx * gy,
         *ints, *floats, d_records.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("raster_bwd", err, lib)
-    rasterize_tiles_backward.launches += 1
+    _count(rasterize_tiles_backward, ray_o)
     return d_records
 
 
 rasterize_tiles_backward.launches = 0
+rasterize_tiles_backward.launches_general = 0
 
 
 class _Rasterize(torch.autograd.Function):
@@ -206,11 +243,11 @@ class _Rasterize(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, pair_particle, tile_start, ray_d, tmin, tmax,
-                cfg, fold):
+                cfg, fold, ray_o):
         feat, opacity, depth, hits, t_final = rasterize_tiles_forward(
-            table, pair_particle, tile_start, ray_d, tmin, tmax, cfg)
+            table, pair_particle, tile_start, ray_d, tmin, tmax, cfg, ray_o)
         ctx.save_for_backward(table, pair_particle, tile_start, ray_d, tmin,
-                              tmax, feat, depth, t_final)
+                              tmax, feat, depth, t_final, ray_o)
         ctx.cfg = cfg
         ctx.fold = fold
         ctx.mark_non_differentiable(hits)
@@ -219,7 +256,7 @@ class _Rasterize(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_feat, g_opacity, g_depth, _g_hits):
         (table, pair_particle, tile_start, ray_d, tmin, tmax, feat, depth,
-         t_final) = ctx.saved_tensors
+         t_final, ray_o) = ctx.saved_tensors
 
         def grad_or_zeros(g, like):
             return (torch.zeros_like(like) if g is None
@@ -229,18 +266,18 @@ class _Rasterize(torch.autograd.Function):
             table, pair_particle, tile_start, ray_d, tmin, tmax, feat, depth,
             t_final, grad_or_zeros(g_feat, feat),
             grad_or_zeros(g_opacity, depth), grad_or_zeros(g_depth, depth),
-            ctx.cfg)
+            ctx.cfg, ray_o)
         f = ctx.fold
         d_table = fold_pairs(d_records, f.perm, f.order, f.excl, f.counts,
                              f.limit, table.shape[0])
-        return d_table, None, None, None, None, None, None, None
+        return d_table, None, None, None, None, None, None, None, None
 
 
 _SIGNATURES = {
     # ptrs, ints, floats, ptrs (outputs), stream
-    "raster_fwd": (6, 6, 5, 5),
-    "raster_bwd": (12, 6, 5, 1),
-    "wmax": (6, 6, 5, 1),      # kernel E, ops/cuda/wmax.py
+    "raster_fwd": (7, 7, 5, 5),
+    "raster_bwd": (13, 7, 5, 1),
+    "wmax": (7, 7, 5, 1),      # kernel E, ops/cuda/wmax.py
 }
 
 
@@ -268,21 +305,24 @@ _PLAIN_BWD_GROUP_PAIRS = 1 << 14
 
 
 class _Tiled(NamedTuple):
-    """Per-tile views of the rays ([T, 256, .]) and the tile grid."""
+    """Per-tile views of the rays ([T, 256, .]) and the tile grid; ``ro``
+    is None in the shared-origin mode."""
     rd: torch.Tensor
     tmin: torch.Tensor
     tmax: torch.Tensor
     gx: int
     gy: int
+    ro: Optional[torch.Tensor] = None
 
 
-def _tilize_rays(ray_d, tmin, tmax) -> _Tiled:
+def _tilize_rays(ray_d, tmin, tmax, ray_o=None) -> _Tiled:
     h, w = ray_d.shape[:2]
     gx, gy = _grid(h, w)
     return _Tiled(_tilize(ray_d, gx, gy, 1.0),
                   _tilize(tmin[..., None], gx, gy, 0.0)[..., 0],
                   _tilize(tmax[..., None], gx, gy, -1.0)[..., 0],  # empty
-                  gx, gy)
+                  gx, gy,
+                  None if ray_o is None else _tilize(ray_o, gx, gy, 0.0))
 
 
 def _tilize(a, gx, gy, fill):
@@ -315,15 +355,25 @@ def _tile_groups(starts, n_tiles, max_pairs):
         t0 = t1
 
 
-def _hit_terms(rec, d):
+def _hit_terms(rec, d, o=None):
     """(sq, hit_t) [P, 256] of records [P, 16] on ray dirs [P, 256, 3],
-    in the fp32 operation order of common.cuh:eval_hit."""
+    in the fp32 operation order of common.cuh:eval_hit; with per-pixel
+    origins ``o`` [P, 256, 3] the general mode's (eval_hit_general):
+    a = M (o - p) from the position p in slots 0-2, and hit_t scaled by
+    |d|."""
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
 
     def col(i):
         return rec[:, i:i + 1]
 
-    ax, ay, az = col(0), col(1), col(2)
+    if o is None:
+        ax, ay, az = col(0), col(1), col(2)
+    else:
+        ex, ey, ez = o[..., 0] - col(0), o[..., 1] - col(1), \
+            o[..., 2] - col(2)
+        ax = col(3) * ex + col(4) * ey + col(5) * ez
+        ay = col(6) * ex + col(7) * ey + col(8) * ez
+        az = col(9) * ex + col(10) * ey + col(11) * ez
     bx = col(3) * dx + col(4) * dy + col(5) * dz
     by = col(6) * dx + col(7) * dy + col(8) * dz
     bz = col(9) * dx + col(10) * dy + col(11) * dz
@@ -333,6 +383,8 @@ def _hit_terms(rec, d):
     inv_m = 1.0 / torch.clamp(bx * bx + by * by + bz * bz, min=1e-30)
     sq = (cx * cx + cy * cy + cz * cz) * inv_m
     hit_t = -(ax * bx + ay * by + az * bz) * inv_m
+    if o is not None:
+        hit_t = hit_t * torch.sqrt(dx * dx + dy * dy + dz * dz)
     return sq, hit_t
 
 
@@ -377,7 +429,8 @@ def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
     local = torch.repeat_interleave(torch.arange(t1 - t0, device=dev), counts)
     tile = local + t0                                      # [P]
     d = rays.rd[tile]                                      # [P, 256, 3]
-    sq, hit_t = _hit_terms(rec, d)
+    o = None if rays.ro is None else rays.ro[tile]
+    sq, hit_t = _hit_terms(rec, d, o)
     dens = rec[:, 12:13]
     thr = torch.clamp((log_min_alpha - torch.log(torch.clamp(dens, min=1e-30)))
                       / s, max=thr_resp)
@@ -392,7 +445,8 @@ def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
         alpha = torch.where(keep, alpha, torch.zeros_like(alpha)).double()
         hit_t, rgb = hit_t.double(), rec[:, 13:16].double()
     else:
-        sq64, hit_t = _hit_terms(rec64, d.double())
+        sq64, hit_t = _hit_terms(rec64, d.double(),
+                                 None if o is None else o.double())
         alpha = torch.clamp(particle_response(sq64, cfg.kernel_degree)
                             * rec64[:, 12:13], max=cfg.max_alpha)
         alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
@@ -438,7 +492,7 @@ def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
 
 
 def rasterize_tiles_plain(table, pair_particle, tile_start, ray_d, tmin,
-                          tmax, cfg):
+                          tmax, cfg, ray_o=None):
     """Plain PyTorch version of ``rasterize_tiles_forward``.
 
     Vectorised over (pair, pixel): per-pair alpha for the 256 pixels of
@@ -448,7 +502,7 @@ def rasterize_tiles_plain(table, pair_particle, tile_start, ray_d, tmin,
     groups so the temporaries stay bounded.
     """
     h, w = ray_d.shape[:2]
-    rays = _tilize_rays(ray_d, tmin, tmax)
+    rays = _tilize_rays(ray_d, tmin, tmax, ray_o)
     n_tiles = rays.gx * rays.gy
     out = torch.zeros((n_tiles, TILE_PIXELS, 6), dtype=torch.float64,
                       device=table.device)   # rgb, depth, hits, final T
@@ -470,7 +524,7 @@ def rasterize_tiles_plain(table, pair_particle, tile_start, ray_d, tmin,
 
 def rasterize_tiles_backward_plain(table, pair_particle, tile_start, ray_d,
                                    tmin, tmax, feat, depth, t_final, g_feat,
-                                   g_opacity, g_depth, cfg):
+                                   g_opacity, g_depth, cfg, ray_o=None):
     """Plain PyTorch version of ``rasterize_tiles_backward``: autograd
     through the float64 compositing of ``_composite_group``, with each
     group's gathered records as the leaf, tile group by tile group. The
@@ -478,7 +532,7 @@ def rasterize_tiles_backward_plain(table, pair_particle, tile_start, ray_d,
     outputs (feat, depth, t_final) are not needed, the group recomputes
     them."""
     del feat, depth, t_final
-    rays = _tilize_rays(ray_d, tmin, tmax)
+    rays = _tilize_rays(ray_d, tmin, tmax, ray_o)
     n_tiles = rays.gx * rays.gy
     gx, gy = rays.gx, rays.gy
     g_rgb = _tilize(g_feat.double(), gx, gy, 0.0)             # [T, 256, 3]

@@ -1,6 +1,7 @@
 """Unscented-Transform particle projection (port of threedgrut_tpu/ops/ut.py).
 
-Projects each Gaussian through the camera with 7 sigma points, giving a
+Projects each Gaussian through the camera (any model, global or rolling
+shutter) with 7 sigma points, giving a
 2D mean and covariance, the conic, the (mip-scaled) opacity, the screen
 extent and the sort depth (reference gutProjector.cuh:32-322). Plain
 elementwise PyTorch over particles; no kernel is needed here.
@@ -14,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from .cameras import CameraModel, project_world_point
+from .cameras import CameraModel, project_point_with_shutter
 from .quaternion import quat_normalize, quat_to_rotmat
 
 TILE_X = 16
@@ -28,6 +29,7 @@ class UTConfig:
     alpha: float = 1.0
     beta: float = 2.0
     kappa: float = 0.0
+    n_rolling_shutter_iterations: int = 5
     image_margin_factor: float = 0.1
     require_all_sigma_points: bool = False
     rect_bounding: bool = True
@@ -76,8 +78,12 @@ def unscented_projection(cam: CameraModel, cfg: UTConfig,
     p = positions[:, None, :]
     sigma_pts = torch.cat([p, p + deltas, p - deltas], dim=1)   # [N,7,3]
 
-    proj, valid_pt = project_world_point(cam, sigma_pts,
-                                         tolerance=cfg.image_margin_factor)
+    # rolling shutter: each sigma point at its own shutter time; the
+    # sensor position, sort depth and view direction below stay on the
+    # start pose, as in JAX (ut.py:96-124, 168-171)
+    proj, valid_pt = project_point_with_shutter(
+        cam, sigma_pts, tolerance=cfg.image_margin_factor,
+        n_iterations=cfg.n_rolling_shutter_iterations)
     num_valid = torch.sum(valid_pt.to(torch.int32), dim=1)
 
     center = w0 * proj[:, 0, :] + wi * torch.sum(proj[:, 1:, :], dim=1)

@@ -14,8 +14,9 @@ from typing import Optional
 
 import torch
 
-from ..ops.cameras import CameraModel, pinhole_camera_rays
-from ..ops.quaternion import quat_to_rotmat
+from ..ops.cameras import (CameraModel, CameraModelType, ShutterType,
+                           fisheye_camera_rays, pinhole_camera_rays)
+from ..ops.quaternion import quat_slerp, quat_to_rotmat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,14 +49,41 @@ class RasterConfig:
 
 
 def camera_rays_world(cam: CameraModel):
-    """Per-pixel world-space rays of a global-shutter pinhole camera:
-    (origins [H,W,3], unit dirs [H,W,3])."""
-    o, d = pinhole_camera_rays(cam.width, cam.height, cam.focal[0],
-                               cam.focal[1], cam.principal[0],
-                               cam.principal[1], device=cam.device)
+    """Per-pixel world-space rays through the ray-generation pose:
+    (origins [H,W,3], unit dirs [H,W,3]) (JAX render/common.py:99-127).
+
+    Pinhole rays for a pinhole camera, the fisheye model's own rays for
+    a fisheye one. A rolling-shutter camera casts its rays from the
+    MID-shutter pose (the reference's gutRenderer.cu:265-267,
+    interpolatedSensorPose(start, end, 0.5)) while the projection uses
+    the per-time poses; with a global shutter start == mid == end.
+
+    FTheta raises: the JAX function casts pinhole rays through its
+    ``focal = (1, 1)`` (ops/cameras.py:158), pixel offsets divided by
+    one, which is not the FTheta camera's geometry (ROADMAP.md section
+    3); the port does not copy it.
+    """
+    w, h = cam.resolution
+    if cam.model_type == int(CameraModelType.FTHETA):
+        raise NotImplementedError(
+            "FTheta camera rays: the JAX package casts pinhole rays with "
+            "focal (1, 1) for FTheta (render/common.py:110-115, "
+            "ops/cameras.py:158), which is wrong; not ported")
+    if cam.model_type == int(CameraModelType.OPENCV_FISHEYE):
+        o, d = fisheye_camera_rays(w, h, cam.focal, cam.principal,
+                                   cam.radial[:4], cam.max_angle)
+    else:
+        o, d = pinhole_camera_rays(w, h, cam.focal[0], cam.focal[1],
+                                   cam.principal[0], cam.principal[1],
+                                   device=cam.device)
+    if cam.shutter_type == int(ShutterType.GLOBAL):
+        q_ray, t_ray = cam.q_start, cam.t_start
+    else:
+        q_ray = quat_slerp(cam.q_start, cam.q_end, 0.5)
+        t_ray = 0.5 * (cam.t_start + cam.t_end)
     # world <- camera: x_w = R^T (x_c - t)
-    rot = quat_to_rotmat(cam.q_start)
-    cam_center = -(rot.T @ cam.t_start)
+    rot = quat_to_rotmat(q_ray)
+    cam_center = -(rot.T @ t_ray)
     d_w = torch.einsum("ij,hwi->hwj", rot, d)
     o_w = cam_center + torch.einsum("ij,hwi->hwj", rot, o)
     return o_w, d_w

@@ -30,8 +30,9 @@ def grt_raster_config(base: Optional[RasterConfig] = None) -> RasterConfig:
 
 
 def render_grt(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
-               model: GaussianModel, sh_degree: int):
-    """Primary-ray 3DGRT render (camera view), differentiable in the
-    model's parameters."""
+               model: GaussianModel, sh_degree: int, rays=None):
+    """Primary-ray 3DGRT render (camera view, or the world-space
+    ``rays`` = (ray_o, ray_d) given), differentiable in the model's
+    parameters."""
     return render_gut(cam, ut_cfg, grt_raster_config(raster_cfg), model,
-                      sh_degree)
+                      sh_degree, rays=rays)

@@ -1,11 +1,15 @@
 """3DGUT renderer: UT projection -> binning -> raster
 (port of threedgrut_tpu/render/gut.py:34-82, 110-131, 137-320).
 
-The training and serving mode of the JAX renderer: pinhole camera with a
-global shutter (one shared ray origin), SH features evaluated per
+The training and serving mode of the JAX renderer: pinhole or fisheye
+cameras with a global or a rolling shutter, SH features evaluated per
 particle, compositing with the reference's exact kill in global-Z order
 or, with ``raster_cfg.sorted_compositing``, in per-ray sorted windows
-(3DGRT, ``render/grt.py``, and sorted 3DGUT).
+(3DGRT, ``render/grt.py``, and sorted 3DGUT). As in JAX
+(render/gut.py:191-196), a global-shutter camera's rays share one
+origin, and the raster kernels run their shared-origin mode; a rolling
+shutter, or rays passed in (``rays=``), take the general-geometry mode
+with a per-pixel origin.
 The raster kernel gathers each pair's record from the per-particle table
 itself, so no [P, 16] records array is built, and writes straight into
 [H, W, .] images, so no tile-packed rays or outputs exist either.
@@ -24,14 +28,14 @@ Returned dict mirrors the JAX package: ``pred_features`` [H,W,3],
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..models.gaussians import GaussianModel
 from ..ops import binning as binning_ops
 from ..ops import ut as ut_ops
-from ..ops.cameras import CameraModel
+from ..ops.cameras import CameraModel, ShutterType
 from ..ops.cuda.raster import FoldMeta, rasterize_tiles
 from ..ops.cuda.wmax import pair_weight_max, particle_weight_max
 from ..ops.quaternion import quat_normalize, quat_to_rotmat
@@ -64,13 +68,18 @@ def _ray_aabb(ray_o, ray_d, lo, hi):
     return torch.clamp(tmin, min=0.0), tmax
 
 
-def particle_table(model: GaussianModel, origin: torch.Tensor,
+def particle_table(model: GaussianModel, origin: Optional[torch.Tensor],
                    feats: torch.Tensor) -> torch.Tensor:
     """[C, 16] per-particle records of the shared-origin hit model:
     a = M (o - p), M = diag(1/s) R^T (row-major), density, rgb
-    (gut.py:233-247)."""
+    (gut.py:233-247). With ``origin`` None, the general mode's records:
+    the position p in place of a (the kernels form a = M (o_pix - p) per
+    pixel, never M o - M p, which cancels at large world coordinates)."""
     rot = quat_to_rotmat(quat_normalize(model.rotation))   # [C,3,3]
     m_mat = (1.0 / model.get_scale())[:, :, None] * rot.transpose(1, 2)
+    if origin is None:
+        return torch.cat([model.positions, m_mat.reshape(-1, 9),
+                          model.get_density(), feats], dim=1).contiguous()
     delta = origin - model.positions
     gro = (m_mat[:, :, 0] * delta[:, 0:1] + m_mat[:, :, 1] * delta[:, 1:2]
            + m_mat[:, :, 2] * delta[:, 2:3])
@@ -86,12 +95,22 @@ class ViewInputs(NamedTuple):
     ray_d: torch.Tensor     # [H, W, 3]
     tmin: torch.Tensor      # [H, W]
     tmax: torch.Tensor      # [H, W]
+    ray_o: Optional[torch.Tensor] = None   # [H, W, 3], the general mode
+
+
+def shared_origin(cam: CameraModel, rays=None) -> bool:
+    """Whether every ray of the view starts at the camera's start-pose
+    center (JAX render/gut.py:195-196): camera rays, global shutter."""
+    return rays is None and cam.shutter_type == int(ShutterType.GLOBAL)
 
 
 def prepare_view(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
-                 model: GaussianModel, sh_degree: int) -> ViewInputs:
+                 model: GaussianModel, sh_degree: int,
+                 rays=None) -> ViewInputs:
     """UT projection, SH features, binning, the particle table and the
-    camera rays with their scene-AABB t-ranges."""
+    rays (``rays`` = (ray_o, ray_d) [H, W, 3] world-space, or the
+    camera's) with their scene-AABB t-ranges. In the general mode the
+    table holds positions and ``ray_o`` the per-pixel origins."""
     w, h = cam.resolution
     grid = ((w + TILE_X - 1) // TILE_X, (h + TILE_Y - 1) // TILE_Y)
     proj = ut_ops.unscented_projection(
@@ -105,18 +124,27 @@ def prepare_view(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
         proj, grid, raster_cfg.max_pairs,
         tile_culling=raster_cfg.tile_culling,
         alpha_threshold=ut_cfg.alpha_threshold)
-    table = particle_table(model, ut_ops.sensor_position(cam), feats)
-    ray_o, ray_d = camera_rays_world(cam)
+    shared = shared_origin(cam, rays)
+    table = particle_table(
+        model, ut_ops.sensor_position(cam) if shared else None, feats)
+    ray_o, ray_d = camera_rays_world(cam) if rays is None else rays
     with torch.no_grad():   # rays and t-ranges carry no gradient
+        ray_o = ray_o.detach().to(torch.float32)
+        ray_d = ray_d.detach().to(torch.float32)
         tmin, tmax = _ray_aabb(ray_o, ray_d, *_scene_aabb(model))
     return ViewInputs(proj, b, table, ray_d.contiguous(), tmin.contiguous(),
-                      tmax.contiguous())
+                      tmax.contiguous(),
+                      None if shared else ray_o.contiguous())
 
 
 def render_gut(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
                model: GaussianModel, sh_degree: int,
-               weight_telemetry: bool = False):
+               weight_telemetry: bool = False, rays=None):
     """Render one view (differentiable in the model's parameters).
+
+    ``rays``: optional (ray_o [H,W,3], ray_d [H,W,3]) world-space
+    override of the camera's rays (JAX render/gut.py:137-146); it selects
+    the general-geometry mode, as a rolling shutter does.
 
     ``weight_telemetry``: run the blend-weight kernel (kernel E) instead
     of the compositing and return {"particle_wmax": [C]}, the
@@ -124,17 +152,20 @@ def render_gut(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
     weight pruning reads (JAX render/gut.py:291-297)."""
     if weight_telemetry:
         with torch.no_grad():
-            v = prepare_view(cam, ut_cfg, raster_cfg, model, sh_degree)
+            v = prepare_view(cam, ut_cfg, raster_cfg, model, sh_degree,
+                             rays)
             b = v.binning
             wpair = pair_weight_max(v.table, b.pair_particle, b.tile_start,
-                                    v.ray_d, v.tmin, v.tmax, raster_cfg)
+                                    v.ray_d, v.tmin, v.tmax, raster_cfg,
+                                    v.ray_o)
             return {"particle_wmax": particle_weight_max(
                 wpair, b.pair_particle, model.capacity)}
-    v = prepare_view(cam, ut_cfg, raster_cfg, model, sh_degree)
+    v = prepare_view(cam, ut_cfg, raster_cfg, model, sh_degree, rays)
     b = v.binning
     feat, opacity, depth, hits = rasterize_tiles(
         v.table, b.pair_particle, b.tile_start, v.ray_d, v.tmin, v.tmax,
-        raster_cfg, FoldMeta(b.perm, b.order, b.excl, b.counts, b.limit))
+        raster_cfg, FoldMeta(b.perm, b.order, b.excl, b.counts, b.limit),
+        v.ray_o)
     return {
         "pred_features": feat,
         "pred_opacity": opacity,

@@ -24,8 +24,10 @@ def make_serving_renderer(model: GaussianModel, raster_cfg: RasterConfig,
                           sh_degree: int,
                           ut_cfg: Optional[UTConfig] = None,
                           background: Optional[torch.Tensor] = None):
-    """``render(cams) -> [B, H, W, 3]`` for a sequence of same-resolution
-    cameras. ``background`` (optional [3], default black) is composited
+    """``render(cams) -> [B, H, W, 3]`` for a sequence of cameras of one
+    resolution, one camera model and one shutter type (JAX
+    render/serve.py:49-50): pinhole or fisheye, global or rolling.
+    ``background`` (optional [3], default black) is composited
     against the residual transmittance, as the eval renderer does."""
     ut_cfg = ut_cfg or UTConfig()
     bg = (torch.zeros(3, dtype=torch.float32, device=model.device)
@@ -34,8 +36,10 @@ def make_serving_renderer(model: GaussianModel, raster_cfg: RasterConfig,
                                device=model.device))
 
     def render(cams: Sequence[CameraModel]) -> torch.Tensor:
-        if len({c.resolution for c in cams}) != 1:
-            raise ValueError("a batch needs one resolution")
+        if len({(c.resolution, c.model_type, c.shutter_type)
+                for c in cams}) != 1:
+            raise ValueError("a batch needs one resolution, camera model "
+                             "and shutter type")
         with torch.inference_mode():
             imgs = []
             for cam in cams:

@@ -12,14 +12,18 @@ scripts/gen_synthetic_scene.py:29-126 (the "lego-class" teacher: towers,
 an arch and a ground slab), drawing the same numpy arrays.
 ``teacher_dataset`` renders its views through the port's renderer and
 quantises them as that script's PNG files are, into an in-memory
-dataset the trainer reads.
+dataset the trainer reads: pinhole views, or the two other cameras of
+``CAMERA_KINDS`` (a ScanNet++-like fisheye, an NCore-like rolling
+shutter). ``write_colmap_scene`` writes such views as a COLMAP /
+ScanNet++ capture folder for the training CLI.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List
+import os
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -150,10 +154,14 @@ def camera_pose(azimuth, elevation, radius):
 
 @dataclasses.dataclass
 class View:
-    """One training view, with the fields of the trainer's batches."""
+    """One training view, with the fields of the trainer's batches
+    (``data/protocols.py:Batch``) that ``camera_from_batch`` reads."""
     T_to_world: np.ndarray     # [4, 4] camera-to-world, OpenCV convention
     intrinsics: list           # [fx, fy, cx, cy]
     rgb_gt: torch.Tensor       # [H, W, 3] f32 on the device
+    T_to_world_end: Optional[np.ndarray] = None   # rolling shutter's end
+    shutter_type: str = "global"
+    intrinsics_OpenCVFisheyeCameraModelParameters: Optional[dict] = None
 
     @property
     def resolution(self):
@@ -185,24 +193,108 @@ class ViewDataset:
                      * 1.1)
 
 
-def teacher_dataset(teacher: GaussianModel, n_views: int = 8,
-                    side: int = 800, seed: int = 0, split_offset: int = 1,
-                    background: float = 1.0, ut_cfg=None,
-                    raster_cfg=None) -> ViewDataset:
-    """Views of ``teacher`` on the orbit of gen_synthetic_scene.py's
-    ``write_split`` (same numpy draws), rendered with the port's
-    ``render_gut``. RGB and opacity are cut to uint8 as the PNG path
-    writes them, then composited on ``background`` as the NeRF loader
-    reads them."""
-    from .ops.ut import UTConfig
-    from .render.common import RasterConfig
-    from .render.gut import render_gut
-    from .train.trainer import camera_from_batch
+# The cameras teacher_dataset renders with: (resolution, focal as a
+# fraction of the height, fisheye k1-k4 or None, rolling shutter).
+#   pinhole: NeRF-synthetic-like, side x side, focal 1.111 side;
+#   fisheye: ScanNet++-like DSLR (OPENCV_FISHEYE, 1752x1168), focal
+#     0.675 H (= 0.45 W, ~788 px), k = (-0.03, -0.005, 0.001, -0.0002),
+#     max_angle pi/2;
+#   rolling: NCore-like (configs/dataset/ncore.yaml: 1920x1280) pinhole,
+#     focal 1.1 H, rolling shutter top to bottom: over the readout the
+#     end pose moves ROLLING_SHIFT world units along the camera's right
+#     axis and turns ROLLING_YAW radians about its down axis.
+CAMERA_KINDS = {
+    "pinhole": (None, 1.111, None, False),
+    "fisheye": ((1752, 1168), 0.675, (-0.03, -0.005, 0.001, -0.0002), False),
+    "rolling": ((1920, 1280), 1.1, None, True),
+}
+ROLLING_SHIFT = 0.05
+ROLLING_YAW = 0.01
 
-    ut_cfg = ut_cfg or UTConfig()
-    raster_cfg = raster_cfg or RasterConfig()
+
+def _rolling_end_pose(c2w: np.ndarray) -> np.ndarray:
+    """The camera-to-world pose at the end of the rolling readout."""
+    c, s = math.cos(ROLLING_YAW), math.sin(ROLLING_YAW)
+    yaw = np.asarray([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+    end = np.array(c2w, np.float64)
+    end[:3, :3] = c2w[:3, :3] @ yaw
+    end[:3, 3] = c2w[:3, 3] + ROLLING_SHIFT * c2w[:3, 0]
+    return end.astype(np.float32)
+
+
+# bench.py's pinhole view
+BENCH_SIDE = 800
+
+
+def bench_camera(kind: str = "pinhole", resolution=None, device="cpu"):
+    """The bench view of ``bench_cloud`` (a camera at the origin looking
+    down +z) with the ``kind`` of CAMERA_KINDS at ``resolution`` (W, H;
+    default the kind's own): the pinhole of bench.py (800x800, focal 1.1
+    W), the ScanNet++-like fisheye (1752x1168) or the NCore-like rolling
+    shutter (1920x1280; the end pose of ``_rolling_end_pose``), their
+    focal the table's fraction of H."""
+    from .ops.cameras import (ShutterType, make_fisheye, make_pinhole,
+                              world_to_camera_pose)
+
+    own, focal_frac, radial4, _ = CAMERA_KINDS[kind]
+    w, h = resolution or own or (BENCH_SIDE, BENCH_SIDE)
+    if kind == "pinhole":
+        return make_pinhole((w, h), (1.1 * w, 1.1 * w), (w / 2, h / 2),
+                            device=device)
+    f = focal_frac * h
+    if radial4 is not None:
+        return make_fisheye((w, h), (f, f), (w / 2, h / 2), radial4,
+                            math.pi / 2, device=device)
+    t_end, q_end = world_to_camera_pose(_rolling_end_pose(np.eye(4)))
+    return make_pinhole((w, h), (f, f), (w / 2, h / 2), t_end=t_end,
+                        q_end=q_end,
+                        shutter_type=int(ShutterType.ROLLING_TOP_TO_BOTTOM),
+                        device=device)
+
+
+def orbit_cameras(model: GaussianModel, n_views: int, kind: str = "pinhole",
+                  resolution=None, elevation: float = 0.35, device="cpu"):
+    """``n_views`` cameras on the orbit of ``orbit_geometry`` around the
+    live cloud (scripts/eval_fps.py's serving views) at ``resolution``
+    (W, H; default the kind's own): ``orbit_camera``'s pinhole, or its
+    poses with the intrinsics of ``bench_camera(kind)`` (and, rolling,
+    the end pose of ``_rolling_end_pose``)."""
+    from .ops.cameras import orbit_camera, world_to_camera_pose
+    from .ops.quaternion import quat_to_rotmat
+
+    center, dist = orbit_geometry(model)
+    base = bench_camera(kind, resolution, device)
+    cams = []
+    for az in np.linspace(0.0, 2 * math.pi, n_views, endpoint=False):
+        o = orbit_camera(az, elevation, dist, center=center,
+                         resolution=base.resolution, device=device)
+        if kind == "pinhole":
+            cams.append(o)
+            continue
+        cam = dataclasses.replace(base, t_start=o.t_start, q_start=o.q_start,
+                                  t_end=o.t_start, q_end=o.q_start)
+        if kind == "rolling":
+            r_wc = quat_to_rotmat(o.q_start).double().cpu().numpy()
+            c2w = np.eye(4)
+            c2w[:3, :3] = r_wc.T
+            c2w[:3, 3] = -r_wc.T @ o.t_start.double().cpu().numpy()
+            t_end, q_end = world_to_camera_pose(_rolling_end_pose(c2w))
+            cam.t_end = torch.tensor(t_end, device=device)
+            cam.q_end = torch.tensor(q_end, device=device)
+        cams.append(cam)
+    return cams
+
+
+def teacher_views(n_views: int, resolution, camera: str = "pinhole",
+                  seed: int = 0, split_offset: int = 1) -> List[View]:
+    """The empty views (poses and intrinsics, zero GT) of
+    ``teacher_dataset``: the orbit of gen_synthetic_scene.py's
+    ``write_split`` (same numpy draws) with the ``camera`` of
+    CAMERA_KINDS at ``resolution`` (W, H)."""
+    _, focal_frac, radial4, rolling = CAMERA_KINDS[camera]
+    w, h = resolution
     r2 = np.random.default_rng(seed + split_offset)
-    focal = 1.111 * side
+    focal = focal_frac * h
     views = []
     for i in range(n_views):
         az = i / n_views * 2 * math.pi + r2.uniform(0, 0.05)
@@ -211,8 +303,41 @@ def teacher_dataset(teacher: GaussianModel, n_views: int = 8,
         cv = camera_pose(az, el, radius)
         cv[:3, 1] *= -1          # OpenGL -> OpenCV (right-down-front)
         cv[:3, 2] *= -1
-        view = View(cv.astype(np.float32), [focal, focal, side / 2, side / 2],
-                    torch.zeros((side, side, 3), device=teacher.device))
+        view = View(cv.astype(np.float32), [focal, focal, w / 2, h / 2],
+                    torch.zeros((h, w, 3)))
+        if radial4 is not None:
+            view.intrinsics_OpenCVFisheyeCameraModelParameters = dict(
+                fx=focal, fy=focal, cx=w / 2, cy=h / 2,
+                radial=np.asarray(radial4), max_angle=math.pi / 2)
+        if rolling:
+            view.T_to_world_end = _rolling_end_pose(cv)
+            view.shutter_type = "rolling_top_to_bottom"
+        views.append(view)
+    return views
+
+
+def teacher_dataset(teacher: GaussianModel, n_views: int = 8,
+                    side: int = 800, seed: int = 0, split_offset: int = 1,
+                    background: float = 1.0, ut_cfg=None,
+                    raster_cfg=None, camera: str = "pinhole",
+                    resolution=None) -> ViewDataset:
+    """Views of ``teacher`` on the orbit of gen_synthetic_scene.py's
+    ``write_split`` (same numpy draws), rendered with the port's
+    ``render_gut`` through the ``camera`` of CAMERA_KINDS, at
+    ``resolution`` (W, H; default: the kind's own, side x side for a
+    pinhole). RGB and opacity are cut to uint8 as the PNG path writes
+    them, then composited on ``background`` as the NeRF loader reads
+    them."""
+    from .ops.ut import UTConfig
+    from .render.common import RasterConfig
+    from .render.gut import render_gut
+    from .train.trainer import camera_from_batch
+
+    ut_cfg = ut_cfg or UTConfig()
+    raster_cfg = raster_cfg or RasterConfig()
+    resolution = resolution or CAMERA_KINDS[camera][0] or (side, side)
+    views = teacher_views(n_views, resolution, camera, seed, split_offset)
+    for view in views:
         cam = camera_from_batch(view, teacher.device)
         with torch.no_grad():
             out = render_gut(cam, ut_cfg, raster_cfg, teacher, 3)
@@ -221,5 +346,57 @@ def teacher_dataset(teacher: GaussianModel, n_views: int = 8,
             op = torch.floor(torch.clamp(out["pred_opacity"], 0, 1)
                              * 255.0) / 255.0
             view.rgb_gt = rgb * op + background * (1.0 - op)
-        views.append(view)
     return ViewDataset(views)
+
+
+def write_colmap_scene(path: str, dataset: ViewDataset,
+                       teacher: GaussianModel, n_points: int = 5000,
+                       seed: int = 0):
+    """Write ``dataset``'s views as a ScanNet++-style COLMAP capture:
+    ``images/frame_XXXX.png``, and under ``colmap/sparse/0`` the binary
+    ``cameras.bin`` (one OPENCV_FISHEYE or PINHOLE camera from the first
+    view), ``images.bin`` (world->camera poses) and ``points3D.bin``
+    (``n_points`` of the teacher's live positions with their albedo
+    colours: the COLMAP initialisation). Global-shutter views only."""
+    from PIL import Image
+
+    from .data.colmap import (write_cameras_bin, write_images_bin,
+                              write_points3d_bin)
+    from .ops.cameras import rotmat_to_quat
+
+    sparse = os.path.join(path, "colmap", "sparse", "0")
+    os.makedirs(sparse, exist_ok=True)
+    os.makedirs(os.path.join(path, "images"), exist_ok=True)
+    v0 = dataset[0]
+    w, h = v0.resolution
+    fish = v0.intrinsics_OpenCVFisheyeCameraModelParameters
+    if fish is not None:
+        cam = dict(model="OPENCV_FISHEYE", width=w, height=h,
+                   params=[fish["fx"], fish["fy"], fish["cx"], fish["cy"],
+                           *map(float, fish["radial"])])
+    else:
+        fx, fy, cx, cy = v0.intrinsics
+        cam = dict(model="PINHOLE", width=w, height=h,
+                   params=[fx, fy, cx, cy])
+    write_cameras_bin(os.path.join(sparse, "cameras.bin"), {1: cam})
+    images = {}
+    for i, view in enumerate(dataset.views):
+        if view.T_to_world_end is not None:
+            raise ValueError("COLMAP has no rolling shutter")
+        name = f"frame_{i:04d}.png"
+        rgb = np.clip(np.round(view.rgb_gt.cpu().numpy() * 255.0), 0, 255)
+        Image.fromarray(rgb.astype(np.uint8)).save(
+            os.path.join(path, "images", name))
+        c2w = np.asarray(view.T_to_world, np.float64)
+        r_wc = c2w[:3, :3].T
+        images[i + 1] = dict(qvec=rotmat_to_quat(r_wc),
+                             tvec=-r_wc @ c2w[:3, 3], camera_id=1, name=name)
+    write_images_bin(os.path.join(sparse, "images.bin"), images)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        pos = teacher.positions[:teacher.n_active].cpu().numpy()
+        rgb = (teacher.features_albedo[:teacher.n_active].cpu().numpy()
+               * SH_C0 + 0.5)
+    pick = rng.choice(len(pos), size=min(n_points, len(pos)), replace=False)
+    write_points3d_bin(os.path.join(sparse, "points3D.bin"), pos[pick],
+                       np.clip(np.round(rgb[pick] * 255.0), 0, 255))

@@ -36,7 +36,8 @@ import torch
 
 from ..models import background as bg_mod
 from ..models.gaussians import GaussianModel
-from ..ops.cameras import CameraModel, make_pinhole, rotmat_to_quat
+from ..ops.cameras import (CameraModel, make_fisheye, make_ftheta,
+                           make_pinhole, world_to_camera_pose)
 from ..ops.ssim import psnr, ssim
 from ..ops.ut import UTConfig, sensor_position
 from ..optimizers import adam as adam_mod
@@ -103,22 +104,38 @@ class TrainerConfig:
     print_stats: bool = False
 
 
+_SHUTTER_NAMES = {
+    "global": 0, "rolling_top_to_bottom": 1, "rolling_left_to_right": 2,
+    "rolling_bottom_to_top": 3, "rolling_right_to_left": 4,
+}
+
+
 def camera_from_batch(batch, device="cpu") -> CameraModel:
-    """A pinhole camera from a batch's camera-to-world pose and
-    intrinsics (global shutter). Fisheye and FTheta batches are not
-    ported yet."""
+    """A camera from a batch's camera-to-world pose(s) and intrinsics
+    (JAX train/trainer.py:142-186): OpenCV fisheye, FTheta or pinhole by
+    the intrinsics the batch carries; a rolling shutter, named by its
+    ``shutter_type``, when it has an end pose ``T_to_world_end``."""
+    t, q = world_to_camera_pose(batch.T_to_world)
+    kw = dict(t=t, q=q, device=device)
     if getattr(batch, "T_to_world_end", None) is not None:
-        raise NotImplementedError("rolling-shutter batches are not ported")
-    for kind in ("OpenCVFisheye", "FTheta"):
-        if getattr(batch, f"intrinsics_{kind}CameraModelParameters",
-                   None) is not None:
-            raise NotImplementedError(f"{kind} cameras are not ported")
-    c2w = np.asarray(batch.T_to_world, np.float64)
-    r_wc = c2w[:3, :3].T
-    t_wc = -r_wc @ c2w[:3, 3]
-    kw = dict(t=t_wc.astype(np.float32),
-              q=rotmat_to_quat(r_wc).astype(np.float32), device=device)
+        kw["t_end"], kw["q_end"] = world_to_camera_pose(
+            batch.T_to_world_end)
+        kw["shutter_type"] = _SHUTTER_NAMES.get(
+            str(getattr(batch, "shutter_type", "global")).lower(), 0)
     w, h = batch.resolution
+    fish = getattr(batch, "intrinsics_OpenCVFisheyeCameraModelParameters",
+                   None)
+    if fish is not None:
+        return make_fisheye((w, h), (fish["fx"], fish["fy"]),
+                            (fish["cx"], fish["cy"]), fish["radial"],
+                            fish.get("max_angle", np.pi / 2), **kw)
+    fth = getattr(batch, "intrinsics_FThetaCameraModelParameters", None)
+    if fth is not None:
+        return make_ftheta(
+            (w, h), (fth["cx"], fth["cy"]), fth["angle_to_pixeldist"],
+            fth["pixeldist_to_angle"], fth.get("reference_poly", 0),
+            fth.get("linear_cde", (1.0, 0.0, 0.0)),
+            fth.get("max_angle", np.pi / 2), **kw)
     pin = getattr(batch, "intrinsics_OpenCVPinholeCameraModelParameters",
                   None)
     if pin is not None:

@@ -5,13 +5,16 @@
         path=/data/lego [key=value ...] [--device cuda]
 
 The counterpart of train.py for the port's GS trainer, with the 3DGUT
-renderer (``apps/nerf_synthetic_3dgut``), the 3DGRT one
-(``apps/nerf_synthetic_3dgrt``) or the sorted 3DGUT of the paper
-(``paper/3dgut/sorted_nerf_synthetic``). It composes the
-YAML configs with threedgrut_tpu.config.loader (yaml and numpy only) and
-reads NeRF-synthetic datasets with threedgrut_tpu.data.nerf (numpy, and
-PIL for PNG files), both imported here, so that the port's package stays
-free of yaml and PIL. The port always renders with the reference's
+renderer (``apps/nerf_synthetic_3dgut``, ``apps/colmap_3dgut``,
+``apps/scannetpp_3dgut``), the 3DGRT one (``apps/nerf_synthetic_3dgrt``)
+or the sorted 3DGUT of the paper (``paper/3dgut/sorted_nerf_synthetic``).
+It composes the YAML configs with the port's ``config/loader.py`` and
+reads NeRF-synthetic, COLMAP and ScanNet++ (OpenCV fisheye) captures
+with its ``data/`` modules, decoding images with PIL; a COLMAP capture
+can initialise the cloud from its sparse points
+(``initialization.method: colmap``). NCore sequences need the NCore SDK,
+which is not in the repository: ``dataset.type: ncore`` raises. The
+port always renders with the reference's
 exact kill: where the YAML sets ``exact_kill: false`` (the TPU package's
 relaxed kill, configs/render/3dgrt.yaml and 3dgut.yaml), trainer_config
 says so on stderr and composes the exact kill. The port sizes its pair
@@ -25,6 +28,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import numpy as np
 import torch
 
 
@@ -95,6 +99,8 @@ def trainer_config(conf):
     ut = UTConfig(
         alpha=splat.get("ut_alpha", 1.0), beta=splat.get("ut_beta", 2.0),
         kappa=splat.get("ut_kappa", 0.0),
+        n_rolling_shutter_iterations=splat.get(
+            "n_rolling_shutter_iterations", 5),
         image_margin_factor=splat.get("ut_in_image_margin_factor", 0.1),
         require_all_sigma_points=splat.get(
             "ut_require_all_sigma_points_valid", False),
@@ -147,36 +153,41 @@ def trainer_config(conf):
         print_stats=model.get("print_stats", False))
 
 
-def use_pil_if_native_broken():
-    """The reused NeRF loader decodes images with the repository's
-    prebuilt ``native/libdataio.so`` when it loads, and with PIL when it
-    is absent. On a host without the libjpeg that library links against,
-    loading it raises OSError instead: treat it as absent there."""
-    from threedgrut_tpu.data import native_loader
-
-    try:
-        native_loader.native_available()
-    except OSError as e:
-        print(f"native image decoder unavailable ({e}); using PIL")
-        native_loader._load_lib = lambda: None
-
-
 def make_dataset(conf, split):
-    if conf.dataset.type != "nerf":
-        raise NotImplementedError(f"dataset type {conf.dataset.type}: only "
-                                  "NeRF-synthetic is wired to the port")
-    from threedgrut_tpu.data.nerf import NeRFDataset
+    """The dataset of ``conf.dataset.type`` for ``split`` ("train", or
+    "val" for the held-out views), or None where the capture has none."""
+    kind = conf.dataset.type
+    down = conf.dataset.get("downsample_factor", 1)
+    if kind == "nerf":
+        from threedgrut_tpu_torch.data.nerf import NeRFDataset
 
-    use_pil_if_native_broken()
+        if not os.path.exists(os.path.join(conf.path,
+                                           f"transforms_{split}.json")):
+            return None
+        return NeRFDataset(conf.path, split=split, downsample=down,
+                           bg_color=conf.model.background.color)
+    if kind in ("colmap", "scannetpp"):
+        from threedgrut_tpu_torch.data.colmap import (ColmapDataset,
+                                                      ScannetppDataset)
 
-    return NeRFDataset(conf.path, split=split,
-                       downsample=conf.dataset.get("downsample_factor", 1),
-                       bg_color=conf.model.background.color)
+        cls = ScannetppDataset if kind == "scannetpp" else ColmapDataset
+        ds = cls(conf.path, split="train" if split == "train" else "test",
+                 downsample=down,
+                 test_split_interval=conf.dataset.get("test_split_interval",
+                                                      8))
+        return ds if len(ds) else None
+    if kind == "ncore":
+        raise NotImplementedError(
+            "dataset.type ncore: the NCore loader needs the NCore SDK, which "
+            "is not in the repository (threedgrut_tpu/data/ncore.py)")
+    raise NotImplementedError(f"dataset type {kind}: the port reads nerf, "
+                              "colmap and scannetpp")
 
 
 def make_model(conf, dataset, device):
     from threedgrut_tpu_torch.models.gaussians import (
-        GaussianModelConfig, default_capacity_for, random_initialization)
+        GaussianModelConfig, default_capacity_for, initialize_from_points,
+        random_initialization)
 
     mc = GaussianModelConfig(
         density_activation=conf.model.density_activation,
@@ -188,11 +199,18 @@ def make_model(conf, dataset, device):
         default_scale_factor=conf.model.default_scale_factor)
     init = conf.get("initialization", {})
     method = init.get("method", "random")
+    headroom = init.get("capacity_headroom", 4.0)   # GS grows the cloud
+    if method == "colmap":
+        # train.py:98-102: the capture's sparse points and their colours
+        pts, rgb, _ = dataset.load_points3d()
+        return initialize_from_points(
+            mc, pts, rgb.astype(np.float32),
+            capacity=default_capacity_for(len(pts), headroom),
+            seed=conf.seed_initialization, device=device)
     if method != "random":
         raise NotImplementedError(f"initialization {method} is not wired "
                                   "to the port's CLI")
     n = init.get("num_gaussians", 100000)
-    headroom = init.get("capacity_headroom", 4.0)   # GS grows the cloud
     return random_initialization(
         mc, n, extent=dataset.get_scene_extent(),
         capacity=default_capacity_for(n, headroom),
@@ -207,7 +225,7 @@ def main():
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args()
 
-    from threedgrut_tpu.config.loader import load_config
+    from threedgrut_tpu_torch.config.loader import load_config
     from threedgrut_tpu_torch.train.trainer import Trainer
 
     conf = load_config(args.config_name, overrides=args.overrides)
@@ -217,8 +235,7 @@ def main():
     device = torch.device(args.device or (
         "cuda" if torch.cuda.is_available() else "cpu"))
     dataset = make_dataset(conf, "train")
-    val_dataset = make_dataset(conf, "val") if os.path.exists(
-        os.path.join(conf.path, "transforms_val.json")) else None
+    val_dataset = make_dataset(conf, "val")
     tconf = trainer_config(conf)
     out_dir = os.path.join(conf.out_dir, conf.experiment_name or "run")
     trainer = Trainer(tconf, dataset, make_model(conf, dataset, device),

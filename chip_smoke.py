@@ -105,14 +105,46 @@ rolling-shutter camera takes it, a fisheye one the shared-origin mode):
    generated 6-view fisheye ScanNet++ capture at 1752x1168 with COLMAP
    init, 30 steps: exit 0, checkpoint written.
 
+The NHT path (kernel 8, the NHT modes of B and C: 64-float records, 24
+ray features at the canonical hit; kernel D 64 wide), trained under the
+MCMC strategy:
+
+26. NHT kernel B vs plain - the 100k bench cloud with 48 NHT features
+   drawn from the seed (synthetic.py:nht_cloud) through the 800x800
+   pinhole, which NHT renders in the general mode, at degree 2 (3DGUT)
+   and degree 4 (3DGRT, unsorted as NHT composites): phase 4's
+   tolerances, kill flips counted as in phase 19.
+27. NHT kernel C and 64-wide D vs plain - C at both degrees: cosine
+   >= 0.9999 and relative L2 <= 1e-3 per field group (p, M, density, the
+   48 features), two runs bitwise equal; D on C's output within 1e-5 of
+   max, two runs bitwise equal, beside index_add_.
+28. NHT gradients vs JAX - render_gut's gradients of the five leaves
+   against tests/fixtures/torch_port_nht_grad_small.npz: phase 10's
+   tolerances.
+29. NHT + MCMC train steps at full width -
+   scripts/bench_train_torch.py's NHT step (100k, 800x800, the decoder
+   and its EMA, MCMC perturb) with the render settings of
+   apps/nerf_synthetic_3dgut_mcmc_nht, then apps/nerf_synthetic_3dgrt_
+   mcmc_nht: 20 timed steps in which NHT B and C and the 64-wide D
+   launch 20 times and no other mode of them; 5 traced steps.
+30. NHT trainer - the apps/nerf_synthetic_3dgut_mcmc_nht trainer
+   (train_torch.py's mapping and model) from 100k random Gaussians on 8
+   teacher views at 800x800, 260 steps, with the warmup, color refine,
+   relocate and add moved early and the EMA on: train PSNR of steps
+   230-249 over steps 1-20 by >= 2 dB, fewer particles relocated than
+   live at every relocate event, validate through the EMA decoder
+   finite.
+
 Then a JSON line with each kernel's launches (A-D from phase 11, sorted
 B and C of each setting from phase 17, E from phase 18, the general
-kernels from phases 23-24), error and times (phases 3, 4, 8, 9, 13-15,
-19-21), its bound (the larger of the fp32 operations over 67 TFLOP/s
-and the bytes it must read and write over 3.35 TB/s, from this run's
-inputs: for B, C and E the accept test on every (pair, pixel) of the
-tiles and the response of each candidate the plain forward composited) and, for kernel D, the time of
-index_add_; the card's name and power limit, and the last line
+kernels from phases 23-24, the NHT kernels from phase 29), error and
+times (phases 3, 4, 8, 9, 13-15, 19-21, 26-27), its bound (the larger
+of the fp32 operations over 67 TFLOP/s and the bytes it must read and
+write over 3.35 TB/s, from this run's inputs: for B, C and E the accept
+test on every (pair, pixel) of the tiles and the response of each
+candidate the plain forward composited, for NHT also its features at
+each such candidate) and, for kernel D, the time of index_add_; the
+card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX. Needs one card; there is no CPU fallback.
 """
@@ -148,6 +180,22 @@ TEST_FLOPS = {False: 38, True: 56}
 # response 2 (3 at degree 4), alpha 2, and in the general mode the |d|
 # scale 1. By (degree, general):
 ACCEPT_FLOPS = {(2, False): 13, (4, False): 14, (2, True): 14, (4, True): 15}
+# what NHT adds per composited candidate (common.cuh:nht_hit and kernel
+# B's blend loop): tc 1, c = a + b tc 6, the barycentric weights 15, the
+# 12 blends 84, 12 sincosf charged 2 operations each (a sine and a
+# cosine, the function's own work; the accurate libdevice routine the
+# kernel calls spends ~20x that in instructions), and w sin, w cos into
+# the 24 accumulators 48
+NHT_ACCEPT_FLOPS = 178
+# what kernel C's NHT mode does per composited candidate beyond the
+# accept (raster_bwd.cu:raster_bwd_nht_kernel): nht_hit again 22, the 12
+# blends 84, 12 sincosf 24 (charged as above), u = <g_feat, f> + g_depth
+# hit_t 49, w, the residual and g_alpha 12, e_k 48, d bary 96, d c 12,
+# tc's cotangent 8, pull_ab 56 (the response's slope charged 3), c's
+# cotangent onto a and b 9, general_rows 42, d density 1, the 48 feature
+# cotangents bary_v e_k 48, and the sum of the 61 fields over the pixels
+# 61
+NHT_BWD_ACCEPT_FLOPS = 572
 # pixels of a 1920x1280 general-mode view whose kernel and plain versions
 # kill one candidate apart (phase 19; 1 seen at 3DGRT in 2,457,600)
 KILL_FLIP_CAP = 8
@@ -192,6 +240,20 @@ KERNELS = {
                                "threedgrut_tpu/ops/pallas/raster.py:1899"),
     "wmax_general": ("threedgrut_tpu_torch/csrc/wmax.cu",
                      "threedgrut_tpu/ops/pallas/raster.py:378"),
+    # the NHT mode (kernel 8): tetra_barycentric :593 and
+    # nht_feature_weighted_sum :609 in the forward strip kernel,
+    # nht_hit_features :634 in the backward; 3DGUT (degree 2) and, with
+    # the _grt suffix, 3DGRT (degree 4); kernel D folding its 64-wide rows
+    "raster_fwd_nht": ("threedgrut_tpu_torch/csrc/raster_fwd.cu",
+                       "threedgrut_tpu/ops/pallas/raster.py:609"),
+    "raster_bwd_nht": ("threedgrut_tpu_torch/csrc/raster_bwd.cu",
+                       "threedgrut_tpu/ops/pallas/raster.py:634"),
+    "raster_fwd_nht_grt": ("threedgrut_tpu_torch/csrc/raster_fwd.cu",
+                           "threedgrut_tpu/ops/pallas/raster.py:609"),
+    "raster_bwd_nht_grt": ("threedgrut_tpu_torch/csrc/raster_bwd.cu",
+                           "threedgrut_tpu/ops/pallas/raster.py:634"),
+    "fold_64": ("threedgrut_tpu_torch/csrc/fold.cu",
+                "threedgrut_tpu/ops/pallas/fold.py:76"),
 }
 
 
@@ -209,18 +271,20 @@ def bound(n_bytes, flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def raster_bound(args, outputs, rc, general, accepted):
+def raster_bound(args, outputs, rc, general, accepted, nht_flops=0):
     """The bound of kernel B, C or E on ``args`` (the wrapper's tensors),
     writing ``outputs``: every pair of the tiles tested on the tile's 256
     pixels, and the ``accepted`` candidates (the plain forward's hit
     count summed over the view: those it composited) carried through
-    the response. Candidates that pass the test but miss the ray's range
-    are charged the test only, so this is a floor."""
+    the response and ``nht_flops`` more (NHT_ACCEPT_FLOPS for B's
+    features at the hit, NHT_BWD_ACCEPT_FLOPS for C's pullback).
+    Candidates that pass the test but miss the ray's range are charged the
+    test only, so this is a floor."""
     pairs = int(args[2][-1])
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    per_accept = ACCEPT_FLOPS[(rc.kernel_degree, general)] + nht_flops
     return bound(nbytes(*tensors, *outputs),
-                 pairs * 256 * TEST_FLOPS[general]
-                 + accepted * ACCEPT_FLOPS[(rc.kernel_degree, general)])
+                 pairs * 256 * TEST_FLOPS[general] + accepted * per_accept)
 
 
 def composited(fwd):
@@ -240,7 +304,7 @@ def bound_keys(b, library_ms=None):
 
 def index_add_ms(d_args):
     """Kernel D's yardstick: the time of the one PyTorch call that sums
-    each particle's pair rows, torch.zeros(N, 16).index_add_(0,
+    each particle's pair rows, torch.zeros(N, R).index_add_(0,
     particle_of_pair, d_records), on the fold's own inputs (timed only;
     the port never calls it)."""
     d_rec, perm, order, _, counts, limit, capacity = d_args
@@ -249,7 +313,7 @@ def index_add_ms(d_args):
         counts.to(torch.int64))[:limit]
     particle = order.to(torch.int64)[owner][perm.to(torch.int64)]
     return cuda_ms(lambda: torch.zeros(
-        (capacity, 16), dtype=torch.float32,
+        (capacity, d_rec.shape[1]), dtype=torch.float32,
         device=d_rec.device).index_add_(0, particle, d_rec), 20)
 
 
@@ -259,6 +323,18 @@ def nvidia_smi_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def timed_once(fn):
+    """(fn(), its device time in ms): one call between CUDA events, for
+    the float64 plain versions, whose one call is the reference."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(fn, reps):
@@ -1033,6 +1109,316 @@ def cli_phase(dev):
     shutil.rmtree(root, ignore_errors=True)
 
 
+NHT_GRAD_FIXTURE = os.path.join(REPO, "tests", "fixtures",
+                                "torch_port_nht_grad_small.npz")
+NHT_NAMES = ("positions", "rotation", "scale", "density", "features")
+# label -> report-name suffix, config of the two NHT settings
+NHT_CONFIGS = {"3DGUT": ("", "apps/nerf_synthetic_3dgut_mcmc_nht"),
+               "3DGRT": ("_grt", "apps/nerf_synthetic_3dgrt_mcmc_nht")}
+# the NHT record's gradient field groups (p, M, density, 48 features)
+NHT_GROUPS = {"p": slice(0, 3), "M": slice(3, 12), "density": slice(12, 13),
+              "features": slice(13, 61)}
+
+
+def nht_settings():
+    """{label: RasterConfig} of the two NHT configs, as render_gut runs
+    them (train_torch.py's mapping, unsorted: NHT composites in global-Z
+    order)."""
+    from threedgrut_tpu_torch.config.loader import load_config
+    from train_torch import trainer_config
+
+    return {label: trainer_config(load_config(
+        name, overrides=["path=none"])).raster.replace(
+            sorted_compositing=False)
+        for label, (_, name) in NHT_CONFIGS.items()}
+
+
+def nht_kernel_phases(dev, ut_cfg, cam):
+    """Phases 26-27: NHT kernels B and C on the 800x800 view of the 100k
+    NHT cloud against their float64 plain versions, at both settings,
+    and the 64-wide kernel D on C's output. Returns the report
+    entries."""
+    from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs, fold_pairs_plain
+    from threedgrut_tpu_torch.ops.cuda.raster import (
+        rasterize_tiles_backward, rasterize_tiles_backward_plain,
+        rasterize_tiles_forward, rasterize_tiles_plain)
+    from threedgrut_tpu_torch.render.gut import prepare_view
+    from threedgrut_tpu_torch.synthetic import nht_cloud
+
+    model = nht_cloud(100_000, seed=0, device=dev)
+    w, h = cam.resolution
+    rng = np.random.default_rng(26)
+    upstream = [torch.tensor(rng.normal(size=(h, w, c)).astype(np.float32),
+                             device=dev) for c in (24, 1, 1)]
+    report, msg_b, msg_c = {}, [], []
+    for label, rc in nht_settings().items():
+        suffix = NHT_CONFIGS[label][0]
+        with torch.no_grad():
+            v = prepare_view(cam, ut_cfg, rc, model, 0)
+            if v.ray_o is None or v.table.shape[1] != 64:
+                raise AssertionError("NHT took the shared-origin mode")
+            vb = v.binning
+            args = (v.table, vb.pair_particle, vb.tile_start, v.ray_d,
+                    v.tmin, v.tmax, rc, v.ray_o)
+            # 26. NHT B; kill flips as in phase 19
+            got = rasterize_tiles_forward(*args)
+            ref, b_plain_ms = timed_once(lambda: rasterize_tiles_plain(*args))
+            pix = torch.maximum(torch.maximum(
+                (got[0] - ref[0]).abs().amax(-1),
+                (got[1] - ref[1]).abs()[..., 0]),
+                (got[4] - ref[4]).abs()[..., 0])
+            kill = pix > 1e-4
+            n_kill = int(kill.sum())
+            cap = rc.max_alpha * rc.min_transmittance
+            kill_ok = (n_kill <= KILL_FLIP_CAP and float(pix.max()) <= cap
+                       and bool((torch.maximum(got[4], ref[4])[..., 0][kill]
+                                 < rc.min_transmittance).all()))
+            keep = ~kill
+            err_f = float((got[0] - ref[0]).abs()[keep].max())
+            err_o = float((got[1] - ref[1]).abs()[..., 0][keep].max())
+            err_t = float((got[4] - ref[4]).abs()[..., 0][keep].max())
+            err_d = float(((got[2] - ref[2]).abs()
+                           / ref[2].abs().clamp(min=1e-3)).max())
+            flips = float((got[3] != ref[3]).float().mean())
+            b_ms = cuda_ms(lambda: rasterize_tiles_forward(*args), 20)
+            if not (got[0].shape == (h, w, 24) and err_f <= 1e-4
+                    and err_o <= 1e-4 and err_t <= 1e-4 and err_d <= 1e-3
+                    and flips < 0.01 and kill_ok):
+                raise AssertionError(
+                    f"NHT kernel B ({label}) vs plain: features {err_f:.3g},"
+                    f" opacity {err_o:.3g}, T_final {err_t:.3g}, depth rel "
+                    f"{err_d:.3g}, hits flip {flips:.4f}, kill flips "
+                    f"{n_kill} (max |d| {float(pix.max()):.3g})")
+            n_acc = composited(ref)
+            report["raster_fwd_nht" + suffix] = dict(
+                max_abs_err=float(pix.max()), ms=b_ms, plain_ms=b_plain_ms,
+                **bound_keys(raster_bound(args, got, rc, True, n_acc,
+                                          NHT_ACCEPT_FLOPS)))
+            msg_b.append(
+                f"{label} (degree {rc.kernel_degree}), {int(vb.num_pairs)} "
+                f"pairs, {n_acc:.0f} composited: features |d| {err_f:.3g}, "
+                f"opacity |d| {err_o:.3g}, T_final |d| {err_t:.3g}, depth "
+                f"rel {err_d:.3g}, hits flip {flips:.5f}, kill flips "
+                f"{n_kill}; kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms")
+            # 27. NHT C, then the 64-wide D on its output
+            c_args = args[:6] + (got[0], got[2], got[4], *upstream, rc,
+                                 v.ray_o)
+            d1 = rasterize_tiles_backward(*c_args)
+            d2 = rasterize_tiles_backward(*c_args)
+            d_ref, c_plain_ms = timed_once(
+                lambda: rasterize_tiles_backward_plain(*c_args))
+            stats = {}
+            for nm, sl in NHT_GROUPS.items():
+                x = d1[:, sl].double().flatten()
+                y = d_ref[:, sl].double().flatten()
+                stats[nm] = (
+                    float(x @ y / (x.norm() * y.norm()).clamp(min=1e-300)),
+                    float((x - y).norm() / y.norm().clamp(min=1e-300)))
+            same = bool(torch.equal(d1, d2))
+            c_err = float((d1 - d_ref).abs().max())
+            c_ms = cuda_ms(lambda: rasterize_tiles_backward(*c_args), 10)
+            bad = {k: x for k, x in stats.items()
+                   if not (x[0] >= 0.9999 and x[1] <= 1e-3)}
+            if bad or not same or float(d1[:, 61:].abs().max()) != 0.0:
+                raise AssertionError(f"NHT kernel C ({label}) vs plain "
+                                     f"(cosine, rel L2): {bad}; bitwise "
+                                     f"repeatable {same}")
+            report["raster_bwd_nht" + suffix] = dict(
+                max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
+                **bound_keys(raster_bound(c_args, [d1], rc, True, n_acc,
+                                          NHT_BWD_ACCEPT_FLOPS)))
+            msg = (f"{label}: " + ", ".join(
+                f"{k} cos {x[0]:.8f} relL2 {x[1]:.3g}"
+                for k, x in stats.items())
+                + f"; max |d| {c_err:.3g}; two runs bitwise equal; kernel "
+                f"{c_ms:.4f} ms, plain {c_plain_ms:.4f} ms")
+            if label == "3DGUT":
+                d_args = (d1, vb.perm, vb.order, vb.excl, vb.counts,
+                          vb.limit, model.capacity)
+                f1 = fold_pairs(*d_args)
+                f2 = fold_pairs(*d_args)
+                f_ref, f_plain_ms = timed_once(
+                    lambda: fold_pairs_plain(*d_args))
+                f_err = float((f1 - f_ref).abs().max())
+                f_scale = float(f_ref.abs().max())
+                f_same = bool(torch.equal(f1, f2))
+                f_ms = cuda_ms(lambda: fold_pairs(*d_args), 20)
+                f_lib = index_add_ms(d_args)
+                if not (f1.shape[1] == 64 and f_err <= 1e-5 * f_scale
+                        and f_same):
+                    raise AssertionError(
+                        f"kernel D (64 wide) vs plain: max |d| {f_err:.3g} "
+                        f"(max |ref| {f_scale:.3g}); bitwise {f_same}")
+                report["fold_64"] = dict(
+                    max_abs_err=f_err, ms=f_ms, plain_ms=f_plain_ms,
+                    **bound_keys(bound(nbytes(*d_args[:5], f1), d1.numel()),
+                                 library_ms=f_lib))
+                msg += (f"; kernel D 64 wide: max |d| {f_err:.3g} of "
+                        f"{f_scale:.3g}, bitwise equal, {f_ms:.4f} ms, plain "
+                        f"{f_plain_ms:.4f} ms, index_add_ {f_lib:.4f} ms")
+            msg_c.append(msg)
+            del v, got, ref, d1, d2, d_ref
+    phase("NHT kernel B", f"{w}x{h} pinhole (general mode), 100k, 48 NHT "
+          "features: " + "; ".join(msg_b))
+    phase("NHT kernels C and D", "; ".join(msg_c))
+    return report
+
+
+def nht_grad_phase(dev, ut_cfg):
+    """Phase 28: the NHT render's gradients (NHT B, C, then 64-wide D)
+    against the JAX fixture."""
+    from threedgrut_tpu_torch.models.gaussians import (GaussianModel,
+                                                       GaussianModelConfig)
+    from threedgrut_tpu_torch.ops.cameras import make_pinhole
+    from threedgrut_tpu_torch.render.common import RasterConfig
+    from threedgrut_tpu_torch.render.gut import render_gut
+
+    with np.load(NHT_GRAD_FIXTURE) as f:
+        arrays = {k: f[f"params/{k}"] for k in NHT_NAMES}
+        cfg = GaussianModelConfig(
+            density_activation=str(f["density_activation"]),
+            scale_activation=str(f["scale_activation"]), feature_type="nht",
+            nht_feature_dim=arrays["features"].shape[1])
+        model = GaussianModel.from_numpy(arrays, int(f["n_active"]), 0, cfg,
+                                         dev)
+        cam = make_pinhole(tuple(int(x) for x in f["resolution"]),
+                           f["focal"], f["principal"], t=f["t"], q=f["q"],
+                           device=dev)
+        out = render_gut(cam, ut_cfg, RasterConfig(), model, 0)
+        fixture_loss(out).backward()
+        errs = {}
+        for k in NHT_NAMES:
+            got_g = getattr(model, k).grad.double().cpu().numpy()
+            ref_g = f[f"grad/{k}"].astype(np.float64)
+            scale = np.abs(ref_g).max() + 1e-12
+            cos = float((got_g * ref_g).sum() / max(
+                np.linalg.norm(got_g) * np.linalg.norm(ref_g), 1e-300))
+            errs[k] = (float(np.abs(got_g - ref_g).max() / scale), cos)
+    bad = {k: x for k, x in errs.items()
+           if not (x[0] <= 2e-3 and x[1] >= 0.9999)}
+    if bad:
+        raise AssertionError(f"NHT gradients vs JAX (max-normalised error, "
+                             f"cosine): {bad}")
+    phase("NHT grad vs JAX", f"fixture {os.path.basename(NHT_GRAD_FIXTURE)}"
+          ": " + ", ".join(f"{k} {x[0]:.2g}/{x[1]:.7f}"
+                           for k, x in errs.items()))
+
+
+def nht_train_step_phase(dev, label):
+    """Phase 29: the NHT + MCMC bench step of one NHT config: 20 timed
+    steps in which A, NHT B and C and the 64-wide D launch 20 times and
+    no other mode of B, C and D; 5 traced steps. Returns the NHT
+    kernels' launches under their report names."""
+    from bench_train_torch import config_step, profile_steps, time_steps
+    from threedgrut_tpu_torch.ops.cuda.expand import expand_decode_pairs
+    from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs
+    from threedgrut_tpu_torch.ops.cuda.raster import (
+        rasterize_tiles, rasterize_tiles_backward)
+
+    suffix, name = NHT_CONFIGS[label]
+    step = config_step(name, dev)
+    time_steps(step, 3)                       # warm-up
+    fwd, bwd = rasterize_tiles, rasterize_tiles_backward
+    counters = {"bin_decode": (expand_decode_pairs, "launches"),
+                "raster_fwd_nht": (fwd, "launches_nht"),
+                "raster_bwd_nht": (bwd, "launches_nht"),
+                "fold_64": (fold_pairs, "launches_wide"),
+                "raster_fwd": (fwd, "launches"),
+                "raster_fwd_general": (fwd, "launches_general"),
+                "raster_bwd": (bwd, "launches"),
+                "raster_bwd_general": (bwd, "launches_general"),
+                "fold": (fold_pairs, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    step_ms, losses = time_steps(step, TRAIN_STEPS)
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    want = {k: TRAIN_STEPS if k in ("bin_decode", "raster_fwd_nht",
+                                    "raster_bwd_nht", "fold_64") else 0
+            for k in counters}
+    if launches != want:
+        raise AssertionError(f"NHT {label} train-step launches {launches}, "
+                             f"expected {want}")
+    if not all(bool(torch.isfinite(x)) for x in losses):
+        raise AssertionError(f"NHT {label} train-step loss not finite")
+    for k, p in step.params.items():
+        if not (bool(torch.isfinite(p.grad).all())
+                and float(p.grad.abs().max()) > 0.0):
+            raise AssertionError(f"NHT {label} train-step gradient of {k} "
+                                 "is not finite and non-zero")
+    wall_us, busy_us, n_device = profile_steps(step, 5, top=10)
+    phase(f"NHT {label} train step", f"{name}: 100k Gaussians, 48 NHT "
+          f"features, {SIDE}x{SIDE}, degree {step.rc.kernel_degree}, decoder "
+          f"+ EMA, L1+DSSIM, Adam, MCMC perturb: {step_ms:.3f} ms/step "
+          f"({1e3 / step_ms:.2f} it/s) host clock over {TRAIN_STEPS} steps; "
+          f"loss {float(losses[0]):.5f} -> {float(losses[-1]):.5f}; launches "
+          f"{launches}; 5 traced steps: wall {wall_us:.1f} us/step, device "
+          f"busy {busy_us:.1f} us/step, idle share "
+          f"{1.0 - busy_us / wall_us:.3f}, {n_device:.1f} device kernels per "
+          f"step")
+    return {k + suffix: launches[k] for k in ("raster_fwd_nht",
+                                              "raster_bwd_nht")} | (
+        {"fold_64": launches["fold_64"]} if label == "3DGUT" else {})
+
+
+def nht_trainer_phase(dev):
+    """Phase 30: the apps/nerf_synthetic_3dgut_mcmc_nht trainer from 100k
+    random Gaussians on 8 teacher views (white background) at 800x800,
+    260 steps: warmup 20 and color refine 26 (the config's 1000 and 3000
+    would freeze the geometry throughout), relocate and add at steps 100,
+    150 and 200, the EMA on."""
+    from threedgrut_tpu_torch.config.loader import load_config
+    from threedgrut_tpu_torch.models.background import BackgroundConfig
+    from threedgrut_tpu_torch.synthetic import build_teacher, teacher_dataset
+    from threedgrut_tpu_torch.train.trainer import Trainer
+    from train_torch import make_model, trainer_config
+
+    t0 = time.perf_counter()
+    ds = teacher_dataset(build_teacher(60000, seed=0, device=dev),
+                         n_views=8, side=SIDE)
+    conf = load_config(NHT_CONFIGS["3DGUT"][1], overrides=[
+        "path=none", "initialization.num_gaussians=100000"])
+    tconf = trainer_config(conf)
+    tconf.n_iterations = 260
+    tconf.nht_warmup_steps = 20
+    tconf.nht_color_refine_steps = 26
+    tconf.background = BackgroundConfig(color="white")
+    tconf.mcmc = tconf.mcmc.replace(relocate_start=50, relocate_frequency=50,
+                                    relocate_end=210, add_start=50,
+                                    add_frequency=50, add_end=210)
+    trainer = Trainer(tconf, ds, make_model(conf, ds, dev))
+    n0 = trainer.model.n_active
+    hist = trainer.run_training(260)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    val = trainer.validate()
+    events = trainer.event_stats
+    relocs = [st for _, kind, st in events if kind == "relocate"]
+    adds = [st for _, kind, st in events if kind == "add"]
+    early = float(np.mean([h_["psnr"] for h_ in hist[0:20]]))
+    late = float(np.mean([h_["psnr"] for h_ in hist[229:249]]))
+    checks = {
+        "three relocate and add events": len(relocs) == 3 and len(adds) == 3,
+        "no whole-cloud relocation": all(
+            st["n_relocated"] < st["n_active"] for st in relocs),
+        "add grew the cloud": trainer.model.n_active > n0,
+        "psnr +2 dB": late >= early + 2.0,
+        "finite": all(np.isfinite(h_["total"]) for h_ in hist),
+        "EMA validate finite": bool(np.isfinite(val["psnr"])),
+    }
+    summary = (f"{SIDE}x{SIDE}, {len(hist)} steps in {train_s:.1f} s, "
+               f"capacity {trainer.model.capacity}; events "
+               + "; ".join(f"[{s_}] {k} " + " ".join(
+                   f"{a}={b}" for a, b in st.items())
+                   for s_, k, st in events)
+               + f"; psnr steps 1-20 {early:.2f} dB, 230-249 {late:.2f} dB; "
+               f"validate (EMA decoder, train views) psnr "
+               f"{val['psnr']:.2f} dB")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"NHT trainer: {failed} ({summary})")
+    phase("NHT trainer", summary)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1371,6 +1757,13 @@ def main():
     camera_serving_phase(dev, model, ut_cfg, "rolling", general=True)
     camera_serving_phase(dev, model, ut_cfg, "fisheye", general=False)
     cli_phase(dev)
+
+    # 26-30. the NHT path under MCMC
+    report.update(nht_kernel_phases(dev, ut_cfg, cam))
+    nht_grad_phase(dev, ut_cfg)
+    for label in NHT_CONFIGS:
+        launches.update(nht_train_step_phase(dev, label))
+    nht_trainer_phase(dev)
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches.get(k, 0), **report[k])

@@ -10,6 +10,8 @@ ms/step and the card's name and power limit.
 
     python scripts/bench_train_torch.py [--steps 20] [--profile]
     python scripts/bench_train_torch.py --config-name apps/nerf_synthetic_3dgrt
+    python scripts/bench_train_torch.py \
+        --config-name apps/nerf_synthetic_3dgut_mcmc_nht
     python scripts/bench_train_torch.py --camera rolling
 
 ``--camera`` swaps the 800x800 pinhole for the ScanNet++-like fisheye at
@@ -21,7 +23,14 @@ noise at that resolution.
 ``--config-name`` takes the render settings (kernel degree, thresholds,
 sorted compositing and its window) of a YAML config, through
 train_torch.py's mapping: the 3DGRT step of tests/tpu_bench_grt.py, or
-the sorted 3DGUT one. The workload stays the same.
+the sorted 3DGUT one. The workload stays the same, unless the config
+trains NHT features (``apps/nerf_synthetic_3dgut_mcmc_nht``,
+``apps/nerf_synthetic_3dgrt_mcmc_nht``): then the cloud carries 48 NHT
+features per Gaussian (synthetic.py:nht_cloud), the rendered 24 ray
+features go through the NHT decoder (whose weights join Adam, unmasked,
+and whose EMA shadow updates every step), and an MCMC strategy's
+perturb moves the positions after every step, as the trainer's step
+does.
 
 ``--profile`` traces 5 more steps with torch.profiler and prints the
 device time by kernel and the device's idle share of the steps' wall
@@ -55,15 +64,21 @@ def nvidia_smi_line() -> str:
 class BenchStep:
     """bench.py's train step: the bench cloud, one 800x800 view, a seeded
     uniform GT, L1 0.8 + DSSIM 0.2, Adam (lr 1e-3 on every group) over the
-    active rows."""
+    active rows. With ``nht``: NHT features, the decoder (and its EMA) in
+    the step, and MCMC's perturb (noise ``noise_lr``, the lr 1e-3) after
+    it."""
 
-    def __init__(self, device, raster_cfg=None, camera="pinhole"):
+    def __init__(self, device, raster_cfg=None, camera="pinhole", nht=False,
+                 noise_lr=5e5):
+        from threedgrut_tpu_torch.models.nht_decoder import FeatureDecoder
         from threedgrut_tpu_torch.ops.ut import UTConfig
         from threedgrut_tpu_torch.optimizers.adam import init_adam_state
         from threedgrut_tpu_torch.render.common import RasterConfig
-        from threedgrut_tpu_torch.synthetic import bench_camera, bench_cloud
+        from threedgrut_tpu_torch.synthetic import (bench_camera, bench_cloud,
+                                                    nht_cloud)
 
-        self.model = bench_cloud(N_GAUSSIANS, seed=0, device=device)
+        self.model = (nht_cloud if nht else bench_cloud)(
+            N_GAUSSIANS, seed=0, device=device)
         self.cam = bench_camera(camera, device=device)
         w, h = self.cam.resolution
         rng = np.random.default_rng(1)
@@ -71,6 +86,14 @@ class BenchStep:
             np.float32), device=device)
         self.ut_cfg, self.rc = UTConfig(), raster_cfg or RasterConfig()
         self.params = self.model.params()
+        self.decoder = None
+        if nht:
+            self.decoder = FeatureDecoder(self.model.features.shape[1] // 2,
+                                          device=device)
+            self.params.update({f"nht_decoder/{i}": w for i, w in
+                                enumerate(self.decoder.weights())})
+        self.noise_lr = noise_lr
+        self.gen = torch.Generator(device=device).manual_seed(2)
         self.opt = init_adam_state(self.params)
         self.lrs = {k: 1e-3 for k in self.params}
 
@@ -79,11 +102,16 @@ class BenchStep:
         from threedgrut_tpu_torch.ops.ssim import ssim
         from threedgrut_tpu_torch.optimizers.adam import adam_step
         from threedgrut_tpu_torch.render.gut import render_gut
+        from threedgrut_tpu_torch.strategy.mcmc import perturb
 
         for p in self.params.values():
             p.grad = None
         out = render_gut(self.cam, self.ut_cfg, self.rc, self.model, 3)
         pred = out["pred_features"]
+        if self.decoder is not None:
+            h, w, f = pred.shape
+            pred = self.decoder(pred.reshape(-1, f),
+                                out["ray_d"].reshape(-1, 3)).reshape(h, w, 3)
         l1 = torch.mean(torch.abs(pred - self.gt))
         s = ssim(pred.permute(2, 0, 1)[None], self.gt.permute(2, 0, 1)[None])
         loss = 0.8 * l1 + 0.2 * (1.0 - s)
@@ -91,6 +119,9 @@ class BenchStep:
         self.opt = adam_step(
             self.params, {k: p.grad for k, p in self.params.items()},
             self.opt, self.lrs, update_mask=self.model.active_mask())
+        if self.decoder is not None:
+            self.decoder.ema_update()
+            perturb(self.model, self.gen, 1e-3, self.noise_lr)
         return loss.detach()
 
 
@@ -110,6 +141,20 @@ def config_raster(name: str):
     from train_torch import trainer_config
 
     return trainer_config(load_config(name, overrides=["path=none"])).raster
+
+
+def config_step(name: str, device, camera="pinhole") -> BenchStep:
+    """The bench step with a YAML config's render settings
+    (train_torch.py's mapping) and, for an NHT config, its NHT step with
+    the config's MCMC perturb noise."""
+    from threedgrut_tpu_torch.config.loader import load_config
+    from train_torch import trainer_config
+
+    conf = load_config(name, overrides=["path=none"])
+    tconf = trainer_config(conf)
+    return BenchStep(device, tconf.raster, camera,
+                     nht=conf.model.feature_type == "nht",
+                     noise_lr=tconf.mcmc.noise_lr)
 
 
 def render_tag(rc) -> str:
@@ -159,13 +204,14 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_train_torch.py needs a CUDA device")
-    rc = config_raster(args.config_name) if args.config_name else None
-    step = BenchStep(torch.device("cuda:0"), rc, args.camera)
+    dev = torch.device("cuda:0")
+    step = (config_step(args.config_name, dev, args.camera)
+            if args.config_name else BenchStep(dev, camera=args.camera))
     w, h = step.cam.resolution
-    metric = (f"{render_tag(step.rc)}_train_iters_per_sec_100k_800px"
+    tag = render_tag(step.rc) + ("_nht" if step.decoder is not None else "")
+    metric = (f"{tag}_train_iters_per_sec_100k_800px"
               if args.camera == "pinhole" else
-              f"{render_tag(step.rc)}_{args.camera}_train_iters_per_sec_"
-              f"100k_{w}x{h}")
+              f"{tag}_{args.camera}_train_iters_per_sec_100k_{w}x{h}")
     t0 = time.perf_counter()
     time_steps(step, WARMUP_STEPS)
     warm_s = time.perf_counter() - t0

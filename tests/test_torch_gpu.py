@@ -396,3 +396,118 @@ def test_rolling_render_grad_on_card_matches_cpu(cuda):
         r = grads[1][k]
         scale = float(r.abs().max()) + 1e-12
         torch.testing.assert_close(g / scale, r / scale, atol=2e-3, rtol=0)
+
+
+# the NHT mode (kernel 8): 64-float records, always general and global-Z;
+# degree 2 (3DGUT) and 4 (3DGRT, which NHT composites unsorted)
+NHT = {"3dgut": RC, "grt": SORTED["grt"].replace(sorted_compositing=False)}
+NHT_GROUPS = {"p": slice(0, 3), "M": slice(3, 12), "density": slice(12, 13),
+              "features": slice(13, 61)}
+
+
+def _nht_view(device, rc=RC, n=4000, side=200):
+    from threedgrut_tpu_torch.synthetic import nht_cloud
+
+    model = nht_cloud(n, seed=1, device=device)
+    cam = make_pinhole((side, side + 24), (1.1 * side, 1.1 * side),
+                       (side / 2, side / 2 + 12), device=device)
+    with torch.no_grad():
+        return prepare_view(cam, UTConfig(), rc, model, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(NHT))
+def test_nht_raster_fwd_matches_plain(cuda, mode):
+    rc = NHT[mode]
+    v = _nht_view(cuda, rc)
+    assert v.ray_o is not None and v.table.shape[1] == 64
+    args = (v.table, v.binning.pair_particle, v.binning.tile_start,
+            v.ray_d, v.tmin, v.tmax, rc, v.ray_o)
+    before = rasterize_tiles.launches_nht
+    got = rasterize_tiles_forward(*args)
+    assert rasterize_tiles.launches_nht == before + 1
+    ref = rasterize_tiles_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].shape == (224, 200, 24)
+    for i in (0, 1, 4):        # features, opacity, T_final
+        torch.testing.assert_close(got[i], ref[i], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[2], ref[2], atol=1e-3, rtol=1e-3)
+    assert (got[3] != ref[3]).float().mean() < 0.01
+    assert float(got[1].mean()) > 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(NHT))
+def test_nht_raster_bwd_matches_plain(cuda, mode):
+    """Kernel C in the NHT mode against the float64 autograd plain version
+    per field group (p, M, density, the 48 features), bitwise
+    repeatable; the 3 padding fields stay zero."""
+    rc = NHT[mode]
+    v = _nht_view(cuda, rc)
+    b = v.binning
+    fwd = rasterize_tiles_forward(v.table, b.pair_particle, b.tile_start,
+                                  v.ray_d, v.tmin, v.tmax, rc, v.ray_o)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    h, w = v.ray_d.shape[:2]
+    up = [torch.randn((h, w, c), generator=g, device=cuda) for c in (24, 1, 1)]
+    args = (v.table, b.pair_particle, b.tile_start, v.ray_d, v.tmin,
+            v.tmax, fwd[0], fwd[2], fwd[4], *up, rc, v.ray_o)
+    before = rasterize_tiles_backward.launches_nht
+    got = rasterize_tiles_backward(*args)
+    again = rasterize_tiles_backward(*args)
+    assert rasterize_tiles_backward.launches_nht == before + 2
+    ref = rasterize_tiles_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for sl in NHT_GROUPS.values():
+        x, y = got[:, sl].double().flatten(), ref[:, sl].double().flatten()
+        assert float(x @ y / (x.norm() * y.norm())) >= 0.9999
+        assert float((x - y).norm() / y.norm()) <= 1e-3
+    assert float(got[:, 61:].abs().sum()) == 0.0
+    assert float(got[int(b.tile_start[-1]):].abs().sum()) == 0.0
+
+
+@pytest.mark.gpu
+def test_fold_64_wide_matches_plain_and_is_deterministic(cuda):
+    v = _nht_view(cuda)
+    b = v.binning
+    g = torch.Generator(device=cuda).manual_seed(1)
+    d_rec = torch.randn((b.limit, 64), generator=g, device=cuda)
+    args = (d_rec, b.perm, b.order, b.excl, b.counts, b.limit,
+            b.order.shape[0])
+    before = (fold_pairs.launches, fold_pairs.launches_wide)
+    got = fold_pairs(*args)
+    again = fold_pairs(*args)
+    assert (fold_pairs.launches, fold_pairs.launches_wide) == (
+        before[0], before[1] + 2)
+    ref = fold_pairs_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ref, atol=1e-5 * float(ref.abs().max()),
+                               rtol=0)
+
+
+@pytest.mark.gpu
+def test_nht_render_grad_on_card_matches_cpu(cuda):
+    """An NHT render_gut's backward on the card (NHT kernels B and C, then
+    the 64-wide D) agrees with the CPU's plain versions."""
+    from threedgrut_tpu_torch.synthetic import nht_cloud
+
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        model = nht_cloud(3000, seed=2, device=dev)
+        cam = make_pinhole((96, 80), (110.0, 110.0), (48.0, 40.0),
+                           device=dev)
+        before = fold_pairs.launches_wide
+        out = render_gut(cam, UTConfig(), RC, model, 0)
+        loss = (out["pred_features"].square().mean()
+                + 0.1 * out["pred_opacity"].mean()
+                + 0.01 * out["pred_dist"].mean())
+        loss.backward()
+        assert fold_pairs.launches_wide == before + (dev.type == "cuda")
+        grads.append({k: getattr(model, k).grad.cpu() for k in (
+            "positions", "rotation", "scale", "density", "features")})
+    for k, g in grads[0].items():
+        r = grads[1][k]
+        scale = float(r.abs().max()) + 1e-12
+        torch.testing.assert_close(g / scale, r / scale, atol=2e-3, rtol=0)

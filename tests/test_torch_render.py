@@ -243,6 +243,9 @@ def test_port_imports_no_jax():
             "threedgrut_tpu_torch.ops.cuda.build, "
             "threedgrut_tpu_torch.train.trainer, "
             "threedgrut_tpu_torch.strategy.gs, "
+            "threedgrut_tpu_torch.strategy.mcmc, "
+            "threedgrut_tpu_torch.models.nht_decoder, "
+            "threedgrut_tpu_torch.models.features, "
             "threedgrut_tpu_torch.synthetic; "
             "bad = [m for m in ('jax', 'flax', 'yaml', 'PIL') "
             "if m in sys.modules]; print(bad); "
@@ -255,6 +258,9 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert len(_port_modules()) > 30
+    assert {"threedgrut_tpu_torch.strategy.mcmc",
+            "threedgrut_tpu_torch.models.nht_decoder",
+            "threedgrut_tpu_torch.models.features"} <= set(_port_modules())
 
 
 def _imports_of_jax_package(path):
@@ -292,6 +298,11 @@ def test_port_sources_import_nothing_of_the_jax_package():
     paths += [os.path.join(scripts, f) for f in sorted(os.listdir(scripts))
               if f.endswith("_torch.py")]
     assert len(paths) > 30
+    rel = {os.path.relpath(p, REPO) for p in paths}
+    assert {os.path.join("threedgrut_tpu_torch", "strategy", "mcmc.py"),
+            os.path.join("threedgrut_tpu_torch", "models", "nht_decoder.py"),
+            os.path.join("threedgrut_tpu_torch", "models", "features.py"),
+            os.path.join("scripts", "bench_train_torch.py")} <= rel
     bad = {os.path.relpath(p, REPO): _imports_of_jax_package(p)
            for p in paths}
     assert not {k: v for k, v in bad.items() if v}, bad

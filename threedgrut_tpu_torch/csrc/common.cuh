@@ -223,6 +223,59 @@ __device__ __forceinline__ int sort_window(const float* rec, int stride,
   return n;
 }
 
+// The NHT record (raster.py's NHT mode, the TPU's kernel 8; always the
+// general mode): p (3), M (9), density, then 12 control features for each
+// of the 4 vertices of the canonical tetrahedron, vertex-major (48), and 3
+// slots of padding. A ray reads sin and cos of the vertices' barycentric
+// blend at its canonical hit point: 24 ray features, (sin, cos) per
+// control dim.
+constexpr int kRecNht = 64;
+constexpr int kNhtFeat = 13;               // first control-feature slot
+constexpr int kNhtDim = 12;                // control features per vertex
+constexpr int kNhtOut = 2 * kNhtDim;       // ray features
+
+// The canonical tetrahedron (raster.py:_tetra_constants, in fp32 as the
+// JAX kernel uses them): vertex 0, and the rows G1-G3 of the inverse edge
+// matrix, w_i = G_i . (c - v0) for i = 1..3 and w_0 = 1 - w_1 - w_2 - w_3.
+// The zero entries of G2 and G3 are left out of the products.
+constexpr float kTetV0x = 2.44948983f, kTetV0y = -1.41421354f,
+                kTetV0z = -1.0f;
+constexpr float kTetG1x = -0.204124153f, kTetG1y = -0.117851131f,
+                kTetG1z = -0.0833333358f;
+constexpr float kTetG2y = 0.235702261f, kTetG2z = -0.0833333358f;
+constexpr float kTetG3z = 0.25f;
+
+// The canonical hit point c = a + b tc, tc = -(a . b) / |b|^2 (the
+// unscaled hit distance; raster.py:433-435), and its barycentric weights.
+struct NhtHit {
+  float tc;
+  float cx, cy, cz;
+  float w[4];
+};
+
+__device__ __forceinline__ NhtHit nht_hit(const Hit& h) {
+  NhtHit n;
+  n.tc = -h.q * h.inv_m;
+  n.cx = h.ax + h.bx * n.tc;
+  n.cy = h.ay + h.by * n.tc;
+  n.cz = h.az + h.bz * n.tc;
+  const float dx = n.cx - kTetV0x, dy = n.cy - kTetV0y, dz = n.cz - kTetV0z;
+  n.w[1] = kTetG1x * dx + kTetG1y * dy + kTetG1z * dz;
+  n.w[2] = kTetG2y * dy + kTetG2z * dz;
+  n.w[3] = kTetG3z * dz;
+  n.w[0] = 1.0f - n.w[1] - n.w[2] - n.w[3];
+  return n;
+}
+
+// The blend of control dim k at the hit: sum_v w_v f[v][k].
+__device__ __forceinline__ float nht_blend(const float* r, int stride,
+                                           const NhtHit& n, int k) {
+  return n.w[0] * r[(kNhtFeat + k) * stride] +
+         n.w[1] * r[(kNhtFeat + kNhtDim + k) * stride] +
+         n.w[2] * r[(kNhtFeat + 2 * kNhtDim + k) * stride] +
+         n.w[3] * r[(kNhtFeat + 3 * kNhtDim + k) * stride];
+}
+
 // Call launch(deg, win, gen) with the kernel degree, sort window and
 // geometry mode of a raster launch as compile-time constants
 // (std::integral_constant): degree 2 or 4, window 0 (global-Z order) or 16
@@ -253,6 +306,23 @@ int launch_mode(int degree, int window, int general, F&& launch) {
     case 216: with_gen(D2{}, W16{}); break;
     case 400: with_gen(D4{}, W0{}); break;
     case 416: with_gen(D4{}, W16{}); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Call launch(deg) for an NHT launch, which the kernels build for degrees
+// 2 and 4 in the general mode with global-Z order only (JAX turns the
+// sorted mode off for NHT, render/gut.py:208). Returns the launch's error,
+// or cudaErrorInvalidValue for another combination.
+template <typename F>
+int launch_nht(int degree, int window, int general, F&& launch) {
+  if (window != 0 || general != 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (degree) {
+    case 2: launch(std::integral_constant<int, 2>{}); break;
+    case 4: launch(std::integral_constant<int, 4>{}); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -62,6 +62,34 @@
 // group. Rows of the window outside the tile's [start, end)
 // belong to another tile's block and are not written.
 //
+// NHT mode (raster_bwd_nht_kernel; raster.py's NHT mode, the TPU's kernel
+// 8, through _bwd_chunk_grads :1899-1961: nht_hit_features for the
+// cotangents, then the VJP of chunk_hits_general and of
+// nht_feature_weighted_sum with w held constant). General mode, global-Z
+// order, 64-float records (common.cuh:kRecNht), 24 ray features. The
+// residual form is kept with phi and g_feat 24 wide: u_j = <g_feat,
+// f_j> + g_depth hit_t_j, where f_j = (sin b_k, cos b_k) of the blends b_k
+// of pair j's control features at the pixel's canonical hit point. Then,
+// with e_k = w (cos b_k g_sin,k - sin b_k g_cos,k):
+//   d feature[v][k] = bary_v e_k (48 fields),
+//   d bary_v = sum_k feature[v][k] e_k, pulled through the barycentric map
+//   to the canonical point c = a + b tc, tc = -(a . b) / |b|^2, and from
+//   there onto a and b beside the alpha path: d_a += d_c, d_b += d_c tc,
+//   and d_c . b joins tc's cotangent (g_depth w |d|), which the hit
+//   distance shares;
+// then d_a, d_b go to p and M as in the general mode. A per-thread
+// array of 61 gradients would spill, and 16-pair groups of 61-float warp
+// partials would not fit shared memory beside 128 staged records, so the
+// reduction scatters: the 13 geometry fields (padded to 16) and, per
+// control dim k, its 4 vertex fields are reduced as they are produced by
+// warp_sum_scatter (a fixed-order butterfly that leaves each lane one
+// field's warp sum: 16 shuffles for the 16, 6 for each 4, against 5 per
+// field for a full butterfly), the warp partials of 4-pair groups go to
+// shared memory (2 x 8 x 4 x 61 floats, 15.6 KB, beside the 33.3 KB of
+// staged records), and the 8 warps are summed in warp order. Still no
+// atomics: bitwise repeatable. Bound: the per-accepted-hit arithmetic (12
+// sincosf, ~570 flops; chip_smoke.py:NHT_BWD_ACCEPT_FLOPS) and the shuffles.
+//
 // Numerics: fp32, built with -fmad=false like kernel B, and the hit math is
 // the same common.cuh:eval_hit, so accept and kill decisions equal the
 // forward's. The W = 0 degree-2 path does the training slice's kernel's
@@ -83,15 +111,71 @@ constexpr int kGroup = 16;         // pairs per reduction group
 constexpr int kWarps = kBlock / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
+// The cotangents of a and b of one accepted candidate (_fast_pullback)
+// through alpha = min(max_alpha, resp(sq) density), sq = |a x b|^2 / |b|^2
+// (g_eff: alpha's cotangent where alpha_raw is under max_alpha, else 0)
+// and tc = -(a . b) / |b|^2 (g_tc), with b = M d.
+struct GradAB {
+  float ax, ay, az, bx, by, bz;
+};
+
+template <int kDeg>
+__device__ __forceinline__ GradAB pull_ab(const gut::Hit& h, float g_eff,
+                                          float dens, float g_tc,
+                                          const gut::RasterParams& p) {
+  const float d_resp = g_eff * dens;
+  // particle_response_dsq: d resp / d sq
+  const float d_sq = d_resp * gut::response_dsq<kDeg>(h, p);
+  const float d_q = -g_tc * h.inv_m;
+  const float d_inv_m = d_sq * h.c2 - g_tc * h.q;
+  const float d_c2 = d_sq * h.inv_m;
+  const float d_m = -d_inv_m * h.inv_m * h.inv_m;
+  const float gcx = 2.0f * d_c2 * h.cx;
+  const float gcy = 2.0f * d_c2 * h.cy;
+  const float gcz = 2.0f * d_c2 * h.cz;
+  const float ax = h.ax, ay = h.ay, az = h.az;
+  // c = a x b: d_a = b x g_c, d_b = g_c x a; q = a . b; m = |b|^2
+  GradAB g;
+  g.ax = h.by * gcz - h.bz * gcy + d_q * h.bx;
+  g.ay = h.bz * gcx - h.bx * gcz + d_q * h.by;
+  g.az = h.bx * gcy - h.by * gcx + d_q * h.bz;
+  g.bx = gcy * az - gcz * ay + d_q * ax + 2.0f * d_m * h.bx;
+  g.by = gcz * ax - gcx * az + d_q * ay + 2.0f * d_m * h.by;
+  g.bz = gcx * ay - gcy * ax + d_q * az + 2.0f * d_m * h.bz;
+  return g;
+}
+
+// The general mode's map of (d_a, d_b) through a = M e, e = o - p and
+// b = M d onto rows 0-11 of its record: d_p = -M^T d_a,
+// d_M[i][k] = d_a[i] e[k] + d_b[i] d[k].
+template <int kN>
+__device__ __forceinline__ void general_rows(const GradAB& g,
+                                             const gut::Hit& h,
+                                             const float* r, int stride,
+                                             const gut::Ray& ray,
+                                             float (&d)[kN]) {
+  const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
+  d[0] = -(r[3 * stride] * g.ax + r[6 * stride] * g.ay + r[9 * stride] * g.az);
+  d[1] = -(r[4 * stride] * g.ax + r[7 * stride] * g.ay + r[10 * stride] * g.az);
+  d[2] = -(r[5 * stride] * g.ax + r[8 * stride] * g.ay + r[11 * stride] * g.az);
+  d[3] = g.ax * h.ex + g.bx * dx;
+  d[4] = g.ax * h.ey + g.bx * dy;
+  d[5] = g.ax * h.ez + g.bx * dz;
+  d[6] = g.ay * h.ex + g.by * dx;
+  d[7] = g.ay * h.ey + g.by * dy;
+  d[8] = g.ay * h.ez + g.by * dz;
+  d[9] = g.az * h.ex + g.bz * dx;
+  d[10] = g.az * h.ey + g.bz * dy;
+  d[11] = g.az * h.ez + g.bz * dz;
+}
+
 // Pull (g_alpha, g_hit_t = g_depth w, g_rgb = g_feat w) of one accepted
-// candidate back to its 16 record fields (_fast_pullback) through
-// alpha = min(max_alpha, resp(sq) density), sq = |a x b|^2 / |b|^2,
-// hit_t = -(a . b) / |b|^2 and b = M d.
+// candidate back to its 16 record fields (_fast_pullback) through pull_ab.
 //
 // The general mode (kGen; raster.py:_bwd_chunk_grads' pullback of
 // chunk_hits_general) goes on from d_a and d_b through a = M (o - p),
-// hit_t scaled by |d|: d_p = -M^T d_a, d_M = d_a (o - p)^T + d_b d^T, and
-// writes d_p in rows 0-2 of the general record.
+// hit_t scaled by |d| (general_rows), and writes d_p in rows 0-2 of the
+// general record.
 template <int kDeg, bool kGen>
 __device__ __forceinline__ void pullback(const gut::Hit& h, const float* r,
                                          int stride, float g_alpha, float w,
@@ -103,43 +187,15 @@ __device__ __forceinline__ void pullback(const gut::Hit& h, const float* r,
   const float g_ht = kGen ? gd * w * ray.dn : gd * w;
   // alpha = min(max_alpha, alpha_raw): no gradient when clamped
   const float g_eff = h.alpha_raw < p.max_alpha ? g_alpha : 0.f;
-  const float dens = r[gut::kDensity * stride];
-  const float d_resp = g_eff * dens;
-  // particle_response_dsq: d resp / d sq
-  const float d_sq = d_resp * gut::response_dsq<kDeg>(h, p);
-  const float d_q = -g_ht * h.inv_m;
-  const float d_inv_m = d_sq * h.c2 - g_ht * h.q;
-  const float d_c2 = d_sq * h.inv_m;
-  const float d_m = -d_inv_m * h.inv_m * h.inv_m;
-  const float gcx = 2.0f * d_c2 * h.cx;
-  const float gcy = 2.0f * d_c2 * h.cy;
-  const float gcz = 2.0f * d_c2 * h.cz;
-  const float ax = h.ax, ay = h.ay, az = h.az;
-  // c = a x b: d_a = b x g_c, d_b = g_c x a; q = a . b; m = |b|^2
-  const float dax = h.by * gcz - h.bz * gcy + d_q * h.bx;
-  const float day = h.bz * gcx - h.bx * gcz + d_q * h.by;
-  const float daz = h.bx * gcy - h.by * gcx + d_q * h.bz;
-  const float dbx = gcy * az - gcz * ay + d_q * ax + 2.0f * d_m * h.bx;
-  const float dby = gcz * ax - gcx * az + d_q * ay + 2.0f * d_m * h.by;
-  const float dbz = gcx * ay - gcy * ax + d_q * az + 2.0f * d_m * h.bz;
+  const GradAB g =
+      pull_ab<kDeg>(h, g_eff, r[gut::kDensity * stride], g_ht, p);
+  const float dbx = g.bx, dby = g.by, dbz = g.bz;
   if constexpr (kGen) {
-    // a = M e, e = o - p: d_p = -M^T d_a, d_M[i][k] += d_a[i] e[k]
-    d[0] = -(r[3 * stride] * dax + r[6 * stride] * day + r[9 * stride] * daz);
-    d[1] = -(r[4 * stride] * dax + r[7 * stride] * day + r[10 * stride] * daz);
-    d[2] = -(r[5 * stride] * dax + r[8 * stride] * day + r[11 * stride] * daz);
-    d[3] = dax * h.ex + dbx * dx;
-    d[4] = dax * h.ey + dbx * dy;
-    d[5] = dax * h.ez + dbx * dz;
-    d[6] = day * h.ex + dby * dx;
-    d[7] = day * h.ey + dby * dy;
-    d[8] = day * h.ez + dby * dz;
-    d[9] = daz * h.ex + dbz * dx;
-    d[10] = daz * h.ey + dbz * dy;
-    d[11] = daz * h.ez + dbz * dz;
+    general_rows(g, h, r, stride, ray, d);
   } else {
-    d[0] = dax;
-    d[1] = day;
-    d[2] = daz;
+    d[0] = g.ax;
+    d[1] = g.ay;
+    d[2] = g.az;
     // b = M d: d_M[i][k] = d_b[i] * d[k] (row-major M)
     d[3] = dbx * dx;
     d[4] = dbx * dy;
@@ -367,28 +423,266 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
   }
 }
 
+// Sum v over the warp in a fixed order and scatter the sums: afterwards
+// every lane holds the warp sum of v[lane / (32 / N)]. The first log2(N)
+// butterfly levels halve the values each lane carries (a lane keeps the
+// half its partner does not, and adds the partner's copy of it), the
+// rest add within groups of 32 / N lanes. N is a power of two <= 32;
+// v is clobbered.
+template <int N>
+__device__ __forceinline__ float warp_sum_scatter(float (&v)[N], int lane) {
+  static_assert(N >= 1 && N <= 32 && (N & (N - 1)) == 0,
+                "N: a power of two <= 32");
+#pragma unroll
+  for (int h = N / 2, off = 16; h >= 1; h /= 2, off /= 2) {
+    const bool hi = (lane & off) != 0;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = hi ? v[i] : v[i + h];
+      const float keep = hi ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, off);
+    }
+  }
+  float s = v[0];
+#pragma unroll
+  for (int off = 16 / N; off >= 1; off /= 2) {
+    s += __shfl_xor_sync(kFull, s, off);
+  }
+  return s;
+}
+
+constexpr int kBatchNht = 128;   // pairs staged per batch (33.3 KB)
+constexpr int kGroupNht = 4;     // pairs per reduction group
+// gradient fields written per pair: p, M, density, 48 features (the
+// record's last 3 slots are padding and keep the wrapper's zeros)
+constexpr int kFieldsNht = gut::kNhtFeat + 4 * gut::kNhtDim;
+constexpr int kGeoNht = 16;      // the 13 geometry fields, padded
+static_assert(kGroupNht * kFieldsNht <= kBlock, "a thread per group field");
+
+template <int kDeg>
+__global__ void __launch_bounds__(kBlock)
+raster_bwd_nht_kernel(const float* __restrict__ table,      // [C, 64]
+                      const int32_t* __restrict__ pair_particle,  // [P]
+                      const int32_t* __restrict__ tile_start,     // [T + 1]
+                      const float* __restrict__ ray_o,      // [H, W, 3]
+                      const float* __restrict__ ray_d,      // [H, W, 3]
+                      const float* __restrict__ ray_tmin,   // [H, W]
+                      const float* __restrict__ ray_tmax,   // [H, W]
+                      const float* __restrict__ fwd_feat,   // [H, W, 24]
+                      const float* __restrict__ fwd_depth,  // [H, W]
+                      const float* __restrict__ fwd_tfinal,  // [H, W]
+                      const float* __restrict__ g_feat,     // [H, W, 24]
+                      const float* __restrict__ g_opacity,  // [H, W]
+                      const float* __restrict__ g_depth_in,  // [H, W]
+                      gut::RasterParams p,
+                      float* __restrict__ d_records) {      // [P, 64]
+  constexpr int kR = gut::kRecNht;
+  constexpr int kD = gut::kNhtDim;
+  __shared__ float s_rec[kR + 1][kBatchNht];
+  __shared__ float s_part[2][kWarps][kGroupNht][kFieldsNht];
+
+  const int tile = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int px = (tile % p.grid_x) * kTile + threadIdx.x % kTile;
+  const int py = (tile / p.grid_x) * kTile + threadIdx.x / kTile;
+  const bool inside = px < p.width && py < p.height;
+  const int64_t pix = static_cast<int64_t>(py) * p.width + px;
+
+  const gut::Ray ray =
+      gut::load_ray<true>(ray_o, ray_d, ray_tmin, ray_tmax, inside, pix);
+  // upstream gradients of the (sin, cos) ray features, per control dim
+  float gs[kD], gc[kD];
+  float g_t = 0.f, gd = 0.f, t_final = 0.f, phi_total = 0.f;
+#pragma unroll
+  for (int k = 0; k < kD; ++k) gs[k] = gc[k] = 0.f;
+  if (inside) {
+    g_t = -g_opacity[pix];
+    gd = g_depth_in[pix];
+    t_final = fwd_tfinal[pix];
+    phi_total = gd * fwd_depth[pix];
+#pragma unroll
+    for (int k = 0; k < kD; ++k) {
+      gs[k] = g_feat[2 * kD * pix + 2 * k];
+      gc[k] = g_feat[2 * kD * pix + 2 * k + 1];
+      phi_total += gs[k] * fwd_feat[2 * kD * pix + 2 * k] +
+                   gc[k] * fwd_feat[2 * kD * pix + 2 * k + 1];
+    }
+  }
+  bool alive = inside;
+  float trans = 1.f;    // T before the current candidate
+  float psi_acc = 0.f;  // inclusive prefix of w * u
+
+  const int start = tile_start[tile];
+  const int end = tile_start[tile + 1];
+  int group = 0;        // running group count: picks the s_part buffer
+  bool done = false;
+  for (int base = start; base < end && !done; base += kBatchNht) {
+    // the previous batch's reads of s_rec are over before restaging
+    __syncthreads();
+    const int idx = base + threadIdx.x;
+    if (threadIdx.x < kBatchNht && idx < end) {
+      const float4* row = reinterpret_cast<const float4*>(
+          table + static_cast<int64_t>(pair_particle[idx]) * kR);
+#pragma unroll
+      for (int q = 0; q < kR / 4; ++q) {
+        const float4 v = row[q];
+        s_rec[4 * q + 0][threadIdx.x] = v.x;
+        s_rec[4 * q + 1][threadIdx.x] = v.y;
+        s_rec[4 * q + 2][threadIdx.x] = v.z;
+        s_rec[4 * q + 3][threadIdx.x] = v.w;
+      }
+      s_rec[kR][threadIdx.x] = gut::sq_threshold<kDeg>(
+          s_rec[gut::kDensity][threadIdx.x], p);
+    }
+    __syncthreads();
+    const int nb = min(kBatchNht, end - base);
+    for (int g0 = 0; g0 < nb; g0 += kGroupNht, ++group) {
+      float (*part)[kGroupNht][kFieldsNht] = s_part[group & 1];
+      const int ng = min(kGroupNht, nb - g0);
+      for (int jj = 0; jj < ng; ++jj) {
+        const int j = g0 + jj;
+        const float* r = &s_rec[0][j];
+        float geo[kGeoNht];   // d of p, M, density (and padding)
+        float e[kD];          // d of each control dim's blend
+        float bary[4];
+#pragma unroll
+        for (int f = 0; f < kGeoNht; ++f) geo[f] = 0.f;
+#pragma unroll
+        for (int k = 0; k < kD; ++k) e[k] = 0.f;
+#pragma unroll
+        for (int v = 0; v < 4; ++v) bary[v] = 0.f;
+        bool touched = false;
+        gut::Hit h;
+        if (alive &&
+            gut::eval_hit_general<kDeg>(r, kBatchNht, ray, s_rec[kR][j], p,
+                                        h)) {
+          const gut::NhtHit n = gut::nht_hit(h);
+          float sn[kD], cs[kD];
+          float u = gd * h.hit_t;
+#pragma unroll
+          for (int k = 0; k < kD; ++k) {
+            float sk, ck;
+            sincosf(gut::nht_blend(r, kBatchNht, n, k), &sk, &ck);
+            sn[k] = sk;
+            cs[k] = ck;
+            u += gs[k] * sk + gc[k] * ck;
+          }
+          const float w = h.alpha * trans;
+          psi_acc += w * u;
+          const float suffix = phi_total - psi_acc;
+          const float g_alpha =
+              trans * u - (suffix + g_t * t_final) / fmaxf(1.0f - h.alpha,
+                                                           1e-6f);
+          if (w > 0.f) {
+            touched = true;
+            // the features' path, with w held constant
+            float dw[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int k = 0; k < kD; ++k) {
+              e[k] = w * (cs[k] * gs[k] - sn[k] * gc[k]);
+#pragma unroll
+              for (int v = 0; v < 4; ++v) {
+                dw[v] += r[(gut::kNhtFeat + v * kD + k) * kBatchNht] * e[k];
+              }
+            }
+#pragma unroll
+            for (int v = 0; v < 4; ++v) bary[v] = n.w[v];
+            // w_i = G_i . (c - v0), w_0 = 1 - w_1 - w_2 - w_3
+            const float d1 = dw[1] - dw[0], d2 = dw[2] - dw[0],
+                        d3 = dw[3] - dw[0];
+            const float dcx = gut::kTetG1x * d1;
+            const float dcy = gut::kTetG1y * d1 + gut::kTetG2y * d2;
+            const float dcz = gut::kTetG1z * d1 + gut::kTetG2z * d2 +
+                              gut::kTetG3z * d3;
+            // c = a + b tc: tc's cotangent joins the hit distance's
+            const float g_tc = gd * w * ray.dn +
+                               (dcx * h.bx + dcy * h.by + dcz * h.bz);
+            const float g_eff = h.alpha_raw < p.max_alpha ? g_alpha : 0.f;
+            GradAB g = pull_ab<kDeg>(h, g_eff, r[gut::kDensity * kBatchNht],
+                                     g_tc, p);
+            g.ax += dcx;
+            g.ay += dcy;
+            g.az += dcz;
+            g.bx += dcx * n.tc;
+            g.by += dcy * n.tc;
+            g.bz += dcz * n.tc;
+            general_rows(g, h, r, kBatchNht, ray, geo);
+            geo[gut::kDensity] = g_eff * h.resp;
+          }
+          trans *= 1.0f - h.alpha;
+          // exact kill: T_final froze here in the forward too
+          if (trans < p.min_transmittance) alive = false;
+        }
+        float* out = part[warp][jj];
+        if (__any_sync(kFull, touched)) {
+          const float sg = warp_sum_scatter<kGeoNht>(geo, lane);
+          if ((lane & 1) == 0 && (lane >> 1) < gut::kNhtFeat) {
+            out[lane >> 1] = sg;
+          }
+#pragma unroll
+          for (int k = 0; k < kD; ++k) {
+            float fv[4];
+#pragma unroll
+            for (int v = 0; v < 4; ++v) fv[v] = bary[v] * e[k];
+            const float sf = warp_sum_scatter<4>(fv, lane);
+            if ((lane & 7) == 0) out[gut::kNhtFeat + (lane >> 3) * kD + k] = sf;
+          }
+        } else {
+          for (int f = lane; f < kFieldsNht; f += 32) out[f] = 0.f;
+        }
+      }
+      const int n_alive = __syncthreads_count(alive);
+      // thread t sums field (t % 61) of pair (t / 61) over the 8 warps
+      const int jj = threadIdx.x / kFieldsNht;
+      const int f = threadIdx.x % kFieldsNht;
+      if (jj < ng) {
+        float acc = 0.f;
+#pragma unroll
+        for (int wi = 0; wi < kWarps; ++wi) acc += part[wi][jj][f];
+        d_records[static_cast<int64_t>(base + g0 + jj) * kR + f] = acc;
+      }
+      if (n_alive == 0) {
+        done = true;   // every pixel dead: later pairs keep their zeros
+        break;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // degree: 2 or 4; window: 0 (global-Z order) or 16 (sorted mode); general:
-// 1 reads ray_o (the general-geometry mode), 0 ignores it.
+// 1 reads ray_o (the general-geometry mode), 0 ignores it; nht: 1 for the
+// NHT mode (64-float records, 24 features; general, window 0 only).
 extern "C" int raster_bwd_launch(
     const float* table, const int32_t* pair_particle,
     const int32_t* tile_start, const float* ray_o, const float* ray_d,
     const float* ray_tmin, const float* ray_tmax, const float* fwd_feat,
     const float* fwd_depth, const float* fwd_tfinal, const float* g_feat,
     const float* g_opacity, const float* g_depth, int width, int height,
-    int grid_x, int num_tiles, int degree, int window, int general,
+    int grid_x, int num_tiles, int degree, int window, int general, int nht,
     float min_transmittance, float max_alpha,
     float sq_thr_response, float log_min_alpha, float gg_scale,
     float* d_records, void* stream) {
   gut::RasterParams p{width, height, grid_x, min_transmittance, max_alpha,
                       sq_thr_response, log_min_alpha, gg_scale};
   if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
+  const auto stream_ = static_cast<cudaStream_t>(stream);
+  if (nht) {
+    return gut::launch_nht(degree, window, general, [&](auto deg) {
+      raster_bwd_nht_kernel<decltype(deg)::value>
+          <<<num_tiles, kBlock, 0, stream_>>>(
+              table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
+              ray_tmax, fwd_feat, fwd_depth, fwd_tfinal, g_feat, g_opacity,
+              g_depth, p, d_records);
+    });
+  }
   return gut::launch_mode(degree, window, general, [&](auto deg, auto win,
                                                        auto gen) {
     raster_bwd_kernel<decltype(deg)::value, decltype(win)::value,
                       decltype(gen)::value>
-        <<<num_tiles, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        <<<num_tiles, kBlock, 0, stream_>>>(
             table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
             ray_tmax,
             fwd_feat, fwd_depth, fwd_tfinal, g_feat, g_opacity, g_depth, p,

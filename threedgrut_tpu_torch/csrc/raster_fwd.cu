@@ -43,6 +43,22 @@
 // Dead pixels drop out of the walk, and the block leaves once every pixel
 // of the tile is dead (__syncthreads_count), as the reference does.
 //
+// NHT mode (kNht; raster.py's NHT mode, the TPU's kernel 8:
+// tetra_barycentric :593 and nht_feature_weighted_sum :609 inside
+// _fwd_strip_kernel). Always the general mode in global-Z order, as JAX
+// runs NHT. The record is 64 floats (common.cuh:kRecNht): p, M, density
+// and 4 x 12 tetrahedron control features. Per (pixel, pair) it takes
+// eval_hit_general's a = M (o - p) and b = M d, forms the canonical hit
+// point c = a - b (a . b) / |b|^2 and its barycentric weights
+// (common.cuh:nht_hit), blends the 4 vertices' features for each of the
+// 12 control dims and accumulates w sin and w cos of each (sincosf, not
+// the fast __sincosf) into 24 register accumulators: the 24 ray
+// features. A 64-float record staged for 256 pairs would overflow the
+// 48 KB of static shared memory, so NHT batches are 128 pairs (33 KB with
+// the threshold row). Bound: the per-accepted-hit arithmetic, 12 sincosf
+// and ~130 flops beside the general hit's ~70; staging moves 256 B per
+// pair and block.
+//
 // Outputs: features, opacity = 1 - T_final, depth, hit count and T_final
 // itself (raster.py lane f+3), which the backward (kernel C,
 // raster_bwd.cu) reads as saved: rebuilding it as 1 - opacity would lose
@@ -63,12 +79,9 @@ using gut::kBlock;
 using gut::kRec;
 using gut::kTile;
 
-constexpr int kBatch = 256;            // pairs staged per batch
-constexpr int kStaged = kRec + 1;      // + squared-distance threshold
-
-template <int kDeg, int kW, bool kGen>
+template <int kDeg, int kW, bool kGen, bool kNht>
 __global__ void __launch_bounds__(kBlock)
-raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
+raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
                   const int32_t* __restrict__ pair_particle,  // [P]
                   const int32_t* __restrict__ tile_start,     // [T + 1]
                   const float* __restrict__ ray_o,        // [H, W, 3], kGen
@@ -76,12 +89,17 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
                   const float* __restrict__ ray_tmin,     // [H, W]
                   const float* __restrict__ ray_tmax,     // [H, W]
                   gut::RasterParams p,
-                  float* __restrict__ out_feat,           // [H, W, 3]
+                  float* __restrict__ out_feat,           // [H, W, kOut]
                   float* __restrict__ out_opacity,        // [H, W]
                   float* __restrict__ out_depth,          // [H, W]
                   float* __restrict__ out_hits,           // [H, W]
                   float* __restrict__ out_tfinal) {       // [H, W]
-  __shared__ float s_rec[kStaged][kBatch];
+  // record width, pairs per batch and ray features of the mode
+  constexpr int kRecT = kNht ? gut::kRecNht : kRec;
+  constexpr int kBatch = kNht ? 128 : 256;
+  constexpr int kOut = kNht ? gut::kNhtOut : 3;
+  // the record and the squared-distance threshold of each staged pair
+  __shared__ float s_rec[kRecT + 1][kBatch];
 
   const int tile = blockIdx.x;
   const int px = (tile % p.grid_x) * kTile + threadIdx.x % kTile;
@@ -92,14 +110,27 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
   const gut::Ray ray =
       gut::load_ray<kGen>(ray_o, ray_d, ray_tmin, ray_tmax, inside, pix);
   bool alive = inside;
-  float trans = 1.f, f0 = 0.f, f1 = 0.f, f2 = 0.f, depth = 0.f, hits = 0.f;
+  float trans = 1.f, depth = 0.f, hits = 0.f;
+  float feat[kOut];
+#pragma unroll
+  for (int c = 0; c < kOut; ++c) feat[c] = 0.f;
   constexpr int kWin = kW > 0 ? kW : 1;
   // blend staged pair j, accepted with hit h, and apply the exact kill
   auto composite = [&](const gut::Hit& h, int j) {
     const float w = h.alpha * trans;
-    f0 += w * s_rec[gut::kRgb + 0][j];
-    f1 += w * s_rec[gut::kRgb + 1][j];
-    f2 += w * s_rec[gut::kRgb + 2][j];
+    if constexpr (kNht) {
+      const gut::NhtHit n = gut::nht_hit(h);
+#pragma unroll
+      for (int k = 0; k < gut::kNhtDim; ++k) {
+        float sn, cs;
+        sincosf(gut::nht_blend(&s_rec[0][j], kBatch, n, k), &sn, &cs);
+        feat[2 * k] += w * sn;
+        feat[2 * k + 1] += w * cs;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) feat[c] += w * s_rec[gut::kRgb + c][j];
+    }
     depth += w * h.hit_t;
     hits += w > 0.f ? 1.f : 0.f;
     trans *= 1.0f - h.alpha;
@@ -115,15 +146,19 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
     // all pixels of the tile dead (or off-image): the block is done
     if (__syncthreads_count(alive) == 0) break;
     const int idx = base + threadIdx.x;
-    if (idx >= start && idx < end) {
+    if (threadIdx.x < kBatch && idx >= start && idx < end) {
       const float4* row = reinterpret_cast<const float4*>(
-          table + static_cast<int64_t>(pair_particle[idx]) * kRec);
-      const float4 v0 = row[0], v1 = row[1], v2 = row[2], v3 = row[3];
-      const float vals[kRec] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w,
-                                v2.x, v2.y, v2.z, v2.w, v3.x, v3.y, v3.z, v3.w};
+          table + static_cast<int64_t>(pair_particle[idx]) * kRecT);
 #pragma unroll
-      for (int f = 0; f < kRec; ++f) s_rec[f][threadIdx.x] = vals[f];
-      s_rec[kRec][threadIdx.x] = gut::sq_threshold<kDeg>(v3.x, p);
+      for (int q = 0; q < kRecT / 4; ++q) {
+        const float4 v = row[q];
+        s_rec[4 * q + 0][threadIdx.x] = v.x;
+        s_rec[4 * q + 1][threadIdx.x] = v.y;
+        s_rec[4 * q + 2][threadIdx.x] = v.z;
+        s_rec[4 * q + 3][threadIdx.x] = v.w;
+      }
+      s_rec[kRecT][threadIdx.x] = gut::sq_threshold<kDeg>(
+          s_rec[gut::kDensity][threadIdx.x], p);
     }
     __syncthreads();
     const int nb = min(kBatch, end - base);
@@ -131,7 +166,7 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
       for (int j = 0; alive && j < nb; ++j) {
         gut::Hit h;
         if (!gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
-                                       s_rec[kRec][j], p, h)) {
+                                       s_rec[kRecT][j], p, h)) {
           continue;
         }
         composite(h, j);
@@ -142,13 +177,13 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
         float key[kWin];
         uint8_t lane[kWin];
         const int n = gut::sort_window<kDeg, kWin, kGen>(
-            &s_rec[0][0], kBatch, s_rec[kRec], max(w0, lo0),
+            &s_rec[0][0], kBatch, s_rec[kRecT], max(w0, lo0),
             min(w0 + kWin, nb), ray, p, key, lane);
         for (int i = 0; alive && i < n; ++i) {
           const int j = lane[i];
           gut::Hit h;
-          gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray, s_rec[kRec][j],
-                                    p, h);
+          gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
+                                    s_rec[kRecT][j], p, h);
           composite(h, j);
         }
       }
@@ -156,9 +191,8 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
     __syncthreads();
   }
   if (inside) {
-    out_feat[3 * pix + 0] = f0;
-    out_feat[3 * pix + 1] = f1;
-    out_feat[3 * pix + 2] = f2;
+#pragma unroll
+    for (int c = 0; c < kOut; ++c) out_feat[kOut * pix + c] = feat[c];
     out_opacity[pix] = 1.0f - trans;
     out_depth[pix] = depth;
     out_hits[pix] = hits;
@@ -169,12 +203,13 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
 }  // namespace
 
 // degree: 2 or 4; window: 0 (global-Z order) or 16 (sorted mode); general:
-// 1 reads ray_o (the general-geometry mode), 0 ignores it.
+// 1 reads ray_o (the general-geometry mode), 0 ignores it; nht: 1 for the
+// NHT mode (64-float records, 24 features out; general, window 0 only).
 extern "C" int raster_fwd_launch(
     const float* table, const int32_t* pair_particle,
     const int32_t* tile_start, const float* ray_o, const float* ray_d,
     const float* ray_tmin, const float* ray_tmax, int width, int height,
-    int grid_x, int num_tiles, int degree, int window, int general,
+    int grid_x, int num_tiles, int degree, int window, int general, int nht,
     float min_transmittance, float max_alpha,
     float sq_thr_response, float log_min_alpha, float gg_scale,
     float* out_feat, float* out_opacity, float* out_depth, float* out_hits,
@@ -182,11 +217,21 @@ extern "C" int raster_fwd_launch(
   gut::RasterParams p{width, height, grid_x, min_transmittance, max_alpha,
                       sq_thr_response, log_min_alpha, gg_scale};
   if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
+  const auto stream_ = static_cast<cudaStream_t>(stream);
+  if (nht) {
+    return gut::launch_nht(degree, window, general, [&](auto deg) {
+      raster_fwd_kernel<decltype(deg)::value, 0, true, true>
+          <<<num_tiles, kBlock, 0, stream_>>>(
+              table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
+              ray_tmax, p, out_feat, out_opacity, out_depth, out_hits,
+              out_tfinal);
+    });
+  }
   return gut::launch_mode(degree, window, general, [&](auto deg, auto win,
                                                        auto gen) {
     raster_fwd_kernel<decltype(deg)::value, decltype(win)::value,
-                      decltype(gen)::value>
-        <<<num_tiles, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+                      decltype(gen)::value, false>
+        <<<num_tiles, kBlock, 0, stream_>>>(
             table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
             ray_tmax, p,
             out_feat, out_opacity, out_depth, out_hits, out_tfinal);

@@ -5,8 +5,9 @@ Parameters live in capacity-sized tensors with an ``n_active`` count, as
 in the JAX package, so rows compare one to one with it. Raw
 (pre-activation) parameters: positions [C,3], rotation [C,4] (wxyz,
 unnormalized), scale [C,3] (log-scale by default), density [C,1] (logit
-by default), features_albedo [C,3] and features_specular [C,S]
-(coefficient-major SH).
+by default), and either the SH features features_albedo [C,3] and
+features_specular [C,S] (coefficient-major) or the NHT features [C,K]
+(K / 4 control features per tetrahedron vertex, vertex-major).
 """
 
 from __future__ import annotations
@@ -22,6 +23,16 @@ from ..ops.sh import SH_C0, num_sh_coeffs
 
 PARAM_NAMES = ("positions", "rotation", "scale", "density",
                "features_albedo", "features_specular")
+NHT_PARAM_NAMES = ("positions", "rotation", "scale", "density", "features")
+
+
+def param_names(feature_type: str):
+    """The parameter leaves of a model of ``feature_type`` (sh or nht)."""
+    if feature_type == "sh":
+        return PARAM_NAMES
+    if feature_type == "nht":
+        return NHT_PARAM_NAMES
+    raise ValueError(f"feature_type {feature_type}: sh or nht")
 
 ACTIVATIONS = {
     "sigmoid": torch.sigmoid,
@@ -42,6 +53,7 @@ class GaussianModelConfig:
     scale_activation: str = "exp"
     feature_type: str = "sh"
     max_sh_degree: int = 3
+    nht_feature_dim: int = 48
     default_density: float = 0.1
     default_scale_factor: float = 1.0
 
@@ -68,10 +80,10 @@ def initialize_from_points(cfg: GaussianModelConfig, points: np.ndarray,
     """Default initialization from a point cloud (JAX
     models/gaussians.py:initialize_from_points, reference model.py:708):
     random rotations, scales from kNN or observer distances, the default
-    density, SH DC from the colors. The numpy draws are the JAX
-    package's, in the same order, so both give equal arrays."""
-    if cfg.feature_type != "sh":
-        raise NotImplementedError("only SH features are ported")
+    density, and SH DC from the colors or, for NHT, features uniform in
+    (-pi/2, pi/2). The numpy draws are the JAX package's, from one
+    generator seeded with ``seed`` in the same order, so both give equal
+    arrays."""
     n = points.shape[0]
     cap = capacity or default_capacity_for(n)
     rng = np.random.default_rng(seed)
@@ -97,13 +109,19 @@ def initialize_from_points(cfg: GaussianModelConfig, points: np.ndarray,
         colors = colors.astype(np.float32)
         if colors.max() > 1.5:
             colors = colors / 255.0
-    albedo = np.zeros((cap, 3), np.float32)
-    albedo[:n] = (colors - 0.5) / np.float32(SH_C0)
-    spec = np.zeros((cap, 3 * (num_sh_coeffs(cfg.max_sh_degree) - 1)),
-                    np.float32)
     arrays = dict(positions=positions, rotation=rotation, scale=scale,
-                  density=density, features_albedo=albedo,
-                  features_specular=spec)
+                  density=density)
+    if cfg.feature_type == "nht":
+        feats = np.zeros((cap, cfg.nht_feature_dim), np.float32)
+        feats[:n] = rng.uniform(-np.pi / 2, np.pi / 2,
+                                (n, cfg.nht_feature_dim)).astype(np.float32)
+        arrays["features"] = feats
+    else:
+        albedo = np.zeros((cap, 3), np.float32)
+        albedo[:n] = (colors - 0.5) / np.float32(SH_C0)
+        arrays["features_albedo"] = albedo
+        arrays["features_specular"] = np.zeros(
+            (cap, 3 * (num_sh_coeffs(cfg.max_sh_degree) - 1)), np.float32)
     return GaussianModel.from_numpy(arrays, n, 0, cfg, device)
 
 
@@ -137,16 +155,20 @@ class GaussianModel(nn.Module):
                  n_active_features: int,
                  config: GaussianModelConfig = GaussianModelConfig()):
         super().__init__()
-        if config.feature_type != "sh":
-            raise NotImplementedError(
-                "only SH features are ported (NHT comes later)")
         cap = params["positions"].shape[0]
-        k = num_sh_coeffs(config.max_sh_degree)
-        if params["features_specular"].shape != (cap, 3 * (k - 1)):
-            raise ValueError(
-                f"features_specular {tuple(params['features_specular'].shape)}"
-                f" does not match max_sh_degree {config.max_sh_degree}")
-        for name in PARAM_NAMES:
+        if config.feature_type == "nht":
+            if params["features"].shape != (cap, config.nht_feature_dim):
+                raise ValueError(
+                    f"features {tuple(params['features'].shape)} do not "
+                    f"match nht_feature_dim {config.nht_feature_dim}")
+        else:
+            k = num_sh_coeffs(config.max_sh_degree)
+            if params["features_specular"].shape != (cap, 3 * (k - 1)):
+                raise ValueError(
+                    "features_specular "
+                    f"{tuple(params['features_specular'].shape)} does not "
+                    f"match max_sh_degree {config.max_sh_degree}")
+        for name in param_names(config.feature_type):
             setattr(self, name, nn.Parameter(
                 params[name].to(torch.float32).contiguous()))
         self.n_active = int(n_active)
@@ -157,13 +179,21 @@ class GaussianModel(nn.Module):
     @classmethod
     def from_numpy(cls, arrays: Dict[str, np.ndarray], n_active=None,
                    n_active_features=None, config=None, device="cpu"):
-        """From raw parameter arrays named as the JAX package names them."""
+        """From raw parameter arrays named as the JAX package names them:
+        an NHT model when they hold ``features``."""
+        if "features" in arrays:
+            config = config or GaussianModelConfig(
+                feature_type="nht",
+                nht_feature_dim=np.asarray(arrays["features"]).shape[1])
+            degree = 0
+        else:
+            spec = np.asarray(arrays["features_specular"]).shape[1]
+            degree = int(round(np.sqrt(spec // 3 + 1))) - 1
+            config = config or GaussianModelConfig(max_sh_degree=degree)
         params = {k: torch.tensor(np.asarray(arrays[k], np.float32),
-                                  device=device) for k in PARAM_NAMES}
+                                  device=device)
+                  for k in param_names(config.feature_type)}
         cap = params["positions"].shape[0]
-        spec = params["features_specular"].shape[1]
-        degree = int(round(np.sqrt(spec // 3 + 1))) - 1
-        config = config or GaussianModelConfig(max_sh_degree=degree)
         return cls(params, cap if n_active is None else n_active,
                    degree if n_active_features is None else n_active_features,
                    config)
@@ -171,12 +201,16 @@ class GaussianModel(nn.Module):
     @classmethod
     def from_checkpoint(cls, path: str, config=None, device="cpu"):
         """From a trainer ``.npz`` checkpoint (``params/<name>``,
-        ``n_active``, ``n_active_features``)."""
+        ``n_active``, ``n_active_features``); an NHT model when it holds
+        ``params/features``."""
         with np.load(path) as data:
-            arrays = {k: data[f"params/{k}"] for k in PARAM_NAMES}
+            nht = "params/features" in data.files
+            arrays = {k: data[f"params/{k}"]
+                      for k in param_names("nht" if nht else "sh")}
             n_active = int(data["n_active"])
             degree = int(data["n_active_features"])
-        config = config or GaussianModelConfig(max_sh_degree=max(degree, 0))
+        if config is None and not nht:
+            config = GaussianModelConfig(max_sh_degree=max(degree, 0))
         return cls.from_numpy(arrays, n_active, degree, config, device)
 
     @classmethod
@@ -226,7 +260,8 @@ class GaussianModel(nn.Module):
 
     def params(self) -> Dict[str, nn.Parameter]:
         """The raw parameters by name (the optimizer's groups)."""
-        return {k: getattr(self, k) for k in PARAM_NAMES}
+        return {k: getattr(self, k)
+                for k in param_names(self.config.feature_type)}
 
     @torch.no_grad()
     def set_params(self, **tensors: torch.Tensor):

@@ -20,6 +20,13 @@ a = M (o - p), and each (pixel, pair) forms a = M (o_pix - p); the rest
 of the record, the walk, the windows and the reduction are the
 shared-origin mode's. Its launches count apart, in ``launches_general``.
 
+The NHT mode (a 64-wide ``table``: raster.py's NHT mode, the TPU's
+kernel 8; always general, global-Z order) carries 4 x 12 tetrahedron
+control features per particle in place of rgb and composites 24 ray
+features per pixel, (sin, cos) of the control features' barycentric
+blend at the canonical hit point (``ops/hit.py:nht_hit_features``). Its
+launches count in ``launches_nht``.
+
 ``rasterize_tiles`` is differentiable in ``table`` (the JAX
 ``rasterize_tiles`` custom_vjp, raster.py:2477-2519): its backward runs
 kernel C, then kernel D (``ops/cuda/fold.py``) to fold the per-pair
@@ -34,13 +41,18 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..hit import _GG_SCALE, particle_response
+from ..hit import _GG_SCALE, nht_hit_features, particle_response
 from ..ut import TILE_PIXELS, TILE_X, TILE_Y
 from . import build
 from .fold import fold_pairs
 
 # a = M(o - p) (general mode: p) (3), M = diag(1/s) R^T (9), density, rgb(3)
 RECORD_DIM = 16
+# the NHT record: p (3), M (9), density, 4 x d control features, 3 pad;
+# the kernels are built for d = 12 (64 floats, 24 ray features), the
+# plain versions take any d
+NHT_RECORD_DIM = 64
+NHT_FEAT_SLOT = 13
 
 
 class FoldMeta(NamedTuple):
@@ -95,13 +107,46 @@ def _grid(h, w):
     return (w + TILE_X - 1) // TILE_X, (h + TILE_Y - 1) // TILE_Y
 
 
+def _is_nht(table, cfg, ray_o) -> bool:
+    """Whether ``table`` holds NHT records (16 + 4 d floats, d >= 1);
+    raises for a mode the kernels do not have (NHT runs in the general
+    mode, in global-Z order) and, on the card, for d != 12."""
+    width = table.shape[1] if table.ndim == 2 else 0
+    if width == RECORD_DIM:
+        return False
+    if width <= RECORD_DIM or width % 4:
+        raise ValueError(f"table {tuple(table.shape)}: records of "
+                         f"{RECORD_DIM} floats, or 16 + 4 d for NHT")
+    if ray_o is None or cfg.sorted_compositing:
+        raise NotImplementedError("the NHT mode is general-geometry "
+                                  "(ray_o given) and unsorted only")
+    if table.device.type == "cuda" and width != NHT_RECORD_DIM:
+        raise NotImplementedError(
+            f"NHT records of {width} floats: the kernels are built for "
+            f"{NHT_RECORD_DIM} (12 control features per vertex)")
+    return True
+
+
+def nht_control_dim(table) -> int:
+    """The control features of an NHT table's records (4 d)."""
+    return table.shape[1] - RECORD_DIM
+
+
+def feature_dim(table) -> int:
+    """The ray features a table composites: 3 (rgb), or 2 d for NHT."""
+    if table.shape[1] == RECORD_DIM:
+        return 3
+    return nht_control_dim(table) // 2
+
+
 def _check_inputs(table, pair_particle, tile_start, ray_d, tmin, tmax,
                   ray_o=None):
     h, w = ray_d.shape[:2]
     gx, gy = _grid(h, w)
     dev = table.device
     check = build.check_tensor
-    check("table", table, torch.float32, (table.shape[0], RECORD_DIM), dev)
+    check("table", table, torch.float32, (table.shape[0], table.shape[1]),
+          dev)
     check("pair_particle", pair_particle, torch.int32,
           (pair_particle.shape[0],), dev)
     check("tile_start", tile_start, torch.int32, (gx * gy + 1,), dev)
@@ -124,7 +169,8 @@ def rasterize_tiles(table: torch.Tensor, pair_particle: torch.Tensor,
 
     Args:
         table: [C, 16] f32 per-particle record (a, M, density, rgb; in
-            the general mode p, M, density, rgb).
+            the general mode p, M, density, rgb), or [C, 64] NHT records
+            (p, M, density, 48 control features, 3 pad; ``ray_o`` given).
         pair_particle: [P] i32 particle of each pair, tile-sorted.
         tile_start: [T + 1] i32 pair-segment boundaries per tile.
         ray_d: [H, W, 3] f32 world ray directions (unit length for a
@@ -138,8 +184,8 @@ def rasterize_tiles(table: torch.Tensor, pair_particle: torch.Tensor,
             mode. None: every ray starts at the origin the table's a was
             built from.
 
-    Returns (features [H,W,3], opacity [H,W,1], depth [H,W,1],
-    hits [H,W,1]), all f32; hits carries no gradient.
+    Returns (features [H,W,F], opacity [H,W,1], depth [H,W,1],
+    hits [H,W,1]), all f32, F = 3 or 24 (NHT); hits carries no gradient.
     """
     if torch.is_grad_enabled() and table.requires_grad:
         if fold is None:
@@ -152,13 +198,16 @@ def rasterize_tiles(table: torch.Tensor, pair_particle: torch.Tensor,
 
 
 # kernel B launches (by rasterize_tiles and rasterize_tiles_forward), in
-# the shared-origin and in the general mode
+# the shared-origin, the general and the NHT mode
 rasterize_tiles.launches = 0
 rasterize_tiles.launches_general = 0
+rasterize_tiles.launches_nht = 0
 
 
-def _count(fn, ray_o):
-    if ray_o is None:
+def _count(fn, ray_o, nht=False):
+    if nht:
+        fn.launches_nht += 1
+    elif ray_o is None:
         fn.launches += 1
     else:
         fn.launches_general += 1
@@ -170,15 +219,17 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def rasterize_tiles_forward(table, pair_particle, tile_start, ray_d, tmin,
                             tmax, cfg, ray_o=None):
-    """Kernel B: (features, opacity, depth, hits, T_final), the last four
-    [H, W, 1]. No autograd."""
+    """Kernel B: (features [H, W, F], opacity, depth, hits, T_final), the
+    last four [H, W, 1]. No autograd."""
     h, w, gx, gy, dev = _check_inputs(table, pair_particle, tile_start,
                                       ray_d, tmin, tmax, ray_o)
+    nht = _is_nht(table, cfg, ray_o)
     ints, floats = _mode(cfg, ray_o is not None)
     if dev.type == "cpu":
         return rasterize_tiles_plain(table, pair_particle, tile_start,
                                      ray_d, tmin, tmax, cfg, ray_o)
-    feat = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    feat = torch.empty((h, w, feature_dim(table)), dtype=torch.float32,
+                       device=dev)
     opacity, depth, hits, t_final = (
         torch.empty((h, w, 1), dtype=torch.float32, device=dev)
         for _ in range(4))
@@ -186,29 +237,32 @@ def rasterize_tiles_forward(table, pair_particle, tile_start, ray_d, tmin,
     err = lib.raster_fwd_launch(
         table.data_ptr(), pair_particle.data_ptr(), tile_start.data_ptr(),
         _ptr(ray_o), ray_d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-        w, h, gx, gx * gy, *ints, *floats, feat.data_ptr(),
+        w, h, gx, gx * gy, *ints, int(nht), *floats, feat.data_ptr(),
         opacity.data_ptr(), depth.data_ptr(), hits.data_ptr(),
         t_final.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("raster_fwd", err, lib)
-    _count(rasterize_tiles, ray_o)
+    _count(rasterize_tiles, ray_o, nht)
     return feat, opacity, depth, hits, t_final
 
 
 def rasterize_tiles_backward(table, pair_particle, tile_start, ray_d, tmin,
                              tmax, feat, depth, t_final, g_feat, g_opacity,
                              g_depth, cfg, ray_o=None) -> torch.Tensor:
-    """Kernel C: per-pair record gradients d_records [P, 16] f32 in
-    tile-sorted pair order, from the saved forward outputs (features
-    [H,W,3], depth and T_final [H,W,1]) and the upstream gradients of
-    features [H,W,3], opacity and depth [H,W,1]. Pairs past the last tile
-    (culled) and pairs behind every pixel's kill read zero. In the
-    general mode (``ray_o``) rows 0-2 are d/dp and 3-11 d/dM of the
-    general table."""
+    """Kernel C: per-pair record gradients d_records [P, R] f32 (R the
+    table's width) in tile-sorted pair order, from the saved forward
+    outputs (features [H,W,F], depth and T_final [H,W,1]) and the
+    upstream gradients of features [H,W,F], opacity and depth [H,W,1].
+    Pairs past the last tile (culled) and pairs behind every pixel's kill
+    read zero. In the general mode (``ray_o``) rows 0-2 are d/dp and 3-11
+    d/dM of the general table; the NHT mode adds the 48 control
+    features' rows (its 3 padding rows read zero)."""
     h, w, gx, gy, dev = _check_inputs(table, pair_particle, tile_start,
                                       ray_d, tmin, tmax, ray_o)
-    for name, t, c in (("feat", feat, 3), ("depth", depth, 1),
-                       ("t_final", t_final, 1), ("g_feat", g_feat, 3),
+    nht = _is_nht(table, cfg, ray_o)
+    nf = feature_dim(table)
+    for name, t, c in (("feat", feat, nf), ("depth", depth, 1),
+                       ("t_final", t_final, 1), ("g_feat", g_feat, nf),
                        ("g_opacity", g_opacity, 1), ("g_depth", g_depth, 1)):
         build.check_tensor(name, t, torch.float32, (h, w, c), dev)
     ints, floats = _mode(cfg, ray_o is not None)
@@ -217,7 +271,8 @@ def rasterize_tiles_backward(table, pair_particle, tile_start, ray_d, tmin,
             table, pair_particle, tile_start, ray_d, tmin, tmax, feat, depth,
             t_final, g_feat, g_opacity, g_depth, cfg, ray_o)
     p = pair_particle.shape[0]
-    d_records = torch.zeros((p, RECORD_DIM), dtype=torch.float32, device=dev)
+    d_records = torch.zeros((p, table.shape[1]), dtype=torch.float32,
+                            device=dev)
     lib = _lib("raster_bwd")
     err = lib.raster_bwd_launch(
         table.data_ptr(), pair_particle.data_ptr(), tile_start.data_ptr(),
@@ -225,15 +280,16 @@ def rasterize_tiles_backward(table, pair_particle, tile_start, ray_d, tmin,
         feat.data_ptr(), depth.data_ptr(), t_final.data_ptr(),
         g_feat.data_ptr(), g_opacity.data_ptr(), g_depth.data_ptr(), w, h,
         gx, gx * gy,
-        *ints, *floats, d_records.data_ptr(),
+        *ints, int(nht), *floats, d_records.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("raster_bwd", err, lib)
-    _count(rasterize_tiles_backward, ray_o)
+    _count(rasterize_tiles_backward, ray_o, nht)
     return d_records
 
 
 rasterize_tiles_backward.launches = 0
 rasterize_tiles_backward.launches_general = 0
+rasterize_tiles_backward.launches_nht = 0
 
 
 class _Rasterize(torch.autograd.Function):
@@ -275,8 +331,8 @@ class _Rasterize(torch.autograd.Function):
 
 _SIGNATURES = {
     # ptrs, ints, floats, ptrs (outputs), stream
-    "raster_fwd": (7, 7, 5, 5),
-    "raster_bwd": (13, 7, 5, 1),
+    "raster_fwd": (7, 8, 5, 5),
+    "raster_bwd": (13, 8, 5, 1),
     "wmax": (7, 7, 5, 1),      # kernel E, ops/cuda/wmax.py
 }
 
@@ -299,9 +355,11 @@ def _lib(name: str) -> ctypes.CDLL:
 
 # pairs per group of tiles in the plain versions: bounds their [pairs,
 # 256] temporaries (~1 GB in the forward at this size; the backward keeps
-# ~25 float64 arrays for autograd, so it takes smaller groups)
+# ~25 float64 arrays for autograd, so it takes smaller groups). NHT's
+# temporaries are [pairs, 256, 12-24]: 8x smaller groups.
 _PLAIN_GROUP_PAIRS = 1 << 17
 _PLAIN_BWD_GROUP_PAIRS = 1 << 14
+_NHT_GROUP_SHRINK = 8
 
 
 class _Tiled(NamedTuple):
@@ -355,12 +413,13 @@ def _tile_groups(starts, n_tiles, max_pairs):
         t0 = t1
 
 
-def _hit_terms(rec, d, o=None):
-    """(sq, hit_t) [P, 256] of records [P, 16] on ray dirs [P, 256, 3],
+def _hit_terms(rec, d, o=None, canonical=False):
+    """(sq, hit_t) [P, 256] of records [P, R] on ray dirs [P, 256, 3],
     in the fp32 operation order of common.cuh:eval_hit; with per-pixel
     origins ``o`` [P, 256, 3] the general mode's (eval_hit_general):
     a = M (o - p) from the position p in slots 0-2, and hit_t scaled by
-    |d|."""
+    |d|. With ``canonical`` also the canonical hit point [P, 256, 3],
+    a + b tc with tc the unscaled hit distance (common.cuh:nht_hit)."""
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
 
     def col(i):
@@ -382,10 +441,23 @@ def _hit_terms(rec, d, o=None):
     cz = ax * by - ay * bx
     inv_m = 1.0 / torch.clamp(bx * bx + by * by + bz * bz, min=1e-30)
     sq = (cx * cx + cy * cy + cz * cz) * inv_m
-    hit_t = -(ax * bx + ay * by + az * bz) * inv_m
+    tc = -(ax * bx + ay * by + az * bz) * inv_m
+    hit_t = tc
     if o is not None:
-        hit_t = hit_t * torch.sqrt(dx * dx + dy * dy + dz * dz)
-    return sq, hit_t
+        hit_t = tc * torch.sqrt(dx * dx + dy * dy + dz * dz)
+    if not canonical:
+        return sq, hit_t
+    return sq, hit_t, torch.stack([ax + bx * tc, ay + by * tc, az + bz * tc],
+                                  dim=-1)
+
+
+def _nht_features(rec, d, o):
+    """[P, 256, 2 d] ray features of NHT records [P, 16 + 4 d] (float64
+    in, out) at the canonical hit points of rays d from o [P, 256, 3]."""
+    _, _, canon = _hit_terms(rec, d, o, canonical=True)
+    return nht_hit_features(
+        rec[:, None, NHT_FEAT_SLOT:NHT_FEAT_SLOT + nht_control_dim(rec)],
+        canon)
 
 
 def _window_order(keep, hit_t, p0, tile, window):
@@ -409,16 +481,19 @@ def _window_order(keep, hit_t, p0, tile, window):
 
 def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
                      pair_weights=False):
-    """Composite tiles [t0, t1) of pair records ``rec`` [P_g, 16] (the
-    group's pairs, f32). Returns (acc [G, 256, 5] = rgb, depth, hits;
-    T_final [G, 256]) in float64, and with ``pair_weights`` also the
+    """Composite tiles [t0, t1) of pair records ``rec`` [P_g, R] (the
+    group's pairs, f32). Returns (acc [G, 256, F + 2] = features, depth,
+    hits; T_final [G, 256]) in float64, and with ``pair_weights`` also the
     weights w = alpha T [P_g, 256] of each (pair, pixel).
 
     Accept and kill decisions come from ``rec`` in fp32. The values
     (alpha, hit distance, rgb) do too, rounded to float64 afterwards,
     unless ``rec64`` (the same records in float64) is given: then they are
     computed from it in float64, and autograd can differentiate the
-    result with respect to ``rec64``. In the sorted mode each pixel's
+    result with respect to ``rec64``. NHT records (R = 16 + 4 d) get
+    their 2 d features from the float64 records (``rec64``, or ``rec``
+    rounded up) at the float64 canonical hit point. In the sorted mode
+    each pixel's
     candidates are permuted into ``_window_order`` first (the sort key is
     the fp32 hit distance), composited in that order, and the weights put
     back in pair order."""
@@ -439,19 +514,26 @@ def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
     keep = (sq < thr) & (hit_t > rays.tmin[tile]) & (hit_t < rays.tmax[tile])
     order = (_window_order(keep, hit_t, p0, tile, _window(cfg))
              if cfg.sorted_compositing else None)
+    nht = rec.shape[1] != RECORD_DIM
+    o64 = None if o is None else o.double()
     if rec64 is None:
         alpha = torch.clamp(particle_response(sq, cfg.kernel_degree) * dens,
                             max=cfg.max_alpha)
         alpha = torch.where(keep, alpha, torch.zeros_like(alpha)).double()
         hit_t, rgb = hit_t.double(), rec[:, 13:16].double()
+        if nht:
+            feats = _nht_features(rec.double(), d.double(), o64)
     else:
-        sq64, hit_t = _hit_terms(rec64, d.double(),
-                                 None if o is None else o.double())
+        sq64, hit_t = _hit_terms(rec64, d.double(), o64)
         alpha = torch.clamp(particle_response(sq64, cfg.kernel_degree)
                             * rec64[:, 12:13], max=cfg.max_alpha)
         alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
         rgb = rec64[:, 13:16]
-    if order is None:
+        if nht:
+            feats = _nht_features(rec64, d.double(), o64)
+    if nht:
+        rgb = list(feats.unbind(-1))
+    elif order is None:
         rgb = [rgb[:, c:c + 1] for c in range(3)]
     else:
         alpha, hit_t = alpha.gather(0, order), hit_t.gather(0, order)
@@ -469,11 +551,11 @@ def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
     alive = t_prev >= cfg.min_transmittance
     wgt = torch.where(alive, alpha * t_prev, torch.zeros_like(t_prev))
 
-    contrib = torch.stack([
-        wgt * rgb[0], wgt * rgb[1], wgt * rgb[2],
-        wgt * hit_t, (wgt > 0.0).double()], dim=-1)        # [P, 256, 5]
-    acc = torch.zeros((t1 - t0, TILE_PIXELS, 5), dtype=torch.float64,
-                      device=dev).index_add(0, local, contrib)
+    contrib = torch.stack([wgt * f for f in rgb] + [
+        wgt * hit_t, (wgt > 0.0).double()], dim=-1)        # [P, 256, F+2]
+    acc = torch.zeros((t1 - t0, TILE_PIXELS, len(rgb) + 2),
+                      dtype=torch.float64, device=dev).index_add(0, local,
+                                                                 contrib)
 
     # final T: frozen at the first dead candidate, else the segment's end
     dead_t = torch.where(alive, torch.full_like(t_prev, -1.0), t_prev)
@@ -502,24 +584,29 @@ def rasterize_tiles_plain(table, pair_particle, tile_start, ray_d, tmin,
     groups so the temporaries stay bounded.
     """
     h, w = ray_d.shape[:2]
+    nht = _is_nht(table, cfg, ray_o)
+    nf = feature_dim(table)
     rays = _tilize_rays(ray_d, tmin, tmax, ray_o)
     n_tiles = rays.gx * rays.gy
-    out = torch.zeros((n_tiles, TILE_PIXELS, 6), dtype=torch.float64,
-                      device=table.device)   # rgb, depth, hits, final T
-    out[..., 5] = 1.0
+    # features, depth, hits, final T
+    out = torch.zeros((n_tiles, TILE_PIXELS, nf + 3), dtype=torch.float64,
+                      device=table.device)
+    out[..., nf + 2] = 1.0
     starts = tile_start.to(torch.int64).cpu()
-    for t0, t1 in _tile_groups(starts, n_tiles, _PLAIN_GROUP_PAIRS):
+    group = _PLAIN_GROUP_PAIRS // (_NHT_GROUP_SHRINK if nht else 1)
+    for t0, t1 in _tile_groups(starts, n_tiles, group):
         p0, p1 = int(starts[t0]), int(starts[t1])
         if p1 == p0:
             continue
         rec = table[pair_particle[p0:p1].to(torch.int64)]
         acc, t_final = _composite_group(rec, starts, t0, t1, rays, cfg)
-        out[t0:t1, :, 0:5] = acc
-        out[t0:t1, :, 5] = t_final
+        out[t0:t1, :, 0:nf + 2] = acc
+        out[t0:t1, :, nf + 2] = t_final
     img = _untile(out, rays.gx, rays.gy, h, w).to(torch.float32)
-    t_fin = img[..., 5:6].contiguous()
-    return (img[..., 0:3].contiguous(), 1.0 - t_fin,
-            img[..., 3:4].contiguous(), img[..., 4:5].contiguous(), t_fin)
+    t_fin = img[..., nf + 2:nf + 3].contiguous()
+    return (img[..., 0:nf].contiguous(), 1.0 - t_fin,
+            img[..., nf:nf + 1].contiguous(),
+            img[..., nf + 1:nf + 2].contiguous(), t_fin)
 
 
 def rasterize_tiles_backward_plain(table, pair_particle, tile_start, ray_d,
@@ -532,16 +619,19 @@ def rasterize_tiles_backward_plain(table, pair_particle, tile_start, ray_d,
     outputs (feat, depth, t_final) are not needed, the group recomputes
     them."""
     del feat, depth, t_final
+    nht = _is_nht(table, cfg, ray_o)
+    nf = feature_dim(table)
     rays = _tilize_rays(ray_d, tmin, tmax, ray_o)
     n_tiles = rays.gx * rays.gy
     gx, gy = rays.gx, rays.gy
-    g_rgb = _tilize(g_feat.double(), gx, gy, 0.0)             # [T, 256, 3]
+    g_rgb = _tilize(g_feat.double(), gx, gy, 0.0)             # [T, 256, F]
     g_dep = _tilize(g_depth.double(), gx, gy, 0.0)[..., 0]     # [T, 256]
     g_t = -_tilize(g_opacity.double(), gx, gy, 0.0)[..., 0]    # d/d T_final
-    d_records = torch.zeros((pair_particle.shape[0], RECORD_DIM),
+    d_records = torch.zeros((pair_particle.shape[0], table.shape[1]),
                             dtype=torch.float32, device=table.device)
     starts = tile_start.to(torch.int64).cpu()
-    for t0, t1 in _tile_groups(starts, n_tiles, _PLAIN_BWD_GROUP_PAIRS):
+    group = _PLAIN_BWD_GROUP_PAIRS // (_NHT_GROUP_SHRINK if nht else 1)
+    for t0, t1 in _tile_groups(starts, n_tiles, group):
         p0, p1 = int(starts[t0]), int(starts[t1])
         if p1 == p0:
             continue
@@ -550,8 +640,8 @@ def rasterize_tiles_backward_plain(table, pair_particle, tile_start, ray_d,
             rec64 = rec.double().requires_grad_(True)
             acc, t_fin = _composite_group(rec, starts, t0, t1, rays, cfg,
                                           rec64=rec64)
-            loss = ((acc[..., 0:3] * g_rgb[t0:t1]).sum()
-                    + (acc[..., 3] * g_dep[t0:t1]).sum()
+            loss = ((acc[..., 0:nf] * g_rgb[t0:t1]).sum()
+                    + (acc[..., nf] * g_dep[t0:t1]).sum()
                     + (t_fin * g_t[t0:t1]).sum())
             (grad,) = torch.autograd.grad(loss, rec64)
         d_records[p0:p1] = grad.to(torch.float32)

@@ -19,7 +19,8 @@ import torch
 
 from . import build
 from .raster import (_PLAIN_GROUP_PAIRS, _check_inputs, _composite_group,
-                     _count, _lib, _mode, _ptr, _tile_groups, _tilize_rays)
+                     _count, _is_nht, _lib, _mode, _ptr, _tile_groups,
+                     _tilize_rays)
 
 
 def pair_weight_max(table: torch.Tensor, pair_particle: torch.Tensor,
@@ -32,6 +33,9 @@ def pair_weight_max(table: torch.Tensor, pair_particle: torch.Tensor,
     the last tile, read 0. No autograd."""
     h, w, gx, gy, dev = _check_inputs(table, pair_particle, tile_start,
                                       ray_d, tmin, tmax, ray_o)
+    if _is_nht(table, cfg, ray_o):
+        raise NotImplementedError("kernel E has no NHT mode (JAX's weight "
+                                  "telemetry is GS only)")
     ints, floats = _mode(cfg, ray_o is not None)
     if dev.type == "cpu":
         return pair_weight_max_plain(table, pair_particle, tile_start, ray_d,

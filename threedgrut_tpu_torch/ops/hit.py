@@ -1,13 +1,18 @@
-"""Ray <-> Gaussian-particle hit model (port of threedgrut_tpu/ops/hit.py).
+"""Ray <-> Gaussian-particle hit model (port of threedgrut_tpu/ops/hit.py),
+and the NHT features at the hit (JAX ops/pallas/raster.py:566-650).
 
 Max response along the ray in the particle's canonical frame
 (reference gaussianParticles.slang:206-243): the render oracle uses
 ``density_hit``; the raster kernel uses the same response through
-``particle_response``.
+``particle_response``. An NHT particle carries a feature vector at each
+vertex of a canonical tetrahedron; a ray reads their barycentric blend at
+its canonical hit point, through sin and cos
+(neuralHarmonicFeaturesParticle.slang).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -78,6 +83,7 @@ class HitResult(NamedTuple):
     alpha: torch.Tensor      # compositing alpha (0 where rejected)
     hit_t: torch.Tensor      # world-space distance of max response
     accept: torch.Tensor     # bool acceptance mask
+    canonical: torch.Tensor  # [..., 3] canonical-frame hit point (NHT)
 
 
 def density_hit(ray_o, ray_d, pos, quat, scale, density, *,
@@ -111,5 +117,65 @@ def density_hit(ray_o, ray_d, pos, quat, scale, density, *,
     hit_t = torch.sqrt(torch.clamp(torch.sum(grds * grds, dim=-1),
                                    min=1e-18))
     hit_t = torch.where(proj < 0.0, -hit_t, hit_t)
+    canonical = gro + grd * proj[..., None]
     alpha = torch.where(accept, alpha, torch.zeros_like(alpha))
-    return HitResult(alpha=alpha, hit_t=hit_t, accept=accept)
+    return HitResult(alpha=alpha, hit_t=hit_t, accept=accept,
+                     canonical=canonical)
+
+
+# The canonical regular tetrahedron (neuralHarmonicFeaturesParticle.slang:
+# 47-66): its vertices, and the rows of the inverse edge matrix that map a
+# point's offset from vertex 0 to barycentric weights 1-3
+# (raster.py:_tetra_constants). The kernels (csrc/common.cuh) hold the
+# same values rounded to fp32.
+_EDGE = math.sqrt(24.0)
+_FACE_IN_R = math.sqrt(2.0)
+TETRA_VERTS = ((0.5 * _EDGE, -_FACE_IN_R, -1.0),
+               (-0.5 * _EDGE, -_FACE_IN_R, -1.0),
+               (0.0, _EDGE * math.sqrt(3.0) / 2.0 - _FACE_IN_R, -1.0),
+               (0.0, 0.0, 3.0))
+
+
+def _tetra_constants():
+    v = torch.tensor(TETRA_VERTS, dtype=torch.float64)
+    e1, e2, e3 = v[1] - v[0], v[2] - v[0], v[3] - v[0]
+    det = float(torch.dot(e1, torch.linalg.cross(e2, e3)))
+    return (v[0].tolist(), (torch.linalg.cross(e2, e3) / det).tolist(),
+            (torch.linalg.cross(e3, e1) / det).tolist(),
+            (torch.linalg.cross(e1, e2) / det).tolist())
+
+
+TETRA_V0, TETRA_G1, TETRA_G2, TETRA_G3 = _tetra_constants()
+
+
+def tetra_barycentric(cpx, cpy, cpz):
+    """Barycentric weights (w0, w1, w2, w3) of canonical points in the
+    canonical tetrahedron (raster.py:tetra_barycentric; the reference's
+    barycentricTetrahedronCanonical)."""
+    dx = cpx - TETRA_V0[0]
+    dy = cpy - TETRA_V0[1]
+    dz = cpz - TETRA_V0[2]
+    w1 = TETRA_G1[0] * dx + TETRA_G1[1] * dy + TETRA_G1[2] * dz
+    w2 = TETRA_G2[0] * dx + TETRA_G2[1] * dy + TETRA_G2[2] * dz
+    w3 = TETRA_G3[0] * dx + TETRA_G3[1] * dy + TETRA_G3[2] * dz
+    w0 = 1.0 - w1 - w2 - w3
+    return w0, w1, w2, w3
+
+
+def nht_hit_features(features: torch.Tensor, canonical: torch.Tensor
+                     ) -> torch.Tensor:
+    """The ray features of NHT particles at canonical hit points
+    (raster.py:nht_hit_features, one sincos frequency).
+
+    ``features`` [..., 4 d] holds each particle's d control features per
+    tetrahedron vertex, vertex-major; ``canonical`` [..., 3] the hit
+    points (the leading dims broadcast). Returns [..., 2 d]: for each
+    control dim k the blend b_k = sum_v w_v f[v d + k], then sin(b_k),
+    cos(b_k), interleaved as (sin, cos) pairs."""
+    d = features.shape[-1] // 4
+    w = tetra_barycentric(canonical[..., 0], canonical[..., 1],
+                          canonical[..., 2])
+    blend = sum(w[v][..., None] * features[..., v * d:(v + 1) * d]
+                for v in range(4))
+    return torch.stack([torch.sin(blend), torch.cos(blend)],
+                       dim=-1).flatten(-2)

@@ -3,8 +3,10 @@ threedgrut_tpu/optimizers/adam.py).
 
 SelectiveAdam (reference optimizers.cu:49-78) updates parameters AND
 moments only for the rows visible in the current frame; ``update_mask``
-keeps the capacity's dead rows out of every update. A masked elementwise
-update, in plain PyTorch. Unlike the functional JAX version, ``adam_step``
+keeps the capacity's dead rows out of every update. As in JAX, the masks
+reach only tensors whose leading dimension is the capacity (a multiple of
+256), so the NHT decoder's weights (128 and 3 rows) update whole. A
+masked elementwise update, in plain PyTorch. Unlike the functional JAX version, ``adam_step``
 updates the parameters and the moments in place (one copy of each instead
 of two at every step).
 

@@ -10,6 +10,15 @@ or, with ``raster_cfg.sorted_compositing``, in per-ray sorted windows
 origin, and the raster kernels run their shared-origin mode; a rolling
 shutter, or rays passed in (``rays=``), take the general-geometry mode
 with a per-pixel origin.
+An NHT model (``feature_type: nht``; JAX render/gut.py:167-219) puts
+its raw tetrahedron control features in the table in place of rgb, and
+the raster evaluates them per (pixel, pair) at the canonical hit point:
+it always takes the general mode (a pinhole's rays then carry their
+per-pixel origins, as in JAX), never the sorted one, and
+``pred_features`` are its 2 d ray features (24 at the published width
+48), which the trainer decodes to RGB. JAX hard-codes one sincos
+frequency (gut.py:174); train_torch.py refuses other feature
+activations. Weight telemetry (kernel E) has no NHT mode and raises.
 The raster kernel gathers each pair's record from the per-particle table
 itself, so no [P, 16] records array is built, and writes straight into
 [H, W, .] images, so no tile-packed rays or outputs exist either.
@@ -21,7 +30,8 @@ structurally (detached), as in JAX; rays and t-ranges get no gradient.
 Under ``torch.no_grad()`` (the serving path) the same kernels run
 without saving anything for a backward.
 
-Returned dict mirrors the JAX package: ``pred_features`` [H,W,3],
+Returned dict mirrors the JAX package: ``pred_features`` [H,W,3] (NHT:
+[H,W,2d]),
 ``pred_opacity`` [H,W,1], ``pred_dist`` [H,W,1], ``hits_count`` [H,W,1],
 ``mog_visibility`` [C], ``num_pairs`` and ``pairs_overflow``.
 """
@@ -70,11 +80,12 @@ def _ray_aabb(ray_o, ray_d, lo, hi):
 
 def particle_table(model: GaussianModel, origin: Optional[torch.Tensor],
                    feats: torch.Tensor) -> torch.Tensor:
-    """[C, 16] per-particle records of the shared-origin hit model:
-    a = M (o - p), M = diag(1/s) R^T (row-major), density, rgb
-    (gut.py:233-247). With ``origin`` None, the general mode's records:
-    the position p in place of a (the kernels form a = M (o_pix - p) per
-    pixel, never M o - M p, which cancels at large world coordinates)."""
+    """[C, 13 + F] per-particle records of the shared-origin hit model:
+    a = M (o - p), M = diag(1/s) R^T (row-major), density, then ``feats``
+    [C, F] (rgb; gut.py:233-247). With ``origin`` None, the general
+    mode's records: the position p in place of a (the kernels form
+    a = M (o_pix - p) per pixel, never M o - M p, which cancels at large
+    world coordinates)."""
     rot = quat_to_rotmat(quat_normalize(model.rotation))   # [C,3,3]
     m_mat = (1.0 / model.get_scale())[:, :, None] * rot.transpose(1, 2)
     if origin is None:
@@ -91,7 +102,7 @@ class ViewInputs(NamedTuple):
     """What the raster kernel takes for one view (see ``prepare_view``)."""
     proj: ut_ops.Projection
     binning: binning_ops.Binning
-    table: torch.Tensor     # [C, 16]
+    table: torch.Tensor     # [C, 16], NHT [C, 16 + 4 d]
     ray_d: torch.Tensor     # [H, W, 3]
     tmin: torch.Tensor      # [H, W]
     tmax: torch.Tensor      # [H, W]
@@ -104,27 +115,38 @@ def shared_origin(cam: CameraModel, rays=None) -> bool:
     return rays is None and cam.shutter_type == int(ShutterType.GLOBAL)
 
 
+def is_nht(model: GaussianModel) -> bool:
+    return model.config.feature_type == "nht"
+
+
 def prepare_view(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
                  model: GaussianModel, sh_degree: int,
                  rays=None) -> ViewInputs:
-    """UT projection, SH features, binning, the particle table and the
-    rays (``rays`` = (ray_o, ray_d) [H, W, 3] world-space, or the
-    camera's) with their scene-AABB t-ranges. In the general mode the
-    table holds positions and ``ray_o`` the per-pixel origins."""
+    """UT projection, SH features (NHT: the raw control features and 3
+    slots of padding), binning, the particle table and the rays
+    (``rays`` = (ray_o, ray_d) [H, W, 3] world-space, or the camera's)
+    with their scene-AABB t-ranges. In the general mode (always for NHT)
+    the table holds positions and ``ray_o`` the per-pixel origins."""
     w, h = cam.resolution
     grid = ((w + TILE_X - 1) // TILE_X, (h + TILE_Y - 1) // TILE_Y)
     proj = ut_ops.unscented_projection(
         cam, ut_cfg, model.positions, model.rotation, model.get_scale(),
         model.get_density()[:, 0], model.active_mask())
-    # per-particle radiance from the sensor->particle direction, clamped
-    # at 0 like the renderer's max(features, 0) fetch
-    feats = torch.clamp(eval_sh_radiance(model.sh_coeffs(), proj.view_dir,
-                                         sh_degree), min=0.0)
+    nht = is_nht(model)
+    if nht:
+        feats = torch.cat([model.features, model.features.new_zeros(
+            (model.capacity, 3))], dim=1)
+    else:
+        # per-particle radiance from the sensor->particle direction,
+        # clamped at 0 like the renderer's max(features, 0) fetch
+        feats = torch.clamp(eval_sh_radiance(
+            model.sh_coeffs(), proj.view_dir, sh_degree), min=0.0)
     b = binning_ops.bin_particles(
         proj, grid, raster_cfg.max_pairs,
         tile_culling=raster_cfg.tile_culling,
         alpha_threshold=ut_cfg.alpha_threshold)
-    shared = shared_origin(cam, rays)
+    # NHT needs the canonical hit point: the general mode
+    shared = shared_origin(cam, rays) and not nht
     table = particle_table(
         model, ut_ops.sensor_position(cam) if shared else None, feats)
     ray_o, ray_d = camera_rays_world(cam) if rays is None else rays
@@ -150,6 +172,13 @@ def render_gut(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
     of the compositing and return {"particle_wmax": [C]}, the
     per-particle max over pixels of alpha * T that the GS strategy's
     weight pruning reads (JAX render/gut.py:291-297)."""
+    if is_nht(model):
+        if weight_telemetry:
+            raise NotImplementedError(
+                "weight telemetry with NHT: kernel E composites constant "
+                "features only (JAX's telemetry kernel is GS only)")
+        # JAX composites NHT in global-Z order (gut.py:208)
+        raster_cfg = raster_cfg.replace(sorted_compositing=False)
     if weight_telemetry:
         with torch.no_grad():
             v = prepare_view(cam, ut_cfg, raster_cfg, model, sh_degree,
@@ -171,6 +200,7 @@ def render_gut(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
         "pred_opacity": opacity,
         "pred_dist": depth,
         "hits_count": hits,
+        "ray_d": v.ray_d,
         "mog_visibility": v.proj.valid,
         "num_pairs": v.binning.num_pairs,
         "pairs_overflow": v.binning.overflow,

@@ -5,7 +5,7 @@
 [-2.5, 2.5], z in [2, 9] in front of a camera at the origin, random
 rotations, scales 0.01-0.05, logit densities N(0, 0.5), RGB albedo and
 small degree-3 SH terms; capacity rounded up to a multiple of 256 with
-the dead rows parked far away.
+the dead rows parked far away; ``nht_cloud`` gives it NHT features.
 
 ``build_teacher`` and ``camera_pose`` are those of
 scripts/gen_synthetic_scene.py:29-126 (the "lego-class" teacher: towers,
@@ -52,6 +52,24 @@ def bench_cloud(n: int = 100_000, seed: int = 0,
     return GaussianModel.from_numpy(arrays, n_active=n, n_active_features=3,
                                     config=GaussianModelConfig(),
                                     device=device)
+
+
+def nht_cloud(n: int = 100_000, seed: int = 0, dim: int = 48,
+              device="cpu") -> GaussianModel:
+    """The bench cloud's geometry with NHT features: ``dim`` control
+    features per particle (dim / 4 per tetrahedron vertex), uniform in
+    (-pi/2, pi/2) as the NHT initialisation draws them
+    (models/gaussians.py), from ``np.random.default_rng(seed + 1)``."""
+    sh = bench_cloud(n, seed, device="cpu")
+    rng = np.random.default_rng(seed + 1)
+    arrays = {k: getattr(sh, k).detach().numpy()
+              for k in ("positions", "rotation", "scale", "density")}
+    arrays["features"] = rng.uniform(-np.pi / 2, np.pi / 2, (
+        sh.capacity, dim)).astype(np.float32)
+    return GaussianModel.from_numpy(
+        arrays, n_active=n, n_active_features=0,
+        config=GaussianModelConfig(feature_type="nht", nht_feature_dim=dim),
+        device=device)
 
 
 def orbit_geometry(model: GaussianModel):

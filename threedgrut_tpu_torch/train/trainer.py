@@ -1,9 +1,10 @@
-"""The GS trainer (port of threedgrut_tpu/train/trainer.py,
-GS strategy, single steps).
+"""The trainer (port of threedgrut_tpu/train/trainer.py, GS and MCMC
+strategies, SH and NHT features, single steps).
 
-One Trainer owns the dataset iteration, the train step (render -> losses
--> backward -> masked Adam), the GS strategy callbacks between steps, the
-learning-rate schedules, progressive SH, checkpointing and validation.
+One Trainer owns the dataset iteration, the train step (render -> [NHT
+decoder] -> losses -> backward -> masked Adam), the strategy callbacks
+between steps, the learning-rate schedules, progressive SH,
+checkpointing and validation.
 
 Contracts kept from the JAX trainer (reference threedgrut/trainer.py):
 - loss: lambda_l1 * L1 + lambda_ssim * (1 - SSIM) (+ optional L2,
@@ -12,15 +13,25 @@ Contracts kept from the JAX trainer (reference threedgrut/trainer.py):
   with an exponential decay, and the cosine tail on the constant groups,
 - GS hooks: the gradient buffer after the backward, densify / prune /
   reset / decay / prune by scale / blend-weight telemetry and prune by
-  weight after the optimizer step,
+  weight after the optimizer step; MCMC hooks after the optimizer step:
+  relocate, then add, then perturb with the step's position lr
+  (trainer.py:858-885),
+- NHT (trainer.py:236-242, 345-370, 466-476, 714-715): the rendered ray
+  features go through the decoder (models/nht_decoder.py) along the
+  render's ray directions before the background; its weights are Adam
+  groups that no row mask reaches, with their own cosine schedule, and
+  its EMA shadow updates every step; the warmup and color-refine phases
+  freeze positions, scale, rotation and density (the features keep
+  training); validation decodes through the EMA shadow,
 - progressive SH degree every ``increase_frequency`` steps,
 - SelectiveAdam visibility masking (``optimizer.type: selective_adam``),
-- checkpoints with the JAX trainer's npz keys, so either package loads
-  the other's.
+- checkpoints with the JAX trainer's npz keys (the decoder's as its
+  flax key paths, params/nht_decoder//params/Dense_i/kernel), so either
+  package loads the other's.
 
 Not ported (the JAX trainer's TPU-side machinery and other model kinds):
 fused multi-step groups, the device GT cache, the pair-budget
-calibration (the port sizes pairs per view), NHT, PPISP and MCMC.
+calibration (the port sizes pairs per view) and PPISP.
 """
 
 from __future__ import annotations
@@ -34,8 +45,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..convert import flax_layer_names
 from ..models import background as bg_mod
 from ..models.gaussians import GaussianModel
+from ..models.nht_decoder import FeatureDecoder
 from ..ops.cameras import (CameraModel, make_fisheye, make_ftheta,
                            make_pinhole, world_to_camera_pose)
 from ..ops.ssim import psnr, ssim
@@ -45,6 +58,13 @@ from ..render.common import RasterConfig
 from ..render.gut import render_gut
 from ..strategy import base as strat_base
 from ..strategy import gs as gs_strategy
+from ..strategy import mcmc as mcmc_strategy
+
+# the decoder's Adam groups, one per layer weight: "nht_decoder/<i>"
+DECODER = "nht_decoder"
+# the decoder's learning rate, cosine-decayed to a tenth over
+# features_max_steps (configs/base.yaml nht_decoder; trainer.py:345-348)
+DECODER_LR = 0.00068
 
 
 @dataclasses.dataclass
@@ -70,10 +90,14 @@ class OptimizerConfig:
     lr_density: float = 0.05
     lr_features_albedo: float = 0.0025
     lr_features_specular: float = 0.000125
+    lr_features: float = 0.015
     lr_rotation: float = 0.001
     lr_scale: float = 0.005
     positions_lr_final: float = 0.0000016
     positions_max_steps: int = 30000
+    # the NHT features' cosine schedule (and the decoder's length)
+    features_decay_final: float = 0.1
+    features_max_steps: int = 30000
     # cosine tail on the constant groups from tail_start_frac of
     # positions_max_steps down to tail_final_scale (1.0: the reference's
     # constant learning rates)
@@ -92,6 +116,8 @@ class TrainerConfig:
         default_factory=OptimizerConfig)
     gs: gs_strategy.GSStrategyConfig = dataclasses.field(
         default_factory=gs_strategy.GSStrategyConfig)
+    mcmc: mcmc_strategy.MCMCStrategyConfig = dataclasses.field(
+        default_factory=mcmc_strategy.MCMCStrategyConfig)
     ut: UTConfig = dataclasses.field(default_factory=UTConfig)
     raster: RasterConfig = dataclasses.field(default_factory=RasterConfig)
     # progressive SH
@@ -102,6 +128,10 @@ class TrainerConfig:
     val_frequency: int = 5000
     seed: int = 42
     print_stats: bool = False
+    # NHT phases that freeze the geometry groups: the last
+    # nht_color_refine_steps steps, and the first nht_warmup_steps
+    nht_color_refine_steps: int = 3000
+    nht_warmup_steps: int = 0
 
 
 _SHUTTER_NAMES = {
@@ -155,15 +185,16 @@ def _as_image(rgb, device) -> torch.Tensor:
 
 
 class Trainer:
-    """GS training over one dataset, with the 3DGUT or, through
+    """GS or MCMC training over one dataset, with the 3DGUT or, through
     ``conf.raster`` (``render/grt.py:grt_raster_config``, sorted
-    compositing), the 3DGRT and sorted-3DGUT renderers."""
+    compositing), the 3DGRT and sorted-3DGUT renderers; SH or NHT
+    features."""
 
     def __init__(self, conf: TrainerConfig, dataset, model: GaussianModel,
                  val_dataset=None, raw_conf: Optional[dict] = None):
-        if conf.strategy != "gs":
-            raise NotImplementedError(f"strategy {conf.strategy}: only GS "
-                                      "is ported")
+        if conf.strategy not in ("gs", "mcmc"):
+            raise NotImplementedError(f"strategy {conf.strategy}: gs or "
+                                      "mcmc")
         self.conf = conf
         self.raw_conf = raw_conf
         self.dataset = dataset
@@ -172,28 +203,52 @@ class Trainer:
         self.device = model.device
         self.scene_extent = float(dataset.get_scene_extent())
         self.global_step = 0
-        # random backgrounds and split samples
+        # random backgrounds, split, MCMC samples and perturb noise
         self.generator = torch.Generator(device=self.device).manual_seed(
             conf.seed)
-        self.opt_state = adam_mod.init_adam_state(model.params())
-        self.gs_buffers = gs_strategy.init_buffers(model.capacity,
-                                                   self.device)
-        # running max of the sampled views' blend weights, per particle
-        # row, between weight-prune events (the JAX trainer's
-        # gs_weight_buf)
-        self.gs_weight_buf = torch.zeros(model.capacity, dtype=torch.float32,
-                                         device=self.device)
+        # the NHT decoder (threedgrut/model/feature_decoder.py), the JAX
+        # trainer's defaults: 2 d ray features in, seeded by conf.seed
+        self.decoder = None
+        if model.config.feature_type == "nht":
+            self.decoder = FeatureDecoder(model.features.shape[1] // 2,
+                                          seed=conf.seed, device=self.device)
+        self.opt_state = adam_mod.init_adam_state(self.params())
+        self.gs_buffers = None
+        if conf.strategy == "gs":
+            self.gs_buffers = gs_strategy.init_buffers(model.capacity,
+                                                       self.device)
+            # running max of the sampled views' blend weights, per
+            # particle row, between weight-prune events (the JAX
+            # trainer's gs_weight_buf)
+            self.gs_weight_buf = torch.zeros(
+                model.capacity, dtype=torch.float32, device=self.device)
         self.n_active_features = conf.init_n_features
         oc = conf.optimizer
         self._positions_lr = adam_mod.exp_scheduler(
             oc.lr_positions * self.scene_extent,
             oc.positions_lr_final * self.scene_extent,
             oc.positions_max_steps)
+        self._features_lr = adam_mod.cosine_scheduler(
+            oc.lr_features, oc.lr_features * oc.features_decay_final,
+            oc.features_max_steps)
+        self._decoder_lr = adam_mod.cosine_scheduler(
+            DECODER_LR, DECODER_LR * 0.1, oc.features_max_steps)
         self.train_wall_time = 0.0
         self.event_stats = []   # (step, kind, stats) of strategy events
         self._gt_cache: Dict[int, torch.Tensor] = {}
 
+    def params(self) -> Dict[str, torch.nn.Parameter]:
+        """The optimizer's groups: the model's raw parameters and, for NHT,
+        the decoder's weights as ``nht_decoder/<i>``."""
+        out = dict(self.model.params())
+        if self.decoder is not None:
+            out.update({f"{DECODER}/{i}": w
+                        for i, w in enumerate(self.decoder.weights())})
+        return out
+
     def current_lrs(self, step: Optional[int] = None) -> Dict[str, float]:
+        """The learning rate of each group at ``step``, under the JAX
+        trainer's names (one ``nht_decoder`` entry for the decoder)."""
         step = self.global_step if step is None else step
         oc = self.conf.optimizer
         tail = 1.0
@@ -205,12 +260,39 @@ class Trainer:
                 tail = (oc.tail_final_scale
                         + 0.5 * (1.0 - oc.tail_final_scale)
                         * (1.0 + float(np.cos(np.pi * u))))
-        return {"positions": self._positions_lr(step),
-                "rotation": oc.lr_rotation * tail,
-                "scale": oc.lr_scale * tail,
-                "density": oc.lr_density * tail,
-                "features_albedo": oc.lr_features_albedo * tail,
-                "features_specular": oc.lr_features_specular * tail}
+        lrs = {"positions": self._positions_lr(step),
+               "rotation": oc.lr_rotation * tail,
+               "scale": oc.lr_scale * tail,
+               "density": oc.lr_density * tail}
+        if self.model.config.feature_type == "nht":
+            lrs["features"] = self._features_lr(step)
+        else:
+            lrs["features_albedo"] = oc.lr_features_albedo * tail
+            lrs["features_specular"] = oc.lr_features_specular * tail
+        if self.decoder is not None:
+            lrs[DECODER] = self._decoder_lr(step)
+        # the NHT warmup and color-refine phases freeze the geometry only
+        # (the reference's _color_refine_frozen_param_names)
+        if self._in_color_refine(step):
+            for k in ("positions", "scale", "rotation", "density"):
+                lrs[k] = 0.0
+        return lrs
+
+    def _in_color_refine(self, step: int) -> bool:
+        if self.decoder is None:
+            return False
+        if step < self.conf.nht_warmup_steps:
+            return True
+        return step >= max(self.conf.n_iterations
+                           - self.conf.nht_color_refine_steps, 0)
+
+    def _group_lrs(self) -> Dict[str, float]:
+        """current_lrs by optimizer group (each decoder weight its own)."""
+        lrs = self.current_lrs()
+        dec = lrs.pop(DECODER, None)
+        if dec is not None:
+            lrs.update({k: dec for k in self.params() if k.startswith(DECODER)})
+        return lrs
 
     def sh_degree(self) -> int:
         return min(self.n_active_features, self.conf.max_n_features)
@@ -226,13 +308,25 @@ class Trainer:
             self._gt_cache[frame_idx] = gt
         return gt
 
+    def decode(self, out, use_ema: bool = False) -> torch.Tensor:
+        """A render's [H, W, 3] colour: its features, or for NHT their
+        decoding along the render's ray directions (trainer.py:466-474;
+        ``use_ema``: through the EMA shadow, as validation does)."""
+        features = out["pred_features"]
+        if self.decoder is None:
+            return features
+        h, w, f = features.shape
+        return self.decoder(features.reshape(-1, f),
+                            out["ray_d"].reshape(-1, 3),
+                            use_ema=use_ema).reshape(h, w, 3)
+
     def loss(self, out, rgb_gt):
         """(total, losses dict, pred) of one render against its GT."""
         conf = self.conf
+        color = self.decode(out)
         bg = bg_mod.background_color(conf.background, self.generator,
                                      train=True, device=self.device)
-        pred = bg_mod.apply_background(out["pred_features"],
-                                       out["pred_opacity"], bg)
+        pred = bg_mod.apply_background(color, out["pred_opacity"], bg)
         losses = {}
         total = torch.zeros((), device=self.device)
         if conf.loss.use_l1:
@@ -262,19 +356,20 @@ class Trainer:
         step's metrics as floats."""
         cam = camera_from_batch(batch, self.device)
         rgb_gt = self._gt(batch, frame_idx)
-        params = self.model.params()
+        params = self.params()
         for p in params.values():
             p.grad = None
         out = render_gut(cam, self.conf.ut, self.conf.raster, self.model,
                          self.sh_degree())
         total, losses, pred = self.loss(out, rgb_gt)
         total.backward()
-        grads = {k: p.grad for k, p in params.items()}
+        grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+                 for k, p in params.items()}
         visibility = (out["mog_visibility"]
                       if self.conf.optimizer.type == "selective_adam"
                       else None)
         self.opt_state = adam_mod.adam_step(
-            params, grads, self.opt_state, self.current_lrs(),
+            params, grads, self.opt_state, self._group_lrs(),
             eps=self.conf.optimizer.eps, visibility=visibility,
             update_mask=self.model.active_mask())
         with torch.no_grad():
@@ -285,12 +380,16 @@ class Trainer:
         metrics["overflow"] = int(out["pairs_overflow"])
         self._last_cam = cam
         self.global_step += 1
+        if self.decoder is not None:
+            self.decoder.ema_update()
         self._post_backward(grads, cam)
         self._post_optimizer_step()
         self._progressive_features()
         return metrics
 
     def _post_backward(self, grads, cam):
+        if self.conf.strategy != "gs":
+            return
         c = self.conf.gs
         if strat_base.check_step_condition(self.global_step, 0,
                                            c.densify_end, 1):
@@ -299,8 +398,12 @@ class Trainer:
                 self.model.positions.detach(), sensor_position(cam))
 
     def _post_optimizer_step(self, split_noise=None):
-        """The GS events due at the current step, in the JAX trainer's
-        order. ``split_noise`` optionally feeds densify's normals."""
+        """The strategy events due at the current step, in the JAX
+        trainer's order. ``split_noise`` optionally feeds densify's
+        normals."""
+        if self.conf.strategy == "mcmc":
+            self._mcmc_events()
+            return
         step = self.global_step
         c = self.conf.gs
         model, opt = self.model, self.opt_state
@@ -362,6 +465,33 @@ class Trainer:
             self._event(step, "weight-pruned", dict(n_pruned=n_pruned,
                                                     n=model.n_active))
 
+    def _mcmc_events(self):
+        """relocate, add, then perturb with the position lr of the new
+        step (trainer.py:858-885)."""
+        step, c = self.global_step, self.conf.mcmc
+        model, opt = self.model, self.opt_state
+        if strat_base.check_step_condition(step, c.relocate_start,
+                                           c.relocate_end,
+                                           c.relocate_frequency):
+            n_active = model.n_active
+            n_rel = mcmc_strategy.relocate(
+                model, opt, self.generator,
+                opacity_threshold=c.opacity_threshold, n_max=c.binom_n_max)
+            self._event(step, "relocate", dict(n_relocated=n_rel,
+                                               n_active=n_active))
+        if strat_base.check_step_condition(step, c.add_start, c.add_end,
+                                           c.add_frequency):
+            n_added = mcmc_strategy.add_gaussians(
+                model, opt, self.generator, max_n=c.max_n_gaussians,
+                n_max=c.binom_n_max)
+            self._event(step, "add", dict(n_added=n_added,
+                                          n=model.n_active))
+        if strat_base.check_step_condition(step, c.perturb_start,
+                                           c.perturb_end,
+                                           c.perturb_frequency):
+            mcmc_strategy.perturb(model, self.generator,
+                                  self._positions_lr(step), c.noise_lr)
+
     def _event(self, step, kind, stats):
         self.event_stats.append((step, kind, stats))
         if self.conf.print_stats:
@@ -407,7 +537,8 @@ class Trainer:
     @torch.no_grad()
     def validate(self, dataset=None) -> Dict[str, float]:
         """PSNR and SSIM over a dataset's views, per-ray hit statistics and
-        the best and worst frame (no LPIPS)."""
+        the best and worst frame (no LPIPS); NHT decodes through the EMA
+        shadow."""
         ds = dataset or self.val_dataset or self.dataset
         psnrs, ssims, hit_stats = [], [], []
         bg = bg_mod.background_color(self.conf.background, train=False,
@@ -420,8 +551,9 @@ class Trainer:
             hc = out["hits_count"]
             hit_stats.append((float(hc.mean()), float(hc.std(correction=0)),
                               float(hc.min()), float(hc.max())))
+            color = self.decode(out, use_ema=True)
             pred = torch.clamp(bg_mod.apply_background(
-                out["pred_features"], out["pred_opacity"], bg), 0.0, 1.0)
+                color, out["pred_opacity"], bg), 0.0, 1.0)
             gt = _as_image(batch.rgb_gt, self.device)
             psnrs.append(float(psnr(pred, gt)))
             ssims.append(float(ssim(pred.permute(2, 0, 1)[None],
@@ -438,20 +570,45 @@ class Trainer:
 
     # --- checkpoints (the JAX trainer's npz keys) -----------------------
 
+    def _checkpoint_keys(self) -> Dict[str, str]:
+        """optimizer group -> its name in the JAX checkpoints: the
+        parameter's own, or the decoder's flax key path, whose kernels
+        are stored [in, out] (``transposed`` groups)."""
+        keys = {k: k for k in self.model.params()}
+        if self.decoder is not None:
+            layers = flax_layer_names(len(self.decoder.weights()))
+            keys.update({f"{DECODER}/{i}": f"{DECODER}//params/{n}/kernel"
+                         for i, n in enumerate(layers)})
+        return keys
+
     def save_checkpoint(self, path: str):
+        """The JAX trainer's npz keys (trainer.py:1374-1393); the decoder's
+        EMA shadow goes under ``ema/``, which the JAX trainer does not
+        read."""
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+        def arr(name, t):   # decoder weights are stored as flax kernels
+            a = t.detach().cpu().numpy()
+            return a.T if name.startswith(DECODER) else a
+
         flat = {}
-        for name, p in self.model.params().items():
-            flat[f"params/{name}"] = p.detach().cpu().numpy()
-            flat[f"opt/m/{name}"] = self.opt_state.exp_avg[name].cpu().numpy()
-            flat[f"opt/v/{name}"] = \
-                self.opt_state.exp_avg_sq[name].cpu().numpy()
+        params, keys = self.params(), self._checkpoint_keys()
+        for name, key in keys.items():
+            flat[f"params/{key}"] = arr(name, params[name])
+            flat[f"opt/m/{key}"] = arr(name, self.opt_state.exp_avg[name])
+            flat[f"opt/v/{key}"] = arr(name, self.opt_state.exp_avg_sq[name])
+        if self.decoder is not None:
+            for i, t in enumerate(self.decoder.ema_shadow):
+                flat[f"ema/{keys[f'{DECODER}/{i}']}"] = arr(DECODER, t)
         flat["opt/step"] = np.asarray(self.opt_state.step, np.int32)
         flat["n_active"] = np.asarray(self.model.n_active, np.int32)
         flat["global_step"] = np.asarray(self.global_step)
         flat["n_active_features"] = np.asarray(self.n_active_features)
-        flat["gs/grad_accum"] = self.gs_buffers.grad_norm_accum.cpu().numpy()
-        flat["gs/grad_denom"] = self.gs_buffers.grad_norm_denom.cpu().numpy()
+        if self.gs_buffers is not None:
+            flat["gs/grad_accum"] = \
+                self.gs_buffers.grad_norm_accum.cpu().numpy()
+            flat["gs/grad_denom"] = \
+                self.gs_buffers.grad_norm_denom.cpu().numpy()
         if self.raw_conf is not None:
             flat["config_json"] = np.asarray(json.dumps(dict(self.raw_conf)))
         np.savez(path, **flat)
@@ -459,19 +616,30 @@ class Trainer:
     def load_checkpoint(self, path: str):
         dev = self.device
         with np.load(path) as data:
-            def get(key):
-                return torch.as_tensor(data[key], device=dev)
+            def get(name, key):
+                t = torch.as_tensor(data[key], device=dev)
+                return t.T.contiguous() if name.startswith(DECODER) else t
 
-            names = list(self.model.params())
-            self.model.set_params(**{k: get(f"params/{k}") for k in names})
+            keys = self._checkpoint_keys()
+            with torch.no_grad():
+                for name, p in self.params().items():
+                    p.copy_(get(name, f"params/{keys[name]}"))
+                if self.decoder is not None:
+                    for i, t in enumerate(self.decoder.ema_shadow):
+                        key = f"ema/{keys[f'{DECODER}/{i}']}"
+                        if key in data.files:
+                            t.copy_(get(DECODER, key))
             self.model.n_active = int(data["n_active"])
             self.opt_state = adam_mod.AdamState(
                 step=int(data["opt/step"]),
-                exp_avg={k: get(f"opt/m/{k}").clone() for k in names},
-                exp_avg_sq={k: get(f"opt/v/{k}").clone() for k in names})
+                exp_avg={k: get(k, f"opt/m/{v}").clone()
+                         for k, v in keys.items()},
+                exp_avg_sq={k: get(k, f"opt/v/{v}").clone()
+                            for k, v in keys.items()})
             self.global_step = int(data["global_step"])
             self.n_active_features = int(data["n_active_features"])
-            if "gs/grad_accum" in data.files:
+            if self.gs_buffers is not None and \
+                    "gs/grad_accum" in data.files:
                 self.gs_buffers = gs_strategy.GSBuffers(
-                    get("gs/grad_accum").clone(),
-                    get("gs/grad_denom").to(torch.int32).clone())
+                    get("", "gs/grad_accum").clone(),
+                    get("", "gs/grad_denom").to(torch.int32).clone())

@@ -2,12 +2,16 @@
 """Training CLI of the PyTorch/CUDA port:
 
     python train_torch.py --config-name apps/nerf_synthetic_3dgut \\
-        path=/data/lego [key=value ...] [--device cuda]
+        path=/data/lego [key=value ...] [--device cpu]
 
-The counterpart of train.py for the port's GS trainer, with the 3DGUT
+The counterpart of train.py for the port's trainer, with the 3DGUT
 renderer (``apps/nerf_synthetic_3dgut``, ``apps/colmap_3dgut``,
 ``apps/scannetpp_3dgut``), the 3DGRT one (``apps/nerf_synthetic_3dgrt``)
-or the sorted 3DGUT of the paper (``paper/3dgut/sorted_nerf_synthetic``).
+or the sorted 3DGUT of the paper (``paper/3dgut/sorted_nerf_synthetic``),
+under the GS or the MCMC strategy (``apps/nerf_synthetic_3dgut_mcmc``),
+with SH or NHT features (``apps/nerf_synthetic_3dgut_mcmc_nht``,
+``apps/nerf_synthetic_3dgrt_mcmc_nht``). It trains on the card; without
+one it stops, unless ``--device cpu`` asks for the CPU.
 It composes the YAML configs with the port's ``config/loader.py`` and
 reads NeRF-synthetic, COLMAP and ScanNet++ (OpenCV fisheye) captures
 with its ``data/`` modules, decoding images with PIL; a COLMAP capture
@@ -17,8 +21,11 @@ which is not in the repository: ``dataset.type: ncore`` raises. The
 port always renders with the reference's
 exact kill: where the YAML sets ``exact_kill: false`` (the TPU package's
 relaxed kill, configs/render/3dgrt.yaml and 3dgut.yaml), trainer_config
-says so on stderr and composes the exact kill. The port sizes its pair
-buffer per view (``max_pairs`` and ``auto_max_pairs`` are ignored).
+says so on stderr and composes the exact kill. Likewise bf16 records
+(``records_bf16``, or ``particle_feature_half`` where the former is
+unset, as the JAX loader reads them): the port keeps fp32 records and
+says so. The port sizes its pair buffer per view
+(``max_pairs`` and ``auto_max_pairs`` are ignored).
 """
 
 import argparse
@@ -32,13 +39,33 @@ import numpy as np
 import torch
 
 
+def nht_features(conf):
+    """The config's ``Features``; raises for NHT features other than one
+    sincos frequency, which JAX's renderer hard-codes
+    (render/gut.py:174)."""
+    from threedgrut_tpu_torch.models.features import (ActivationType,
+                                                      FeatureType, Features)
+
+    feats = Features.from_config(conf)
+    if feats.feature_type == FeatureType.NHT and (
+            feats.activation != ActivationType.SINCOS
+            or feats.num_frequencies != 1):
+        raise NotImplementedError(
+            f"NHT activation {feats.activation.name} with "
+            f"{feats.num_frequencies} frequencies: the renderer composites "
+            "sin and cos of one frequency only")
+    return feats
+
+
 def trainer_config(conf):
-    """The port's TrainerConfig from a composed YAML config (the GS
-    subset of threedgrut_tpu.config.loader.to_trainer_config)."""
+    """The port's TrainerConfig from a composed YAML config (the subset
+    of threedgrut_tpu.config.loader.to_trainer_config that the port
+    trains)."""
     from threedgrut_tpu_torch.models.background import BackgroundConfig
     from threedgrut_tpu_torch.ops.ut import UTConfig
     from threedgrut_tpu_torch.render.common import RasterConfig
     from threedgrut_tpu_torch.strategy.gs import GSStrategyConfig
+    from threedgrut_tpu_torch.strategy.mcmc import MCMCStrategyConfig
     from threedgrut_tpu_torch.train.trainer import (LossConfig,
                                                     OptimizerConfig,
                                                     TrainerConfig)
@@ -52,8 +79,8 @@ def trainer_config(conf):
     render = conf.get("render", {})
     splat = render.get("splat", {})
     strat = conf.get("strategy", {})
-    if "MCMC" in str(strat.get("method", "GSStrategy")):
-        raise NotImplementedError("the MCMC strategy is not ported")
+    mcmc = "MCMC" in str(strat.get("method", "GSStrategy"))
+    nht_features(conf)
     if render.get("method", "3dgut") not in ("3dgut", "3dgrt"):
         raise NotImplementedError(f"render.method {render.get('method')}: "
                                   "the port has 3dgut and 3dgrt")
@@ -61,11 +88,20 @@ def trainer_config(conf):
         print("render.exact_kill is false: the port composites with the "
               "exact kill only, so it trains with exact_kill true",
               file=sys.stderr)
+    # config/loader.py:316-317 reads particle_feature_half as
+    # records_bf16 where records_bf16 is unset (the render YAMLs set it
+    # false): bf16 records, geometry included, a TPU knob
+    if render.get("records_bf16", render.get("particle_feature_half",
+                                             False)):
+        print("render.records_bf16 (or particle_feature_half) asks for bf16 "
+              "records, a TPU knob: the port keeps fp32 records",
+              file=sys.stderr)
     d, p, r = (strat.get(k, {}) for k in ("densify", "prune",
                                            "reset_density"))
     decay, pscale, pweight = (strat.get(k, {}) for k in (
         "density_decay", "prune_scale", "prune_weight"))
-    gs = GSStrategyConfig(
+    # config/loader.py:222-287: the other strategy keeps its defaults
+    gs = GSStrategyConfig() if mcmc else GSStrategyConfig(
         densify_frequency=d.get("frequency", 300),
         densify_start=d.get("start_iteration", 500),
         densify_end=d.get("end_iteration", 15000),
@@ -96,6 +132,21 @@ def trainer_config(conf):
         # loader reads "threshold" and so falls back to 0.01)
         prune_weight_threshold=pweight.get("weight_threshold", 0.01),
         weight_telemetry_frequency=pweight.get("telemetry_frequency", 10))
+    rl, ad, pb = (strat.get(k, {}) for k in ("relocate", "add", "perturb"))
+    mc = MCMCStrategyConfig() if not mcmc else MCMCStrategyConfig(
+        binom_n_max=strat.get("binom_n_max", 51),
+        opacity_threshold=strat.get("opacity_threshold", 0.005),
+        relocate_frequency=rl.get("frequency", 100),
+        relocate_start=rl.get("start_iteration", 500),
+        relocate_end=rl.get("end_iteration", 25000),
+        add_frequency=ad.get("frequency", 100),
+        add_start=ad.get("start_iteration", 500),
+        add_end=ad.get("end_iteration", 25000),
+        max_n_gaussians=ad.get("max_n_gaussians", 1000000),
+        perturb_frequency=pb.get("frequency", 1),
+        perturb_start=pb.get("start_iteration", 0),
+        perturb_end=pb.get("end_iteration", 27500),
+        noise_lr=pb.get("noise_lr", 5e5))
     ut = UTConfig(
         alpha=splat.get("ut_alpha", 1.0), beta=splat.get("ut_beta", 2.0),
         kappa=splat.get("ut_kappa", 0.0),
@@ -121,8 +172,10 @@ def trainer_config(conf):
                             or render.get("method") == "3dgrt"),
         sort_window=render.get("sort_window", 64))
     bgc = model.get("background", {})
+    dec = model.get("nht_decoder", {})
     return TrainerConfig(
         n_iterations=conf.get("n_iterations", 30000),
+        strategy="mcmc" if mcmc else "gs",
         background=BackgroundConfig(name=bgc.get("name", "background-color"),
                                     color=bgc.get("color", "black")),
         loss=LossConfig(**{k: loss.get(k, v) for k, v in
@@ -135,22 +188,29 @@ def trainer_config(conf):
                 "lr", 0.0025),
             lr_features_specular=lr.get("features_specular", {}).get(
                 "lr", 0.000125),
+            lr_features=lr.get("features", {}).get("lr", 0.015),
             lr_rotation=lr.get("rotation", {}).get("lr", 0.001),
             lr_scale=lr.get("scale", {}).get("lr", 0.005),
             positions_lr_final=sched.get("positions", {}).get(
                 "lr_final", 0.0000016),
             positions_max_steps=sched.get("positions", {}).get(
                 "max_steps", 30000),
+            features_decay_final=sched.get("features", {}).get(
+                "decay_final", 0.1),
+            features_max_steps=sched.get("features", {}).get(
+                "max_steps", 30000),
             tail_start_frac=sched.get("tail", {}).get("start_frac", 0.66),
             tail_final_scale=sched.get("tail", {}).get("final_scale", 0.1)),
-        gs=gs, ut=ut, raster=raster,
+        gs=gs, mcmc=mc, ut=ut, raster=raster,
         init_n_features=prog.get("init_n_features", 0),
         max_n_features=prog.get("max_n_features", 3),
         increase_frequency=prog.get("increase_frequency", 1000),
         increase_step=prog.get("increase_step", 1),
         val_frequency=conf.get("val_frequency", 5000),
         seed=conf.get("seed_initialization", 42),
-        print_stats=model.get("print_stats", False))
+        print_stats=model.get("print_stats", False),
+        nht_color_refine_steps=dec.get("color_refine_steps", 3000),
+        nht_warmup_steps=dec.get("warmup_steps", 0))
 
 
 def make_dataset(conf, split):
@@ -195,35 +255,48 @@ def make_model(conf, dataset, device):
         feature_type=conf.model.feature_type,
         max_sh_degree=min(conf.model.progressive_training.max_n_features,
                           conf.render.particle_radiance_sph_degree),
+        nht_feature_dim=nht_features(conf).particle_feature_dim,
         default_density=conf.model.default_density,
         default_scale_factor=conf.model.default_scale_factor)
     init = conf.get("initialization", {})
     method = init.get("method", "random")
-    headroom = init.get("capacity_headroom", 4.0)   # GS grows the cloud
+    strat = conf.get("strategy", {})
+    if "MCMC" in str(strat.get("method", "")):
+        # train.py:87-89: MCMC grows to a hard cap
+        def capacity(n0):
+            return default_capacity_for(
+                max(n0, strat.get("add", {}).get("max_n_gaussians", n0)))
+    else:
+        def capacity(n0):   # GS grows the cloud by densifying
+            return default_capacity_for(
+                n0, init.get("capacity_headroom", 4.0))
     if method == "colmap":
         # train.py:98-102: the capture's sparse points and their colours
         pts, rgb, _ = dataset.load_points3d()
         return initialize_from_points(
-            mc, pts, rgb.astype(np.float32),
-            capacity=default_capacity_for(len(pts), headroom),
+            mc, pts, rgb.astype(np.float32), capacity=capacity(len(pts)),
             seed=conf.seed_initialization, device=device)
     if method != "random":
         raise NotImplementedError(f"initialization {method} is not wired "
                                   "to the port's CLI")
     n = init.get("num_gaussians", 100000)
     return random_initialization(
-        mc, n, extent=dataset.get_scene_extent(),
-        capacity=default_capacity_for(n, headroom),
+        mc, n, extent=dataset.get_scene_extent(), capacity=capacity(n),
         seed=conf.seed_initialization, device=device)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config-name", default="apps/nerf_synthetic_3dgut")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when present)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu trains on the "
+                    "CPU, slowly)")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args()
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("train_torch.py: no CUDA device; pass --device cpu "
+                         "to train on the CPU")
 
     from threedgrut_tpu_torch.config.loader import load_config
     from threedgrut_tpu_torch.train.trainer import Trainer
@@ -232,8 +305,6 @@ def main():
     if conf.path == "???":
         raise SystemExit("set the dataset path: train_torch.py ... "
                          "path=/data/...")
-    device = torch.device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
     dataset = make_dataset(conf, "train")
     val_dataset = make_dataset(conf, "val")
     tconf = trainer_config(conf)

@@ -7,7 +7,7 @@ Phases, one line each; any failure raises and the script exits non-zero
 without printing the final result line:
 
 1. device  - a CUDA device is present; its name and power limit.
-2. build   - the four kernels compile with nvcc from csrc/ (sm_90a), one
+2. build   - the five kernels compile with nvcc from csrc/ (sm_90a), one
    nvcc process per source, all started together.
 3. kernel A vs plain - bin_decode on the 100k bench cloud, one 800x800
    view: pair_tile, pair_particle and tile_start EQUAL to the plain
@@ -135,10 +135,45 @@ MCMC strategy:
    live at every relocate event, validate through the EMA decoder
    finite.
 
+The trace() and playground path (render/grt.py:trace on arbitrary rays;
+the shared-segment mode of kernels B and C, the TPU's kernel 7, for the
+brute force; windows of 128 for both regimes; the normals mode of B):
+
+31. kernel 7 B vs plain - trace's brute force over the 8192 slots of
+   bench_cloud(8192) (SH 3) on the 512x512 orbit view's rays (1,024
+   blocks of 256), windows of 128: phase 19's tolerances.
+32. kernel 7 C and D vs plain - C over the shared segment with seeded
+   upstream gradients against the float64 plain backward on 64 blocks
+   at the image's middle: phase 20's tolerances, two runs of all 1,024
+   blocks bitwise equal; D folds its 8.4M per-block rows (within 1e-5 of
+   max, bitwise equal, beside index_add_); trace's sorted gradients
+   against tests/fixtures/torch_port_trace_grad_small.npz (phase 10's
+   tolerances); the trace path (forward and backward) launches kernel
+   7's B and C and D once each; ms per trace call.
+33. W 128 B and C vs plain - trace's grid over bench_cloud(100_000) on
+   the same view (7,168 candidates a block): B at phase 19's tolerances,
+   C on 64 middle blocks at phase 20's, bitwise repeatable; the trace
+   path launches W 128 B and C and D once each; ms per trace call.
+34. normals - B's normals mode in the brute-force trace against plain
+   (normals within 2e-3), and render_gut's normals against the port's
+   oracle on phase 7's probe; one trace with normals launches it once.
+35. grid vs brute force at 100k in rank order (_sorted=False): with
+   every cell of the grid, 8 blocks composite the brute force's sequence
+   (within 1e-5); the full frame with the defaults reports
+   accel_overflow and the share of rays the grid covers; ms per call.
+36. playground - playground_torch.py's engine over the 100k cloud with
+   the demo primitives (glass icosphere, mirror box), 512x512, 3
+   bounces, 1 spp: ms per frame, W 128 B launched 3 times a frame, 2
+   traced frames (device busy, idle share, device kernels per frame),
+   the frame finite and away from the envmap; the viewer on 127.0.0.1
+   answers GET / and three frames, each a decodable 512x512 JPEG.
+
 Then a JSON line with each kernel's launches (A-D from phase 11, sorted
 B and C of each setting from phase 17, E from phase 18, the general
-kernels from phases 23-24, the NHT kernels from phase 29), error and
-times (phases 3, 4, 8, 9, 13-15, 19-21, 26-27), its bound (the larger
+kernels from phases 23-24, the NHT kernels from phase 29, kernel 7's B,
+C and D from phase 32, W 128 C from phase 33, normals B from phase 34,
+W 128 B from the playground frame of phase 36), error and
+times (phases 3, 4, 8, 9, 13-15, 19-21, 26-27, 31-34), its bound (the larger
 of the fp32 operations over 67 TFLOP/s and the bytes it must read and
 write over 3.35 TB/s, from this run's inputs: for B, C and E the accept
 test on every (pair, pixel) of the tiles and the response of each
@@ -254,6 +289,23 @@ KERNELS = {
                            "threedgrut_tpu/ops/pallas/raster.py:634"),
     "fold_64": ("threedgrut_tpu_torch/csrc/fold.cu",
                 "threedgrut_tpu/ops/pallas/fold.py:76"),
+    # trace(): the shared-segment mode (kernel 7) of B and C, shared_segments
+    # in the forward and backward strip kernels, with D folding its rows
+    # per block; windows of 128 (the sorted mode at sort_window = CHUNK)
+    # in the grid's per-block segments; the normals mode of B
+    # (compute_normals)
+    "raster_fwd_shared_segment": ("threedgrut_tpu_torch/csrc/raster_fwd.cu",
+                                  "threedgrut_tpu/ops/pallas/raster.py:1158"),
+    "raster_bwd_shared_segment": ("threedgrut_tpu_torch/csrc/raster_bwd.cu",
+                                  "threedgrut_tpu/ops/pallas/raster.py:2051"),
+    "fold_shared_segment": ("threedgrut_tpu_torch/csrc/fold.cu",
+                            "threedgrut_tpu/ops/pallas/fold.py:76"),
+    "raster_fwd_window128": ("threedgrut_tpu_torch/csrc/raster_fwd.cu",
+                             "threedgrut_tpu/ops/pallas/raster.py:885"),
+    "raster_bwd_window128": ("threedgrut_tpu_torch/csrc/raster_bwd.cu",
+                             "threedgrut_tpu/ops/pallas/raster.py:1899"),
+    "raster_fwd_normals": ("threedgrut_tpu_torch/csrc/raster_fwd.cu",
+                           "threedgrut_tpu/ops/pallas/raster.py:1238"),
 }
 
 
@@ -271,7 +323,8 @@ def bound(n_bytes, flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def raster_bound(args, outputs, rc, general, accepted, nht_flops=0):
+def raster_bound(args, outputs, rc, general, accepted, nht_flops=0,
+                 shared_tiles=0):
     """The bound of kernel B, C or E on ``args`` (the wrapper's tensors),
     writing ``outputs``: every pair of the tiles tested on the tile's 256
     pixels, and the ``accepted`` candidates (the plain forward's hit
@@ -279,8 +332,11 @@ def raster_bound(args, outputs, rc, general, accepted, nht_flops=0):
     the response and ``nht_flops`` more (NHT_ACCEPT_FLOPS for B's
     features at the hit, NHT_BWD_ACCEPT_FLOPS for C's pullback).
     Candidates that pass the test but miss the ray's range are charged the
-    test only, so this is a floor."""
+    test only, so this is a floor. ``shared_tiles``: the tiles that each
+    walk the one shared segment of ``args[2]`` (kernel 7)."""
     pairs = int(args[2][-1])
+    if shared_tiles:
+        pairs = int(args[2][1] - args[2][0]) * shared_tiles
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     per_accept = ACCEPT_FLOPS[(rc.kernel_degree, general)] + nht_flops
     return bound(nbytes(*tensors, *outputs),
@@ -311,10 +367,13 @@ def index_add_ms(d_args):
     owner = torch.repeat_interleave(
         torch.arange(order.shape[0], device=d_rec.device),
         counts.to(torch.int64))[:limit]
-    particle = order.to(torch.int64)[owner][perm.to(torch.int64)]
+    slot = perm.to(torch.int64)
+    keep = slot < owner.shape[0]    # slots no rank owns (trace's dead row)
+    particle = order.to(torch.int64)[owner][slot[keep]]
+    rows = d_rec[keep]
     return cuda_ms(lambda: torch.zeros(
         (capacity, d_rec.shape[1]), dtype=torch.float32,
-        device=d_rec.device).index_add_(0, particle, d_rec), 20)
+        device=d_rec.device).index_add_(0, particle, rows), 20)
 
 
 def nvidia_smi_line():
@@ -335,6 +394,19 @@ def timed_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def host_ms(fn, reps):
+    """Mean host-clock ms of fn() over reps calls after one warm-up, the
+    device synchronised at both ends (for work that reads back from the
+    device on its way, as trace's grid does)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def cuda_ms(fn, reps):
@@ -1419,6 +1491,443 @@ def nht_trainer_phase(dev):
     phase("NHT trainer", summary)
 
 
+# trace()'s path (render/grt.py) and the playground: the orbit view's rays
+# at TRACE_SIDE
+TRACE_SIDE = 512
+# blended normals against their references: every pixel within
+# NORMALS_TOL but at most NORMALS_CAP, and those within NORMALS_MAX (the
+# CPU tests' tolerance against JAX). fp32 loses digits where the ray's
+# origin lies hundreds of particle radii away: the entry point a + b t
+# (|a| in the hundreds, the result at most 3) cancels them
+NORMALS_TOL = 3e-4
+NORMALS_CAP = 8
+NORMALS_MAX = 2e-3
+TRACE_GRAD_FIXTURE = os.path.join(REPO, "tests", "fixtures",
+                                  "torch_port_trace_grad_small.npz")
+
+
+def trace_rays(model):
+    """World rays [TRACE_SIDE, TRACE_SIDE, 3] of the first orbit view
+    around the live cloud (synthetic.py:orbit_cameras)."""
+    from threedgrut_tpu_torch.render.common import camera_rays_world
+    from threedgrut_tpu_torch.synthetic import orbit_cameras
+
+    cam = orbit_cameras(model, 1, resolution=(TRACE_SIDE, TRACE_SIDE),
+                        device=model.device)[0]
+    return camera_rays_world(cam)
+
+
+def normals_agreement(n_err):
+    """(ok, a message) of per-pixel normals errors ``n_err`` against
+    NORMALS_TOL, NORMALS_CAP and NORMALS_MAX."""
+    n_over = int((n_err > NORMALS_TOL).sum())
+    top = float(n_err.max()) if n_err.numel() else 0.0
+    return (n_over <= NORMALS_CAP and top <= NORMALS_MAX,
+            f"normals max |d| {top:.3g}, {n_over} pixels over "
+            f"{NORMALS_TOL:g}, median {float(n_err.median()):.3g}")
+
+
+def forward_agreement(got, ref, rc, label):
+    """Kernel B against its plain version, kill flips counted as phase
+    19 counts them; raises past the tolerances. Normals (a sixth output;
+    the plain version's in the kernel's fp32 operation order) by
+    ``normals_agreement``. Returns (max |d|, a message)."""
+    pix = torch.maximum(torch.maximum(
+        (got[0] - ref[0]).abs().amax(-1), (got[1] - ref[1]).abs()[..., 0]),
+        (got[4] - ref[4]).abs()[..., 0])
+    n_msg, n_ok = "", True
+    if len(got) > 5:
+        n_ok, n_msg = normals_agreement((got[5] - ref[5]).abs().amax(-1))
+        n_msg = ", " + n_msg
+    kill = pix > 1e-4
+    n_kill = int(kill.sum())
+    kill_ok = (n_kill <= KILL_FLIP_CAP
+               and float(pix.max()) <= max(rc.max_alpha
+                                           * rc.min_transmittance, 1e-4)
+               and bool((torch.maximum(got[4], ref[4])[..., 0][kill]
+                         < rc.min_transmittance).all()))
+    err = float(pix[~kill].max())
+    err_d = float(((got[2] - ref[2]).abs()
+                   / ref[2].abs().clamp(min=1e-3)).max())
+    flips = float((got[3] != ref[3]).float().mean())
+    msg = (f"max |d| {err:.3g} (features, opacity, T_final), depth rel "
+           f"{err_d:.3g}, hits flip {flips:.5f}, kill flips {n_kill}{n_msg}")
+    if not (err <= 1e-4 and err_d <= 1e-3 and flips < 0.01 and kill_ok
+            and n_ok):
+        raise AssertionError(f"{label} vs plain: {msg}")
+    return float(pix.max()), msg
+
+
+def backward_agreement(c_args, d_rows, label):
+    """Kernel C's rows ``d_rows`` against the float64 plain backward on
+    the same arguments ``c_args``, every block: cosine >= 0.9999 and
+    relative L2 <= 1e-3 per field group, none of them all zero. Returns
+    (max |d|, plain ms, a message)."""
+    from threedgrut_tpu_torch.ops.cuda.raster import \
+        rasterize_tiles_backward_plain
+
+    d_ref, plain_ms = timed_once(
+        lambda: rasterize_tiles_backward_plain(*c_args))
+    stats = grad_agreement(d_rows, d_ref, first="p")
+    bad = {k: x for k, x in stats.items()
+           if not (x[0] >= 0.9999 and x[1] <= 1e-3)}
+    if bad:
+        raise AssertionError(f"{label} vs plain (cosine, rel L2): {bad}")
+    err = float((d_rows - d_ref).abs().max())
+    return err, plain_ms, ", ".join(f"{k} cos {x[0]:.8f} relL2 {x[1]:.3g}"
+                                    for k, x in stats.items())
+
+
+def trace_path_run(model, ro, rd, counters, **kw):
+    """trace's main path once, as a user calls it: forward and the
+    backward of fixture_loss, with ``counters`` (name -> (function,
+    attribute)) set to 0 just before and read just after. Returns (the
+    launches, ms of a forward call, host clock over 3 calls)."""
+    from threedgrut_tpu_torch.render.grt import trace
+
+    for p in model.params().values():
+        p.grad = None
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    out = trace(model, ro, rd, **kw)
+    fixture_loss(out).backward()
+    torch.cuda.synchronize()
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    with torch.no_grad():
+        return launches, host_ms(lambda: trace(model, ro, rd, **kw), 3), out
+
+
+def trace_phases(dev, ut_cfg):
+    """Phases 31-35: trace()'s kernels at the playground's size against
+    their plain versions, the JAX gradient fixture, the trace path's
+    launches, and the grid against brute force. Returns (report entries,
+    launches)."""
+    from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs, fold_pairs_plain
+    from threedgrut_tpu_torch.ops.cuda.raster import (
+        rasterize_tiles, rasterize_tiles_backward, rasterize_tiles_forward,
+        rasterize_tiles_plain, repeat_fold)
+    from threedgrut_tpu_torch.render.common import RasterConfig
+    from threedgrut_tpu_torch.render.grt import prepare_trace, trace
+    from threedgrut_tpu_torch.render.oracle import oracle_probe, parity_db
+    from threedgrut_tpu_torch.synthetic import bench_cloud
+
+    report, launches = {}, {}
+    fwd_fn, bwd_fn = rasterize_tiles, rasterize_tiles_backward
+    n_blocks = TRACE_SIDE * TRACE_SIDE // 256
+    rng = np.random.default_rng(31)
+    upstream = [torch.tensor(rng.normal(size=(16 * n_blocks, 16, c)).astype(
+        np.float32), device=dev) for c in (3, 1, 1)]
+
+    # 31. kernel 7 forward: brute force over 8192 slots, windows of 128
+    small = bench_cloud(8192, seed=0, device=dev)
+    ro, rd = trace_rays(small)
+    with torch.enable_grad():
+        inp = prepare_trace(small, ro, rd)
+    if not (inp.shared and inp.fold is not None):
+        raise AssertionError("8192 slots did not take the brute force")
+    args = inp.args()
+    with torch.no_grad():
+        got = rasterize_tiles_forward(*args)
+        ref, plain_ms = timed_once(lambda: rasterize_tiles_plain(*args))
+        err, msg = forward_agreement(got, ref, inp.cfg, "kernel 7 B")
+        b_ms = cuda_ms(lambda: rasterize_tiles_forward(*args), 5)
+    n_seg = int(inp.tile_start[1])
+    n_acc = composited(ref)
+    report["raster_fwd_shared_segment"] = dict(
+        max_abs_err=err, ms=b_ms, plain_ms=plain_ms,
+        **bound_keys(raster_bound(args, got, inp.cfg, True, n_acc,
+                                  shared_tiles=n_blocks)))
+    phase("kernel 7 B", f"brute force, {n_seg} slots x {n_blocks} blocks of "
+          f"256 rays ({TRACE_SIDE}x{TRACE_SIDE} orbit view), W 128, degree "
+          f"4, {n_acc:.0f} composited: {msg}; kernel {b_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+
+    # 32. kernel 7 backward: C over the shared segment, then D
+    with torch.no_grad():
+        c_args = args[:6] + (got[0], got[2], got[4], *upstream, inp.cfg,
+                             inp.ray_o, True)
+        d1 = rasterize_tiles_backward(*c_args)
+        d2 = rasterize_tiles_backward(*c_args)
+        same = bool(torch.equal(d1, d2))
+        del d2
+        c_ms = cuda_ms(lambda: rasterize_tiles_backward(*c_args), 3)
+        c_err, c_plain_ms, c_msg = backward_agreement(c_args, d1,
+                                                      "kernel 7 C")
+        if not same or d1.shape[0] != n_blocks * n_seg:
+            raise AssertionError(f"kernel 7 C: bitwise repeatable {same}, "
+                                 f"rows {d1.shape[0]}")
+        g = repeat_fold(inp.fold, n_blocks)
+        d_args = (d1, g.perm, g.order, g.excl, g.counts, g.limit,
+                  inp.table.shape[0])
+        f1, f2 = fold_pairs(*d_args), fold_pairs(*d_args)
+        f_ref, f_plain_ms = timed_once(lambda: fold_pairs_plain(*d_args))
+        f_err = float((f1 - f_ref).abs().max())
+        f_scale = float(f_ref.abs().max())
+        if not (f_err <= 1e-5 * f_scale and torch.equal(f1, f2)):
+            raise AssertionError(f"kernel D on kernel 7's rows: max |d| "
+                                 f"{f_err:.3g} of {f_scale:.3g}")
+        f_ms = cuda_ms(lambda: fold_pairs(*d_args), 10)
+        f_lib = index_add_ms(d_args)
+    report["raster_bwd_shared_segment"] = dict(
+        max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
+        **bound_keys(raster_bound(c_args, [d1], inp.cfg, True, n_acc,
+                                  shared_tiles=n_blocks)))
+    report["fold_shared_segment"] = dict(
+        max_abs_err=f_err, ms=f_ms, plain_ms=f_plain_ms,
+        **bound_keys(bound(nbytes(*d_args[:5], f1), d1.numel()),
+                     library_ms=f_lib))
+    del d1, f1, f2, f_ref
+    # the sorted trace's gradients against JAX's sorted vjp
+    with np.load(TRACE_GRAD_FIXTURE) as f:
+        gmodel = fixture_model(f, dev)
+        out = trace(gmodel, torch.tensor(f["ray_o"], device=dev),
+                    torch.tensor(f["ray_d"], device=dev),
+                    sh_degree=int(f["sh_degree"]))
+        fixture_loss(out).backward()
+        errs = {}
+        for k in PARAM_NAMES:
+            got_g = getattr(gmodel, k).grad.double().cpu().numpy()
+            ref_g = f[f"grad/{k}"].astype(np.float64)
+            scale = np.abs(ref_g).max() + 1e-12
+            cos = float((got_g * ref_g).sum() / max(
+                np.linalg.norm(got_g) * np.linalg.norm(ref_g), 1e-300))
+            errs[k] = (float(np.abs(got_g - ref_g).max() / scale), cos)
+    bad = {k: x for k, x in errs.items()
+           if not (x[0] <= 2e-3 and x[1] >= 0.9999)}
+    if bad:
+        raise AssertionError(f"trace gradients vs JAX: {bad}")
+    counters = {"raster_fwd_shared_segment": (fwd_fn,
+                                              "launches_shared_segment"),
+                "raster_bwd_shared_segment": (bwd_fn,
+                                              "launches_shared_segment"),
+                "fold_shared_segment": (fold_pairs, "launches")}
+    got_l, brute_ms, _ = trace_path_run(small, ro, rd, counters)
+    if got_l != {k: 1 for k in counters}:
+        raise AssertionError(f"brute trace launches {got_l}")
+    launches.update(got_l)
+    phase("kernel 7 C and D", f"C: {c_msg} (all {n_blocks} blocks); max "
+          f"|d| {c_err:.3g}; two runs bitwise equal; kernel {c_ms:.4f} ms, "
+          f"plain {c_plain_ms:.4f} ms; D on its {n_blocks * n_seg} rows: max |d| {f_err:.3g} "
+          f"of {f_scale:.3g}, bitwise equal, {f_ms:.4f} ms, plain "
+          f"{f_plain_ms:.4f} ms, index_add_ {f_lib:.4f} ms; gradients vs "
+          f"{os.path.basename(TRACE_GRAD_FIXTURE)} (sorted): " + ", ".join(
+              f"{k} {x[0]:.2g}/{x[1]:.7f}" for k, x in errs.items())
+          + f"; trace path (forward + backward) launches {got_l}; "
+          f"{brute_ms:.3f} ms per forward trace call (host clock)")
+
+    # 33. windows of 128 in the grid at 100k
+    big = bench_cloud(100_000, seed=0, device=dev)
+    ro, rd = trace_rays(big)
+    with torch.enable_grad():
+        inp = prepare_trace(big, ro, rd)
+    if inp.shared:
+        raise AssertionError("100k slots did not take the grid")
+    args = inp.args()
+    seg_len = int(inp.tile_start[1])
+    with torch.no_grad():
+        got = rasterize_tiles_forward(*args)
+        ref, plain_ms = timed_once(lambda: rasterize_tiles_plain(*args))
+        err, msg = forward_agreement(got, ref, inp.cfg, "W 128 B")
+        b_ms = cuda_ms(lambda: rasterize_tiles_forward(*args), 5)
+        n_acc = composited(ref)
+        c_args = args[:6] + (got[0], got[2], got[4], *upstream, inp.cfg,
+                             inp.ray_o, False)
+        d1 = rasterize_tiles_backward(*c_args)
+        same = bool(torch.equal(d1, rasterize_tiles_backward(*c_args)))
+        c_ms = cuda_ms(lambda: rasterize_tiles_backward(*c_args), 3)
+        c_err, c_plain_ms, c_msg = backward_agreement(c_args, d1,
+                                                      "W 128 C")
+        if not same:
+            raise AssertionError("W 128 C is not bitwise repeatable")
+    report["raster_fwd_window128"] = dict(
+        max_abs_err=err, ms=b_ms, plain_ms=plain_ms,
+        **bound_keys(raster_bound(args, got, inp.cfg, True, n_acc)))
+    report["raster_bwd_window128"] = dict(
+        max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
+        **bound_keys(raster_bound(c_args, [d1], inp.cfg, True, n_acc)))
+    del d1
+    counters = {"raster_bwd_window128": (bwd_fn, "launches_window128"),
+                "raster_fwd_window128": (fwd_fn, "launches_window128"),
+                "fold": (fold_pairs, "launches")}
+    got_l, grid_ms, _ = trace_path_run(big, ro, rd, counters)
+    if got_l != {k: 1 for k in counters}:
+        raise AssertionError(f"grid trace launches {got_l}")
+    launches["raster_bwd_window128"] = got_l["raster_bwd_window128"]
+    phase("W 128 B and C", f"the grid at 100k, {n_blocks} blocks x "
+          f"{seg_len} candidates, accel_overflow "
+          f"{int(inp.accel_overflow)}, {n_acc:.0f} composited: B {msg}; "
+          f"kernel {b_ms:.4f} ms, plain {plain_ms:.4f} ms; C {c_msg} (all "
+          f"{n_blocks} blocks), max |d| {c_err:.3g}, two runs bitwise "
+          f"equal, kernel {c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; trace "
+          f"path launches {got_l}; "
+          f"{grid_ms:.3f} ms per forward trace call (host clock)")
+
+    # 34. normals: B's normals mode in trace (brute force) against plain,
+    # and render_gut's against the port's oracle (phase 7's probe)
+    ro, rd = trace_rays(small)
+    nrc = RasterConfig(enable_normals=True)
+    with torch.no_grad():
+        inp = prepare_trace(small, ro, rd, raster_cfg=nrc)
+        args = inp.args()
+        got = rasterize_tiles_forward(*args)
+        ref, plain_ms = timed_once(lambda: rasterize_tiles_plain(*args))
+        err, msg = forward_agreement(got, ref, inp.cfg, "normals B")
+        err = max(err, float((got[5] - ref[5]).abs().max()))
+        b_ms = cuda_ms(lambda: rasterize_tiles_forward(*args), 5)
+        rg, orc = oracle_probe(big, ut_cfg, nrc)
+    bulk, raw, flip = parity_db(rg["pred_features"].cpu().numpy(),
+                                orc["pred_features"].cpu().numpy())
+    # the oracle's normals are float64 (on the fp32 parameters), the
+    # kernel's fp32; pixels where an accept or kill decision flipped (the
+    # hit counts or the features differ: a hit at min_alpha moves the
+    # normals by up to 4e-3) are counted, and the rest held
+    f_err = (rg["pred_features"] - orc["pred_features"]).abs().amax(-1)
+    decided = ((f_err <= 0.5 / 255.0)
+               & (rg["hits_count"].to(torch.int64)
+                  == orc["hits_count"].to(torch.int64))[..., 0])
+    n_flip = int((~decided).sum())
+    o_ok, o_msg = normals_agreement(
+        (rg["pred_normals"] - orc["pred_normals"]).abs().amax(-1)[decided])
+    if not (o_ok and n_flip <= 0.01 * decided.numel() and flip <= 0.01
+            and bulk >= 80.0):
+        raise AssertionError(f"render_gut normals vs oracle: {o_msg} off "
+                             f"{n_flip} decision flips, flip_frac "
+                             f"{flip:.5f}")
+    report["raster_fwd_normals"] = dict(
+        max_abs_err=err, ms=b_ms, plain_ms=plain_ms,
+        **bound_keys(raster_bound(args, got, inp.cfg, True, composited(ref),
+                                  shared_tiles=n_blocks)))
+    fwd_fn.launches_normals = 0
+    with torch.no_grad():
+        normals = trace(small, ro, rd, raster_cfg=nrc)["pred_normals"]
+    torch.cuda.synchronize()
+    launches["raster_fwd_normals"] = fwd_fn.launches_normals
+    if launches["raster_fwd_normals"] != 1 or not bool(
+            torch.isfinite(normals).all()):
+        raise AssertionError("normals trace: launches "
+                             f"{launches['raster_fwd_normals']}")
+    phase("normals B", f"trace brute force with normals: {msg}; kernel "
+          f"{b_ms:.4f} ms, plain {plain_ms:.4f} ms; render_gut vs the "
+          f"oracle's float64 normals (200x200, 60k): {o_msg} off the "
+          f"{n_flip} pixels of a flipped decision (features bulk "
+          f"{bulk:.1f} dB, flip_frac {flip:.5f}); trace launches "
+          f"{launches['raster_fwd_normals']}")
+
+    # 35. the grid against brute force at 100k in rank order: the full
+    # frame (coverage lost to max_cells), and 4 image rows (8 blocks) with
+    # every cell
+    ro, rd = trace_rays(big)
+    with torch.no_grad():
+        brute = trace(big, ro, rd, accelerate=False, _sorted=False)
+        grid = trace(big, ro, rd, accelerate=True, _sorted=False)
+        d_f = (grid["pred_features"] - brute["pred_features"]).abs().amax(-1)
+        over = float((grid["pred_opacity"]
+                      - brute["pred_opacity"]).max())
+        covered = float((d_f <= 1e-4).float().mean())
+        from threedgrut_tpu_torch.render.grt import build_grid
+        rows = slice(TRACE_SIDE // 2 - 2, TRACE_SIDE // 2 + 2)
+        o4, d4 = ro[rows].contiguous(), rd[rows].contiguous()
+        accel = build_grid(big, o4.reshape(-1, 3).mean(0))
+        cell_cap = int((accel.seg_start[1:-1] - accel.seg_start[:-2]).max())
+        full = trace(big, o4, d4, _sorted=False, accel=accel,
+                     max_cells=accel.dims ** 3, cell_cap=cell_cap)
+        ref4 = trace(big, o4, d4, accelerate=False, _sorted=False)
+        exact = float((full["pred_features"]
+                       - ref4["pred_features"]).abs().max())
+        grid_t = host_ms(lambda: trace(big, ro, rd), 3)
+        brute_t = host_ms(lambda: trace(big, ro, rd, accelerate=False), 1)
+    if not (exact <= 1e-5 and int(full["accel_overflow"]) == 0
+            and over <= 1e-3):
+        raise AssertionError(f"grid vs brute: every cell {exact:.3g}, "
+                             f"overflow {int(full['accel_overflow'])}, "
+                             f"opacity above brute by {over:.3g}")
+    phase("grid vs brute", f"100k, rank order: with every cell (cell_cap "
+          f"{cell_cap}, 8 blocks) max |d| {exact:.3g}; the full "
+          f"{TRACE_SIDE}x{TRACE_SIDE} frame with the defaults "
+          f"(max_cells 24, cell_cap 256): accel_overflow "
+          f"{int(grid['accel_overflow'])}, {covered:.4f} of the rays within "
+          f"1e-4 of brute force, opacity never above it by more than "
+          f"{over:.3g}; sorted trace call (host clock): grid {grid_t:.3f} "
+          f"ms, brute force {brute_t:.3f} ms")
+    return report, launches
+
+
+def playground_phase(dev):
+    """Phase 36: the playground (playground_torch.py's engine) over the
+    100k cloud with the demo primitives at 512x512, 3 bounces, 1 spp:
+    ms per frame, the device's busy and idle share and kernels per frame,
+    B's launches per frame; the viewer answers GET / and 3 frames.
+    Returns the frame's kernel launches."""
+    import io
+    import urllib.request
+
+    from PIL import Image
+
+    from playground_torch import build_engine, frame_renderer
+    from threedgrut_tpu_torch.ops.cuda.raster import rasterize_tiles
+    from threedgrut_tpu_torch.ops.cameras import orbit_camera
+    from threedgrut_tpu_torch.playground.web_gui import ViewerServer
+    from threedgrut_tpu_torch.synthetic import bench_cloud, orbit_geometry
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from bench_train_torch import profile_steps
+
+    model = bench_cloud(100_000, seed=0, device=dev)
+    engine, center = build_engine(model, demo_primitives=True)
+    _, dist = orbit_geometry(model)
+    res = (TRACE_SIDE, TRACE_SIDE)
+    cam = orbit_camera(0.0, 0.35, dist, center=center, resolution=res,
+                       device=dev)
+    frame = engine.render(cam)                    # warm-up
+    rasterize_tiles.launches_window128 = 0
+    t0 = time.perf_counter()
+    frame = engine.render(cam)
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    per_frame = rasterize_tiles.launches_window128
+    if per_frame != engine.config.max_bounces:
+        raise AssertionError(f"B launches per frame {per_frame}")
+    env = engine.envmap.constant.cpu().numpy()
+    moved = float(np.abs(frame - env).max(-1).mean())
+    if not (frame.shape == (*res, 3) and np.isfinite(frame).all()
+            and moved > 0.05):
+        raise AssertionError(f"playground frame: shape {frame.shape}, "
+                             f"mean distance from the envmap {moved:.3g}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.render(cam)
+        times.append((time.perf_counter() - t0) * 1e3)
+    wall_us, busy_us, n_device = profile_steps(lambda: engine.render(cam),
+                                               2, top=10)
+    server = ViewerServer(frame_renderer(engine, center, res),
+                          resolution=res, port=0, host="127.0.0.1")
+    url = server.start()
+    try:
+        page = urllib.request.urlopen(url, timeout=60).read().decode()
+        sizes = []
+        for az in (0.0, 2.1, 4.2):
+            jpg = urllib.request.urlopen(
+                f"{url}frame.jpg?az={az}&el=0.3&dist={dist:.3f}",
+                timeout=120).read()
+            img = Image.open(io.BytesIO(jpg))
+            img.load()
+            sizes.append((img.format, img.size))
+    finally:
+        server.stop()
+    if "frame.jpg" not in page or sizes != [("JPEG", res)] * 3:
+        raise AssertionError(f"viewer: page {len(page)} B, frames {sizes}")
+    phase("playground", f"Engine3DGRUT over 100k with a glass icosphere and "
+          f"a mirror box, {res[0]}x{res[1]}, {engine.config.max_bounces} "
+          f"bounces, 1 spp: {frame_ms:.1f} ms/frame host clock (then "
+          f"{', '.join(f'{t:.1f}' for t in times)}); W 128 B launches "
+          f"{per_frame} per frame; 2 traced frames: wall {wall_us:.1f} "
+          f"us/frame, device busy {busy_us:.1f} us/frame, idle share "
+          f"{1.0 - busy_us / wall_us:.3f}, {n_device:.1f} device kernels "
+          f"per frame; frame finite, {moved:.3f} mean from the envmap; "
+          f"viewer: GET / and 3 frames, each a {res[0]}x{res[1]} JPEG")
+    return {"raster_fwd_window128": per_frame}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1446,7 +1955,7 @@ def main():
     from threedgrut_tpu_torch.render.common import RasterConfig
     from threedgrut_tpu_torch.render.grt import grt_raster_config
     from threedgrut_tpu_torch.render.gut import prepare_view, render_gut
-    from threedgrut_tpu_torch.render.oracle import parity_db, render_oracle
+    from threedgrut_tpu_torch.render.oracle import oracle_parity_db
     from threedgrut_tpu_torch.render.serve import make_serving_renderer
     from threedgrut_tpu_torch.synthetic import bench_cloud, orbit_geometry
 
@@ -1594,20 +2103,8 @@ def main():
 
     # 7. oracle probe
     side, n = 200, 60_000
-    probe = bench_cloud(100_000, seed=0, device=dev)
-    keep = 60_160
-    with torch.no_grad():
-        arrays = {k: getattr(probe, k)[:keep].cpu().numpy() for k in
-                  ("positions", "rotation", "scale", "density",
-                   "features_albedo", "features_specular")}
-    probe = GaussianModel.from_numpy(arrays, n, 3, GaussianModelConfig(), dev)
-    pcam = make_pinhole((side, side), (1.1 * side, 1.1 * side),
-                        (side / 2, side / 2), device=dev)
-    with torch.no_grad():
-        got = render_gut(pcam, ut_cfg, rc, probe, 3)["pred_features"]
-        ref = render_oracle(pcam, ut_cfg, rc, probe, 3,
-                            chunk=512)["pred_features"]
-    bulk, raw, flip = parity_db(got.cpu().numpy(), ref.cpu().numpy())
+    bulk, raw, flip = oracle_parity_db(
+        bench_cloud(100_000, seed=0, device=dev), ut_cfg, rc, side, n)
     if not (bulk >= 80.0 and flip <= 0.01):
         raise AssertionError(f"oracle probe: bulk {bulk:.1f} dB, "
                              f"flip_frac {flip:.5f}")
@@ -1764,6 +2261,12 @@ def main():
     for label in NHT_CONFIGS:
         launches.update(nht_train_step_phase(dev, label))
     nht_trainer_phase(dev)
+
+    # 31-36. trace() and the playground
+    trace_report, trace_launches = trace_phases(dev, ut_cfg)
+    report.update(trace_report)
+    launches.update(trace_launches)
+    launches.update(playground_phase(dev))
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches.get(k, 0), **report[k])

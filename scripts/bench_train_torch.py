@@ -6,7 +6,9 @@ The port's counterpart of bench.py:118-217: one 3DGUT train step on the
 binning -> raster forward -> L1 + DSSIM against a seeded GT -> backward
 through the raster and fold kernels -> Adam over the active rows), with
 the reference's exact kill in fp32. Prints one JSON line with it/s,
-ms/step and the card's name and power limit.
+ms/step, the card's name and power limit, and the on-device oracle-parity
+probe of bench.py:207-214 on the trained cloud (bulk and raw dB and the
+flip fraction of ``render/oracle.py:oracle_parity_db``; null for NHT).
 
     python scripts/bench_train_torch.py [--steps 20] [--profile]
     python scripts/bench_train_torch.py --config-name apps/nerf_synthetic_3dgrt
@@ -217,6 +219,12 @@ def main():
     warm_s = time.perf_counter() - t0
     ms, losses = time_steps(step, args.steps)
     smi = nvidia_smi_line()
+    # the on-device oracle-parity probe of bench.py:207-214, on the
+    # trained cloud (the oracle composites SH features only: null for NHT)
+    parity = (None, None, None)
+    if step.decoder is None:
+        from threedgrut_tpu_torch.render.oracle import oracle_parity_db
+        parity = oracle_parity_db(step.model, step.ut_cfg, step.rc)
     print(json.dumps({
         "metric": metric, "camera": args.camera,
         "config": args.config_name or "render/3dgut defaults",
@@ -227,6 +235,8 @@ def main():
         "warmup_s": warm_s, "loss_first": float(losses[0]),
         "loss_last": float(losses[-1]),
         "finite": bool(all(torch.isfinite(x) for x in losses)),
+        "oracle_parity_db": parity[0], "oracle_parity_raw_db": parity[1],
+        "oracle_flip_frac": parity[2],
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}))
     if args.profile:
         profile_steps(step, PROFILE_STEPS)

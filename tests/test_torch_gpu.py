@@ -511,3 +511,116 @@ def test_nht_render_grad_on_card_matches_cpu(cuda):
         r = grads[1][k]
         scale = float(r.abs().max()) + 1e-12
         torch.testing.assert_close(g / scale, r / scale, atol=2e-3, rtol=0)
+
+
+def _trace_rays(model, side):
+    """Orbit camera rays [side, side, 3] (origins, directions) around the
+    live cloud, on the model's device."""
+    from threedgrut_tpu_torch.render.common import camera_rays_world
+    from threedgrut_tpu_torch.synthetic import orbit_cameras
+
+    cam = orbit_cameras(model, 1, resolution=(side, side),
+                        device=model.device)[0]
+    return camera_rays_world(cam)
+
+
+# trace()'s regimes: brute force (the shared-segment mode of B and C) and
+# the grid, each in its windows of 128 and in rank order (_sorted=False)
+TRACE = {f"{acc}-{srt}": (acc == "grid", srt == "sorted")
+         for acc in ("brute", "grid") for srt in ("sorted", "rank")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(TRACE))
+def test_trace_matches_plain(cuda, mode):
+    """trace on the card (kernel B in trace()'s modes, and its normals
+    mode) against the CPU's plain versions: features and opacity within
+    1e-4, normals 3e-4 (the plain version's in the kernel's fp32
+    operation order), accel_overflow equal."""
+    from threedgrut_tpu_torch.render.grt import trace
+
+    accelerate, srt = TRACE[mode]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        model = bench_cloud(3000, seed=3, device=dev)
+        ro, rd = _trace_rays(model, 48)
+        with torch.no_grad():
+            outs.append(trace(model, ro, rd, accelerate=accelerate,
+                              _sorted=srt))
+            before = rasterize_tiles.launches_normals
+            outs[-1]["pred_normals"] = trace(
+                model, ro, rd, raster_cfg=RasterConfig(enable_normals=True),
+                accelerate=accelerate, _sorted=srt)["pred_normals"]
+        step = 1 if dev.type == "cuda" else 0
+        assert rasterize_tiles.launches_normals == before + step
+    g, c = outs
+    for k in ("pred_features", "pred_opacity"):
+        torch.testing.assert_close(g[k].cpu(), c[k], atol=1e-4, rtol=0)
+    torch.testing.assert_close(g["pred_normals"].cpu(), c["pred_normals"],
+                               atol=3e-4, rtol=0)
+    torch.testing.assert_close(g["pred_dist"].cpu(), c["pred_dist"],
+                               atol=1e-3, rtol=1e-3)
+    if accelerate:
+        assert int(g["accel_overflow"]) == int(c["accel_overflow"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(TRACE))
+def test_trace_grad_on_card_matches_cpu(cuda, mode):
+    """trace's backward on the card (kernel C in trace()'s modes, then D)
+    against the CPU's plain versions, max-normalised 2e-3, and bitwise
+    repeatable."""
+    from threedgrut_tpu_torch.render.grt import trace
+
+    accelerate, srt = TRACE[mode]
+    counter = ("launches_shared_segment" if not accelerate
+               else "launches_window128" if srt else "launches_general")
+    grads = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        model = bench_cloud(3000, seed=4, device=dev)
+        ro, rd = _trace_rays(model, 32)
+        before = getattr(rasterize_tiles_backward, counter)
+        out = trace(model, ro, rd, accelerate=accelerate, _sorted=srt)
+        (out["pred_features"].square().mean()
+         + 0.1 * out["pred_opacity"].mean()
+         + 0.01 * out["pred_dist"].mean()).backward()
+        step = 1 if dev.type == "cuda" else 0
+        assert getattr(rasterize_tiles_backward, counter) == before + step
+        grads.append({k: getattr(model, k).grad.cpu() for k in (
+            "positions", "rotation", "scale", "density", "features_albedo",
+            "features_specular")})
+    for k, g in grads[0].items():
+        assert torch.equal(g, grads[1][k])
+        r = grads[2][k]
+        scale = float(r.abs().max()) + 1e-12
+        torch.testing.assert_close(g / scale, r / scale, atol=2e-3, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["shared", "general", "grt"])
+def test_normals_raster_fwd_matches_plain(cuda, mode):
+    """The normals mode of kernel B through render_gut (shared origin, a
+    rolling-shutter-free general view, sorted 3DGRT) against plain."""
+    rc = (grt_raster_config() if mode == "grt" else RC).replace(
+        enable_normals=True)
+    model = bench_cloud(4000, seed=1, device=cuda)
+    cam = make_pinhole((200, 224), (220.0, 220.0), (100.0, 112.0),
+                       device=cuda)
+    rays = None
+    if mode == "general":
+        from threedgrut_tpu_torch.render.common import camera_rays_world
+        rays = camera_rays_world(cam)
+    with torch.no_grad():
+        v = prepare_view(cam, UTConfig(), rc, model, 3, rays)
+    b = v.binning
+    args = (v.table, b.pair_particle, b.tile_start, v.ray_d, v.tmin, v.tmax,
+            rc, v.ray_o)
+    before = rasterize_tiles.launches_normals
+    got = rasterize_tiles_forward(*args)
+    assert rasterize_tiles.launches_normals == before + 1
+    ref = rasterize_tiles_plain(*args)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == 6
+    for i in (0, 1):           # features, opacity
+        torch.testing.assert_close(got[i], ref[i], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[5], ref[5], atol=3e-4, rtol=0)

@@ -59,7 +59,7 @@ from threedgrut_tpu_torch.ops.cuda.wmax import (pair_weight_max,
                                                 pair_weight_max_plain)
 from threedgrut_tpu_torch.ops.hit import particle_response
 from threedgrut_tpu_torch.ops.ut import UTConfig
-from threedgrut_tpu_torch.render.common import RasterConfig
+from threedgrut_tpu_torch.render.common import RasterConfig, camera_rays_world
 from threedgrut_tpu_torch.render.grt import grt_raster_config, render_grt
 from threedgrut_tpu_torch.render.gut import prepare_view, render_gut
 from threedgrut_tpu_torch.render.serve import make_serving_renderer
@@ -527,6 +527,17 @@ def test_configs_and_wrappers_refuse_what_is_not_built():
     # a window the kernels lack is fine while compositing is unsorted
     with torch.no_grad():
         render_gut(tcam, UTConfig(), RasterConfig(sort_window=32), model, 3)
+    # kernel E lacks trace()'s windows of 128, which B and C take
+    w128 = RasterConfig(kernel_degree=4, sorted_compositing=True,
+                        sort_window=128)
+    with torch.no_grad():
+        v = prepare_view(tcam, UTConfig(), w128, model, 3,
+                         camera_rays_world(tcam))
+        args = (v.table, v.binning.pair_particle, v.binning.tile_start,
+                v.ray_d, v.tmin, v.tmax, w128, v.ray_o)
+        assert t_raster.rasterize_tiles_forward(*args)[0].shape[-1] == 3
+        with pytest.raises(NotImplementedError, match="kernel E"):
+            pair_weight_max(*args)
 
 
 def test_serving_renderer_serves_grt():

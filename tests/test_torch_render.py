@@ -286,13 +286,15 @@ def _imports_of_jax_package(path):
 
 def test_port_sources_import_nothing_of_the_jax_package():
     """A static check of every .py under threedgrut_tpu_torch/, of
-    train_torch.py, chip_smoke.py and scripts/*_torch.py: no import of
-    threedgrut_tpu, lazy or not. The JAX package stays the reference; the
-    port keeps its own copies of what it needs."""
+    train_torch.py, playground_torch.py, chip_smoke.py and
+    scripts/*_torch.py: no import of threedgrut_tpu, lazy or not. The JAX
+    package stays the reference; the port keeps its own copies of what
+    it needs."""
     paths = [os.path.join(root, f) for root, _, files in os.walk(
         os.path.join(REPO, "threedgrut_tpu_torch")) for f in files
         if f.endswith(".py")]
     paths += [os.path.join(REPO, f) for f in ("train_torch.py",
+                                              "playground_torch.py",
                                               "chip_smoke.py")]
     scripts = os.path.join(REPO, "scripts")
     paths += [os.path.join(scripts, f) for f in sorted(os.listdir(scripts))
@@ -302,7 +304,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert {os.path.join("threedgrut_tpu_torch", "strategy", "mcmc.py"),
             os.path.join("threedgrut_tpu_torch", "models", "nht_decoder.py"),
             os.path.join("threedgrut_tpu_torch", "models", "features.py"),
-            os.path.join("scripts", "bench_train_torch.py")} <= rel
+            os.path.join("scripts", "bench_train_torch.py"),
+            os.path.join("threedgrut_tpu_torch", "playground", "engine.py"),
+            "playground_torch.py"} <= rel
     bad = {os.path.relpath(p, REPO): _imports_of_jax_package(p)
            for p in paths}
     assert not {k: v for k, v in bad.items() if v}, bad

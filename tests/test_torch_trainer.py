@@ -383,6 +383,78 @@ def test_train_cli_runs_five_steps(tmp_path):
     assert torch.tensor(0.0).device.type == "cpu"
 
 
+# keys train.py acts on that train_torch.py refuses while they ask for an
+# action: (config, overrides, the key and train.py line it must name)
+REFUSED = {
+    "import_ply": ("apps/nerf_synthetic_3dgut",
+                   ["import_ply.enabled=true"], "train.py:95-97"),
+    "export_ply": ("apps/nerf_synthetic_3dgut",
+                   ["export_ply.enabled=true"], "train.py:205-208"),
+    "gsplat_normalize": ("apps/colmap_3dgut",
+                         ["dataset.gsplat_normalize=true"], "train.py:32"),
+    "gsplat_image_downscale": ("apps/colmap_3dgut_mcmc_nht",
+                               ["dataset.downsample_factor=2"],
+                               "train.py:33-34"),
+    "post_processing": ("apps/nerf_synthetic_3dgut",
+                        ["post_processing.method=linear-to-srgb"],
+                        "train.py:196-199"),
+    "with_gui": ("apps/nerf_synthetic_3dgut", ["with_gui=true"],
+                 "train.py:162-174"),
+}
+# the configs the port trains (gsplat_image_downscale is set without a
+# downsample in colmap_3dgut_mcmc_nht: JAX then reads the same images)
+TRAINED = ("apps/nerf_synthetic_3dgut", "apps/nerf_synthetic_3dgrt",
+           "paper/3dgut/sorted_nerf_synthetic", "apps/nerf_synthetic_3dgut_mcmc",
+           "apps/nerf_synthetic_3dgut_mcmc_nht",
+           "apps/nerf_synthetic_3dgrt_mcmc_nht", "apps/colmap_3dgut",
+           "apps/colmap_3dgut_mcmc_nht", "apps/scannetpp_3dgut")
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED) + ["trained_configs_load"])
+def test_train_cli_refuses_unported_keys(case):
+    """train_torch.py stops on each key train.py acts on and the port
+    does not, naming it and the train.py line; the configs it trains
+    still load."""
+    sys.path.insert(0, REPO)
+    import train_torch
+    from threedgrut_tpu_torch.config.loader import load_config
+
+    if case == "trained_configs_load":
+        for name in TRAINED:
+            conf = load_config(name)
+            train_torch.refuse_unported(conf)
+            train_torch.trainer_config(conf)
+        return
+    name, overrides, line = REFUSED[case]
+    train_torch.refuse_unported(load_config(name))   # the default is fine
+    with pytest.raises(SystemExit) as err:
+        train_torch.main(["--config-name", name, "--device", "cpu",
+                          *overrides])
+    key = overrides[0].split("=")[0] if case != "gsplat_image_downscale" \
+        else "dataset.gsplat_image_downscale"
+    assert key in str(err.value) and line in str(err.value)
+
+
+def test_train_cli_writes_periodic_checkpoint(tmp_path):
+    """checkpoint.frequency overwrites ckpt_periodic.npz, as train.py
+    does (train.py:187-193)."""
+    sys.path.insert(0, REPO)
+    import train_torch
+
+    data = str(tmp_path / "lego_mini")
+    _write_nerf_dataset(data, side=32)
+    out = str(tmp_path / "out")
+    train_torch.main(["--config-name", "apps/nerf_synthetic_3dgut",
+                      "--device", "cpu", f"path={data}", "n_iterations=3",
+                      "initialization.num_gaussians=200", f"out_dir={out}",
+                      "experiment_name=p", "log_frequency=0.02",
+                      "checkpoint.frequency=2", "test_last=false",
+                      "val_frequency=0"])
+    with np.load(os.path.join(out, "p", "ckpt_periodic.npz")) as f:
+        assert int(f["global_step"]) == 2
+    assert os.path.exists(os.path.join(out, "p", "ckpt_last.npz"))
+
+
 def test_teacher_scene_matches_jax():
     """synthetic.build_teacher draws gen_synthetic_scene.py's arrays, and
     one downsized teacher view (camera from the script's orbit, RGB and

@@ -129,7 +129,7 @@ __device__ __forceinline__ bool eval_hit(const float* r, int stride, float dx,
 // instead would cancel most of fp32's digits at world coordinates of
 // hundreds of metres. The hit distance is JAX's general one, |d| times
 // the shared-origin -(a . b) / |b|^2: the two agree for unit directions.
-// The fp32 operation order is ops/cuda/raster.py:_hit_terms with ``o``.
+// The fp32 operation order is ops/cuda/raster.py:_canonical_hit with ``o``.
 template <int kDeg>
 __device__ __forceinline__ bool eval_hit_general(const float* r, int stride,
                                                  const Ray& ray, float thr,
@@ -191,6 +191,34 @@ __device__ __forceinline__ float response_dsq(const Hit& h,
   return h.resp * p.gg_scale;
 }
 
+// The world normal of an accepted hit (ops/hit.py:hit_normal; raster.py
+// :531-550, the shared-origin form, which the general mode's a = M (o - p)
+// and b = M d share): the entry point of the ray into the particle's
+// 3-sigma canonical ellipsoid, a + b / |b| t_entry with t_entry =
+// -(a . b) / |b| - sqrt(max(9 - sq, 0)), scaled elementwise by R s and
+// normalised. R s comes from M = diag(1/s) R^T alone: s_i^2 =
+// 1 / |M row i|^2 and (R s)_j = sum_i M_ij s_i^2.
+__device__ __forceinline__ float3 hit_normal(const float* r, int stride,
+                                             const Hit& h) {
+  float rs[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float m0 = r[(3 + 3 * i) * stride], m1 = r[(4 + 3 * i) * stride],
+                m2 = r[(5 + 3 * i) * stride];
+    const float s2 = 1.0f / fmaxf(m0 * m0 + m1 * m1 + m2 * m2, 1e-24f);
+    rs[0] += m0 * s2;
+    rs[1] += m1 * s2;
+    rs[2] += m2 * s2;
+  }
+  const float inv_b = sqrtf(h.inv_m);   // 1 / |b|
+  const float t_entry = -h.q * inv_b - sqrtf(fmaxf(9.0f - h.sq, 0.f));
+  const float nx = (h.ax + h.bx * inv_b * t_entry) * rs[0];
+  const float ny = (h.ay + h.by * inv_b * t_entry) * rs[1];
+  const float nz = (h.az + h.bz * inv_b * t_entry) * rs[2];
+  const float inv_n = 1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-24f));
+  return make_float3(nx * inv_n, ny * inv_n, nz * inv_n);
+}
+
 // The sorted mode's per-ray window (raster.py:_chunk_composite with
 // sorted_compositing, the 3DGRT k-buffer): the accepted candidates among
 // the staged lanes [lo, hi) of one window, in ascending hit_t. Insertion
@@ -198,6 +226,9 @@ __device__ __forceinline__ float response_dsq(const Hit& h,
 // (the plain version's stable sort). Returns the count; the caller
 // re-evaluates each lane's hit from shared memory, which gives the same
 // values bit for bit, so only the key and an 8-bit lane ride the sort.
+// At W = 128 (trace) the arrays are 640 B of per-thread local memory
+// (the stack frame -Xptxas -v reports): an insertion touches them only
+// for accepted candidates, a few per window on the path.
 template <int kDeg, int kW, bool kGen>
 __device__ __forceinline__ int sort_window(const float* rec, int stride,
                                            const float* thr, int lo, int hi,
@@ -306,6 +337,51 @@ int launch_mode(int degree, int window, int general, F&& launch) {
     case 216: with_gen(D2{}, W16{}); break;
     case 400: with_gen(D4{}, W0{}); break;
     case 416: with_gen(D4{}, W16{}); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Call launch(deg, win, gen, shared, normals) for a launch of kernel B
+// (kNormals: the normals output is built) or C (not built) with its mode
+// as compile-time constants. Built: launch_mode's eight modes, unshared;
+// and trace()'s (render/grt.py): degree 4, the general mode, window 128
+// over per-block segments (the grid), or window 0 (global order) or 128
+// over a shared segment (brute force, the TPU's kernel 7). normals
+// (kernel B only) doubles each. Returns the launch's error, or
+// cudaErrorInvalidValue for a combination that is not built.
+template <bool kNormals, typename F>
+int launch_raster(int degree, int window, int general, int shared,
+                  int normals, F&& launch) {
+  using B0 = std::integral_constant<bool, false>;
+  using B1 = std::integral_constant<bool, true>;
+  using D4 = std::integral_constant<int, 4>;
+  using W0 = std::integral_constant<int, 0>;
+  using W128 = std::integral_constant<int, 128>;
+  if ((shared != 0 && shared != 1)
+      || (normals != 0 && !(kNormals && normals == 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto go = [&](auto deg, auto win, auto gen, auto sh) {
+    if (!normals) {
+      launch(deg, win, gen, sh, B0{});
+    } else if constexpr (kNormals) {
+      launch(deg, win, gen, sh, B1{});
+    }
+  };
+  if (!shared && window != 128) {
+    return launch_mode(degree, window, general, [&](auto deg, auto win,
+                                                    auto gen) {
+      go(deg, win, gen, B0{});
+    });
+  }
+  if (degree != 4 || general != 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (window * 10 + shared) {
+    case 1: go(D4{}, W0{}, B1{}, B1{}); break;
+    case 1280: go(D4{}, W128{}, B1{}, B0{}); break;
+    case 1281: go(D4{}, W128{}, B1{}, B1{}); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

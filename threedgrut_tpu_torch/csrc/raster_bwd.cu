@@ -62,6 +62,21 @@
 // group. Rows of the window outside the tile's [start, end)
 // belong to another tile's block and are not written.
 //
+// Shared-segment mode (kShared; raster.py:_bwd_strip_kernel with
+// shared_segments :2051-2167, the TPU's kernel 7, trace()'s brute force):
+// every block walks the one segment [tile_start[0], tile_start[1]) of n
+// slots, as kernel B does. The TPU kernel adds each chunk's gradient
+// across blocks by a read-modify-write of HBM, race-free only because its
+// grid steps run in order; here block t writes its sums for slot j to row
+// t n + j of d_records ([blocks x n, 16]): one writer per row, no atomics,
+// bitwise repeatable. Kernel D then folds the n_blocks rows of each slot
+// (ops/cuda/raster.py:shared_fold_meta).
+//
+// Windows of 128 (trace): the g_alpha and w of a window's touched pairs
+// sit in per-thread arrays by lane (1 KB of local memory at W = 128), and
+// a bit mask in registers says which lanes were touched, so the arrays
+// are never cleared and only touched lanes read back.
+//
 // NHT mode (raster_bwd_nht_kernel; raster.py's NHT mode, the TPU's kernel
 // 8, through _bwd_chunk_grads :1899-1961: nht_hit_features for the
 // cotangents, then the VJP of chunk_hits_general and of
@@ -236,7 +251,29 @@ __device__ __forceinline__ void warp_publish(float (&d)[kRec], bool touched,
   }
 }
 
-template <int kDeg, int kW, bool kGen>
+// Set bit k of a window's touched mask, and read the 16 bits of the group
+// starting at lane g0 (a multiple of 16): the words are selected in an
+// unrolled loop, so the mask stays in registers.
+template <int kWords>
+__device__ __forceinline__ void mask_set(uint32_t (&m)[kWords], int k) {
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    if (q == (k >> 5)) m[q] |= 1u << (k & 31);
+  }
+}
+
+template <int kWords>
+__device__ __forceinline__ uint32_t mask_group(const uint32_t (&m)[kWords],
+                                               int g0) {
+  uint32_t word = 0;
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    if (q == (g0 >> 5)) word = m[q];
+  }
+  return (word >> (g0 & 31)) & 0xffffu;
+}
+
+template <int kDeg, int kW, bool kGen, bool kShared>
 __global__ void __launch_bounds__(kBlock)
 raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
                   const int32_t* __restrict__ pair_particle,  // [P]
@@ -295,8 +332,15 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
     return trans * u - (suffix + g_t * t_final) / fmaxf(1.0f - h.alpha, 1e-6f);
   };
 
-  const int start = tile_start[tile];
-  const int end = tile_start[tile + 1];
+  // kShared: every block walks the one segment [tile_start[0],
+  // tile_start[1]) and writes pair idx to row tile (end - start) + idx -
+  // start
+  const int start = tile_start[kShared ? 0 : tile];
+  const int end = tile_start[kShared ? 1 : tile + 1];
+  float* const d_rows =
+      kShared ? d_records + (static_cast<int64_t>(tile) * (end - start) -
+                             start) * kRec
+              : d_records;
   // sorted mode: batches (and so windows) start on a multiple of W
   const int first = start - start % kWin;
   int group = 0;        // running group count: picks the s_part buffer
@@ -351,7 +395,7 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
           float acc = 0.f;
 #pragma unroll
           for (int wi = 0; wi < kWarps; ++wi) acc += part[wi][jj][f];
-          d_records[static_cast<int64_t>(base + g0 + jj) * kRec + f] = acc;
+          d_rows[static_cast<int64_t>(base + g0 + jj) * kRec + f] = acc;
         }
         if (n_alive == 0) {
           done = true;   // every pixel dead: later pairs keep their zeros
@@ -361,10 +405,13 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
     } else {
       const int lo0 = max(start - base, 0);   // lanes before the tile
       for (int w0 = 0; w0 < nb && !done; w0 += kWin) {
-        // g_alpha and w of the window's pairs, by lane (0: not touched)
+        // g_alpha and w of the window's touched pairs, by lane, and the
+        // touched lanes' bits
+        constexpr int kWords = (kWin + 31) / 32;
         float ga[kWin], wv[kWin];
+        uint32_t touched_mask[kWords];
 #pragma unroll
-        for (int k = 0; k < kWin; ++k) ga[k] = wv[k] = 0.f;
+        for (int q = 0; q < kWords; ++q) touched_mask[q] = 0u;
         if (alive) {
           float key[kWin];
           uint8_t order[kWin];
@@ -381,6 +428,7 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
             if (w > 0.f) {
               ga[j - w0] = g_alpha;
               wv[j - w0] = w;
+              mask_set(touched_mask, j - w0);
             }
             trans *= 1.0f - h.alpha;
             if (trans < p.min_transmittance) alive = false;
@@ -389,13 +437,14 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
         int n_alive = 1;
         for (int g0 = 0; g0 < kWin; g0 += kGroup, ++group) {
           float (*part)[kGroup][kRec] = s_part[group & 1];
+          const uint32_t gbits = mask_group(touched_mask, g0);
           for (int jj = 0; jj < kGroup; ++jj) {
             const int k = g0 + jj;
             const int j = w0 + k;
             float d[kRec];
 #pragma unroll
             for (int f = 0; f < kRec; ++f) d[f] = 0.f;
-            const bool touched = wv[k] > 0.f;
+            const bool touched = (gbits >> jj) & 1u;
             if (touched) {
               gut::Hit h;
               gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
@@ -413,7 +462,7 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
             float acc = 0.f;
 #pragma unroll
             for (int wi = 0; wi < kWarps; ++wi) acc += part[wi][jj][f];
-            d_records[static_cast<int64_t>(row) * kRec + f] = acc;
+            d_rows[static_cast<int64_t>(row) * kRec + f] = acc;
           }
         }
         // every pixel dead after this window: later pairs keep their zeros
@@ -652,9 +701,12 @@ raster_bwd_nht_kernel(const float* __restrict__ table,      // [C, 64]
 
 }  // namespace
 
-// degree: 2 or 4; window: 0 (global-Z order) or 16 (sorted mode); general:
-// 1 reads ray_o (the general-geometry mode), 0 ignores it; nht: 1 for the
-// NHT mode (64-float records, 24 features; general, window 0 only).
+// degree: 2 or 4; window: 0 (global-Z order), 16 (sorted mode) or 128
+// (trace); general: 1 reads ray_o (the general-geometry mode), 0 ignores
+// it; nht: 1 for the NHT mode (64-float records, 24 features; general,
+// window 0 only); shared: 1 walks one segment in every block and writes
+// block t's rows at t x segment length (common.cuh:launch_raster lists
+// the combinations built).
 extern "C" int raster_bwd_launch(
     const float* table, const int32_t* pair_particle,
     const int32_t* tile_start, const float* ray_o, const float* ray_d,
@@ -662,7 +714,7 @@ extern "C" int raster_bwd_launch(
     const float* fwd_depth, const float* fwd_tfinal, const float* g_feat,
     const float* g_opacity, const float* g_depth, int width, int height,
     int grid_x, int num_tiles, int degree, int window, int general, int nht,
-    float min_transmittance, float max_alpha,
+    int shared, float min_transmittance, float max_alpha,
     float sq_thr_response, float log_min_alpha, float gg_scale,
     float* d_records, void* stream) {
   gut::RasterParams p{width, height, grid_x, min_transmittance, max_alpha,
@@ -670,6 +722,7 @@ extern "C" int raster_bwd_launch(
   if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
   const auto stream_ = static_cast<cudaStream_t>(stream);
   if (nht) {
+    if (shared) return static_cast<int>(cudaErrorInvalidValue);
     return gut::launch_nht(degree, window, general, [&](auto deg) {
       raster_bwd_nht_kernel<decltype(deg)::value>
           <<<num_tiles, kBlock, 0, stream_>>>(
@@ -678,14 +731,14 @@ extern "C" int raster_bwd_launch(
               g_depth, p, d_records);
     });
   }
-  return gut::launch_mode(degree, window, general, [&](auto deg, auto win,
-                                                       auto gen) {
-    raster_bwd_kernel<decltype(deg)::value, decltype(win)::value,
-                      decltype(gen)::value>
-        <<<num_tiles, kBlock, 0, stream_>>>(
-            table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
-            ray_tmax,
-            fwd_feat, fwd_depth, fwd_tfinal, g_feat, g_opacity, g_depth, p,
-            d_records);
-  });
+  return gut::launch_raster<false>(
+      degree, window, general, shared, 0,
+      [&](auto deg, auto win, auto gen, auto sh, auto) {
+        raster_bwd_kernel<decltype(deg)::value, decltype(win)::value,
+                          decltype(gen)::value, decltype(sh)::value>
+            <<<num_tiles, kBlock, 0, stream_>>>(
+                table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
+                ray_tmax, fwd_feat, fwd_depth, fwd_tfinal, g_feat, g_opacity,
+                g_depth, p, d_records);
+      });
 }

@@ -59,6 +59,25 @@
 // and ~130 flops beside the general hit's ~70; staging moves 256 B per
 // pair and block.
 //
+// Shared-segment mode (kShared; raster.py:_fwd_strip_kernel with
+// shared_segments :1158-1166, the TPU's kernel 7, which trace()'s brute
+// force takes): every block composites the same depth-ranked segment
+// [tile_start[0], tile_start[1]) instead of its own [tile_start[t],
+// tile_start[t + 1]). The TPU kernel keeps the segment's chunks resident
+// across grid steps; here each block stages it anew through the L2 (one
+// 8192-slot segment is 512 KB of records, read by every block).
+// trace() runs it in the general mode at degree 4, in global order or
+// W = 128.
+//
+// Windows of 128 (trace()'s sort_window = CHUNK): the sorted mode above
+// with the per-thread key and lane arrays 128 long, in local memory
+// (common.cuh:sort_window); a batch of 256 pairs holds two windows.
+//
+// Normals (kNormals; raster.py compute_normals :1238-1240, :1296-1299,
+// per hit :436-449 and :531-550): sum w n of each pixel's composited
+// candidates, n the hit's world normal (common.cuh:hit_normal), into a
+// third output [H, W, 3]. Forward only, as in JAX: no cotangent.
+//
 // Outputs: features, opacity = 1 - T_final, depth, hit count and T_final
 // itself (raster.py lane f+3), which the backward (kernel C,
 // raster_bwd.cu) reads as saved: rebuilding it as 1 - opacity would lose
@@ -79,7 +98,8 @@ using gut::kBlock;
 using gut::kRec;
 using gut::kTile;
 
-template <int kDeg, int kW, bool kGen, bool kNht>
+template <int kDeg, int kW, bool kGen, bool kNht, bool kShared,
+          bool kNormals>
 __global__ void __launch_bounds__(kBlock)
 raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
                   const int32_t* __restrict__ pair_particle,  // [P]
@@ -93,7 +113,8 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
                   float* __restrict__ out_opacity,        // [H, W]
                   float* __restrict__ out_depth,          // [H, W]
                   float* __restrict__ out_hits,           // [H, W]
-                  float* __restrict__ out_tfinal) {       // [H, W]
+                  float* __restrict__ out_tfinal,         // [H, W]
+                  float* __restrict__ out_normals) {      // [H, W, 3]
   // record width, pairs per batch and ray features of the mode
   constexpr int kRecT = kNht ? gut::kRecNht : kRec;
   constexpr int kBatch = kNht ? 128 : 256;
@@ -114,6 +135,7 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
   float feat[kOut];
 #pragma unroll
   for (int c = 0; c < kOut; ++c) feat[c] = 0.f;
+  float nrm[3] = {0.f, 0.f, 0.f};   // kNormals: sum of w n
   constexpr int kWin = kW > 0 ? kW : 1;
   // blend staged pair j, accepted with hit h, and apply the exact kill
   auto composite = [&](const gut::Hit& h, int j) {
@@ -131,6 +153,12 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
 #pragma unroll
       for (int c = 0; c < 3; ++c) feat[c] += w * s_rec[gut::kRgb + c][j];
     }
+    if constexpr (kNormals) {
+      const float3 n = gut::hit_normal(&s_rec[0][j], kBatch, h);
+      nrm[0] += w * n.x;
+      nrm[1] += w * n.y;
+      nrm[2] += w * n.z;
+    }
     depth += w * h.hit_t;
     hits += w > 0.f ? 1.f : 0.f;
     trans *= 1.0f - h.alpha;
@@ -138,8 +166,10 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
     if (trans < p.min_transmittance) alive = false;
   };
 
-  const int start = tile_start[tile];
-  const int end = tile_start[tile + 1];
+  // kShared: every block walks the one segment [tile_start[0],
+  // tile_start[1])
+  const int start = tile_start[kShared ? 0 : tile];
+  const int end = tile_start[kShared ? 1 : tile + 1];
   // sorted mode: batches (and so windows) start on a multiple of W
   const int first = start - start % kWin;
   for (int base = first; base < end; base += kBatch) {
@@ -197,43 +227,53 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
     out_depth[pix] = depth;
     out_hits[pix] = hits;
     out_tfinal[pix] = trans;
+    if constexpr (kNormals) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) out_normals[3 * pix + c] = nrm[c];
+    }
   }
 }
 
 }  // namespace
 
-// degree: 2 or 4; window: 0 (global-Z order) or 16 (sorted mode); general:
-// 1 reads ray_o (the general-geometry mode), 0 ignores it; nht: 1 for the
-// NHT mode (64-float records, 24 features out; general, window 0 only).
+// degree: 2 or 4; window: 0 (global-Z order), 16 (sorted mode) or 128
+// (trace); general: 1 reads ray_o (the general-geometry mode), 0 ignores
+// it; nht: 1 for the NHT mode (64-float records, 24 features out;
+// general, window 0 only); shared: 1 walks one segment in every block;
+// normals: 1 writes out_normals. common.cuh:launch_raster lists the
+// combinations built.
 extern "C" int raster_fwd_launch(
     const float* table, const int32_t* pair_particle,
     const int32_t* tile_start, const float* ray_o, const float* ray_d,
     const float* ray_tmin, const float* ray_tmax, int width, int height,
     int grid_x, int num_tiles, int degree, int window, int general, int nht,
-    float min_transmittance, float max_alpha,
+    int shared, int normals, float min_transmittance, float max_alpha,
     float sq_thr_response, float log_min_alpha, float gg_scale,
     float* out_feat, float* out_opacity, float* out_depth, float* out_hits,
-    float* out_tfinal, void* stream) {
+    float* out_tfinal, float* out_normals, void* stream) {
   gut::RasterParams p{width, height, grid_x, min_transmittance, max_alpha,
                       sq_thr_response, log_min_alpha, gg_scale};
   if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
   const auto stream_ = static_cast<cudaStream_t>(stream);
   if (nht) {
+    if (shared || normals) return static_cast<int>(cudaErrorInvalidValue);
     return gut::launch_nht(degree, window, general, [&](auto deg) {
-      raster_fwd_kernel<decltype(deg)::value, 0, true, true>
+      raster_fwd_kernel<decltype(deg)::value, 0, true, true, false, false>
           <<<num_tiles, kBlock, 0, stream_>>>(
               table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
               ray_tmax, p, out_feat, out_opacity, out_depth, out_hits,
-              out_tfinal);
+              out_tfinal, out_normals);
     });
   }
-  return gut::launch_mode(degree, window, general, [&](auto deg, auto win,
-                                                       auto gen) {
-    raster_fwd_kernel<decltype(deg)::value, decltype(win)::value,
-                      decltype(gen)::value, false>
-        <<<num_tiles, kBlock, 0, stream_>>>(
-            table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
-            ray_tmax, p,
-            out_feat, out_opacity, out_depth, out_hits, out_tfinal);
-  });
+  return gut::launch_raster<true>(
+      degree, window, general, shared, normals,
+      [&](auto deg, auto win, auto gen, auto sh, auto nrm) {
+        raster_fwd_kernel<decltype(deg)::value, decltype(win)::value,
+                          decltype(gen)::value, false, decltype(sh)::value,
+                          decltype(nrm)::value>
+            <<<num_tiles, kBlock, 0, stream_>>>(
+                table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
+                ray_tmax, p, out_feat, out_opacity, out_depth, out_hits,
+                out_tfinal, out_normals);
+      });
 }

@@ -34,7 +34,8 @@ def fold_pairs(d_records: torch.Tensor, perm: torch.Tensor,
         order: [N] i32 depth rank -> particle (N == capacity).
         excl: [N] i32 first pre-sort slot of each depth rank.
         counts: [N] i32 slot count of each depth rank.
-        limit: number of pair slots (P); slots >= limit were dropped.
+        limit: number of pair slots (P); slots >= limit were dropped,
+            and so are slots that no rank's run covers.
         capacity: rows of the table.
 
     Returns d_table [capacity, R] f32; a particle with no pairs gets 0.
@@ -91,13 +92,18 @@ def _lib() -> ctypes.CDLL:
 
 def fold_pairs_plain(d_records, perm, order, excl, counts, limit, capacity):
     """Plain PyTorch version of ``fold_pairs``: the particle of every
-    tile-sorted pair from the slot runs, then ``index_add`` in float64."""
+    tile-sorted pair from the slot runs, then ``index_add`` in float64.
+    The runs are consecutive from slot 0; slots past them belong to no
+    rank (trace's dead rows) and are dropped, as kernel D never reads
+    them."""
     dev = d_records.device
     n = order.shape[0]
     owner = torch.repeat_interleave(
         torch.arange(n, device=dev), counts.to(torch.int64))[:limit]
-    particle = order.to(torch.int64)[owner][perm.to(torch.int64)]
+    slot_particle = order.to(torch.int64)[owner]
+    slot = perm.to(torch.int64)
+    keep = slot < slot_particle.shape[0]
     out = torch.zeros((capacity, d_records.shape[1]), dtype=torch.float64,
                       device=dev)
-    out.index_add_(0, particle, d_records.double())
+    out.index_add_(0, slot_particle[slot[keep]], d_records[keep].double())
     return out.to(torch.float32)

@@ -27,6 +27,25 @@ features per pixel, (sin, cos) of the control features' barycentric
 blend at the canonical hit point (``ops/hit.py:nht_hit_features``). Its
 launches count in ``launches_nht``.
 
+The shared-segment mode (``shared=True``; raster.py shared_segments, the
+TPU's kernel 7, which ``render/grt.py:trace`` takes by brute force):
+``tile_start`` is [2] and every tile composites the one segment
+[tile_start[0], tile_start[1]). Kernel C then writes tile t's gradient
+of slot j to row t n + j, n the segment's length: one writer per row,
+and kernel D folds the tiles' rows of each slot (``repeat_fold``). trace
+runs it, and windows of 128 (``sort_window`` = 128), in the general mode
+at degree 4 only; their launches count in ``launches_shared_segment``
+and ``launches_window128``.
+
+With ``cfg.enable_normals`` kernel B also blends each hit's world normal
+(raster.py compute_normals; ``ops/hit.py:hit_normal``) into a sixth
+output [H, W, 3], forward only. Not in the NHT mode, as in JAX. Its
+launches count in ``launches_normals``.
+
+Each launch counts in one counter: normals, else NHT, else a shared
+segment, else windows of 128, else the shared-origin or the general
+mode.
+
 ``rasterize_tiles`` is differentiable in ``table`` (the JAX
 ``rasterize_tiles`` custom_vjp, raster.py:2477-2519): its backward runs
 kernel C, then kernel D (``ops/cuda/fold.py``) to fold the per-pair
@@ -67,9 +86,15 @@ class FoldMeta(NamedTuple):
 
 # the kernels are built for these degrees and sorted-mode windows: every
 # shipped sorted config (3DGRT and the paper's sorted 3DGUT) composes
-# sort_window 16 from configs/render/3dgrt.yaml
+# sort_window 16 from configs/render/3dgrt.yaml; trace() composes windows
+# of 128 (its TRACE_DEGREE, general mode only; common.cuh:launch_raster)
 DEGREES = (2, 4)
 WINDOWS = (16,)
+TRACE_WINDOW = 128
+TRACE_DEGREE = 4
+# per-tile gradient rows of the shared-segment backward held at once: the
+# tiles fold in groups of at most this many bytes of d_records
+SHARED_BWD_BYTES = 1 << 30
 
 
 def _thresholds(cfg):
@@ -85,20 +110,25 @@ def _thresholds(cfg):
 
 def _window(cfg) -> int:
     """The kernels' window: 0 in global-Z order, else cfg.sort_window."""
-    if not cfg.sorted_compositing:
-        return 0
-    if cfg.sort_window not in WINDOWS:
-        raise NotImplementedError(
-            f"sort_window {cfg.sort_window}: the raster kernels are built "
-            f"for {WINDOWS}")
-    return cfg.sort_window
+    return cfg.sort_window if cfg.sorted_compositing else 0
 
 
-def _mode(cfg, general: bool):
+def _mode(cfg, general: bool, shared: bool = False):
     """The launch arguments (degree, window, general, then the float
-    parameters) shared by kernels B, C and E."""
+    parameters) shared by kernels B, C and E; raises for a mode kernels B
+    and C are not built for (kernel E refuses windows of 128 itself)."""
     s, thr_resp, log_min_alpha = _thresholds(cfg)
-    return ((cfg.kernel_degree, _window(cfg), int(general)),
+    win = _window(cfg)
+    trace_ok = general and cfg.kernel_degree == TRACE_DEGREE
+    if win and win not in WINDOWS and not (trace_ok and win == TRACE_WINDOW):
+        raise NotImplementedError(
+            f"sort_window {win}: the raster kernels are built for {WINDOWS}"
+            f" ({TRACE_WINDOW} in the general degree-{TRACE_DEGREE} mode)")
+    if shared and not (trace_ok and win in (0, TRACE_WINDOW)):
+        raise NotImplementedError(
+            "shared segments: built for trace()'s mode only (general, "
+            f"degree {TRACE_DEGREE}, window 0 or {TRACE_WINDOW})")
+    return ((cfg.kernel_degree, win, int(general)),
             (cfg.min_transmittance, cfg.max_alpha, thr_resp, log_min_alpha,
              s))
 
@@ -140,7 +170,7 @@ def feature_dim(table) -> int:
 
 
 def _check_inputs(table, pair_particle, tile_start, ray_d, tmin, tmax,
-                  ray_o=None):
+                  ray_o=None, shared=False):
     h, w = ray_d.shape[:2]
     gx, gy = _grid(h, w)
     dev = table.device
@@ -149,7 +179,8 @@ def _check_inputs(table, pair_particle, tile_start, ray_d, tmin, tmax,
           dev)
     check("pair_particle", pair_particle, torch.int32,
           (pair_particle.shape[0],), dev)
-    check("tile_start", tile_start, torch.int32, (gx * gy + 1,), dev)
+    check("tile_start", tile_start, torch.int32,
+          (2,) if shared else (gx * gy + 1,), dev)
     check("ray_d", ray_d, torch.float32, (h, w, 3), dev)
     if ray_o is not None:
         check("ray_o", ray_o, torch.float32, (h, w, 3), dev)
@@ -164,7 +195,8 @@ def rasterize_tiles(table: torch.Tensor, pair_particle: torch.Tensor,
                     tile_start: torch.Tensor, ray_d: torch.Tensor,
                     tmin: torch.Tensor, tmax: torch.Tensor, cfg,
                     fold: Optional[FoldMeta] = None,
-                    ray_o: Optional[torch.Tensor] = None):
+                    ray_o: Optional[torch.Tensor] = None,
+                    shared: bool = False):
     """Composite each tile's depth-ordered pairs front to back.
 
     Args:
@@ -172,41 +204,59 @@ def rasterize_tiles(table: torch.Tensor, pair_particle: torch.Tensor,
             the general mode p, M, density, rgb), or [C, 64] NHT records
             (p, M, density, 48 control features, 3 pad; ``ray_o`` given).
         pair_particle: [P] i32 particle of each pair, tile-sorted.
-        tile_start: [T + 1] i32 pair-segment boundaries per tile.
+        tile_start: [T + 1] i32 pair-segment boundaries per tile; with
+            ``shared``, [2]: the one segment every tile composites.
         ray_d: [H, W, 3] f32 world ray directions (unit length for a
             shared origin; the general mode's hit distance scales with
             |d|, as JAX's does).
         tmin, tmax: [H, W] f32 per-ray t-range.
         cfg: RasterConfig.
         fold: the binning's FoldMeta; needed when ``table`` requires
-            grad, for the backward's fold into the table.
+            grad, for the backward's fold into the table. With
+            ``shared``, the FoldMeta of the one segment (its P slots),
+            which the backward repeats per tile (``repeat_fold``).
         ray_o: [H, W, 3] f32 per-pixel world ray origins: the general
             mode. None: every ray starts at the origin the table's a was
             built from.
+        shared: every tile composites the one segment of ``tile_start``.
 
     Returns (features [H,W,F], opacity [H,W,1], depth [H,W,1],
     hits [H,W,1]), all f32, F = 3 or 24 (NHT); hits carries no gradient.
+    With ``cfg.enable_normals`` a fifth, normals [H,W,3], no gradient.
     """
     if torch.is_grad_enabled() and table.requires_grad:
         if fold is None:
             raise ValueError("table requires grad: pass the binning's "
                              "FoldMeta, which the backward needs")
-        return _Rasterize.apply(table, pair_particle, tile_start, ray_d,
-                                tmin, tmax, cfg, fold, ray_o)
-    return rasterize_tiles_forward(table, pair_particle, tile_start, ray_d,
-                                   tmin, tmax, cfg, ray_o)[:4]
+        out = _Rasterize.apply(table, pair_particle, tile_start, ray_d,
+                               tmin, tmax, cfg, fold, ray_o, shared)
+    else:
+        out = rasterize_tiles_forward(table, pair_particle, tile_start,
+                                      ray_d, tmin, tmax, cfg, ray_o, shared)
+    return out[:4] + out[5:]
 
 
 # kernel B launches (by rasterize_tiles and rasterize_tiles_forward), in
-# the shared-origin, the general and the NHT mode
+# the shared-origin, the general, the NHT mode, trace()'s shared segments
+# and windows of 128, and the normals mode
 rasterize_tiles.launches = 0
 rasterize_tiles.launches_general = 0
 rasterize_tiles.launches_nht = 0
+rasterize_tiles.launches_shared_segment = 0
+rasterize_tiles.launches_window128 = 0
+rasterize_tiles.launches_normals = 0
 
 
-def _count(fn, ray_o, nht=False):
-    if nht:
+def _count(fn, cfg, ray_o, nht=False, shared=False, normals=False):
+    """Count one launch of ``fn`` in the counter of its mode."""
+    if normals:
+        fn.launches_normals += 1
+    elif nht:
         fn.launches_nht += 1
+    elif shared:
+        fn.launches_shared_segment += 1
+    elif cfg.sorted_compositing and cfg.sort_window == TRACE_WINDOW:
+        fn.launches_window128 += 1
     elif ray_o is None:
         fn.launches += 1
     else:
@@ -217,38 +267,51 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _normals_on(cfg, nht) -> bool:
+    if cfg.enable_normals and nht:
+        raise NotImplementedError("normals with NHT records: JAX blends "
+                                  "normals for constant features only")
+    return cfg.enable_normals
+
+
 def rasterize_tiles_forward(table, pair_particle, tile_start, ray_d, tmin,
-                            tmax, cfg, ray_o=None):
+                            tmax, cfg, ray_o=None, shared=False):
     """Kernel B: (features [H, W, F], opacity, depth, hits, T_final), the
-    last four [H, W, 1]. No autograd."""
+    last four [H, W, 1], and with ``cfg.enable_normals`` normals
+    [H, W, 3]. No autograd."""
     h, w, gx, gy, dev = _check_inputs(table, pair_particle, tile_start,
-                                      ray_d, tmin, tmax, ray_o)
+                                      ray_d, tmin, tmax, ray_o, shared)
     nht = _is_nht(table, cfg, ray_o)
-    ints, floats = _mode(cfg, ray_o is not None)
+    normals = _normals_on(cfg, nht)
+    ints, floats = _mode(cfg, ray_o is not None, shared)
     if dev.type == "cpu":
         return rasterize_tiles_plain(table, pair_particle, tile_start,
-                                     ray_d, tmin, tmax, cfg, ray_o)
+                                     ray_d, tmin, tmax, cfg, ray_o, shared)
     feat = torch.empty((h, w, feature_dim(table)), dtype=torch.float32,
                        device=dev)
     opacity, depth, hits, t_final = (
         torch.empty((h, w, 1), dtype=torch.float32, device=dev)
         for _ in range(4))
+    nrm = (torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+           if normals else None)
     lib = _lib("raster_fwd")
     err = lib.raster_fwd_launch(
         table.data_ptr(), pair_particle.data_ptr(), tile_start.data_ptr(),
         _ptr(ray_o), ray_d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-        w, h, gx, gx * gy, *ints, int(nht), *floats, feat.data_ptr(),
-        opacity.data_ptr(), depth.data_ptr(), hits.data_ptr(),
-        t_final.data_ptr(),
+        w, h, gx, gx * gy, *ints, int(nht), int(shared), int(normals),
+        *floats, feat.data_ptr(), opacity.data_ptr(), depth.data_ptr(),
+        hits.data_ptr(), t_final.data_ptr(), _ptr(nrm),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("raster_fwd", err, lib)
-    _count(rasterize_tiles, ray_o, nht)
-    return feat, opacity, depth, hits, t_final
+    _count(rasterize_tiles, cfg, ray_o, nht, shared, normals)
+    out = (feat, opacity, depth, hits, t_final)
+    return out + (nrm,) if normals else out
 
 
 def rasterize_tiles_backward(table, pair_particle, tile_start, ray_d, tmin,
                              tmax, feat, depth, t_final, g_feat, g_opacity,
-                             g_depth, cfg, ray_o=None) -> torch.Tensor:
+                             g_depth, cfg, ray_o=None,
+                             shared=False) -> torch.Tensor:
     """Kernel C: per-pair record gradients d_records [P, R] f32 (R the
     table's width) in tile-sorted pair order, from the saved forward
     outputs (features [H,W,F], depth and T_final [H,W,1]) and the
@@ -256,21 +319,25 @@ def rasterize_tiles_backward(table, pair_particle, tile_start, ray_d, tmin,
     Pairs past the last tile (culled) and pairs behind every pixel's kill
     read zero. In the general mode (``ray_o``) rows 0-2 are d/dp and 3-11
     d/dM of the general table; the NHT mode adds the 48 control
-    features' rows (its 3 padding rows read zero)."""
+    features' rows (its 3 padding rows read zero). With ``shared``,
+    [T n, R]: row t n + j is tile t's gradient of slot j of the segment
+    (n = tile_start[1] - tile_start[0]). ``cfg.enable_normals`` changes
+    nothing here: normals carry no cotangent."""
     h, w, gx, gy, dev = _check_inputs(table, pair_particle, tile_start,
-                                      ray_d, tmin, tmax, ray_o)
+                                      ray_d, tmin, tmax, ray_o, shared)
     nht = _is_nht(table, cfg, ray_o)
     nf = feature_dim(table)
     for name, t, c in (("feat", feat, nf), ("depth", depth, 1),
                        ("t_final", t_final, 1), ("g_feat", g_feat, nf),
                        ("g_opacity", g_opacity, 1), ("g_depth", g_depth, 1)):
         build.check_tensor(name, t, torch.float32, (h, w, c), dev)
-    ints, floats = _mode(cfg, ray_o is not None)
+    ints, floats = _mode(cfg, ray_o is not None, shared)
     if dev.type == "cpu":
         return rasterize_tiles_backward_plain(
             table, pair_particle, tile_start, ray_d, tmin, tmax, feat, depth,
-            t_final, g_feat, g_opacity, g_depth, cfg, ray_o)
-    p = pair_particle.shape[0]
+            t_final, g_feat, g_opacity, g_depth, cfg, ray_o, shared)
+    p = (gx * gy * int(tile_start[1] - tile_start[0]) if shared
+         else pair_particle.shape[0])
     d_records = torch.zeros((p, table.shape[1]), dtype=torch.float32,
                             device=dev)
     lib = _lib("raster_bwd")
@@ -280,16 +347,40 @@ def rasterize_tiles_backward(table, pair_particle, tile_start, ray_d, tmin,
         feat.data_ptr(), depth.data_ptr(), t_final.data_ptr(),
         g_feat.data_ptr(), g_opacity.data_ptr(), g_depth.data_ptr(), w, h,
         gx, gx * gy,
-        *ints, int(nht), *floats, d_records.data_ptr(),
+        *ints, int(nht), int(shared), *floats, d_records.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("raster_bwd", err, lib)
-    _count(rasterize_tiles_backward, ray_o, nht)
+    _count(rasterize_tiles_backward, cfg, ray_o, nht, shared)
     return d_records
 
 
 rasterize_tiles_backward.launches = 0
 rasterize_tiles_backward.launches_general = 0
 rasterize_tiles_backward.launches_nht = 0
+rasterize_tiles_backward.launches_shared_segment = 0
+rasterize_tiles_backward.launches_window128 = 0
+
+
+def repeat_fold(fold: FoldMeta, n_tiles: int) -> FoldMeta:
+    """The FoldMeta of a shared segment's per-tile gradient rows: ``fold``
+    describes the segment's P slots once; kernel C's row t P + j is tile
+    t's copy of slot j. Slot s of ``fold`` becomes the pre-sort slots
+    s T + t, so each depth rank owns its slots' T tiles in tile order."""
+    p = fold.perm.shape[0]
+    tiles = torch.arange(n_tiles, dtype=torch.int32, device=fold.perm.device)
+    perm = (fold.perm[None, :] * n_tiles + tiles[:, None]).reshape(-1)
+    return FoldMeta(perm, fold.order, fold.excl * n_tiles,
+                    fold.counts * n_tiles, fold.limit * n_tiles)
+
+
+def _tile_row_groups(h, w, n_seg, width):
+    """[r0, r1) image rows of tile-row groups whose shared-segment gradient
+    rows stay within SHARED_BWD_BYTES."""
+    gx, gy = _grid(h, w)
+    per_row = gx * n_seg * width * 4
+    step = max(1, SHARED_BWD_BYTES // max(per_row, 1))
+    for t0 in range(0, gy, step):
+        yield t0 * TILE_Y, min((t0 + step) * TILE_Y, h)
 
 
 class _Rasterize(torch.autograd.Function):
@@ -299,18 +390,21 @@ class _Rasterize(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, pair_particle, tile_start, ray_d, tmin, tmax,
-                cfg, fold, ray_o):
-        feat, opacity, depth, hits, t_final = rasterize_tiles_forward(
-            table, pair_particle, tile_start, ray_d, tmin, tmax, cfg, ray_o)
+                cfg, fold, ray_o, shared):
+        out = rasterize_tiles_forward(table, pair_particle, tile_start,
+                                      ray_d, tmin, tmax, cfg, ray_o, shared)
+        feat, opacity, depth, hits, t_final = out[:5]
         ctx.save_for_backward(table, pair_particle, tile_start, ray_d, tmin,
                               tmax, feat, depth, t_final, ray_o)
         ctx.cfg = cfg
         ctx.fold = fold
-        ctx.mark_non_differentiable(hits)
-        return feat, opacity, depth, hits
+        ctx.shared = shared
+        ctx.mark_non_differentiable(hits, t_final, *out[5:])
+        return out
 
     @staticmethod
-    def backward(ctx, g_feat, g_opacity, g_depth, _g_hits):
+    def backward(ctx, g_feat, g_opacity, g_depth, _g_hits, _g_tfinal,
+                 *_g_normals):
         (table, pair_particle, tile_start, ray_d, tmin, tmax, feat, depth,
          t_final, ray_o) = ctx.saved_tensors
 
@@ -318,21 +412,39 @@ class _Rasterize(torch.autograd.Function):
             return (torch.zeros_like(like) if g is None
                     else g.to(torch.float32).contiguous())
 
-        d_records = rasterize_tiles_backward(
-            table, pair_particle, tile_start, ray_d, tmin, tmax, feat, depth,
-            t_final, grad_or_zeros(g_feat, feat),
-            grad_or_zeros(g_opacity, depth), grad_or_zeros(g_depth, depth),
-            ctx.cfg, ray_o)
+        ups = (grad_or_zeros(g_feat, feat), grad_or_zeros(g_opacity, depth),
+               grad_or_zeros(g_depth, depth))
         f = ctx.fold
-        d_table = fold_pairs(d_records, f.perm, f.order, f.excl, f.counts,
-                             f.limit, table.shape[0])
-        return d_table, None, None, None, None, None, None, None, None
+        if not ctx.shared:
+            d_records = rasterize_tiles_backward(
+                table, pair_particle, tile_start, ray_d, tmin, tmax, feat,
+                depth, t_final, *ups, ctx.cfg, ray_o)
+            d_table = fold_pairs(d_records, f.perm, f.order, f.excl,
+                                 f.counts, f.limit, table.shape[0])
+            return (d_table,) + (None,) * 9
+        # shared segment: the tiles' gradient rows fold in groups of tile
+        # rows, summed in group order
+        h, w = ray_d.shape[:2]
+        n_seg = int(tile_start[1] - tile_start[0])
+        d_table = None
+        for r0, r1 in _tile_row_groups(h, w, n_seg, table.shape[1]):
+            def rows(t):
+                return None if t is None else t[r0:r1].contiguous()
+            d_records = rasterize_tiles_backward(
+                table, pair_particle, tile_start, rows(ray_d), rows(tmin),
+                rows(tmax), rows(feat), rows(depth), rows(t_final),
+                *(rows(u) for u in ups), ctx.cfg, rows(ray_o), shared=True)
+            g = repeat_fold(f, d_records.shape[0] // n_seg)
+            part = fold_pairs(d_records, g.perm, g.order, g.excl, g.counts,
+                              g.limit, table.shape[0])
+            d_table = part if d_table is None else d_table + part
+        return (d_table,) + (None,) * 9
 
 
 _SIGNATURES = {
     # ptrs, ints, floats, ptrs (outputs), stream
-    "raster_fwd": (7, 8, 5, 5),
-    "raster_bwd": (13, 8, 5, 1),
+    "raster_fwd": (7, 10, 5, 6),
+    "raster_bwd": (13, 9, 5, 1),
     "wmax": (7, 7, 5, 1),      # kernel E, ops/cuda/wmax.py
 }
 
@@ -413,13 +525,13 @@ def _tile_groups(starts, n_tiles, max_pairs):
         t0 = t1
 
 
-def _hit_terms(rec, d, o=None, canonical=False):
-    """(sq, hit_t) [P, 256] of records [P, R] on ray dirs [P, 256, 3],
-    in the fp32 operation order of common.cuh:eval_hit; with per-pixel
-    origins ``o`` [P, 256, 3] the general mode's (eval_hit_general):
-    a = M (o - p) from the position p in slots 0-2, and hit_t scaled by
-    |d|. With ``canonical`` also the canonical hit point [P, 256, 3],
-    a + b tc with tc the unscaled hit distance (common.cuh:nht_hit)."""
+def _canonical_hit(rec, d, o=None):
+    """(a, b, inv_m, sq, q) of records [P, R] on ray dirs [P, 256, 3] in
+    the fp32 operation order of common.cuh:eval_hit (``Hit``): a and b
+    triples of [P, 256] components, a from the record, or with per-pixel
+    origins ``o`` [P, 256, 3] the general mode's (eval_hit_general) a =
+    M (o - p) from the position p in slots 0-2; b = M d; inv_m = 1 / |b|^2;
+    sq = |a x b|^2 inv_m; q = a . b."""
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
 
     def col(i):
@@ -441,13 +553,23 @@ def _hit_terms(rec, d, o=None, canonical=False):
     cz = ax * by - ay * bx
     inv_m = 1.0 / torch.clamp(bx * bx + by * by + bz * bz, min=1e-30)
     sq = (cx * cx + cy * cy + cz * cz) * inv_m
-    tc = -(ax * bx + ay * by + az * bz) * inv_m
+    return (ax, ay, az), (bx, by, bz), inv_m, sq, ax * bx + ay * by + az * bz
+
+
+def _hit_terms(rec, d, o=None, canonical=False):
+    """(sq, hit_t) [P, 256] of ``_canonical_hit``, hit_t = -q inv_m (with
+    origins ``o``, eval_hit_general: scaled by |d|). With ``canonical``
+    also the canonical hit point [P, 256, 3], a + b tc with tc the
+    unscaled hit distance (common.cuh:nht_hit)."""
+    a, b, inv_m, sq, q = _canonical_hit(rec, d, o)
+    tc = -q * inv_m
     hit_t = tc
     if o is not None:
+        dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
         hit_t = tc * torch.sqrt(dx * dx + dy * dy + dz * dz)
     if not canonical:
         return sq, hit_t
-    return sq, hit_t, torch.stack([ax + bx * tc, ay + by * tc, az + bz * tc],
+    return sq, hit_t, torch.stack([a[i] + b[i] * tc for i in range(3)],
                                   dim=-1)
 
 
@@ -479,12 +601,32 @@ def _window_order(keep, hit_t, p0, tile, window):
     return by_key.gather(0, by_seg)
 
 
+def _normal_terms(rec, d, o=None):
+    """[P, 256, 3] world normals (common.cuh:hit_normal) of records [P, R]
+    on ray dirs [P, 256, 3] (origins ``o``: the general mode), in the
+    kernel's fp32 operation order, as float64."""
+    a, b, inv_m, sq, q = _canonical_hit(rec, d, o)
+    rs = [0.0, 0.0, 0.0]
+    for i in range(3):
+        m = [rec[:, 3 + 3 * i + j:4 + 3 * i + j] for j in range(3)]
+        s2 = 1.0 / torch.clamp(m[0] * m[0] + m[1] * m[1] + m[2] * m[2],
+                               min=1e-24)
+        rs = [rs[j] + m[j] * s2 for j in range(3)]
+    inv_b = torch.sqrt(inv_m)
+    t_entry = -q * inv_b - torch.sqrt(torch.clamp(9.0 - sq, min=0.0))
+    n = [(a[j] + b[j] * inv_b * t_entry) * rs[j] for j in range(3)]
+    inv_n = 1.0 / torch.sqrt(torch.clamp(n[0] * n[0] + n[1] * n[1]
+                                         + n[2] * n[2], min=1e-24))
+    return torch.stack([c * inv_n for c in n], dim=-1).double()
+
+
 def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
                      pair_weights=False):
     """Composite tiles [t0, t1) of pair records ``rec`` [P_g, R] (the
     group's pairs, f32). Returns (acc [G, 256, F + 2] = features, depth,
-    hits; T_final [G, 256]) in float64, and with ``pair_weights`` also the
-    weights w = alpha T [P_g, 256] of each (pair, pixel).
+    hits, and with ``cfg.enable_normals`` 3 more channels of the blended
+    normals; T_final [G, 256]) in float64, and with ``pair_weights`` also
+    the weights w = alpha T [P_g, 256] of each (pair, pixel).
 
     Accept and kill decisions come from ``rec`` in fp32. The values
     (alpha, hit distance, rgb) do too, rounded to float64 afterwards,
@@ -531,13 +673,16 @@ def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
         rgb = rec64[:, 13:16]
         if nht:
             feats = _nht_features(rec64, d.double(), o64)
+    # weighted sums per pixel: features, then (normals) the hit normals
     if nht:
         rgb = list(feats.unbind(-1))
-    elif order is None:
-        rgb = [rgb[:, c:c + 1] for c in range(3)]
     else:
+        rgb = [rgb[:, c:c + 1] for c in range(3)]
+    if cfg.enable_normals:
+        rgb += list(_normal_terms(rec, d, o).unbind(-1))
+    if order is not None:
         alpha, hit_t = alpha.gather(0, order), hit_t.gather(0, order)
-        rgb = [rgb[:, c][order] for c in range(3)]
+        rgb = [f.expand_as(order).gather(0, order) for f in rgb]
 
     # exclusive transmittance within each tile segment, in log space
     log1m = torch.log1p(-alpha)
@@ -551,9 +696,11 @@ def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
     alive = t_prev >= cfg.min_transmittance
     wgt = torch.where(alive, alpha * t_prev, torch.zeros_like(t_prev))
 
-    contrib = torch.stack([wgt * f for f in rgb] + [
-        wgt * hit_t, (wgt > 0.0).double()], dim=-1)        # [P, 256, F+2]
-    acc = torch.zeros((t1 - t0, TILE_PIXELS, len(rgb) + 2),
+    nf = len(rgb) - (3 if cfg.enable_normals else 0)
+    contrib = torch.stack([wgt * f for f in rgb[:nf]] + [
+        wgt * hit_t, (wgt > 0.0).double()] + [wgt * f for f in rgb[nf:]],
+        dim=-1)                                   # [P, 256, F + 2 (+ 3)]
+    acc = torch.zeros((t1 - t0, TILE_PIXELS, contrib.shape[-1]),
                       dtype=torch.float64, device=dev).index_add(0, local,
                                                                  contrib)
 
@@ -573,24 +720,40 @@ def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
     return acc, t_final, wgt
 
 
+def _unshare(pair_particle, tile_start, n_tiles):
+    """A shared segment as the disjoint segments of ``n_tiles`` tiles: the
+    segment's pairs repeated per tile (tile t's copy of slot j at
+    t n + j, kernel C's shared-mode row)."""
+    s0, s1 = int(tile_start[0]), int(tile_start[1])
+    seg = pair_particle[s0:s1]
+    starts = torch.arange(n_tiles + 1, dtype=torch.int32,
+                          device=tile_start.device) * (s1 - s0)
+    return seg.repeat(n_tiles), starts
+
+
 def rasterize_tiles_plain(table, pair_particle, tile_start, ray_d, tmin,
-                          tmax, cfg, ray_o=None):
+                          tmax, cfg, ray_o=None, shared=False):
     """Plain PyTorch version of ``rasterize_tiles_forward``.
 
     Vectorised over (pair, pixel): per-pair alpha for the 256 pixels of
     the pair's tile, then the transmittance as an exclusive log-space
     prefix sum (float64) within each tile's segment, the exact kill as a
     mask on it, and ``index_add`` into the pixels. Tiles are processed in
-    groups so the temporaries stay bounded.
+    groups so the temporaries stay bounded. A shared segment runs as its
+    copies per tile (``_unshare``).
     """
     h, w = ray_d.shape[:2]
     nht = _is_nht(table, cfg, ray_o)
+    normals = _normals_on(cfg, nht)
     nf = feature_dim(table)
     rays = _tilize_rays(ray_d, tmin, tmax, ray_o)
     n_tiles = rays.gx * rays.gy
-    # features, depth, hits, final T
-    out = torch.zeros((n_tiles, TILE_PIXELS, nf + 3), dtype=torch.float64,
-                      device=table.device)
+    if shared:
+        pair_particle, tile_start = _unshare(pair_particle, tile_start,
+                                             n_tiles)
+    # features, depth, hits, final T (, normals)
+    out = torch.zeros((n_tiles, TILE_PIXELS, nf + 3 + 3 * normals),
+                      dtype=torch.float64, device=table.device)
     out[..., nf + 2] = 1.0
     starts = tile_start.to(torch.int64).cpu()
     group = _PLAIN_GROUP_PAIRS // (_NHT_GROUP_SHRINK if nht else 1)
@@ -600,18 +763,21 @@ def rasterize_tiles_plain(table, pair_particle, tile_start, ray_d, tmin,
             continue
         rec = table[pair_particle[p0:p1].to(torch.int64)]
         acc, t_final = _composite_group(rec, starts, t0, t1, rays, cfg)
-        out[t0:t1, :, 0:nf + 2] = acc
+        out[t0:t1, :, 0:nf + 2] = acc[..., 0:nf + 2]
         out[t0:t1, :, nf + 2] = t_final
+        out[t0:t1, :, nf + 3:] = acc[..., nf + 2:]
     img = _untile(out, rays.gx, rays.gy, h, w).to(torch.float32)
     t_fin = img[..., nf + 2:nf + 3].contiguous()
-    return (img[..., 0:nf].contiguous(), 1.0 - t_fin,
-            img[..., nf:nf + 1].contiguous(),
-            img[..., nf + 1:nf + 2].contiguous(), t_fin)
+    res = (img[..., 0:nf].contiguous(), 1.0 - t_fin,
+           img[..., nf:nf + 1].contiguous(),
+           img[..., nf + 1:nf + 2].contiguous(), t_fin)
+    return res + (img[..., nf + 3:].contiguous(),) if normals else res
 
 
 def rasterize_tiles_backward_plain(table, pair_particle, tile_start, ray_d,
                                    tmin, tmax, feat, depth, t_final, g_feat,
-                                   g_opacity, g_depth, cfg, ray_o=None):
+                                   g_opacity, g_depth, cfg, ray_o=None,
+                                   shared=False):
     """Plain PyTorch version of ``rasterize_tiles_backward``: autograd
     through the float64 compositing of ``_composite_group``, with each
     group's gathered records as the leaf, tile group by tile group. The
@@ -621,9 +787,14 @@ def rasterize_tiles_backward_plain(table, pair_particle, tile_start, ray_d,
     del feat, depth, t_final
     nht = _is_nht(table, cfg, ray_o)
     nf = feature_dim(table)
+    # normals carry no cotangent: composite without them
+    cfg = cfg.replace(enable_normals=False)
     rays = _tilize_rays(ray_d, tmin, tmax, ray_o)
     n_tiles = rays.gx * rays.gy
     gx, gy = rays.gx, rays.gy
+    if shared:
+        pair_particle, tile_start = _unshare(pair_particle, tile_start,
+                                             n_tiles)
     g_rgb = _tilize(g_feat.double(), gx, gy, 0.0)             # [T, 256, F]
     g_dep = _tilize(g_depth.double(), gx, gy, 0.0)[..., 0]     # [T, 256]
     g_t = -_tilize(g_opacity.double(), gx, gy, 0.0)[..., 0]    # d/d T_final

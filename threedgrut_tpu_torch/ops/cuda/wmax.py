@@ -18,9 +18,9 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .raster import (_PLAIN_GROUP_PAIRS, _check_inputs, _composite_group,
-                     _count, _is_nht, _lib, _mode, _ptr, _tile_groups,
-                     _tilize_rays)
+from .raster import (_PLAIN_GROUP_PAIRS, WINDOWS, _check_inputs,
+                     _composite_group, _count, _is_nht, _lib, _mode, _ptr,
+                     _tile_groups, _tilize_rays, _window)
 
 
 def pair_weight_max(table: torch.Tensor, pair_particle: torch.Tensor,
@@ -36,6 +36,9 @@ def pair_weight_max(table: torch.Tensor, pair_particle: torch.Tensor,
     if _is_nht(table, cfg, ray_o):
         raise NotImplementedError("kernel E has no NHT mode (JAX's weight "
                                   "telemetry is GS only)")
+    if _window(cfg) not in (0,) + WINDOWS:
+        raise NotImplementedError(f"sort_window {_window(cfg)}: kernel E "
+                                  f"is built for {WINDOWS}")
     ints, floats = _mode(cfg, ray_o is not None)
     if dev.type == "cpu":
         return pair_weight_max_plain(table, pair_particle, tile_start, ray_d,
@@ -49,7 +52,7 @@ def pair_weight_max(table: torch.Tensor, pair_particle: torch.Tensor,
         w, h, gx, gx * gy, *ints, *floats, wpair.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("wmax", err, lib)
-    _count(pair_weight_max, ray_o)
+    _count(pair_weight_max, cfg, ray_o)
     return wpair
 
 

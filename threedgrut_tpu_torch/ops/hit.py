@@ -123,6 +123,33 @@ def density_hit(ray_o, ray_d, pos, quat, scale, density, *,
                      canonical=canonical)
 
 
+def hit_normal(ray_o, ray_d, pos, quat, scale):
+    """Per-hit world normal (JAX ops/hit.py:hit_normal; the reference's
+    gaussianParticles.cuh:397-401): the ray's entry point into the
+    particle's 3-sigma canonical ellipsoid, scaled elementwise by R s and
+    normalised (leading dims broadcast)."""
+    rot = quat_to_rotmat(quat_normalize(quat))
+
+    def to_local(v):   # world -> local: R^T v
+        return torch.stack([v[..., 0] * rot[..., 0, j] + v[..., 1] * rot[..., 1, j]
+                            + v[..., 2] * rot[..., 2, j] for j in range(3)],
+                           dim=-1)
+
+    gro = to_local(ray_o - pos) / scale
+    grdu = to_local(ray_d) / scale
+    grd = grdu * torch.rsqrt(torch.clamp(
+        torch.sum(grdu * grdu, dim=-1, keepdim=True), min=1e-32))
+    gcrod = torch.cross(grd, gro, dim=-1)
+    sq_dist = torch.sum(gcrod * gcrod, dim=-1, keepdim=True)
+    proj = torch.sum(grd * (-gro), dim=-1, keepdim=True)
+    entry = gro + grd * (proj - torch.sqrt(torch.clamp(9.0 - sq_dist,
+                                                        min=0.0)))
+    rs = torch.einsum("...ji,...i->...j", rot, scale)
+    n = entry * rs
+    return n * torch.rsqrt(torch.clamp(torch.sum(n * n, dim=-1,
+                                                 keepdim=True), min=1e-24))
+
+
 # The canonical regular tetrahedron (neuralHarmonicFeaturesParticle.slang:
 # 47-66): its vertices, and the rows of the inverse edge matrix that map a
 # point's offset from vertex 0 to barycentric weights 1-3

@@ -38,6 +38,11 @@ class RasterConfig:
     # pairs (JAX raster.py:_chunk_composite)
     sorted_compositing: bool = False
     sort_window: int = 16
+    # alpha-blend each hit's world normal into a pred_normals output
+    # (reference render.enable_normals; JAX render/common.py:42-44).
+    # Forward only, like the reference: normals carry no cotangent. No
+    # YAML key maps to it, as in JAX.
+    enable_normals: bool = False
 
     def __post_init__(self):
         w = self.sort_window

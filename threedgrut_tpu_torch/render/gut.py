@@ -33,7 +33,9 @@ without saving anything for a backward.
 Returned dict mirrors the JAX package: ``pred_features`` [H,W,3] (NHT:
 [H,W,2d]),
 ``pred_opacity`` [H,W,1], ``pred_dist`` [H,W,1], ``hits_count`` [H,W,1],
-``mog_visibility`` [C], ``num_pairs`` and ``pairs_overflow``.
+``mog_visibility`` [C], ``num_pairs`` and ``pairs_overflow``; with
+``raster_cfg.enable_normals`` also ``pred_normals`` [H,W,3], the blended
+hit normals (forward only; never for NHT, JAX render/gut.py:210, 318-319).
 """
 
 from __future__ import annotations
@@ -177,8 +179,10 @@ def render_gut(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
             raise NotImplementedError(
                 "weight telemetry with NHT: kernel E composites constant "
                 "features only (JAX's telemetry kernel is GS only)")
-        # JAX composites NHT in global-Z order (gut.py:208)
-        raster_cfg = raster_cfg.replace(sorted_compositing=False)
+        # JAX composites NHT in global-Z order (gut.py:208) and blends no
+        # normals (gut.py:210)
+        raster_cfg = raster_cfg.replace(sorted_compositing=False,
+                                        enable_normals=False)
     if weight_telemetry:
         with torch.no_grad():
             v = prepare_view(cam, ut_cfg, raster_cfg, model, sh_degree,
@@ -191,11 +195,11 @@ def render_gut(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
                 wpair, b.pair_particle, model.capacity)}
     v = prepare_view(cam, ut_cfg, raster_cfg, model, sh_degree, rays)
     b = v.binning
-    feat, opacity, depth, hits = rasterize_tiles(
+    feat, opacity, depth, hits, *normals = rasterize_tiles(
         v.table, b.pair_particle, b.tile_start, v.ray_d, v.tmin, v.tmax,
         raster_cfg, FoldMeta(b.perm, b.order, b.excl, b.counts, b.limit),
         v.ray_o)
-    return {
+    out = {
         "pred_features": feat,
         "pred_opacity": opacity,
         "pred_dist": depth,
@@ -205,3 +209,6 @@ def render_gut(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
         "num_pairs": v.binning.num_pairs,
         "pairs_overflow": v.binning.overflow,
     }
+    if normals:
+        out["pred_normals"] = normals[0]
+    return out

@@ -20,10 +20,10 @@ import math
 import numpy as np
 import torch
 
-from ..models.gaussians import GaussianModel
+from ..models.gaussians import GaussianModel, GaussianModelConfig
 from ..ops import ut as ut_ops
-from ..ops.cameras import CameraModel
-from ..ops.hit import density_hit
+from ..ops.cameras import CameraModel, make_pinhole
+from ..ops.hit import density_hit, hit_normal
 from ..ops.sh import eval_sh_radiance
 from ..ops.ut import TILE_X, TILE_Y, UTConfig
 from .common import RasterConfig, camera_rays_world
@@ -34,7 +34,9 @@ def render_oracle(cam: CameraModel, ut_cfg: UTConfig,
                   raster_cfg: RasterConfig, model: GaussianModel,
                   sh_degree: int, chunk: int = 128):
     """Render a full image; same output keys as ``render_gut`` (without
-    the pair counters). ``hits_count`` is int32."""
+    the pair counters), ``pred_normals`` with ``raster_cfg.enable_normals``
+    (JAX render/oracle.py:97-99, 119; each hit's normal in float64 here).
+    ``hits_count`` is int32."""
     w, h = cam.resolution
     dev = model.device
     proj = ut_ops.unscented_projection(
@@ -74,6 +76,7 @@ def render_oracle(cam: CameraModel, ut_cfg: UTConfig,
     feat = torch.zeros((npix, 3), dtype=torch.float64, device=dev)
     depth = torch.zeros(npix, dtype=torch.float64, device=dev)
     hits = torch.zeros(npix, dtype=torch.int32, device=dev)
+    normal = torch.zeros((npix, 3), dtype=torch.float64, device=dev)
     for c0 in range(0, n_valid, chunk):
         idx = order[c0:c0 + chunk]
         in_bbox = ((tile_x >= lo[idx, 0]) & (tile_x < hi[idx, 0])
@@ -97,18 +100,28 @@ def render_oracle(cam: CameraModel, ut_cfg: UTConfig,
         feat += wgt @ feats[idx].double()
         depth += torch.sum(wgt * hit.hit_t.double(), dim=1)
         hits += torch.sum(wgt > 0.0, dim=1, dtype=torch.int32)
+        if raster_cfg.enable_normals:   # in float64: fp32 loses digits
+            # where the origin lies hundreds of particle radii away
+            n = hit_normal(o.double(), d.double(),
+                           model.positions[idx].double(),
+                           model.rotation[idx].double(),
+                           scales[idx].double())
+            normal += torch.sum(wgt[..., None] * n, dim=1)
         dead_t = torch.where(alive, torch.full_like(a, -1.0), t_prev)
         frozen = torch.amax(dead_t, dim=1)
         t_end = t_prev[:, -1] * (1.0 - a[:, -1])
         trans = torch.where(frozen >= 0.0, frozen, t_end)
 
-    return {
+    out = {
         "pred_features": feat.reshape(h, w, 3).to(torch.float32),
         "pred_opacity": (1.0 - trans).reshape(h, w, 1).to(torch.float32),
         "pred_dist": depth.reshape(h, w, 1).to(torch.float32),
         "hits_count": hits.reshape(h, w, 1),
         "mog_visibility": proj.valid,
     }
+    if raster_cfg.enable_normals:
+        out["pred_normals"] = normal.reshape(h, w, 3).to(torch.float32)
+    return out
 
 
 def parity_db(got: np.ndarray, ref: np.ndarray):
@@ -128,3 +141,43 @@ def parity_db(got: np.ndarray, ref: np.ndarray):
     flip = err.max(axis=-1) > (0.5 / 255.0)
     bulk = db(float(np.mean(err[~flip] ** 2))) if (~flip).any() else 0.0
     return bulk, db(float(np.mean(err ** 2))), float(flip.mean())
+
+
+def oracle_probe(model: GaussianModel, ut_cfg: UTConfig,
+                 raster_cfg: RasterConfig, side: int = 200,
+                 n: int = 60_000):
+    """(``render_gut``, ``render_oracle``) outputs on the model's device
+    for bench.py:oracle_parity_db's view: one ``side`` x ``side`` pinhole
+    frame looking down +z from the origin (bench.py's view of the bench
+    cloud) over the model's first ``n`` particles, as a capacity of ``n``
+    rounded up to 256 rows."""
+    from .gut import render_gut
+
+    n = min(n, model.n_active)
+    keep = -(-n // 256) * 256
+    with torch.no_grad():
+        arrays = {k: getattr(model, k)[:keep].detach().cpu().numpy()
+                  for k in ("positions", "rotation", "scale", "density",
+                            "features_albedo", "features_specular")}
+        probe = GaussianModel.from_numpy(
+            arrays, n, model.n_active_features,
+            GaussianModelConfig(max_sh_degree=model.config.max_sh_degree),
+            model.device)
+        cam = make_pinhole((side, side), (1.1 * side, 1.1 * side),
+                           (side / 2, side / 2), device=model.device)
+        degree = model.n_active_features
+        return (render_gut(cam, ut_cfg, raster_cfg, probe, degree),
+                render_oracle(cam, ut_cfg, raster_cfg, probe, degree,
+                              chunk=512))
+
+
+def oracle_parity_db(model: GaussianModel, ut_cfg: UTConfig,
+                     raster_cfg: RasterConfig, side: int = 200,
+                     n: int = 60_000):
+    """(bulk_db, raw_db, flip_frac) of ``render_gut`` against
+    ``render_oracle`` on ``oracle_probe``'s view (bench.py:
+    oracle_parity_db): the kernels' lost precision shows in ``bulk_db``,
+    flipped accept decisions in ``flip_frac`` (``parity_db``)."""
+    got, ref = oracle_probe(model, ut_cfg, raster_cfg, side, n)
+    return parity_db(got["pred_features"].cpu().numpy(),
+                     ref["pred_features"].cpu().numpy())

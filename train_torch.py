@@ -25,7 +25,11 @@ says so on stderr and composes the exact kill. Likewise bf16 records
 (``records_bf16``, or ``particle_feature_half`` where the former is
 unset, as the JAX loader reads them): the port keeps fp32 records and
 says so. The port sizes its pair buffer per view
-(``max_pairs`` and ``auto_max_pairs`` are ignored).
+(``max_pairs`` and ``auto_max_pairs`` are ignored). It overwrites
+``ckpt_periodic.npz`` every ``checkpoint.frequency`` steps, as train.py
+does. Keys that train.py acts on and the port does not port yet stop it
+with their train.py line (``refuse_unported``): PLY import and export,
+the gsplat COLMAP options, post-processing and the live GUI.
 """
 
 import argparse
@@ -55,6 +59,41 @@ def nht_features(conf):
             f"{feats.num_frequencies} frequencies: the renderer composites "
             "sin and cos of one frequency only")
     return feats
+
+
+# keys train.py acts on that the port does not yet: (key, whether the
+# value asks for an action, what in train.py acts on it)
+UNPORTED = (
+    ("import_ply.enabled",
+     lambda c: bool(c.get("import_ply", {}).get("enabled")),
+     "train.py:95-97 (export/ply.import_model)"),
+    ("export_ply.enabled",
+     lambda c: bool(c.get("export_ply", {}).get("enabled")),
+     "train.py:205-208 (export/ply.export_model)"),
+    ("dataset.gsplat_normalize",
+     lambda c: bool(c.get("dataset", {}).get("gsplat_normalize")),
+     "train.py:32 (data/colmap.py:166-178)"),
+    ("dataset.gsplat_image_downscale",
+     lambda c: bool(c.get("dataset", {}).get("gsplat_image_downscale"))
+     and c.get("dataset", {}).get("downsample_factor", 1) > 1,
+     "train.py:33-34 (data/colmap.py:181-190 reads other images)"),
+    ("post_processing.method",
+     lambda c: c.get("post_processing", {}).get("method") is not None,
+     "train.py:196-199 and train/trainer.py:478-485 (PPISP, or "
+     "linear-to-srgb in the loss)"),
+    ("with_gui", lambda c: bool(c.get("with_gui")),
+     "train.py:162-174 (playground/live_gui.py)"),
+)
+
+
+def refuse_unported(conf):
+    """Stop (exit non-zero) where the config asks train.py for an action
+    the port does not take yet, naming each key and its train.py line."""
+    asked = [f"{key} ({where})" for key, asks, where in UNPORTED
+             if asks(conf)]
+    if asked:
+        raise SystemExit("train_torch.py: not ported yet, so not silently "
+                         "ignored: " + "; ".join(asked))
 
 
 def trainer_config(conf):
@@ -285,14 +324,14 @@ def make_model(conf, dataset, device):
         seed=conf.seed_initialization, device=device)
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config-name", default="apps/nerf_synthetic_3dgut")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu trains on the "
                     "CPU, slowly)")
     ap.add_argument("overrides", nargs="*")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_torch.py: no CUDA device; pass --device cpu "
@@ -302,6 +341,7 @@ def main():
     from threedgrut_tpu_torch.train.trainer import Trainer
 
     conf = load_config(args.config_name, overrides=args.overrides)
+    refuse_unported(conf)
     if conf.path == "???":
         raise SystemExit("set the dataset path: train_torch.py ... "
                          "path=/data/...")
@@ -316,6 +356,7 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     chunk = max(conf.log_frequency * 100, 1)
     ckpt_iters = set(conf.checkpoint.iterations)
+    freq = conf.checkpoint.get("frequency", 0)
     while trainer.global_step < tconf.n_iterations:
         before = trainer.global_step
         trainer.run_training(min(before + chunk, tconf.n_iterations),
@@ -323,6 +364,11 @@ def main():
         if any(before < c <= trainer.global_step for c in ckpt_iters):
             trainer.save_checkpoint(os.path.join(
                 out_dir, f"ckpt_{trainer.global_step}.npz"))
+        if freq and before // freq != trainer.global_step // freq:
+            # train.py:187-193: overwrite one rolling checkpoint, so a
+            # kill loses at most about ``freq`` steps
+            trainer.save_checkpoint(os.path.join(out_dir,
+                                                 "ckpt_periodic.npz"))
         if (tconf.val_frequency and val_dataset is not None
                 and before // tconf.val_frequency
                 != trainer.global_step // tconf.val_frequency):

@@ -7,8 +7,8 @@ Phases, one line each; any failure raises and the script exits non-zero
 without printing the final result line:
 
 1. device  - a CUDA device is present; its name and power limit.
-2. build   - the five kernels compile with nvcc from csrc/ (sm_90a), one
-   nvcc process per source, all started together.
+2. build   - the eight kernel sources compile with nvcc from csrc/
+   (sm_90a), one nvcc process per source, all started together.
 3. kernel A vs plain - bin_decode on the 100k bench cloud, one 800x800
    view: pair_tile, pair_particle and tile_start EQUAL to the plain
    PyTorch version.
@@ -168,17 +168,46 @@ brute force; windows of 128 for both regimes; the normals mode of B):
    the frame finite and away from the envmap; the viewer on 127.0.0.1
    answers GET / and three frames, each a decodable 512x512 JPEG.
 
+Kernels F, G and H (csrc/scatter_rows.cu, expand_rows.cu, fill.cu) and
+the table-gradient raster route (ops/cuda/raster.py:rasterize_tiles_table:
+B, C, then F summing the per-pair rows by particle id). The train step and
+serving launch none of them:
+
+37. kernel F vs plain - the row scatter on the 800x800 bench view's own
+   pairs (kernel C's rows for phase 8's upstream gradients, by
+   pair_particle, onto the 100k-row table): within 1e-6 of max of the
+   float64 plain version, two runs bitwise equal; ms with its sort and
+   the kernel alone, beside index_add_.
+38. table route - the bench view's raster forward and backward through
+   rasterize_tiles_table in the 3DGUT and the 3DGRT (degree 4, W 16)
+   setting: its image equal to the D route's, its table gradient within
+   1e-5 of max and cosine >= 0.9999999 of the D route's; 20 steps launch
+   B, C and F 20 times each and D never; host ms per step of both routes.
+39. kernel G vs plain - the interval expansion equal bit for bit at the
+   view's two shapes: the pair expansion (100k depth-ranked rows x 16 onto
+   the view's pair slots) and the tile expansion of aligned segments
+   (2,500 tile intervals x 3 onto the same length); ms beside a
+   searchsorted + index_select version.
+40. kernel H vs plain - forward_fill at 1M x 12 with 100k marks and
+   segmented_fill_rows of 100k rows (shared and dropped slots), equal bit
+   for bit; ms beside torch.cummax + a gather.
+
 Then a JSON line with each kernel's launches (A-D from phase 11, sorted
 B and C of each setting from phase 17, E from phase 18, the general
 kernels from phases 23-24, the NHT kernels from phase 29, kernel 7's B,
 C and D from phase 32, W 128 C from phase 33, normals B from phase 34,
-W 128 B from the playground frame of phase 36), error and
-times (phases 3, 4, 8, 9, 13-15, 19-21, 26-27, 31-34), its bound (the larger
+W 128 B from the playground frame of phase 36, F from the table route's
+3DGUT steps in phase 38, G and H from the two calls of phases 39 and 40),
+error and times (phases 3, 4, 8, 9, 13-15, 19-21, 26-27, 31-34, 37, 39,
+40), its bound (the larger
 of the fp32 operations over 67 TFLOP/s and the bytes it must read and
-write over 3.35 TB/s, from this run's inputs: for B, C and E the accept
+write over 3.35 TB/s, from this run's inputs: for G and H only the rows
+that a non-empty interval or a mark selects; for B, C and E the accept
 test on every (pair, pixel) of the tiles and the response of each
 candidate the plain forward composited, for NHT also its features at
-each such candidate) and, for kernel D, the time of index_add_; the
+each such candidate) and, for kernels D and F, the time of index_add_,
+for G that of searchsorted + index_select, for H that of cummax + a
+gather; the
 card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX. Needs one card; there is no CPU fallback.
@@ -201,7 +230,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PARAM_NAMES = ("positions", "rotation", "scale", "density",
                "features_albedo", "features_specular")
 # kernel libraries built from csrc/
-LIBS = ("bin_decode", "raster_fwd", "raster_bwd", "fold", "wmax")
+LIBS = ("bin_decode", "raster_fwd", "raster_bwd", "fold", "wmax",
+        "scatter_rows", "expand_rows", "fill")
 # the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor
 # cores, and HBM3
 PEAK_FP32 = 67e12
@@ -306,6 +336,17 @@ KERNELS = {
                              "threedgrut_tpu/ops/pallas/raster.py:1899"),
     "raster_fwd_normals": ("threedgrut_tpu_torch/csrc/raster_fwd.cu",
                            "threedgrut_tpu/ops/pallas/raster.py:1238"),
+    # the row scatter of the table route's backward
+    # (raster.py:rasterize_tiles_table, whose B and C are raster_fwd and
+    # raster_bwd; they also serve the flat-grid kernels raster.py:1336 and
+    # :1382, the same function on another schedule)
+    "scatter_rows": ("threedgrut_tpu_torch/csrc/scatter_rows.cu",
+                     "threedgrut_tpu/ops/pallas/scatter.py:29"),
+    # the interval expansion and the segmented fill, standalone ops
+    "expand_rows": ("threedgrut_tpu_torch/csrc/expand_rows.cu",
+                    "threedgrut_tpu/ops/pallas/expand.py:45"),
+    "fill": ("threedgrut_tpu_torch/csrc/fill.cu",
+             "threedgrut_tpu/ops/pallas/fill.py:31"),
 }
 
 
@@ -1928,6 +1969,268 @@ def playground_phase(dev):
     return {"raster_fwd_window128": per_frame}
 
 
+# kernels F, G and H (phases 37-40): the table route's row scatter, and
+# the layout ops the TPU path reaches only under its aligned_segments knob
+# (G) or not at all (H); the main path launches none of them
+# the table route's gradients against the D route's
+TABLE_COS = 0.9999999
+TABLE_TOL = 1e-5
+# fill.py's stated size: 1M slots x 12 values, 100k marks
+FILL_SLOTS = 1 << 20
+FILL_WIDTH = 12
+FILL_MARKS = 100_000
+
+
+def scatter_phase(dev, v, c_args):
+    """Phase 37: kernel F on the bench step's own pairs (kernel C's rows
+    for phase 8's upstream gradients, summed by pair_particle): within
+    1e-6 of max of the float64 plain version and bitwise repeatable; ms
+    (its sort set-up included, and the kernel alone) beside index_add_.
+    Returns the report entry."""
+    from threedgrut_tpu_torch.ops.cuda.raster import rasterize_tiles_backward
+    from threedgrut_tpu_torch.ops.cuda.scatter import (
+        id_runs, scatter_accumulate_rows, scatter_accumulate_rows_plain,
+        scatter_runs)
+
+    with torch.no_grad():
+        d_rec = rasterize_tiles_backward(*c_args)
+        ids = v.binning.pair_particle
+        n_rows = v.table.shape[0]
+        args = (d_rec, ids, n_rows)
+        f1 = scatter_accumulate_rows(*args)
+        f2 = scatter_accumulate_rows(*args)
+        ref, plain_ms = timed_once(lambda: scatter_accumulate_rows_plain(
+            *args))
+        err = float((f1 - ref).abs().max())
+        scale = float(ref.abs().max())
+        same = bool(torch.equal(f1, f2))
+        ms = cuda_ms(lambda: scatter_accumulate_rows(*args), 20)
+        runs = id_runs(ids, n_rows)
+        body_ms = cuda_ms(lambda: scatter_runs(d_rec, *runs), 20)
+        idx = ids.to(torch.int64)
+        lib_ms = cuda_ms(lambda: torch.zeros(
+            (n_rows, d_rec.shape[1]), device=dev).index_add_(0, idx, d_rec),
+            20)
+    if not (err <= 1e-6 * scale and same):
+        raise AssertionError(f"kernel F vs plain: max |d| {err:.3g} of "
+                             f"{scale:.3g}; bitwise repeatable {same}")
+    b = bound(nbytes(d_rec, ids, f1), d_rec.numel())
+    phase("kernel F", f"{d_rec.shape[0]} pairs x {d_rec.shape[1]} onto "
+          f"{n_rows} rows: max |d| {err:.3g} of {scale:.3g}, two runs "
+          f"bitwise equal; {ms:.4f} ms with its sort ({body_ms:.4f} ms the "
+          f"kernel alone), plain {plain_ms:.4f} ms, index_add_ "
+          f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **bound_keys(b, library_ms=lib_ms))
+
+
+def table_route_phase(dev, v, b_args, c_args, fwd):
+    """Phase 38: the bench step's raster forward and backward through
+    rasterize_tiles_table (B, C, then F) at full width, in the 3DGUT and
+    the 3DGRT setting: its image equal to the D route's (and, 3DGUT, to
+    phase 4's kernel B output), its table gradient within TABLE_TOL of max
+    and cosine TABLE_COS of the D route's; TRAIN_STEPS steps launch B, C
+    and F once each a step and D never; host ms per step of both routes.
+    Returns kernel F's launches in the 3DGUT run."""
+    from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs
+    from threedgrut_tpu_torch.ops.cuda.raster import (
+        FoldMeta, rasterize_tiles, rasterize_tiles_backward,
+        rasterize_tiles_table)
+    from threedgrut_tpu_torch.ops.cuda.scatter import scatter_runs
+    from threedgrut_tpu_torch.render.grt import grt_raster_config
+
+    b = v.binning
+    fold = FoldMeta(b.perm, b.order, b.excl, b.counts, b.limit)
+    g_feat, g_opac, g_dep = c_args[9:12]
+
+    def step(rc, table_route):
+        t = v.table.detach().clone().requires_grad_(True)
+        args = (t,) + tuple(b_args[1:6]) + (rc,)
+        out = (rasterize_tiles_table(*args) if table_route
+               else rasterize_tiles(*args, fold))
+        ((out[0] * g_feat).sum() + (out[1] * g_opac).sum()
+         + (out[2] * g_dep).sum()).backward()
+        return out, t.grad
+
+    counters = {"raster_fwd": (rasterize_tiles, "launches"),
+                "raster_bwd": (rasterize_tiles_backward, "launches"),
+                "scatter_rows": (scatter_runs, "launches"),
+                "fold": (fold_pairs, "launches")}
+    msgs, launches = [], 0
+    for label, rc in (("3DGUT", b_args[6]), ("3DGRT", grt_raster_config())):
+        out_f, g_f = step(rc, True)
+        out_d, g_d = step(rc, False)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(out_f, out_d))
+        if label == "3DGUT":
+            same &= all(torch.equal(out_f[i], fwd[i]) for i in range(4))
+        x, y = g_f.double().flatten(), g_d.double().flatten()
+        cos = float(x @ y / (x.norm() * y.norm()).clamp(min=1e-300))
+        err = float((g_f - g_d).abs().max())
+        scale = float(g_d.abs().max())
+        if not (same and cos >= TABLE_COS and err <= TABLE_TOL * scale):
+            raise AssertionError(
+                f"{label} table route vs D route: images equal {same}, "
+                f"cosine {cos:.9f}, max |d| {err:.3g} of {scale:.3g}")
+        # the route's run: counters set to 0 after a warm-up step
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            step(rc, True)
+        torch.cuda.synchronize()
+        table_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        want = {k: (0 if k == "fold" else TRAIN_STEPS) for k in counters}
+        if got != want:
+            raise AssertionError(f"{label} table route launches {got}, "
+                                 f"expected {want}")
+        fold_ms = host_ms(lambda: step(rc, False), TRAIN_STEPS)
+        if label == "3DGUT":
+            launches = got["scatter_rows"]
+        msgs.append(f"{label}: images equal, table gradient cosine "
+                    f"{cos:.9f}, max |d| {err:.3g} of {scale:.3g}; "
+                    f"{table_ms:.3f} ms/step (D route {fold_ms:.3f}) host "
+                    f"clock over {TRAIN_STEPS} steps; launches {got}")
+    phase("table route", f"rasterize_tiles_table forward and backward at "
+          f"{SIDE}x{SIDE}, 100k, SH 3: " + "; ".join(msgs))
+    return launches
+
+
+def expand_phase(dev, v, s):
+    """Phase 39: kernel G equal to its plain version at the bench view's
+    two shapes of the JAX package: the pair expansion (each depth rank's
+    16-float row onto its pair slots, the view's slot count) and the tile
+    expansion of aligned segments (binning.py:_align_segments' 3 columns
+    onto each tile's 128-aligned interval, over the same length); ms
+    beside a searchsorted + index_select version; the two calls' launches.
+    Returns (the pair expansion's report entry, launches)."""
+    from threedgrut_tpu_torch.ops.cuda.expand import (
+        expand_sorted_rows, expand_sorted_rows_plain)
+
+    length = s.total
+    with torch.no_grad():
+        pair = (v.table.detach()[s.order.to(torch.int64)].contiguous(),
+                s.excl, (s.excl + s.counts).to(torch.int32), length)
+        # tile t's raw pairs [raw_t, raw_t + count_t) re-based to the
+        # 128-aligned slot astart_t, clamped to the buffer
+        raw = v.binning.tile_start.to(torch.int64)
+        count = raw[1:] - raw[:-1]
+        astart = torch.cat([raw.new_zeros(1), torch.cumsum(
+            (count + 127) // 128 * 128, 0)]).clamp(max=length)
+        vis = torch.minimum(count, length - astart[:-1])
+        tile = (torch.stack([raw[:-1] - astart[:-1], raw[:-1] + vis,
+                             torch.ones_like(vis)], 1).to(torch.float32),
+                astart[:-1].to(torch.int32), astart[1:].to(torch.int32),
+                length)
+        slot = torch.arange(length, dtype=torch.int32, device=dev)
+
+        def library(rows, starts, ends, n):
+            src = torch.searchsorted(starts, slot, right=True) - 1
+            ok = (src >= 0) & (slot < ends[src.clamp(min=0)])
+            padded = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+            return padded.index_select(
+                0, torch.where(ok, src, rows.shape[0]))
+
+        msgs, entry = [], None
+        for label, args in (("pair", pair), ("tile", tile)):
+            got = expand_sorted_rows(*args)
+            ref = expand_sorted_rows_plain(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, ref) and torch.equal(got,
+                                                          library(*args))):
+                raise AssertionError(f"kernel G ({label} expansion) differs "
+                                     f"from plain at "
+                                     f"{int((got != ref).sum())} values")
+            ms = cuda_ms(lambda: expand_sorted_rows(*args), 20)
+            plain_ms = cuda_ms(lambda: expand_sorted_rows_plain(*args), 5)
+            lib_ms = cuda_ms(lambda: library(*args), 20)
+            # the bounds, the rows of non-empty intervals, the output
+            rows, starts, ends = args[:3]
+            b = bound(nbytes(starts, ends, got)
+                      + int((ends > starts).sum()) * rows.shape[1]
+                      * rows.element_size(), 0)
+            msgs.append(f"{label}s: {args[0].shape[0]} intervals x "
+                        f"{args[0].shape[1]} onto {length} slots equal to "
+                        f"plain; {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        f"searchsorted + index_select {lib_ms:.4f} ms, "
+                        f"bound {b[0]:.4f} ms ({b[1]})")
+            if entry is None:
+                entry = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                             **bound_keys(b, library_ms=lib_ms))
+        expand_sorted_rows.launches = 0
+        expand_sorted_rows(*pair)
+        expand_sorted_rows(*tile)
+        torch.cuda.synchronize()
+        launches = expand_sorted_rows.launches
+    phase("kernel G", "; ".join(msgs) + f"; the two expansions launch "
+          f"{launches}")
+    return entry, launches
+
+
+def fill_phase(dev):
+    """Phase 40: kernel H equal to its plain versions at fill.py's stated
+    size (FILL_SLOTS x FILL_WIDTH, FILL_MARKS marks): forward_fill, and
+    segmented_fill_rows with slots shared by several rows and slots out
+    of range; ms beside torch.cummax + a gather; the two calls' launches.
+    Returns (forward_fill's report entry, launches)."""
+    from threedgrut_tpu_torch.ops.cuda.fill import (
+        forward_fill, forward_fill_plain, segmented_fill_rows,
+        segmented_fill_rows_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+    n, d = FILL_SLOTS, FILL_WIDTH
+    with torch.no_grad():
+        vals = torch.randn((n, d), generator=gen, device=dev)
+        pos = torch.randperm(n, generator=gen, device=dev)[:FILL_MARKS]
+        marked = torch.zeros(n, dtype=torch.bool, device=dev)
+        marked[pos] = True
+        row_vals = torch.randn((FILL_MARKS, d), generator=gen, device=dev)
+        slots = pos.to(torch.int32)
+        slots[:1000] = slots[1000:2000]          # shared slots
+        slots[-100:] += n                        # dropped
+        ff = (vals, marked)
+        rows = (row_vals, slots, n)
+        got, got_rows = forward_fill(*ff), segmented_fill_rows(*rows)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, forward_fill_plain(*ff))
+                and torch.equal(got_rows, segmented_fill_rows_plain(*rows))):
+            raise AssertionError("kernel H differs from its plain versions")
+        last_pos = torch.where(marked, torch.arange(n, device=dev),
+                               torch.full((n,), -1, device=dev))
+        padded = torch.cat([vals, vals.new_zeros((1, d))])
+
+        def library():
+            last = torch.cummax(last_pos, 0).values
+            return padded.index_select(0, torch.where(last >= 0, last, n))
+
+        if not torch.equal(got, library()):
+            raise AssertionError("kernel H differs from cummax + gather")
+        ms = cuda_ms(lambda: forward_fill(*ff), 20)
+        plain_ms = cuda_ms(lambda: forward_fill_plain(*ff), 5)
+        lib_ms = cuda_ms(library, 20)
+        rows_ms = cuda_ms(lambda: segmented_fill_rows(*rows), 20)
+        rows_plain_ms = cuda_ms(lambda: segmented_fill_rows_plain(*rows), 5)
+        # the marks, each marked slot's row, the output
+        b = bound(nbytes(marked, got)
+                  + int(marked.sum()) * d * vals.element_size(), 0)
+        forward_fill.launches = 0
+        forward_fill(*ff)
+        segmented_fill_rows(*rows)
+        torch.cuda.synchronize()
+        launches = forward_fill.launches
+    phase("kernel H", f"forward_fill {n} x {d}, {FILL_MARKS} marks: equal "
+          f"to plain and to cummax + gather; {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, cummax + gather {lib_ms:.4f} ms, bound "
+          f"{b[0]:.4f} ms ({b[1]}); segmented_fill_rows of {FILL_MARKS} rows "
+          f"(1000 slots shared, 100 dropped): equal to plain, {rows_ms:.4f} "
+          f"ms, plain {rows_plain_ms:.4f} ms; the two calls launch "
+          f"{launches}")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                **bound_keys(b, library_ms=lib_ms)), launches
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2267,6 +2570,12 @@ def main():
     report.update(trace_report)
     launches.update(trace_launches)
     launches.update(playground_phase(dev))
+
+    # 37-40. kernels F, G and H, and the table route
+    report["scatter_rows"] = scatter_phase(dev, v, c_args)
+    launches["scatter_rows"] = table_route_phase(dev, v, b_args, c_args, fwd)
+    report["expand_rows"], launches["expand_rows"] = expand_phase(dev, v, s)
+    report["fill"], launches["fill"] = fill_phase(dev)
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches.get(k, 0), **report[k])

@@ -6,17 +6,26 @@ none) runs it without the repository's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
 from threedgrut_tpu_torch.ops import binning as t_bin
 from threedgrut_tpu_torch.ops.cameras import make_pinhole
-from threedgrut_tpu_torch.ops.cuda.expand import (expand_decode_pairs,
-                                                  expand_decode_pairs_plain)
+from threedgrut_tpu_torch.ops.cuda.expand import (
+    expand_decode_pairs, expand_decode_pairs_plain, expand_sorted_rows,
+    expand_sorted_rows_plain)
+from threedgrut_tpu_torch.ops.cuda.fill import (forward_fill,
+                                                forward_fill_plain,
+                                                segmented_fill_rows,
+                                                segmented_fill_rows_plain)
 from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs, fold_pairs_plain
 from threedgrut_tpu_torch.ops.cuda.raster import (
-    rasterize_tiles, rasterize_tiles_backward, rasterize_tiles_backward_plain,
-    rasterize_tiles_forward, rasterize_tiles_plain)
+    FoldMeta, rasterize_tiles, rasterize_tiles_backward,
+    rasterize_tiles_backward_plain, rasterize_tiles_forward,
+    rasterize_tiles_plain, rasterize_tiles_table)
+from threedgrut_tpu_torch.ops.cuda.scatter import (
+    scatter_accumulate_rows, scatter_accumulate_rows_plain, scatter_runs)
 from threedgrut_tpu_torch.ops.cuda.wmax import (pair_weight_max,
                                                 pair_weight_max_plain)
 from threedgrut_tpu_torch.render.common import RasterConfig
@@ -624,3 +633,128 @@ def test_normals_raster_fwd_matches_plain(cuda, mode):
     for i in (0, 1):           # features, opacity
         torch.testing.assert_close(got[i], ref[i], atol=1e-4, rtol=0)
     torch.testing.assert_close(got[5], ref[5], atol=3e-4, rtol=0)
+
+
+# kernels F, G and H, and the table-gradient raster route (B, C, F)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [16, 11, 3])
+def test_scatter_rows_matches_plain_and_sequential(cuda, width):
+    """Kernel F against its float64 plain version (1e-6 of max), bit for
+    bit against a sequential fp32 sum in pair order (np.add.at), and
+    bitwise repeatable."""
+    rng = np.random.default_rng(width)
+    p, n_rows = 50_000, 4_000
+    rows = rng.normal(size=(p, width)).astype(np.float32)
+    ids = rng.integers(0, n_rows, p).astype(np.int32)
+    ids[:300] = 7                  # one long run
+    d, i = torch.from_numpy(rows).to(cuda), torch.from_numpy(ids).to(cuda)
+    before = scatter_runs.launches
+    got = scatter_accumulate_rows(d, i, n_rows)
+    again = scatter_accumulate_rows(d, i, n_rows)
+    assert scatter_runs.launches == before + 2
+    ref = scatter_accumulate_rows_plain(d, i, n_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ref, atol=1e-6 * float(ref.abs().max()),
+                               rtol=0)
+    seq = np.zeros((n_rows, width), np.float32)
+    np.add.at(seq, ids, rows)
+    assert torch.equal(got.cpu(), torch.from_numpy(seq))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["3dgut", "grt"])
+def test_table_route_matches_fold_route(cuda, mode):
+    """rasterize_tiles_table (B, C, then F) against rasterize_tiles (B, C,
+    then D) on the card: the same image, table gradients within 1e-5 of
+    max; F launched once and D never on the table route."""
+    rc = RC if mode == "3dgut" else SORTED["grt"]
+    v = _view(cuda, rc=rc)
+    b = v.binning
+    g_feat, g_opac, g_dep = _upstream(v)
+    grads, outs = [], []
+    for table_route in (True, False):
+        t = v.table.detach().clone().requires_grad_(True)
+        before = (scatter_runs.launches, fold_pairs.launches)
+        args = (t, b.pair_particle, b.tile_start, v.ray_d, v.tmin, v.tmax, rc)
+        out = (rasterize_tiles_table(*args) if table_route else
+               rasterize_tiles(*args, FoldMeta(b.perm, b.order, b.excl,
+                                               b.counts, b.limit)))
+        ((out[0] * g_feat).sum() + (out[1] * g_opac).sum()
+         + (out[2] * g_dep).sum()).backward()
+        step = (1, 0) if table_route else (0, 1)
+        assert (scatter_runs.launches - before[0],
+                fold_pairs.launches - before[1]) == step
+        grads.append(t.grad)
+        outs.append(out)
+    torch.cuda.synchronize()
+    for a, c in zip(*outs):
+        assert torch.equal(a, c)
+    scale = float(grads[1].abs().max())
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-5 * scale, rtol=0)
+
+
+def _intervals(counts, length, device):
+    offsets = torch.cumsum(counts, 0)
+    starts = torch.clamp(offsets - counts, max=length).to(torch.int32)
+    ends = torch.clamp(offsets, max=length).to(torch.int32)
+    return starts.to(device), ends.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["pairs", "tiles"])
+def test_expand_rows_matches_plain(cuda, shape):
+    """Kernel G equal to its plain version: many short intervals (the pair
+    expansion's shape, 16 wide, with ids up to 2^24 and a denormal) and
+    few long ones (the tile intervals', 3 wide), the last cut by the
+    buffer."""
+    g = torch.Generator().manual_seed(5)
+    k, d, hi = (20_000, 16, 12) if shape == "pairs" else (600, 3, 400)
+    counts = torch.randint(0, hi, (k,), generator=g)
+    length = int(counts.sum()) - 50
+    rows = torch.randn((k, d), generator=g)
+    rows[:, 0] = torch.randint(0, 1 << 24, (k,), generator=g).float()
+    rows[0, 1] = 1e-40
+    starts, ends = _intervals(counts, length, cuda)
+    rows = rows.to(cuda)
+    before = expand_sorted_rows.launches
+    got = expand_sorted_rows(rows, starts, ends, length)
+    assert expand_sorted_rows.launches == before + 1
+    ref = expand_sorted_rows_plain(rows, starts, ends, length)
+    torch.cuda.synchronize()
+    assert got.shape == (length, d)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_fill_matches_plain(cuda):
+    """Kernel H equal to its plain versions: forward_fill over blocks whose
+    carry spans several empty blocks, and segmented_fill_rows with slots
+    shared by several rows (the last in input order wins) and slots past
+    the end; a negative slot raises."""
+    g = torch.Generator().manual_seed(6)
+    length, d = 300_001, 7
+    vals = torch.randn((length, d), generator=g).to(cuda)
+    marked = torch.rand(length, generator=g) < 1e-4
+    marked[50_000:120_000] = False
+    marked = marked.to(cuda)
+    n = 5_000
+    slots = torch.randint(0, length + 10, (n,), generator=g,
+                          dtype=torch.int32)
+    slots[100:200] = 77            # one slot, many rows
+    row_vals = torch.randn((n, d), generator=g).to(cuda)
+    slots = slots.to(cuda)
+    before = forward_fill.launches
+    got = forward_fill(vals, marked)
+    got_rows = segmented_fill_rows(row_vals, slots, length)
+    assert forward_fill.launches == before + 2
+    ref = forward_fill_plain(vals, marked)
+    ref_rows = segmented_fill_rows_plain(row_vals, slots, length)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(got_rows, ref_rows)
+    assert torch.equal(got_rows[77], row_vals[199])
+    slots[0] = -1
+    with pytest.raises(ValueError, match="negative slot"):
+        segmented_fill_rows(row_vals, slots, length)

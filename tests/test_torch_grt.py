@@ -597,6 +597,31 @@ def test_trainer_config_matches_jax_loader(mode, capsys):
     assert t0.gs.prune_weight_threshold == 0.5
 
 
+@pytest.mark.parametrize("knobs", [("aligned_segments",),
+                                   ("aligned_segments", "flat_grid")])
+def test_trainer_config_names_tpu_layouts(knobs, capsys):
+    """render.aligned_segments (which config/loader.py maps) and flat_grid
+    lay out the same image for the TPU: trainer_config names them on
+    stderr, in one line, and composes the render it composes without
+    them."""
+    sys.path.insert(0, REPO)
+    import train_torch
+
+    name = CONFIG_NAMES["grt"]
+    base = train_torch.trainer_config(load_config(name,
+                                                  overrides=["path=/n"]))
+    capsys.readouterr()
+    conf = load_config(name, overrides=["path=/n"] + [
+        f"render.{k}=true" for k in knobs])
+    assert to_trainer_config(conf).raster.aligned_segments is True
+    t = train_torch.trainer_config(conf)
+    assert t.raster == base.raster
+    err = [line for line in capsys.readouterr().err.splitlines()
+           if "TPU layouts" in line]
+    assert len(err) == 1
+    assert all(f"render.{k}" in err[0] for k in knobs)
+
+
 def test_grt_trainer_prunes_by_weight():
     """A few Trainer steps with the 3DGRT settings and weight pruning on:
     telemetry every step, a prune at step 4 that drops exactly the

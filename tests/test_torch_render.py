@@ -260,7 +260,9 @@ def test_port_imports_no_jax():
     assert len(_port_modules()) > 30
     assert {"threedgrut_tpu_torch.strategy.mcmc",
             "threedgrut_tpu_torch.models.nht_decoder",
-            "threedgrut_tpu_torch.models.features"} <= set(_port_modules())
+            "threedgrut_tpu_torch.models.features",
+            "threedgrut_tpu_torch.ops.cuda.scatter",
+            "threedgrut_tpu_torch.ops.cuda.fill"} <= set(_port_modules())
 
 
 def _imports_of_jax_package(path):
@@ -306,6 +308,8 @@ def test_port_sources_import_nothing_of_the_jax_package():
             os.path.join("threedgrut_tpu_torch", "models", "features.py"),
             os.path.join("scripts", "bench_train_torch.py"),
             os.path.join("threedgrut_tpu_torch", "playground", "engine.py"),
+            os.path.join("threedgrut_tpu_torch", "ops", "cuda", "scatter.py"),
+            os.path.join("threedgrut_tpu_torch", "ops", "cuda", "fill.py"),
             "playground_torch.py"} <= rel
     bad = {os.path.relpath(p, REPO): _imports_of_jax_package(p)
            for p in paths}

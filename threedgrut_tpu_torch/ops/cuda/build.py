@@ -33,7 +33,8 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # version's too, instead of flipping one ~1/255 contribution on tens of
 # pixels per view. raster_bwd shares raster_fwd's hit math
 # (common.cuh:eval_hit) and must take the same decisions, as must wmax;
-# fold only adds.
+# fold only adds. The kernels not named here (scatter_rows, expand_rows,
+# fill) only add or copy and take no extra flags.
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "bin_decode": ["-fmad=false"],
     "raster_fwd": ["-fmad=false"],
@@ -57,7 +58,7 @@ def nvcc_path() -> str:
 
 
 def _flags(name: str) -> List[str]:
-    return ARCH + BASE_FLAGS + EXTRA_FLAGS[name]
+    return ARCH + BASE_FLAGS + EXTRA_FLAGS.get(name, [])
 
 
 def library_path(name: str) -> Path:

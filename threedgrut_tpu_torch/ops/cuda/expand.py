@@ -1,10 +1,20 @@
-"""Kernel A wrapper: tile-pair expansion + decode + conic cull.
+"""Kernel A and G wrappers: the tile-pair expansion with its decode and
+conic cull, and the sorted-interval row expansion.
 
-Replaces threedgrut_tpu/ops/pallas/expand.py:_bin_decode_kernel (through
-``expand_decode_pairs``). The CUDA kernel is ``csrc/bin_decode.cu``; its
-header says what bounds it and how it is laid out. On a CPU tensor the
-wrapper runs ``expand_decode_pairs_plain``, the same function in plain
-PyTorch, whose integer outputs the kernel reproduces exactly.
+Kernel A (``csrc/bin_decode.cu``) replaces
+threedgrut_tpu/ops/pallas/expand.py:_bin_decode_kernel (through
+``expand_decode_pairs``). On a CPU tensor the wrapper runs
+``expand_decode_pairs_plain``, the same function in plain PyTorch, whose
+integer outputs the kernel reproduces exactly.
+
+Kernel G (``csrc/expand_rows.cu``) replaces expand.py:_expand_kernel
+(through ``expand_sorted_rows``): each output slot takes the row of the
+interval that holds it, as a standalone op; no render path of the port
+calls it (JAX reaches it only under its ``aligned_segments`` knob). It
+shares nothing with kernel A. On a CPU tensor the wrapper runs
+``expand_sorted_rows_plain``, which it equals bit for bit.
+
+The kernels' headers say what bounds them and how they are laid out.
 """
 
 from __future__ import annotations
@@ -98,3 +108,66 @@ def expand_decode_pairs_plain(rows, order, excl, counts, limit, grid,
     pair_tile = torch.where(keep, ty * gx + tx,
                             torch.full_like(tx, gx * gy)).to(torch.int32)
     return pair_tile, particle.to(torch.int32)
+
+
+def expand_sorted_rows(rows: torch.Tensor, starts: torch.Tensor,
+                       ends: torch.Tensor, length: int) -> torch.Tensor:
+    """``out[l] = rows[k]`` for the interval ``[starts[k], ends[k])`` that
+    holds slot l, 0 where none does.
+
+    Args:
+        rows: [K, D] f32 source rows.
+        starts, ends: [K] i32 sorted, disjoint intervals: both
+            non-decreasing, ``starts[k] <= ends[k] <= starts[k + 1]``
+            (empty intervals allowed), as an exclusive scan of counts and
+            its clamp to the buffer give them.
+        length: output slots.
+
+    Returns [length, D] f32. Values are copied exactly.
+    """
+    k, d = rows.shape
+    dev = rows.device
+    build.check_tensor("rows", rows, torch.float32, (k, d), dev)
+    build.check_tensor("starts", starts, torch.int32, (k,), dev)
+    build.check_tensor("ends", ends, torch.int32, (k,), dev)
+    if d < 1:
+        raise ValueError("rows: at least one column")
+    if dev.type == "cpu":
+        return expand_sorted_rows_plain(rows, starts, ends, length)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty((length, d), dtype=torch.float32, device=dev)
+    lib = _lib_g()
+    err = lib.expand_rows_launch(
+        rows.data_ptr(), starts.data_ptr(), ends.data_ptr(), k, d, length,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch("expand_rows", err, lib)
+    expand_sorted_rows.launches += 1
+    return out
+
+
+expand_sorted_rows.launches = 0
+
+
+def _lib_g() -> ctypes.CDLL:
+    lib = build.load("expand_rows")
+    fn = lib.expand_rows_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, i, p, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def expand_sorted_rows_plain(rows, starts, ends, length):
+    """Plain PyTorch version of ``expand_sorted_rows``: each slot's
+    interval by a ``searchsorted`` of ``starts`` (the last k with
+    starts[k] <= l, if l < ends[k]), then a gather."""
+    if rows.shape[0] == 0:
+        return rows.new_zeros((length, rows.shape[1]))
+    slot = torch.arange(length, dtype=torch.int32, device=rows.device)
+    src = torch.searchsorted(starts, slot, right=True).to(torch.int64) - 1
+    src = src.clamp(min=0)
+    covered = (slot >= starts[src]) & (slot < ends[src])
+    out = rows[src]
+    return torch.where(covered[:, None], out, torch.zeros_like(out))

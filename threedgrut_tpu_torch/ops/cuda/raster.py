@@ -50,6 +50,18 @@ mode.
 ``rasterize_tiles`` custom_vjp, raster.py:2477-2519): its backward runs
 kernel C, then kernel D (``ops/cuda/fold.py``) to fold the per-pair
 gradients into the table. Rays, t-ranges and the binning get none.
+``rasterize_tiles_table`` (JAX's table-gradient variant,
+raster.py:2526-2572) computes the same forward and gradient, but its
+backward sums kernel C's rows by particle id with kernel F
+(``ops/cuda/scatter.py``) instead of D's depth-rank fold, so it needs no
+FoldMeta. No render path of the port takes it, as none of JAX's does
+(render/gut.py:268).
+
+Kernels B and C also serve the TPU's flat-grid kernels
+(raster.py:_fwd_flat_kernel, _bwd_flat_kernel): those compute the same
+function on another schedule, one grid step per (tile, chunk) visit with
+the compositing state carried in VMEM between a tile's visits, and B and
+C already walk each tile's pairs in order inside one block.
 """
 
 from __future__ import annotations
@@ -64,6 +76,7 @@ from ..hit import _GG_SCALE, nht_hit_features, particle_response
 from ..ut import TILE_PIXELS, TILE_X, TILE_Y
 from . import build
 from .fold import fold_pairs
+from .scatter import scatter_accumulate_rows
 
 # a = M(o - p) (general mode: p) (3), M = diag(1/s) R^T (9), density, rgb(3)
 RECORD_DIM = 16
@@ -224,10 +237,18 @@ def rasterize_tiles(table: torch.Tensor, pair_particle: torch.Tensor,
     hits [H,W,1]), all f32, F = 3 or 24 (NHT); hits carries no gradient.
     With ``cfg.enable_normals`` a fifth, normals [H,W,3], no gradient.
     """
+    if fold is None and torch.is_grad_enabled() and table.requires_grad:
+        raise ValueError("table requires grad: pass the binning's "
+                         "FoldMeta, which the backward needs")
+    return _rasterize(table, pair_particle, tile_start, ray_d, tmin, tmax,
+                      cfg, fold, ray_o, shared)
+
+
+def _rasterize(table, pair_particle, tile_start, ray_d, tmin, tmax, cfg,
+               fold, ray_o, shared):
+    """``_Rasterize`` where ``table`` takes a gradient, else kernel B
+    alone; the outputs without t_final."""
     if torch.is_grad_enabled() and table.requires_grad:
-        if fold is None:
-            raise ValueError("table requires grad: pass the binning's "
-                             "FoldMeta, which the backward needs")
         out = _Rasterize.apply(table, pair_particle, tile_start, ray_d,
                                tmin, tmax, cfg, fold, ray_o, shared)
     else:
@@ -386,7 +407,9 @@ def _tile_row_groups(h, w, n_seg, width):
 class _Rasterize(torch.autograd.Function):
     """Kernel B forward; kernel C then kernel D backward, giving the
     gradient of ``table`` only (raster.py:_rasterize_fwd/_rasterize_bwd
-    with render/gut.py:_grf_bwd)."""
+    with render/gut.py:_grf_bwd). With no ``fold``, the table route:
+    kernel C then kernel F by ``pair_particle``
+    (raster.py:_rasterize_table_bwd)."""
 
     @staticmethod
     def forward(ctx, table, pair_particle, tile_start, ray_d, tmin, tmax,
@@ -419,8 +442,12 @@ class _Rasterize(torch.autograd.Function):
             d_records = rasterize_tiles_backward(
                 table, pair_particle, tile_start, ray_d, tmin, tmax, feat,
                 depth, t_final, *ups, ctx.cfg, ray_o)
-            d_table = fold_pairs(d_records, f.perm, f.order, f.excl,
-                                 f.counts, f.limit, table.shape[0])
+            if f is None:
+                d_table = scatter_accumulate_rows(d_records, pair_particle,
+                                                  table.shape[0])
+            else:
+                d_table = fold_pairs(d_records, f.perm, f.order, f.excl,
+                                     f.counts, f.limit, table.shape[0])
             return (d_table,) + (None,) * 9
         # shared segment: the tiles' gradient rows fold in groups of tile
         # rows, summed in group order
@@ -439,6 +466,28 @@ class _Rasterize(torch.autograd.Function):
                               g.limit, table.shape[0])
             d_table = part if d_table is None else d_table + part
         return (d_table,) + (None,) * 9
+
+
+def rasterize_tiles_table(table: torch.Tensor, pair_particle: torch.Tensor,
+                          tile_start: torch.Tensor, ray_d: torch.Tensor,
+                          tmin: torch.Tensor, tmax: torch.Tensor, cfg,
+                          ray_o: Optional[torch.Tensor] = None):
+    """``rasterize_tiles`` whose table gradient is a sum of the per-pair
+    gradients by particle id (raster.py:rasterize_tiles_table): forward
+    kernel B; backward kernel C, then kernel F on ``pair_particle``.
+
+    Takes the 16-wide records only (degrees 2 and 4, global-Z order or
+    windows, shared or per-pixel origins); NHT records raise, as kernel F
+    takes at most 16 floats. Pairs past the last tile (culled) reach F
+    with a zero gradient and their own, valid particle id, as JAX zeroes
+    the chunks past the last segment before its scatter
+    (raster.py:2559-2566). Returns what ``rasterize_tiles`` returns."""
+    if table.ndim != 2 or table.shape[1] != RECORD_DIM:
+        raise ValueError(f"table {tuple(table.shape)}: the table route takes "
+                         f"{RECORD_DIM}-float records (NHT folds with kernel "
+                         "D through rasterize_tiles)")
+    return _rasterize(table, pair_particle, tile_start, ray_d, tmin, tmax,
+                      cfg, None, ray_o, False)
 
 
 _SIGNATURES = {

@@ -24,7 +24,9 @@ relaxed kill, configs/render/3dgrt.yaml and 3dgut.yaml), trainer_config
 says so on stderr and composes the exact kill. Likewise bf16 records
 (``records_bf16``, or ``particle_feature_half`` where the former is
 unset, as the JAX loader reads them): the port keeps fp32 records and
-says so. The port sizes its pair buffer per view
+says so, as it does for the TPU's segment layouts
+(``aligned_segments``, ``flat_grid``), which change no image. The port
+sizes its pair buffer per view
 (``max_pairs`` and ``auto_max_pairs`` are ignored). It overwrites
 ``ckpt_periodic.npz`` every ``checkpoint.frequency`` steps, as train.py
 does. Keys that train.py acts on and the port does not port yet stop it
@@ -135,6 +137,16 @@ def trainer_config(conf):
         print("render.records_bf16 (or particle_feature_half) asks for bf16 "
               "records, a TPU knob: the port keeps fp32 records",
               file=sys.stderr)
+    # config/loader.py:318 maps aligned_segments; flat_grid is a
+    # RasterConfig knob no YAML sets. Both lay out the same image for the
+    # TPU: segments padded to chunk boundaries in the pair budget, a grid
+    # step per (tile, chunk) visit
+    layouts = [k for k in ("aligned_segments", "flat_grid")
+               if render.get(k, False)]
+    if layouts:
+        print(f"render.{' and render.'.join(layouts)}: TPU layouts of the "
+              "same image; the port composites each tile's pairs in one "
+              "block and trains as before", file=sys.stderr)
     d, p, r = (strat.get(k, {}) for k in ("densify", "prune",
                                            "reset_density"))
     decay, pscale, pweight = (strat.get(k, {}) for k in (

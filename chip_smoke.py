@@ -116,8 +116,11 @@ MCMC strategy:
    tolerances, kill flips counted as in phase 19.
 27. NHT kernel C and 64-wide D vs plain - C at both degrees: cosine
    >= 0.9999 and relative L2 <= 1e-3 per field group (p, M, density, the
-   48 features), two runs bitwise equal; D on C's output within 1e-5 of
-   max, two runs bitwise equal, beside index_add_.
+   48 features), two runs bitwise equal, the padding fields zero; its
+   registers, local and shared bytes (cudaFuncGetAttributes); its sine
+   and cosine within 1e-6 of float64 on 6M arguments of the fast path's
+   range (|x| <= 2^20) and 1M past it; D on C's output
+   within 1e-5 of max, two runs bitwise equal, beside index_add_.
 28. NHT gradients vs JAX - render_gut's gradients of the five leaves
    against tests/fixtures/torch_port_nht_grad_small.npz: phase 10's
    tolerances.
@@ -176,13 +179,19 @@ serving launch none of them:
 37. kernel F vs plain - the row scatter on the 800x800 bench view's own
    pairs (kernel C's rows for phase 8's upstream gradients, by
    pair_particle, onto the 100k-row table): within 1e-6 of max of the
-   float64 plain version, two runs bitwise equal; ms with its sort and
-   the kernel alone, beside index_add_.
+   float64 plain version, two runs bitwise equal and equal to F on the
+   runs of a stable sort; ms with its set-up (a counting sort), of the
+   set-up and of the kernel alone, beside index_add_, and the device
+   time alone of F with its set-up, of the set-up and of index_add_
+   (torch.profiler), and the share of runs the set-up leaves out of pair
+   order;
+   its kernels' registers, local and shared bytes.
 38. table route - the bench view's raster forward and backward through
    rasterize_tiles_table in the 3DGUT and the 3DGRT (degree 4, W 16)
    setting: its image equal to the D route's, its table gradient within
    1e-5 of max and cosine >= 0.9999999 of the D route's; 20 steps launch
-   B, C and F 20 times each and D never; host ms per step of both routes.
+   B, C, F and F's set-up 20 times each and D never; host ms per step of
+   both routes.
 39. kernel G vs plain - the interval expansion equal bit for bit at the
    view's two shapes: the pair expansion (100k depth-ranked rows x 16 onto
    the view's pair slots) and the tile expansion of aligned segments
@@ -197,7 +206,8 @@ B and C of each setting from phase 17, E from phase 18, the general
 kernels from phases 23-24, the NHT kernels from phase 29, kernel 7's B,
 C and D from phase 32, W 128 C from phase 33, normals B from phase 34,
 W 128 B from the playground frame of phase 36, F from the table route's
-3DGUT steps in phase 38, G and H from the two calls of phases 39 and 40),
+3DGUT steps in phase 38, with its set-up's as setup_launches, G and H
+from the two calls of phases 39 and 40),
 error and times (phases 3, 4, 8, 9, 13-15, 19-21, 26-27, 31-34, 37, 39,
 40), its bound (the larger
 of the fp32 operations over 67 TFLOP/s and the bytes it must read and
@@ -207,7 +217,8 @@ test on every (pair, pixel) of the tiles and the response of each
 candidate the plain forward composited, for NHT also its features at
 each such candidate) and, for kernels D and F, the time of index_add_,
 for G that of searchsorted + index_select, for H that of cummax + a
-gather; the
+gather; for C's NHT mode and F also the kernels' resources, C's sine
+error, F's set-up and kernel times apart; the
 card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX. Needs one card; there is no CPU fallback.
@@ -461,6 +472,51 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Device time per call of fn(): the device time of the kernels it
+    launches over reps calls (torch.profiler), after one warm-up; unlike
+    cuda_ms it leaves out the host's enqueueing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / reps / 1e3
+
+
+def seeded_upstream(dev, h, w, channels, seed):
+    """Seeded standard-normal upstream gradients [h, w, c], one for each c
+    of channels (phase 8: (3, 1, 1) from seed 7; phase 27: (24, 1, 1) from
+    seed 26)."""
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=(h, w, c)).astype(np.float32),
+                         device=dev) for c in channels]
+
+
+def view_inputs(cam, ut_cfg, rc, model, sh_degree, upstream):
+    """(view, B's arguments, B's outputs, C's arguments) of one view, as
+    phases 3, 4 and 8 (and, for NHT, 26 and 27) take them: B on the view's
+    pairs, C on B's outputs and the given upstream gradients."""
+    from threedgrut_tpu_torch.ops.cuda.raster import rasterize_tiles_forward
+    from threedgrut_tpu_torch.render.gut import prepare_view
+
+    with torch.no_grad():
+        v = prepare_view(cam, ut_cfg, rc, model, sh_degree)
+        b_args = (v.table, v.binning.pair_particle, v.binning.tile_start,
+                  v.ray_d, v.tmin, v.tmax, rc)
+        if v.ray_o is not None:
+            b_args += (v.ray_o,)
+        fwd = rasterize_tiles_forward(*b_args)
+    c_args = b_args[:6] + (fwd[0], fwd[2], fwd[4], *upstream) + b_args[6:]
+    return v, b_args, fwd, c_args
 
 
 def fixture_model(f, dev):
@@ -1229,6 +1285,10 @@ NHT_NAMES = ("positions", "rotation", "scale", "density", "features")
 NHT_CONFIGS = {"3DGUT": ("", "apps/nerf_synthetic_3dgut_mcmc_nht"),
                "3DGRT": ("_grt", "apps/nerf_synthetic_3dgrt_mcmc_nht")}
 # the NHT record's gradient field groups (p, M, density, 48 features)
+# kernel C's NHT sine and cosine against float64 (raster_bwd.cu:
+# sincos_fast: CUDA states 3.6e-7 for the SFU on [-pi, pi], the
+# reduction adds up to 1.2e-7)
+NHT_SINCOS_TOL = 1e-6
 NHT_GROUPS = {"p": slice(0, 3), "M": slice(3, 12), "density": slice(12, 13),
               "features": slice(13, 61)}
 
@@ -1253,28 +1313,26 @@ def nht_kernel_phases(dev, ut_cfg, cam):
     entries."""
     from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs, fold_pairs_plain
     from threedgrut_tpu_torch.ops.cuda.raster import (
-        rasterize_tiles_backward, rasterize_tiles_backward_plain,
-        rasterize_tiles_forward, rasterize_tiles_plain)
-    from threedgrut_tpu_torch.render.gut import prepare_view
+        nht_kernel_attributes, rasterize_tiles_backward,
+        rasterize_tiles_backward_plain, rasterize_tiles_forward,
+        rasterize_tiles_plain)
     from threedgrut_tpu_torch.synthetic import nht_cloud
 
+    sin_err = nht_sincos_error(dev)
+    attrs = nht_kernel_attributes()
     model = nht_cloud(100_000, seed=0, device=dev)
     w, h = cam.resolution
-    rng = np.random.default_rng(26)
-    upstream = [torch.tensor(rng.normal(size=(h, w, c)).astype(np.float32),
-                             device=dev) for c in (24, 1, 1)]
+    upstream = seeded_upstream(dev, h, w, (24, 1, 1), 26)
     report, msg_b, msg_c = {}, [], []
     for label, rc in nht_settings().items():
         suffix = NHT_CONFIGS[label][0]
+        v, args, got, c_args = view_inputs(cam, ut_cfg, rc, model, 0,
+                                           upstream)
+        if v.ray_o is None or v.table.shape[1] != 64:
+            raise AssertionError("NHT took the shared-origin mode")
+        vb = v.binning
         with torch.no_grad():
-            v = prepare_view(cam, ut_cfg, rc, model, 0)
-            if v.ray_o is None or v.table.shape[1] != 64:
-                raise AssertionError("NHT took the shared-origin mode")
-            vb = v.binning
-            args = (v.table, vb.pair_particle, vb.tile_start, v.ray_d,
-                    v.tmin, v.tmax, rc, v.ray_o)
             # 26. NHT B; kill flips as in phase 19
-            got = rasterize_tiles_forward(*args)
             ref, b_plain_ms = timed_once(lambda: rasterize_tiles_plain(*args))
             pix = torch.maximum(torch.maximum(
                 (got[0] - ref[0]).abs().amax(-1),
@@ -1314,8 +1372,6 @@ def nht_kernel_phases(dev, ut_cfg, cam):
                 f"rel {err_d:.3g}, hits flip {flips:.5f}, kill flips "
                 f"{n_kill}; kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms")
             # 27. NHT C, then the 64-wide D on its output
-            c_args = args[:6] + (got[0], got[2], got[4], *upstream, rc,
-                                 v.ray_o)
             d1 = rasterize_tiles_backward(*c_args)
             d2 = rasterize_tiles_backward(*c_args)
             d_ref, c_plain_ms = timed_once(
@@ -1336,15 +1392,21 @@ def nht_kernel_phases(dev, ut_cfg, cam):
                 raise AssertionError(f"NHT kernel C ({label}) vs plain "
                                      f"(cosine, rel L2): {bad}; bitwise "
                                      f"repeatable {same}")
+            res = attrs[f"nht{rc.kernel_degree}"]
             report["raster_bwd_nht" + suffix] = dict(
                 max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
                 **bound_keys(raster_bound(c_args, [d1], rc, True, n_acc,
-                                          NHT_BWD_ACCEPT_FLOPS)))
+                                          NHT_BWD_ACCEPT_FLOPS)),
+                resources=res, sincos_max_abs_err=sin_err[0],
+                sincos_accurate_max_abs_err=sin_err[1])
             msg = (f"{label}: " + ", ".join(
                 f"{k} cos {x[0]:.8f} relL2 {x[1]:.3g}"
                 for k, x in stats.items())
                 + f"; max |d| {c_err:.3g}; two runs bitwise equal; kernel "
-                f"{c_ms:.4f} ms, plain {c_plain_ms:.4f} ms")
+                f"{c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; "
+                f"{res['registers']} registers, {res['local_bytes']} local "
+                f"bytes, {res['shared_bytes']} static + "
+                f"{res['dynamic_shared_bytes']} dynamic shared bytes")
             if label == "3DGUT":
                 d_args = (d1, vb.perm, vb.order, vb.excl, vb.counts,
                           vb.limit, model.capacity)
@@ -1373,8 +1435,37 @@ def nht_kernel_phases(dev, ut_cfg, cam):
             del v, got, ref, d1, d2, d_ref
     phase("NHT kernel B", f"{w}x{h} pinhole (general mode), 100k, 48 NHT "
           "features: " + "; ".join(msg_b))
-    phase("NHT kernels C and D", "; ".join(msg_c))
+    phase("NHT kernels C and D", "; ".join(msg_c) + f"; C's sine and "
+          f"cosine within {sin_err[0]:.3g} of float64 for |x| <= 2^20 "
+          f"(the fast path), {sin_err[1]:.3g} past it (sincosf)")
     return report
+
+
+def nht_sincos_error(dev):
+    """Kernel C's NHT sine and cosine against float64: (the largest
+    absolute error of raster_bwd.cu:sincos_fast on 4M seeded and 2M evenly
+    spaced arguments of its range, |x| <= 2^20; that of the accurate
+    sincosf past it on 1M arguments up to 1e9), each held to
+    NHT_SINCOS_TOL."""
+    from threedgrut_tpu_torch.ops.cuda.raster import (NHT_TRIG_FAST_MAX,
+                                                      nht_sincos)
+
+    rng = np.random.default_rng(27)
+    lim = NHT_TRIG_FAST_MAX
+    errs = []
+    for x in (np.concatenate([rng.uniform(-lim, lim, 4_000_000),
+                              np.linspace(-lim, lim, 2_000_001)]),
+              rng.uniform(lim, 1e9, 1_000_000) * rng.choice((-1, 1),
+                                                            1_000_000)):
+        x = x.astype(np.float32)
+        s, c = nht_sincos(torch.tensor(x, device=dev))
+        xd = x.astype(np.float64)
+        errs.append(max(float(np.abs(s.cpu().numpy() - np.sin(xd)).max()),
+                        float(np.abs(c.cpu().numpy() - np.cos(xd)).max())))
+    if not max(errs) <= NHT_SINCOS_TOL:
+        raise AssertionError(f"NHT sine and cosine: max |d| {errs} of "
+                             f"float64 (limit {NHT_SINCOS_TOL:g})")
+    return errs
 
 
 def nht_grad_phase(dev, ut_cfg):
@@ -1984,13 +2075,15 @@ FILL_MARKS = 100_000
 def scatter_phase(dev, v, c_args):
     """Phase 37: kernel F on the bench step's own pairs (kernel C's rows
     for phase 8's upstream gradients, summed by pair_particle): within
-    1e-6 of max of the float64 plain version and bitwise repeatable; ms
-    (its sort set-up included, and the kernel alone) beside index_add_.
-    Returns the report entry."""
+    1e-6 of max of the float64 plain version, bitwise repeatable and
+    bitwise equal to F on the runs of the stable sort (id_runs_plain, the
+    earlier set-up); ms with its set-up, of the set-up alone (the
+    counting sort's three kernels) and of the kernel alone, beside
+    index_add_; the kernels' resources. Returns the report entry."""
     from threedgrut_tpu_torch.ops.cuda.raster import rasterize_tiles_backward
     from threedgrut_tpu_torch.ops.cuda.scatter import (
-        id_runs, scatter_accumulate_rows, scatter_accumulate_rows_plain,
-        scatter_runs)
+        id_runs, id_runs_plain, kernel_attributes, scatter_accumulate_rows,
+        scatter_accumulate_rows_plain, scatter_runs)
 
     with torch.no_grad():
         d_rec = rasterize_tiles_backward(*c_args)
@@ -1999,29 +2092,64 @@ def scatter_phase(dev, v, c_args):
         args = (d_rec, ids, n_rows)
         f1 = scatter_accumulate_rows(*args)
         f2 = scatter_accumulate_rows(*args)
+        f_sorted = scatter_runs(d_rec, *id_runs_plain(ids, n_rows))
         ref, plain_ms = timed_once(lambda: scatter_accumulate_rows_plain(
             *args))
         err = float((f1 - ref).abs().max())
         scale = float(ref.abs().max())
         same = bool(torch.equal(f1, f2))
+        as_sorted = bool(torch.equal(f1, f_sorted))
         ms = cuda_ms(lambda: scatter_accumulate_rows(*args), 20)
+        setup_ms = cuda_ms(lambda: id_runs(ids, n_rows), 20)
+        setup_dev_ms = device_ms(lambda: id_runs(ids, n_rows), 20)
         runs = id_runs(ids, n_rows)
+        unordered = unordered_run_share(*runs)
         body_ms = cuda_ms(lambda: scatter_runs(d_rec, *runs), 20)
         idx = ids.to(torch.int64)
-        lib_ms = cuda_ms(lambda: torch.zeros(
-            (n_rows, d_rec.shape[1]), device=dev).index_add_(0, idx, d_rec),
-            20)
-    if not (err <= 1e-6 * scale and same):
+
+        def library():
+            return torch.zeros((n_rows, d_rec.shape[1]),
+                               device=dev).index_add_(0, idx, d_rec)
+
+        lib_ms = cuda_ms(library, 20)
+        dev_ms = device_ms(lambda: scatter_accumulate_rows(*args), 20)
+        lib_dev_ms = device_ms(library, 20)
+    if not (err <= 1e-6 * scale and same and as_sorted):
         raise AssertionError(f"kernel F vs plain: max |d| {err:.3g} of "
-                             f"{scale:.3g}; bitwise repeatable {same}")
+                             f"{scale:.3g}; bitwise repeatable {same}; "
+                             f"equal on the stable sort's runs {as_sorted}")
+    res = kernel_attributes()
     b = bound(nbytes(d_rec, ids, f1), d_rec.numel())
     phase("kernel F", f"{d_rec.shape[0]} pairs x {d_rec.shape[1]} onto "
           f"{n_rows} rows: max |d| {err:.3g} of {scale:.3g}, two runs "
-          f"bitwise equal; {ms:.4f} ms with its sort ({body_ms:.4f} ms the "
-          f"kernel alone), plain {plain_ms:.4f} ms, index_add_ "
-          f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+          f"bitwise equal and equal to F on the stable sort's runs; "
+          f"{ms:.4f} ms with its set-up ({setup_ms:.4f} ms the counting "
+          f"sort, {body_ms:.4f} ms the kernel alone), plain {plain_ms:.4f}"
+          f" ms, index_add_ {lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]});"
+          f" device time alone (torch.profiler) {dev_ms:.4f} ms with its "
+          f"set-up ({setup_dev_ms:.4f} ms the set-up), index_add_ "
+          f"{lib_dev_ms:.4f} ms; the set-up leaves {unordered:.1%} of the "
+          f"rows' runs out of pair order;"
+          f" registers / local / shared bytes: " + ", ".join(
+              f"{k} {x['registers']}/{x['local_bytes']}/{x['shared_bytes']}"
+              for k, x in res.items()))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **bound_keys(b, library_ms=lib_ms))
+                **bound_keys(b, library_ms=lib_ms), setup_ms=setup_ms,
+                kernel_ms=body_ms, device_ms=dev_ms,
+                setup_device_ms=setup_dev_ms, library_device_ms=lib_dev_ms,
+                unordered_run_share=unordered, resources=res)
+
+
+def unordered_run_share(perm, row_start):
+    """The share of table rows whose run, as kernel F's set-up placed it,
+    is not in ascending pair order (F's kernel sorts those)."""
+    n_rows = row_start.shape[0] - 1
+    lengths = (row_start[1:] - row_start[:-1]).to(torch.int64)
+    row_of = torch.repeat_interleave(
+        torch.arange(n_rows, device=perm.device), lengths)
+    placed = perm[:int(row_start[-1])]
+    down = (placed[1:] < placed[:-1]) & (row_of[1:] == row_of[:-1])
+    return float(torch.unique(row_of[1:][down]).numel()) / max(n_rows, 1)
 
 
 def table_route_phase(dev, v, b_args, c_args, fwd):
@@ -2030,13 +2158,14 @@ def table_route_phase(dev, v, b_args, c_args, fwd):
     the 3DGRT setting: its image equal to the D route's (and, 3DGUT, to
     phase 4's kernel B output), its table gradient within TABLE_TOL of max
     and cosine TABLE_COS of the D route's; TRAIN_STEPS steps launch B, C
-    and F once each a step and D never; host ms per step of both routes.
-    Returns kernel F's launches in the 3DGUT run."""
+    and F (and F's set-up) once each a step and D never; host ms per step
+    of both routes. Returns kernel F's and its set-up's launches in the
+    3DGUT run."""
     from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs
     from threedgrut_tpu_torch.ops.cuda.raster import (
         FoldMeta, rasterize_tiles, rasterize_tiles_backward,
         rasterize_tiles_table)
-    from threedgrut_tpu_torch.ops.cuda.scatter import scatter_runs
+    from threedgrut_tpu_torch.ops.cuda.scatter import id_runs, scatter_runs
     from threedgrut_tpu_torch.render.grt import grt_raster_config
 
     b = v.binning
@@ -2055,8 +2184,9 @@ def table_route_phase(dev, v, b_args, c_args, fwd):
     counters = {"raster_fwd": (rasterize_tiles, "launches"),
                 "raster_bwd": (rasterize_tiles_backward, "launches"),
                 "scatter_rows": (scatter_runs, "launches"),
+                "scatter_rows_setup": (id_runs, "launches"),
                 "fold": (fold_pairs, "launches")}
-    msgs, launches = [], 0
+    msgs, launches = [], (0, 0)
     for label, rc in (("3DGUT", b_args[6]), ("3DGRT", grt_raster_config())):
         out_f, g_f = step(rc, True)
         out_d, g_d = step(rc, False)
@@ -2088,7 +2218,7 @@ def table_route_phase(dev, v, b_args, c_args, fwd):
                                  f"expected {want}")
         fold_ms = host_ms(lambda: step(rc, False), TRAIN_STEPS)
         if label == "3DGUT":
-            launches = got["scatter_rows"]
+            launches = got["scatter_rows"], got["scatter_rows_setup"]
         msgs.append(f"{label}: images equal, table gradient cosine "
                     f"{cos:.9f}, max |d| {err:.3g} of {scale:.3g}; "
                     f"{table_ms:.3f} ms/step (D route {fold_ms:.3f}) host "
@@ -2257,7 +2387,7 @@ def main():
                                                        GaussianModelConfig)
     from threedgrut_tpu_torch.render.common import RasterConfig
     from threedgrut_tpu_torch.render.grt import grt_raster_config
-    from threedgrut_tpu_torch.render.gut import prepare_view, render_gut
+    from threedgrut_tpu_torch.render.gut import render_gut
     from threedgrut_tpu_torch.render.oracle import oracle_parity_db
     from threedgrut_tpu_torch.render.serve import make_serving_renderer
     from threedgrut_tpu_torch.synthetic import bench_cloud, orbit_geometry
@@ -2279,8 +2409,10 @@ def main():
     report = {}
 
     # 3. kernel A vs plain
+    v, b_args, fwd, c_args = view_inputs(
+        cam, ut_cfg, rc, model, 3, seeded_upstream(dev, SIDE, SIDE,
+                                                   (3, 1, 1), 7))
     with torch.no_grad():
-        v = prepare_view(cam, ut_cfg, rc, model, 3)
         s = binning.pair_slots(v.proj, grid, ut_cfg.alpha_threshold)
         a_args = (s.rows, s.order, s.excl, s.counts, s.total, grid)
         got = binning.sort_pairs(*expand_decode_pairs(*a_args),
@@ -2309,9 +2441,7 @@ def main():
 
     # 4. kernel B vs plain
     with torch.no_grad():
-        b_args = (v.table, v.binning.pair_particle, v.binning.tile_start,
-                  v.ray_d, v.tmin, v.tmax, rc)
-        got = rasterize_tiles_forward(*b_args)
+        got = fwd
         ref = rasterize_tiles_plain(*b_args)
         torch.cuda.synchronize()
         err_f = float((got[0] - ref[0]).abs().max())
@@ -2337,7 +2467,6 @@ def main():
           f"T_final |d| {err_t:.3g}, depth rel {err_d:.3g}, "
           f"hits flip {flips:.5f}; "
           f"kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms")
-    fwd = got
 
     # 5. against the JAX package's values
     fx = os.path.join(REPO, "tests", "fixtures", "torch_port_gut_small.npz")
@@ -2415,12 +2544,6 @@ def main():
           f"raw {raw:.1f} dB, flip_frac {flip:.5f}")
 
     # 8. kernel C vs plain: seeded upstream gradients on the same view
-    rng = np.random.default_rng(7)
-    g_feat, g_opac, g_dep = (
-        torch.tensor(rng.normal(size=(SIDE, SIDE, c)).astype(np.float32),
-                     device=dev) for c in (3, 1, 1))
-    c_args = b_args[:6] + (fwd[0], fwd[2], fwd[4], g_feat, g_opac, g_dep,
-                           rc)
     with torch.no_grad():
         d_rec = rasterize_tiles_backward(*c_args)
         d_ref = rasterize_tiles_backward_plain(*c_args)
@@ -2573,14 +2696,16 @@ def main():
 
     # 37-40. kernels F, G and H, and the table route
     report["scatter_rows"] = scatter_phase(dev, v, c_args)
-    launches["scatter_rows"] = table_route_phase(dev, v, b_args, c_args, fwd)
+    launches["scatter_rows"], report["scatter_rows"]["setup_launches"] = (
+        table_route_phase(dev, v, b_args, c_args, fwd))
     report["expand_rows"], launches["expand_rows"] = expand_phase(dev, v, s)
     report["fill"], launches["fill"] = fill_phase(dev)
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches.get(k, 0), **report[k])
                for k, (src, rep) in KERNELS.items()]
-    if not all(k["launches"] > 0 for k in kernels):
+    if not (all(k["launches"] > 0 for k in kernels)
+            and report["scatter_rows"]["setup_launches"] > 0):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}))

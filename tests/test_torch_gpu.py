@@ -21,11 +21,13 @@ from threedgrut_tpu_torch.ops.cuda.fill import (forward_fill,
                                                 segmented_fill_rows_plain)
 from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs, fold_pairs_plain
 from threedgrut_tpu_torch.ops.cuda.raster import (
-    FoldMeta, rasterize_tiles, rasterize_tiles_backward,
+    NHT_TRIG_FAST_MAX, FoldMeta, nht_kernel_attributes, nht_sincos,
+    rasterize_tiles, rasterize_tiles_backward,
     rasterize_tiles_backward_plain, rasterize_tiles_forward,
     rasterize_tiles_plain, rasterize_tiles_table)
 from threedgrut_tpu_torch.ops.cuda.scatter import (
-    scatter_accumulate_rows, scatter_accumulate_rows_plain, scatter_runs)
+    id_runs, id_runs_plain, kernel_attributes, scatter_accumulate_rows,
+    scatter_accumulate_rows_plain, scatter_runs)
 from threedgrut_tpu_torch.ops.cuda.wmax import (pair_weight_max,
                                                 pair_weight_max_plain)
 from threedgrut_tpu_torch.render.common import RasterConfig
@@ -33,6 +35,7 @@ from threedgrut_tpu_torch.render.grt import grt_raster_config, render_grt
 from threedgrut_tpu_torch.render.gut import prepare_view, render_gut
 from threedgrut_tpu_torch.ops.ut import UTConfig
 from threedgrut_tpu_torch.synthetic import bench_cloud
+from torch_port_utils import ADVERSARIAL_IDS, adversarial_ids
 
 RC = RasterConfig()
 # the sorted settings of apps/nerf_synthetic_3dgrt and of
@@ -477,6 +480,58 @@ def test_nht_raster_bwd_matches_plain(cuda, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(NHT))
+def test_nht_raster_bwd_far_blends_match_plain(cuda, mode):
+    """Kernel C in the NHT mode with half the particles' control features
+    moved by 9,000 (the barycentric weights sum to 1, so their blends move
+    by as much): the fast sine's Cody-Waite step far from [-pi, pi].
+    Against the float64 plain version per field group: cosine
+    >= 0.999 and relative L2 <= 1e-2, looser than the 0.9999 / 1e-3 of
+    the test above because a float32 blend near 9,000 carries ~5e-4 of
+    rounding into its sine and cosine; bitwise repeatable."""
+    rc = NHT[mode]
+    v = _nht_view(cuda, rc)
+    b = v.binning
+    table = v.table.clone()
+    table[::2, 13:61] += 9000.0
+    fwd = rasterize_tiles_forward(table, b.pair_particle, b.tile_start,
+                                  v.ray_d, v.tmin, v.tmax, rc, v.ray_o)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    h, w = v.ray_d.shape[:2]
+    up = [torch.randn((h, w, c), generator=g, device=cuda) for c in (24, 1, 1)]
+    args = (table, b.pair_particle, b.tile_start, v.ray_d, v.tmin, v.tmax,
+            fwd[0], fwd[2], fwd[4], *up, rc, v.ray_o)
+    got = rasterize_tiles_backward(*args)
+    again = rasterize_tiles_backward(*args)
+    ref = rasterize_tiles_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for sl in NHT_GROUPS.values():
+        x, y = got[:, sl].double().flatten(), ref[:, sl].double().flatten()
+        assert float(x @ y / (x.norm() * y.norm())) >= 0.999
+        assert float((x - y).norm() / y.norm()) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_nht_sincos_within_its_bound(cuda):
+    """Kernel C's NHT sine and cosine on the card (the Cody-Waite step and
+    the SFU up to NHT_TRIG_FAST_MAX, the accurate sincosf past it, here to
+    1e9) within 1e-6 of float64 (raster_bwd.cu:sincos_fast), and the
+    kernel's resources: two blocks an SM need <= 128 registers."""
+    rng = np.random.default_rng(9)
+    x = np.concatenate([
+        rng.uniform(-NHT_TRIG_FAST_MAX, NHT_TRIG_FAST_MAX, 1_000_000),
+        rng.uniform(-1e9, 1e9, 100_000)]).astype(np.float32)
+    s, c = nht_sincos(torch.from_numpy(x).to(cuda))
+    xd = x.astype(np.float64)
+    assert np.abs(s.cpu().numpy() - np.sin(xd)).max() <= 1e-6
+    assert np.abs(c.cpu().numpy() - np.cos(xd)).max() <= 1e-6
+    for a in nht_kernel_attributes().values():
+        assert a["registers"] <= 128 and a["shared_bytes"] == 0
+        assert 48 * 1024 < a["dynamic_shared_bytes"] <= 227 * 1024 // 2
+
+
+@pytest.mark.gpu
 def test_fold_64_wide_matches_plain_and_is_deterministic(cuda):
     v = _nht_view(cuda)
     b = v.binning
@@ -661,6 +716,40 @@ def test_scatter_rows_matches_plain_and_sequential(cuda, width):
     seq = np.zeros((n_rows, width), np.float32)
     np.add.at(seq, ids, rows)
     assert torch.equal(got.cpu(), torch.from_numpy(seq))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ADVERSARIAL_IDS)
+@pytest.mark.parametrize("width", [16, 11])
+def test_scatter_rows_adversarial_ids_equal_sequential(cuda, case, width):
+    """Kernel F with its counting-sort set-up on adversarial ids (one id
+    owning 5,000 pairs, all distinct, out of range, none): bit for bit
+    the sequential fp32 np.add.at; the set-up's runs hold the stable
+    sort's pairs (in any order); one launch each of the set-up and F."""
+    ids, n_rows = adversarial_ids(case)
+    rows = np.random.default_rng(width).normal(
+        size=(ids.shape[0], width)).astype(np.float32)
+    d, i = torch.from_numpy(rows).to(cuda), torch.from_numpy(ids).to(cuda)
+    before = (id_runs.launches, scatter_runs.launches)
+    got = scatter_accumulate_rows(d, i, n_rows)
+    assert (id_runs.launches, scatter_runs.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    keep = (ids >= 0) & (ids < n_rows)
+    seq = np.zeros((n_rows, width), np.float32)
+    np.add.at(seq, ids[keep], rows[keep])
+    assert torch.equal(got.cpu(), torch.from_numpy(seq))
+    perm, row_start = id_runs(i, n_rows)
+    ref_perm, ref_start = id_runs_plain(i, n_rows)
+    assert torch.equal(row_start - row_start[0], ref_start - ref_start[0])
+    placed = perm[:int(row_start[-1])].cpu()
+    ref_placed = ref_perm[int(ref_start[0]):int(ref_start[-1])].cpu()
+    starts = row_start.cpu().tolist()
+    for r in range(n_rows):
+        a, b = starts[r], starts[r + 1]
+        assert torch.equal(placed[a:b].sort().values,
+                           ref_placed[a:b].sort().values)
+    for a in kernel_attributes().values():
+        assert a["local_bytes"] == 0
 
 
 @pytest.mark.gpu

@@ -186,13 +186,31 @@ def test_checkpoint_round_trip(scenes, tmp_path):
         np.testing.assert_array_equal(np.asarray(getattr(back.params, k)),
                                       np.asarray(getattr(state.params, k)))
     # ... and the port renders it the same
-    loaded = GaussianModel.from_checkpoint(path, model.config)
+    loaded = GaussianModel.from_checkpoint(path, model.config, device="cpu")
     assert loaded.n_active == model.n_active
     with torch.no_grad():
         a = render_gut(tcam, UT, RC, model, sh_degree=3)
         b = render_gut(tcam, UT, RC, loaded, sh_degree=3)
     for k in KEYS:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+
+
+def test_loaders_without_a_card_refuse_the_default_device(
+        scenes, tmp_path, monkeypatch):
+    """With no device given the loaders take the card; without one they
+    raise naming device="cpu", and never load onto the CPU quietly."""
+    cam, state, _ = scenes[0]
+    _, model = torch_scene(cam, state)
+    path = str(tmp_path / "ckpt.npz")
+    save_checkpoint(model, path)
+    ply = os.path.join(os.path.dirname(__file__), "fixtures",
+                       "parity_cloud.ply")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        GaussianModel.from_checkpoint(path, model.config)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        GaussianModel.from_ply(ply)
+    assert GaussianModel.from_ply(ply, device="cpu").device.type == "cpu"
 
 
 def test_max_pairs_cap_reports_overflow(scenes):

@@ -18,7 +18,17 @@ CPU, plain versions against the JAX functions in Pallas interpret mode:
     with the binning's FoldMeta) in the 3DGUT, 3DGRT and general modes:
     within 1e-6 of max (both sum the same float32 rows in float64, in
     another order);
-  * the refusals: NHT records and rows wider than 16.
+  * the refusals: NHT records and rows wider than 16;
+  * kernel F's set-up and run sum in their plain versions
+    (``id_runs_plain``, a stable sort, then ``scatter_runs_plain``) on
+    adversarial ids (one id owning 5,000 pairs, all ids distinct, ids out
+    of range, no pairs): bit for bit a sequential fp32 ``np.add.at``, and
+    within 1e-6 of max of JAX's scatter in interpret mode;
+  * kernel C's NHT sine and cosine in its plain version
+    (``nht_sincos_plain``: the Cody-Waite step emulated in float32, the
+    SFU's sine as float64) within 1.5e-7 of float64 over the fast path's
+    range (raster_bwd.cu:sincos_fast states it; the card's own, with the
+    SFU, is held to 1e-6 by tests/test_torch_gpu.py and chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -33,15 +43,19 @@ from threedgrut_tpu.ops.pallas.raster import \
 from threedgrut_tpu.ops.pallas.scatter import \
     scatter_accumulate_rows as j_scatter_accumulate_rows
 from threedgrut_tpu.render.gut import pack_rays, unpack_tiles
-from threedgrut_tpu_torch.ops.cuda.raster import (FoldMeta, rasterize_tiles,
+from threedgrut_tpu_torch.ops.cuda.raster import (NHT_TRIG_FAST_MAX, FoldMeta,
+                                                  nht_sincos,
+                                                  rasterize_tiles,
                                                   rasterize_tiles_table)
 from threedgrut_tpu_torch.ops.cuda.scatter import (
-    scatter_accumulate_rows, scatter_accumulate_rows_plain, scatter_runs)
+    id_runs, id_runs_plain, scatter_accumulate_rows,
+    scatter_accumulate_rows_plain, scatter_runs, scatter_runs_plain)
 from threedgrut_tpu_torch.ops.ut import UTConfig
 from threedgrut_tpu_torch.render.common import RasterConfig, camera_rays_world
 from threedgrut_tpu_torch.render.grt import grt_raster_config
 from threedgrut_tpu_torch.render.gut import prepare_view
-from torch_port_utils import np32, torch_scene
+from torch_port_utils import (ADVERSARIAL_IDS, adversarial_ids, np32,
+                              torch_scene)
 
 CHUNK = 128
 RES = (64, 48)
@@ -82,6 +96,55 @@ def test_plain_scatter_drops_out_of_range_ids():
     ids = torch.tensor([0, 5, -1, 2], dtype=torch.int32)
     got = scatter_accumulate_rows_plain(rows, ids, 3)
     np.testing.assert_array_equal(got.numpy(), [[1] * 3, [0] * 3, [1] * 3])
+
+
+@pytest.mark.parametrize("case", ADVERSARIAL_IDS)
+def test_plain_set_up_and_run_sum_match_sequential_and_jax(case):
+    """id_runs_plain then scatter_runs_plain: bit for bit the sequential
+    fp32 sum in pair order, and within 1e-6 of max of JAX's scatter (its
+    dropped pairs given zero rows and id 0, which JAX allows)."""
+    ids, n_rows = adversarial_ids(case)
+    rows = np.random.default_rng(3).normal(
+        size=(ids.shape[0], 16)).astype(np.float32)
+    keep = (ids >= 0) & (ids < n_rows)
+    tids = torch.from_numpy(ids)
+    perm, row_start = id_runs(tids, n_rows)     # CPU: the plain version
+    plain = id_runs_plain(tids, n_rows)
+    assert torch.equal(perm, plain[0]) and torch.equal(row_start, plain[1])
+    got = scatter_runs_plain(torch.from_numpy(rows), perm, row_start)
+    seq = sequential_rows(rows[keep], ids[keep], n_rows)
+    np.testing.assert_array_equal(got.numpy(), seq)
+    if ids.shape[0] == 0:
+        assert not seq.any()
+        return
+    p_pad = -(-ids.shape[0] // CHUNK) * CHUNK
+    j_rows = np.zeros((p_pad, 16), np.float32)
+    j_rows[:ids.shape[0]][keep] = rows[keep]
+    j_ids = np.zeros(p_pad, np.int32)
+    j_ids[:ids.shape[0]][keep] = ids[keep]
+    ref = np.asarray(j_scatter_accumulate_rows(
+        jnp.asarray(j_rows.reshape(-1, CHUNK, 16).transpose(0, 2, 1)),
+        jnp.asarray(j_ids.reshape(-1, CHUNK)), n_rows, interpret=True))
+    np.testing.assert_allclose(got.numpy(), ref,
+                               atol=1e-6 * np.abs(ref).max(), rtol=0)
+
+
+def test_nht_sincos_plain_within_its_bound():
+    """Kernel C's NHT sine and cosine, plain: within 1.5e-7 of float64 on
+    4M seeded and 1M evenly spaced arguments of the fast path's range,
+    and sin and cos of x itself (rounded) past it."""
+    rng = np.random.default_rng(8)
+    lim = NHT_TRIG_FAST_MAX
+    x = np.concatenate([rng.uniform(-lim, lim, 4_000_000),
+                        np.linspace(-lim, lim, 1_000_001)]).astype(np.float32)
+    s, c = nht_sincos(torch.from_numpy(x))     # CPU: the plain version
+    xd = x.astype(np.float64)
+    assert np.abs(s.numpy() - np.sin(xd)).max() <= 1.5e-7
+    assert np.abs(c.numpy() - np.cos(xd)).max() <= 1.5e-7
+    far = rng.uniform(lim, 1e9, 10_000).astype(np.float32)
+    s, c = nht_sincos(torch.from_numpy(far))
+    np.testing.assert_array_equal(s.numpy(), np.sin(far.astype(np.float64))
+                                  .astype(np.float32))
 
 
 def _view(general=False, rc=RC, seed=0):

@@ -68,7 +68,7 @@ def test_projection_parity_cloud():
     state = import_model(PLY)
     cam = make_pinhole(resolution=(96, 64), focal=(80.0, 80.0),
                        principal=(48.0, 32.0), t=(0.0, 0.0, 2.5))
-    tmodel = GaussianModel.from_ply(PLY)
+    tmodel = GaussianModel.from_ply(PLY, device="cpu")
     np.testing.assert_array_equal(tmodel.positions.detach().numpy(),
                                   np.asarray(state.params.positions))
     jp, tp = _project_both(cam, state, tmodel)

@@ -32,3 +32,26 @@ def np32(x):
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     return np.asarray(x, np.float32)
+
+
+# the id patterns that stress kernel F's set-up: one id owning 5,000 of
+# 6,000 pairs (a run sorted in place in memory), every id distinct, ids
+# outside [0, n_rows) (dropped), and no pairs at all
+ADVERSARIAL_IDS = ("one_id_5000", "distinct", "out_of_range", "empty")
+
+
+def adversarial_ids(case: str, seed: int = 0):
+    """(ids [P] int32, n_rows) of one ADVERSARIAL_IDS case, from a numpy
+    seed; n_rows is a multiple of 8, as JAX's scatter requires."""
+    rng = np.random.default_rng(seed)
+    if case == "one_id_5000":
+        ids = rng.integers(0, 64, 6000)
+        ids[rng.choice(6000, 5000, replace=False)] = 17
+        return ids.astype(np.int32), 64
+    if case == "distinct":
+        return rng.permutation(4096)[:3000].astype(np.int32), 4096
+    if case == "out_of_range":
+        return rng.integers(-20, 84, 3000).astype(np.int32), 64
+    if case == "empty":
+        return np.zeros(0, np.int32), 64
+    raise ValueError(case)

@@ -92,23 +92,58 @@
 //   there onto a and b beside the alpha path: d_a += d_c, d_b += d_c tc,
 //   and d_c . b joins tc's cotangent (g_depth w |d|), which the hit
 //   distance shares;
-// then d_a, d_b go to p and M as in the general mode. A per-thread
-// array of 61 gradients would spill, and 16-pair groups of 61-float warp
-// partials would not fit shared memory beside 128 staged records, so the
-// reduction scatters: the 13 geometry fields (padded to 16) and, per
-// control dim k, its 4 vertex fields are reduced as they are produced by
-// warp_sum_scatter (a fixed-order butterfly that leaves each lane one
-// field's warp sum: 16 shuffles for the 16, 6 for each 4, against 5 per
-// field for a full butterfly), the warp partials of 4-pair groups go to
-// shared memory (2 x 8 x 4 x 61 floats, 15.6 KB, beside the 33.3 KB of
-// staged records), and the 8 warps are summed in warp order. Still no
-// atomics: bitwise repeatable. Bound: the per-accepted-hit arithmetic (12
-// sincosf, ~570 flops; chip_smoke.py:NHT_BWD_ACCEPT_FLOPS) and the shuffles.
+// then d_a, d_b go to p and M as in the general mode.
+//
+// What bounds it on this card, measured at 800x800 on the 100k NHT cloud
+// (600,658 pairs, 43.8M composited candidates at degree 2): not the
+// ~570 operations a composited candidate needs (0.51 ms at the fp32 peak)
+// but how they are issued. A warp runs the composited path whenever one
+// of its 32 pixels composites the pair; the 12 sines and cosines, the
+// 61-field reduction over the pixels, shared-memory traffic and
+// occupancy are what the design spends on. Taking each away from the
+// earlier design (the per-pair scatter butterfly of 88 shuffles a warp
+// and a block barrier every 4 pairs, 12 libdevice sincosf, -fmad=false
+// throughout, 178 registers and one block an SM) saved 2.19, 1.48, 0.64
+// and (at 128 registers, with spills) 1.68 ms of its 7.75 ms
+// (scripts/compare_tree_torch.py --nht-variants). So:
+//  - Reduction: each composited pixel writes its 29 values (13 geometry
+//    cotangents, 4 barycentric weights, 12 e_k) to its warp's value rows
+//    in shared memory, and the warp sums them over the ballot of its
+//    composited lanes only, from the highest lane down: every lane adds
+//    two fields (a feature field is the sum of bary_v e_k, so the 48 come
+//    from 16 rows; a geometry field is an FMA by a row of ones, the plain
+//    add), three loads and two FMAs a composited pixel, each pixel's
+//    loads issued before the previous one's FMAs. No shuffles; a warp
+//    with one composited pixel does one step. The 8 warp partials of
+//    groups of 8 pairs then meet at one block barrier and are summed in
+//    warp order, as before: a fixed order throughout, no atomics, bitwise
+//    repeatable.
+//  - Sine and cosine: sincos_fast, a two-constant Cody-Waite step onto
+//    [-pi, pi] and the SFU (__sincosf), within 1e-6 of float64 on the
+//    card for blends up to kTrigFastMax = 2^20 (chip_smoke.py phase 27
+//    measures it). A hit with a blend past that redoes its features with
+//    the accurate libdevice sincosf (nht_features<true>), out of the
+//    unrolled loop.
+//  - Contraction: the file keeps -fmad=false, so the hit test
+//    (common.cuh:eval_hit_general) and the transmittance take kernel B's
+//    accept and kill decisions; the blends, the feature path and the
+//    pullback, which decide nothing, are written in explicit __fmaf_rn.
+//  - Shared memory and occupancy: the 128 staged records are rows of 68
+//    floats (record from float 3, so the 48 control features start
+//    16-byte aligned and a vertex's four control dims are one float4
+//    load; the test's 13 fields are four), in dynamic shared memory with
+//    the warp partials and value rows: 95 KB a block, two blocks an SM at
+//    __launch_bounds__(256, 2), 128 registers (degree 4 spills 56 bytes
+//    to reach it; one block an SM without the spill was slower).
+// Together (chip_smoke.py phase 27, H100 80GB HBM3, 700 W): 3.62 ms at
+// degree 2 and 1.41 ms at degree 4, 2.15x and 1.94x faster than before
+// (scripts/compare_tree_torch.py).
 //
 // Numerics: fp32, built with -fmad=false like kernel B, and the hit math is
 // the same common.cuh:eval_hit, so accept and kill decisions equal the
 // forward's. The W = 0 degree-2 path does the training slice's kernel's
-// fp32 arithmetic in the same order, so its gradients are unchanged.
+// fp32 arithmetic in the same order, so its gradients are unchanged. The
+// NHT mode's pullback uses explicit FMAs and the SFU sine (above).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -472,44 +507,156 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
   }
 }
 
-// Sum v over the warp in a fixed order and scatter the sums: afterwards
-// every lane holds the warp sum of v[lane / (32 / N)]. The first log2(N)
-// butterfly levels halve the values each lane carries (a lane keeps the
-// half its partner does not, and adds the partner's copy of it), the
-// rest add within groups of 32 / N lanes. N is a power of two <= 32;
-// v is clobbered.
-template <int N>
-__device__ __forceinline__ float warp_sum_scatter(float (&v)[N], int lane) {
-  static_assert(N >= 1 && N <= 32 && (N & (N - 1)) == 0,
-                "N: a power of two <= 32");
-#pragma unroll
-  for (int h = N / 2, off = 16; h >= 1; h /= 2, off /= 2) {
-    const bool hi = (lane & off) != 0;
-#pragma unroll
-    for (int i = 0; i < h; ++i) {
-      const float send = hi ? v[i] : v[i + h];
-      const float keep = hi ? v[i + h] : v[i];
-      v[i] = keep + __shfl_xor_sync(kFull, send, off);
-    }
-  }
-  float s = v[0];
-#pragma unroll
-  for (int off = 16 / N; off >= 1; off /= 2) {
-    s += __shfl_xor_sync(kFull, s, off);
-  }
-  return s;
-}
+// ---- NHT mode (raster_bwd_nht_kernel) ----
 
-constexpr int kBatchNht = 128;   // pairs staged per batch (33.3 KB)
-constexpr int kGroupNht = 4;     // pairs per reduction group
+constexpr int kBatchNht = 128;   // records staged per batch (34.8 KB)
+// a staged record's row: 3 floats of padding, the 64 fields from
+// kRowField (so the 48 control features start 16-byte aligned, four
+// control dims of a vertex to a float4), then the squared-distance
+// threshold
+constexpr int kRowField = 3;
+constexpr int kRowNht = kRowField + gut::kRecNht + 1;
+static_assert((kRowField + gut::kNhtFeat) % 4 == 0 && kRowNht % 4 == 0,
+              "float4 rows and features");
+constexpr int kGroupNht = 8;     // pairs per block-level reduction group
 // gradient fields written per pair: p, M, density, 48 features (the
 // record's last 3 slots are padding and keep the wrapper's zeros)
 constexpr int kFieldsNht = gut::kNhtFeat + 4 * gut::kNhtDim;
-constexpr int kGeoNht = 16;      // the 13 geometry fields, padded
-static_assert(kGroupNht * kFieldsNht <= kBlock, "a thread per group field");
+// a touched pixel's values for the warp reduction: the 13 geometry
+// cotangents, the 4 barycentric weights and the 12 blend cotangents e_k
+// (a feature field's gradient is the pixel sum of bary_v e_k), then a
+// row of ones
+constexpr int kValBary = gut::kNhtFeat;
+constexpr int kValE = kValBary + 4;
+constexpr int kValOnes = kValE + gut::kNhtDim;
+constexpr int kValRows = kValOnes + 1;
+constexpr int kValPad = 33;      // row stride: lanes hit distinct banks
+// dynamic shared memory, floats: staged records and thresholds, the warp
+// partials of two groups, and each warp's value rows
+constexpr int kNhtRecFloats = kBatchNht * kRowNht;
+constexpr int kNhtPartFloats = 2 * kWarps * kGroupNht * kFieldsNht;
+constexpr int kNhtValFloats = kWarps * kValRows * kValPad;
+constexpr int kNhtSmemBytes =
+    (kNhtRecFloats + kNhtPartFloats + kNhtValFloats) * 4;
+
+// The fast sine and cosine below hold for |x| <= kTrigFastMax = 2^20,
+// far past any blend of trained features; a hit with a blend past it
+// redoes its features with the accurate libdevice sincosf
+// (nht_features<true>), whose Payne-Hanek reduction keeps a local-memory
+// frame, outside the unrolled hot loop. Past ~2^23 the reduced argument
+// leaves [-4, 4] and the fast path's error grows.
+constexpr float kTrigFastMax = 1048576.0f;
+
+// sin x and cos x of an NHT blend: a two-constant Cody-Waite step onto
+// about [-pi, pi], j = rint(x / 2pi), r = (x - j C1) - j C2 with C1 =
+// fp32(2pi) and C2 = fp32(2pi - C1), each step one rounding (x - j C1 is
+// exact: both are multiples of 2^-21 and |r| < 4; the constants' own
+// error, j 7e-15, is far below), then the SFU's sine and cosine
+// (__sincosf: at most 2^-21.41 = 3.6e-7 absolute on [-pi, pi], CUDA's
+// stated bound). Error against float64: the reduction within 1.21e-7 on
+// |x| <= kTrigFastMax (its float32 emulation, ops/cuda/raster.py:
+// nht_sincos_plain, holds sin and cos of r within 1.5e-7;
+// tests/test_torch_table_route.py); the whole is held to 1e-6 on the
+// card over 6M arguments of that range (chip_smoke.py phase 27 prints
+// it).
+__device__ __forceinline__ void sincos_fast(float x, float& s, float& c) {
+  const float j = rintf(__fmul_rn(x, 0.159154937f));
+  float r = __fmaf_rn(-j, 6.28318548f, x);
+  r = __fmaf_rn(-j, -1.74845553e-07f, r);
+  __sincosf(r, &s, &c);
+}
+
+// pull_ab in explicit FMAs: the NHT pullback takes no decision, so it
+// need not keep the file's no-contraction order.
+template <int kDeg>
+__device__ __forceinline__ GradAB pull_ab_fma(const gut::Hit& h, float g_eff,
+                                              float dens, float g_tc,
+                                              const gut::RasterParams& p) {
+  const float d_resp = __fmul_rn(g_eff, dens);
+  const float slope = kDeg == 4
+      ? __fmul_rn(__fmul_rn(h.resp, p.gg_scale), __fmul_rn(2.0f, h.sq))
+      : __fmul_rn(h.resp, p.gg_scale);
+  const float d_sq = __fmul_rn(d_resp, slope);
+  const float d_q = -__fmul_rn(g_tc, h.inv_m);
+  const float d_inv_m = __fmaf_rn(d_sq, h.c2, -__fmul_rn(g_tc, h.q));
+  const float d_c2 = __fmul_rn(d_sq, h.inv_m);
+  const float d_m2 = -2.0f * __fmul_rn(__fmul_rn(d_inv_m, h.inv_m), h.inv_m);
+  const float gcx = __fmul_rn(2.0f * d_c2, h.cx);
+  const float gcy = __fmul_rn(2.0f * d_c2, h.cy);
+  const float gcz = __fmul_rn(2.0f * d_c2, h.cz);
+  GradAB g;
+  g.ax = __fmaf_rn(d_q, h.bx, __fmaf_rn(h.by, gcz, -__fmul_rn(h.bz, gcy)));
+  g.ay = __fmaf_rn(d_q, h.by, __fmaf_rn(h.bz, gcx, -__fmul_rn(h.bx, gcz)));
+  g.az = __fmaf_rn(d_q, h.bz, __fmaf_rn(h.bx, gcy, -__fmul_rn(h.by, gcx)));
+  g.bx = __fmaf_rn(d_m2, h.bx, __fmaf_rn(d_q, h.ax,
+         __fmaf_rn(gcy, h.az, -__fmul_rn(gcz, h.ay))));
+  g.by = __fmaf_rn(d_m2, h.by, __fmaf_rn(d_q, h.ay,
+         __fmaf_rn(gcz, h.ax, -__fmul_rn(gcx, h.az))));
+  g.bz = __fmaf_rn(d_m2, h.bz, __fmaf_rn(d_q, h.az,
+         __fmaf_rn(gcx, h.ay, -__fmul_rn(gcy, h.ax))));
+  return g;
+}
+
+// The ray features' part of one accepted hit: per control dim k, the
+// blend b_k of the staged record r at the barycentric weights wb, its sine
+// and cosine, their part of u (added to ``u``), the blend's cotangent e_k
+// = w (cos b_k g_sin,k - sin b_k g_cos,k) (w held constant) into this
+// lane's value row ``val``, and e_k's part of each barycentric weight's
+// cotangent (added to ``dw``). Returns whether a blend was past
+// kTrigFastMax (kAccurate: the libdevice sincosf, never).
+__device__ __forceinline__ float part4(const float4& a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+
+template <bool kAccurate>
+__device__ __forceinline__ bool nht_features(
+    const float* row, const float (&wb)[4],
+    const float (&gs)[gut::kNhtDim], const float (&gc)[gut::kNhtDim],
+    float w, float* val, float& u, float (&dw)[4]) {
+  bool far = false;
+  // control dims 4c .. 4c + 3: one float4 load a vertex
+  auto dims = [&](int c) {
+    float4 fv[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      fv[v] = *reinterpret_cast<const float4*>(
+          row + kRowField + gut::kNhtFeat + v * gut::kNhtDim + 4 * c);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 4 * c + i;
+      float f[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) f[v] = part4(fv[v], i);
+      const float b = __fmaf_rn(wb[0], f[0], __fmaf_rn(wb[1], f[1],
+                      __fmaf_rn(wb[2], f[2], __fmul_rn(wb[3], f[3]))));
+      float sk, ck;
+      if constexpr (kAccurate) {
+        sincosf(b, &sk, &ck);
+      } else {
+        far |= !(fabsf(b) <= kTrigFastMax);
+        sincos_fast(b, sk, ck);
+      }
+      u = __fmaf_rn(gs[k], sk, __fmaf_rn(gc[k], ck, u));
+      const float e =
+          __fmul_rn(w, __fmaf_rn(ck, gs[k], -__fmul_rn(sk, gc[k])));
+#pragma unroll
+      for (int v = 0; v < 4; ++v) dw[v] = __fmaf_rn(f[v], e, dw[v]);
+      val[(kValE + k) * kValPad] = e;
+    }
+  };
+  if constexpr (kAccurate) {
+#pragma unroll 1
+    for (int c = 0; c < gut::kNhtDim / 4; ++c) dims(c);
+  } else {
+#pragma unroll
+    for (int c = 0; c < gut::kNhtDim / 4; ++c) dims(c);
+  }
+  return far;
+}
 
 template <int kDeg>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 2)
 raster_bwd_nht_kernel(const float* __restrict__ table,      // [C, 64]
                       const int32_t* __restrict__ pair_particle,  // [P]
                       const int32_t* __restrict__ tile_start,     // [T + 1]
@@ -527,12 +674,44 @@ raster_bwd_nht_kernel(const float* __restrict__ table,      // [C, 64]
                       float* __restrict__ d_records) {      // [P, 64]
   constexpr int kR = gut::kRecNht;
   constexpr int kD = gut::kNhtDim;
-  __shared__ float s_rec[kR + 1][kBatchNht];
-  __shared__ float s_part[2][kWarps][kGroupNht][kFieldsNht];
-
+  extern __shared__ __align__(16) float s_dyn[];
+  float* s_rec = s_dyn;   // kBatchNht rows of kRowNht
+  float (*s_part)[kWarps][kGroupNht][kFieldsNht] =
+      reinterpret_cast<float (*)[kWarps][kGroupNht][kFieldsNht]>(
+          s_dyn + kNhtRecFloats);
   const int tile = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  // this warp's value rows: row q of lane i at val[q * kValPad + i]
+  float* val = s_dyn + kNhtRecFloats + kNhtPartFloats +
+               warp * kValRows * kValPad;
+  val[kValOnes * kValPad + lane] = 1.0f;
+  // the two fields this lane sums over the touched lanes: field o0 is the
+  // sum of val[rx] * val[ry0], o1 of val[rx] * val[ry1], so three loads an
+  // item. Lanes 0-6 take the geometry fields in twos (rx the ones row:
+  // an FMA by 1 is the plain add); lanes 7-30 a blend cotangent e_k with
+  // the weights of vertices 0 and 1 or 2 and 3; lane 31 none (-1).
+  int rx, ry0, ry1, o0, o1;
+  if (lane < 7) {
+    rx = kValOnes;
+    ry0 = 2 * lane;
+    ry1 = 2 * lane + 1;
+    o0 = 2 * lane;
+    o1 = 2 * lane + 1 < gut::kNhtFeat ? 2 * lane + 1 : -1;
+  } else if (lane < 31) {
+    const int k = (lane - 7) % kD, v = 2 * ((lane - 7) / kD);
+    rx = kValE + k;
+    ry0 = kValBary + v;
+    ry1 = kValBary + v + 1;
+    o0 = gut::kNhtFeat + v * kD + k;
+    o1 = o0 + kD;
+  } else {
+    rx = ry0 = ry1 = kValOnes;
+    o0 = o1 = -1;
+  }
+  const float* vx = val + rx * kValPad;
+  const float* vy0 = val + ry0 * kValPad;
+  const float* vy1 = val + ry1 * kValPad;
   const int px = (tile % p.grid_x) * kTile + threadIdx.x % kTile;
   const int py = (tile / p.grid_x) * kTile + threadIdx.x / kTile;
   const bool inside = px < p.width && py < p.height;
@@ -571,18 +750,22 @@ raster_bwd_nht_kernel(const float* __restrict__ table,      // [C, 64]
     __syncthreads();
     const int idx = base + threadIdx.x;
     if (threadIdx.x < kBatchNht && idx < end) {
-      const float4* row = reinterpret_cast<const float4*>(
+      // the row shifted by kRowField: each float4 stored takes the last
+      // three fields of one float4 read and the first of the next
+      const float4* src = reinterpret_cast<const float4*>(
           table + static_cast<int64_t>(pair_particle[idx]) * kR);
+      float4* dst = reinterpret_cast<float4*>(s_rec + threadIdx.x * kRowNht);
+      float4 prev = make_float4(0.f, 0.f, 0.f, 0.f);
+      float dens = 0.f;
 #pragma unroll
       for (int q = 0; q < kR / 4; ++q) {
-        const float4 v = row[q];
-        s_rec[4 * q + 0][threadIdx.x] = v.x;
-        s_rec[4 * q + 1][threadIdx.x] = v.y;
-        s_rec[4 * q + 2][threadIdx.x] = v.z;
-        s_rec[4 * q + 3][threadIdx.x] = v.w;
+        const float4 cur = src[q];
+        if (q == gut::kDensity / 4) dens = cur.x;
+        dst[q] = make_float4(prev.y, prev.z, prev.w, cur.x);
+        prev = cur;
       }
-      s_rec[kR][threadIdx.x] = gut::sq_threshold<kDeg>(
-          s_rec[gut::kDensity][threadIdx.x], p);
+      dst[kR / 4] = make_float4(prev.y, prev.z, prev.w,
+                                gut::sq_threshold<kDeg>(dens, p));
     }
     __syncthreads();
     const int nb = min(kBatchNht, end - base);
@@ -590,102 +773,122 @@ raster_bwd_nht_kernel(const float* __restrict__ table,      // [C, 64]
       float (*part)[kGroupNht][kFieldsNht] = s_part[group & 1];
       const int ng = min(kGroupNht, nb - g0);
       for (int jj = 0; jj < ng; ++jj) {
-        const int j = g0 + jj;
-        const float* r = &s_rec[0][j];
-        float geo[kGeoNht];   // d of p, M, density (and padding)
-        float e[kD];          // d of each control dim's blend
-        float bary[4];
+        const float* row = s_rec + (g0 + jj) * kRowNht;
+        const float* r = row + kRowField;   // field f at r[f]
+        // the geometry fields for the test: four float4 loads
+        float geo[16];
 #pragma unroll
-        for (int f = 0; f < kGeoNht; ++f) geo[f] = 0.f;
-#pragma unroll
-        for (int k = 0; k < kD; ++k) e[k] = 0.f;
-#pragma unroll
-        for (int v = 0; v < 4; ++v) bary[v] = 0.f;
+        for (int q = 0; q < 4; ++q) {
+          const float4 t = reinterpret_cast<const float4*>(row)[q];
+          geo[4 * q + 0] = t.x;
+          geo[4 * q + 1] = t.y;
+          geo[4 * q + 2] = t.z;
+          geo[4 * q + 3] = t.w;
+        }
         bool touched = false;
         gut::Hit h;
         if (alive &&
-            gut::eval_hit_general<kDeg>(r, kBatchNht, ray, s_rec[kR][j], p,
-                                        h)) {
+            gut::eval_hit_general<kDeg>(geo + kRowField, 1, ray,
+                                        row[kRowNht - 1], p, h)) {
           const gut::NhtHit n = gut::nht_hit(h);
-          float sn[kD], cs[kD];
-          float u = gd * h.hit_t;
-#pragma unroll
-          for (int k = 0; k < kD; ++k) {
-            float sk, ck;
-            sincosf(gut::nht_blend(r, kBatchNht, n, k), &sk, &ck);
-            sn[k] = sk;
-            cs[k] = ck;
-            u += gs[k] * sk + gc[k] * ck;
-          }
           const float w = h.alpha * trans;
-          psi_acc += w * u;
+          float u = gd * h.hit_t;
+          float dw[4] = {0.f, 0.f, 0.f, 0.f};
+          if (nht_features<false>(row, n.w, gs, gc, w, val + lane, u,
+                                  dw)) {
+            // a blend past the fast sine's range: the accurate one
+            u = gd * h.hit_t;
+#pragma unroll
+            for (int v = 0; v < 4; ++v) dw[v] = 0.f;
+            nht_features<true>(row, n.w, gs, gc, w, val + lane, u, dw);
+          }
+          psi_acc = __fmaf_rn(w, u, psi_acc);
           const float suffix = phi_total - psi_acc;
           const float g_alpha =
-              trans * u - (suffix + g_t * t_final) / fmaxf(1.0f - h.alpha,
-                                                           1e-6f);
+              __fmaf_rn(trans, u, -(suffix + g_t * t_final) /
+                                      fmaxf(1.0f - h.alpha, 1e-6f));
           if (w > 0.f) {
             touched = true;
-            // the features' path, with w held constant
-            float dw[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-            for (int k = 0; k < kD; ++k) {
-              e[k] = w * (cs[k] * gs[k] - sn[k] * gc[k]);
-#pragma unroll
-              for (int v = 0; v < 4; ++v) {
-                dw[v] += r[(gut::kNhtFeat + v * kD + k) * kBatchNht] * e[k];
-              }
+            for (int v = 0; v < 4; ++v) {
+              val[(kValBary + v) * kValPad + lane] = n.w[v];
             }
-#pragma unroll
-            for (int v = 0; v < 4; ++v) bary[v] = n.w[v];
             // w_i = G_i . (c - v0), w_0 = 1 - w_1 - w_2 - w_3
             const float d1 = dw[1] - dw[0], d2 = dw[2] - dw[0],
                         d3 = dw[3] - dw[0];
-            const float dcx = gut::kTetG1x * d1;
-            const float dcy = gut::kTetG1y * d1 + gut::kTetG2y * d2;
-            const float dcz = gut::kTetG1z * d1 + gut::kTetG2z * d2 +
-                              gut::kTetG3z * d3;
+            const float dcx = __fmul_rn(gut::kTetG1x, d1);
+            const float dcy = __fmaf_rn(gut::kTetG1y, d1,
+                                        __fmul_rn(gut::kTetG2y, d2));
+            const float dcz = __fmaf_rn(gut::kTetG1z, d1, __fmaf_rn(
+                gut::kTetG2z, d2, __fmul_rn(gut::kTetG3z, d3)));
             // c = a + b tc: tc's cotangent joins the hit distance's
-            const float g_tc = gd * w * ray.dn +
-                               (dcx * h.bx + dcy * h.by + dcz * h.bz);
+            const float g_tc = __fmaf_rn(__fmul_rn(gd, w), ray.dn,
+                __fmaf_rn(dcx, h.bx, __fmaf_rn(dcy, h.by,
+                                               __fmul_rn(dcz, h.bz))));
             const float g_eff = h.alpha_raw < p.max_alpha ? g_alpha : 0.f;
-            GradAB g = pull_ab<kDeg>(h, g_eff, r[gut::kDensity * kBatchNht],
-                                     g_tc, p);
-            g.ax += dcx;
-            g.ay += dcy;
-            g.az += dcz;
-            g.bx += dcx * n.tc;
-            g.by += dcy * n.tc;
-            g.bz += dcz * n.tc;
-            general_rows(g, h, r, kBatchNht, ray, geo);
-            geo[gut::kDensity] = g_eff * h.resp;
+            const GradAB g = pull_ab_fma<kDeg>(
+                h, g_eff, r[gut::kDensity], g_tc, p);
+            const float gax = g.ax + dcx, gay = g.ay + dcy, gaz = g.az + dcz;
+            const float gbx = __fmaf_rn(dcx, n.tc, g.bx);
+            const float gby = __fmaf_rn(dcy, n.tc, g.by);
+            const float gbz = __fmaf_rn(dcz, n.tc, g.bz);
+            // d_p = -M^T d_a, d_M[i][k] = d_a[i] e[k] + d_b[i] d[k]
+            const float ga[3] = {gax, gay, gaz}, gb[3] = {gbx, gby, gbz};
+            const float ee[3] = {h.ex, h.ey, h.ez};
+            const float dd[3] = {ray.dx, ray.dy, ray.dz};
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              val[c * kValPad + lane] = -__fmaf_rn(
+                  r[3 + c], gax, __fmaf_rn(r[6 + c], gay,
+                                           __fmul_rn(r[9 + c], gaz)));
+            }
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+#pragma unroll
+              for (int c = 0; c < 3; ++c) {
+                val[(3 + 3 * i + c) * kValPad + lane] =
+                    __fmaf_rn(ga[i], ee[c], __fmul_rn(gb[i], dd[c]));
+              }
+            }
+            val[gut::kDensity * kValPad + lane] = __fmul_rn(g_eff, h.resp);
           }
           trans *= 1.0f - h.alpha;
           // exact kill: T_final froze here in the forward too
           if (trans < p.min_transmittance) alive = false;
         }
+        // the warp's sums over the touched lanes, from the highest lane
+        // down (a fixed order; an untouched lane's zeros are skipped,
+        // which changes no sum)
+        unsigned m = __ballot_sync(kFull, touched);
         float* out = part[warp][jj];
-        if (__any_sync(kFull, touched)) {
-          const float sg = warp_sum_scatter<kGeoNht>(geo, lane);
-          if ((lane & 1) == 0 && (lane >> 1) < gut::kNhtFeat) {
-            out[lane >> 1] = sg;
+        float acc0 = 0.f, acc1 = 0.f;
+        __syncwarp();   // the value rows are written
+        if (m) {
+          // each touched lane's three loads are issued before the
+          // previous lane's two FMAs
+          int i = 31 - __clz(m);
+          float x = vx[i], y0 = vy0[i], y1 = vy1[i];
+          for (m ^= 1u << i; m; m ^= 1u << i) {
+            i = 31 - __clz(m);
+            const float xn = vx[i], y0n = vy0[i], y1n = vy1[i];
+            acc0 = __fmaf_rn(x, y0, acc0);
+            acc1 = __fmaf_rn(x, y1, acc1);
+            x = xn;
+            y0 = y0n;
+            y1 = y1n;
           }
-#pragma unroll
-          for (int k = 0; k < kD; ++k) {
-            float fv[4];
-#pragma unroll
-            for (int v = 0; v < 4; ++v) fv[v] = bary[v] * e[k];
-            const float sf = warp_sum_scatter<4>(fv, lane);
-            if ((lane & 7) == 0) out[gut::kNhtFeat + (lane >> 3) * kD + k] = sf;
-          }
-        } else {
-          for (int f = lane; f < kFieldsNht; f += 32) out[f] = 0.f;
+          acc0 = __fmaf_rn(x, y0, acc0);
+          acc1 = __fmaf_rn(x, y1, acc1);
         }
+        __syncwarp();   // read before the next pair writes them
+        if (o0 >= 0) out[o0] = acc0;
+        if (o1 >= 0) out[o1] = acc1;
       }
       const int n_alive = __syncthreads_count(alive);
-      // thread t sums field (t % 61) of pair (t / 61) over the 8 warps
-      const int jj = threadIdx.x / kFieldsNht;
-      const int f = threadIdx.x % kFieldsNht;
-      if (jj < ng) {
+      // sum the 8 warp partials of each (pair, field) in warp order
+      for (int t = threadIdx.x; t < ng * kFieldsNht; t += kBlock) {
+        const int jj = t / kFieldsNht;
+        const int f = t % kFieldsNht;
         float acc = 0.f;
 #pragma unroll
         for (int wi = 0; wi < kWarps; ++wi) acc += part[wi][jj][f];
@@ -723,13 +926,18 @@ extern "C" int raster_bwd_launch(
   const auto stream_ = static_cast<cudaStream_t>(stream);
   if (nht) {
     if (shared) return static_cast<int>(cudaErrorInvalidValue);
-    return gut::launch_nht(degree, window, general, [&](auto deg) {
-      raster_bwd_nht_kernel<decltype(deg)::value>
-          <<<num_tiles, kBlock, 0, stream_>>>(
-              table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
-              ray_tmax, fwd_feat, fwd_depth, fwd_tfinal, g_feat, g_opacity,
-              g_depth, p, d_records);
+    cudaError_t attr = cudaSuccess;
+    const int err = gut::launch_nht(degree, window, general, [&](auto deg) {
+      const auto kernel = raster_bwd_nht_kernel<decltype(deg)::value>;
+      attr = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kNhtSmemBytes);
+      if (attr != cudaSuccess) return;
+      kernel<<<num_tiles, kBlock, kNhtSmemBytes, stream_>>>(
+          table, pair_particle, tile_start, ray_o, ray_d, ray_tmin, ray_tmax,
+          fwd_feat, fwd_depth, fwd_tfinal, g_feat, g_opacity, g_depth, p,
+          d_records);
     });
+    return attr != cudaSuccess ? static_cast<int>(attr) : err;
   }
   return gut::launch_raster<false>(
       degree, window, general, shared, 0,
@@ -741,4 +949,53 @@ extern "C" int raster_bwd_launch(
                 ray_tmax, fwd_feat, fwd_depth, fwd_tfinal, g_feat, g_opacity,
                 g_depth, p, d_records);
       });
+}
+
+// Registers, local (spill and stack) bytes, static shared bytes and
+// dynamic shared bytes a launch asks for, of kernel C's NHT mode at degree
+// 2 then 4: out[4 i + 0..3]. Returns the first error.
+extern "C" int raster_bwd_attributes(int* out) {
+  const void* fns[] = {reinterpret_cast<const void*>(raster_bwd_nht_kernel<2>),
+                       reinterpret_cast<const void*>(raster_bwd_nht_kernel<4>)};
+  for (int i = 0; i < 2; ++i) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[4 * i + 0] = a.numRegs;
+    out[4 * i + 1] = static_cast<int>(a.localSizeBytes);
+    out[4 * i + 2] = static_cast<int>(a.sharedSizeBytes);
+    out[4 * i + 3] = kNhtSmemBytes;
+  }
+  return 0;
+}
+
+namespace {
+
+// The NHT mode's sine and cosine on given arguments (sincos_fast within
+// kTrigFastMax, the libdevice sincosf past it), for measuring its error on
+// the card.
+__global__ void nht_sincos_kernel(const float* __restrict__ x, int n,
+                                  float* __restrict__ s,
+                                  float* __restrict__ c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float si, ci;
+  if (fabsf(x[i]) <= kTrigFastMax) {
+    sincos_fast(x[i], si, ci);
+  } else {
+    sincosf(x[i], &si, &ci);
+  }
+  s[i] = si;
+  c[i] = ci;
+}
+
+}  // namespace
+
+extern "C" int nht_sincos_launch(const float* x, int n, float* s, float* c,
+                                 void* stream) {
+  if (n > 0) {
+    nht_sincos_kernel<<<(n + 255) / 256, 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(x, n, s, c);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

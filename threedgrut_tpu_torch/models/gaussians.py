@@ -34,6 +34,19 @@ def param_names(feature_type: str):
         return NHT_PARAM_NAMES
     raise ValueError(f"feature_type {feature_type}: sh or nht")
 
+
+def loader_device(device) -> torch.device:
+    """The device a model loader puts its parameters on: ``device`` when
+    given, else the card. Without a card it raises rather than load onto
+    the CPU, where every render takes the plain float64 versions."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device=\"cpu\" to load "
+                           "the model onto the CPU")
+    return torch.device("cuda")
+
+
 ACTIVATIONS = {
     "sigmoid": torch.sigmoid,
     "exp": torch.exp,
@@ -199,10 +212,12 @@ class GaussianModel(nn.Module):
                    config)
 
     @classmethod
-    def from_checkpoint(cls, path: str, config=None, device="cpu"):
+    def from_checkpoint(cls, path: str, config=None, device=None):
         """From a trainer ``.npz`` checkpoint (``params/<name>``,
         ``n_active``, ``n_active_features``); an NHT model when it holds
-        ``params/features``."""
+        ``params/features``. ``device`` defaults to the card
+        (``loader_device``)."""
+        device = loader_device(device)
         with np.load(path) as data:
             nht = "params/features" in data.files
             arrays = {k: data[f"params/{k}"]
@@ -215,9 +230,11 @@ class GaussianModel(nn.Module):
 
     @classmethod
     def from_ply(cls, path: str, capacity: Optional[int] = None,
-                 config=None, device="cpu"):
+                 config=None, device=None):
         """From a 3DGS ``.ply`` (raw parameters), padded to capacity the
-        way the JAX package's ``export/ply.import_model`` pads."""
+        way the JAX package's ``export/ply.import_model`` pads.
+        ``device`` defaults to the card (``loader_device``)."""
+        device = loader_device(device)
         from .ply import import_ply
 
         raw = import_ply(path)

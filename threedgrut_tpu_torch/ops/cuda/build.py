@@ -34,7 +34,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # pixels per view. raster_bwd shares raster_fwd's hit math
 # (common.cuh:eval_hit) and must take the same decisions, as must wmax;
 # fold only adds. The kernels not named here (scatter_rows, expand_rows,
-# fill) only add or copy and take no extra flags.
+# fill) only add, copy or count and take no extra flags.
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "bin_decode": ["-fmad=false"],
     "raster_fwd": ["-fmad=false"],
@@ -110,6 +110,25 @@ def load_all(names: List[str], verbose: bool = False
             BUILD_SECONDS.setdefault(name, 0.0)
             _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return {name: _LIBS[name] for name in names}
+
+
+def attributes(name: str, kernels) -> Dict[str, Dict[str, int]]:
+    """{kernel: {registers, local_bytes, shared_bytes, dynamic_shared_bytes}}
+    of the kernels of library ``name``, in the order its
+    ``<name>_attributes`` C function lists them (cudaFuncGetAttributes:
+    registers a thread, local memory a thread for spills and stack, static
+    shared memory a block; and the dynamic shared memory a launch asks
+    for)."""
+    lib = load(name)
+    out = (ctypes.c_int * (4 * len(kernels)))()
+    fn = getattr(lib, f"{name}_attributes")
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check_launch(f"{name}_attributes", fn(ctypes.addressof(out)), lib)
+    return {k: dict(registers=out[4 * i], local_bytes=out[4 * i + 1],
+                    shared_bytes=out[4 * i + 2],
+                    dynamic_shared_bytes=out[4 * i + 3])
+            for i, k in enumerate(kernels)}
 
 
 def check_launch(name: str, err: int, lib: Optional[ctypes.CDLL] = None):

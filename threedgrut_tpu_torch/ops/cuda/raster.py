@@ -25,7 +25,9 @@ kernel 8; always general, global-Z order) carries 4 x 12 tetrahedron
 control features per particle in place of rgb and composites 24 ray
 features per pixel, (sin, cos) of the control features' barycentric
 blend at the canonical hit point (``ops/hit.py:nht_hit_features``). Its
-launches count in ``launches_nht``.
+launches count in ``launches_nht``. Kernel C takes those sines and
+cosines by ``nht_sincos`` (a Cody-Waite step and the SFU); kernel B
+keeps the accurate ``sincosf``.
 
 The shared-segment mode (``shared=True``; raster.py shared_segments, the
 TPU's kernel 7, which ``render/grt.py:trace`` takes by brute force):
@@ -496,6 +498,56 @@ _SIGNATURES = {
     "raster_bwd": (13, 9, 5, 1),
     "wmax": (7, 7, 5, 1),      # kernel E, ops/cuda/wmax.py
 }
+
+
+def nht_kernel_attributes():
+    """{nht2, nht4: {registers, local_bytes, shared_bytes,
+    dynamic_shared_bytes}} of kernel C's NHT mode at degree 2 and 4."""
+    return build.attributes("raster_bwd", ("nht2", "nht4"))
+
+
+# kernel C's NHT mode takes its fast sine and cosine for |x| up to this
+# (raster_bwd.cu:kTrigFastMax, 2^20), the accurate sincosf past it
+NHT_TRIG_FAST_MAX = 1048576.0
+
+
+def nht_sincos(x: torch.Tensor):
+    """(sin x, cos x) as kernel C's NHT mode computes them (raster_bwd.cu:
+    sincos_fast within NHT_TRIG_FAST_MAX), for a float32 tensor; on the
+    CPU ``nht_sincos_plain``. Measures the function; no path calls it."""
+    build.check_tensor("x", x, torch.float32, tuple(x.shape), x.device)
+    if x.device.type == "cpu":
+        return nht_sincos_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    s, c = torch.empty_like(x), torch.empty_like(x)
+    lib = _lib("raster_bwd")
+    fn = lib.nht_sincos_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, ctypes.c_int, p, p, p]
+        fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), x.numel(), s.data_ptr(), c.data_ptr(),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_launch("nht_sincos", err, lib)
+    return s, c
+
+
+def nht_sincos_plain(x: torch.Tensor):
+    """Plain version of ``nht_sincos``: its Cody-Waite step in float32
+    (each FMA as the float64 sum of its exact product, rounded), then sin
+    and cos of the reduced argument in float64 for the SFU's, rounded to
+    float32; past NHT_TRIG_FAST_MAX sin and cos of x itself."""
+    x32 = x.to(torch.float32)
+    j = torch.round(x32 * 0.159154937).to(torch.float32)
+    jd, xd = j.double(), x32.double()
+    r = (xd - jd * float(torch.tensor(6.28318548, dtype=torch.float32))
+         ).to(torch.float32).double()
+    r = (r - jd * float(torch.tensor(-1.74845553e-07, dtype=torch.float32))
+         ).to(torch.float32).double()
+    far = x32.abs() > NHT_TRIG_FAST_MAX
+    r = torch.where(far, xd, r)
+    return torch.sin(r).to(torch.float32), torch.cos(r).to(torch.float32)
 
 
 def _lib(name: str) -> ctypes.CDLL:

@@ -144,19 +144,25 @@ brute force; windows of 128 for both regimes; the normals mode of B):
 
 31. kernel 7 B vs plain - trace's brute force over the 8192 slots of
    bench_cloud(8192) (SH 3) on the 512x512 orbit view's rays (1,024
-   blocks of 256), windows of 128: phase 19's tolerances.
+   blocks of 256), windows of 128: phase 19's tolerances; its cull's
+   plain mirror and the fp32 exact test on the same inputs on the card
+   (ops/cuda/raster.py:trace_cull_plain): no culled candidate accepted,
+   the share culled; the k-buffer's overflow passes
+   (common.cuh:g_window_overflows); the four trace instantiations'
+   registers, local and shared bytes (cudaFuncGetAttributes).
 32. kernel 7 C and D vs plain - C over the shared segment with seeded
-   upstream gradients against the float64 plain backward on 64 blocks
-   at the image's middle: phase 20's tolerances, two runs of all 1,024
-   blocks bitwise equal; D folds its 8.4M per-block rows (within 1e-5 of
+   upstream gradients against the float64 plain backward on all 1,024
+   blocks: phase 20's tolerances, two runs bitwise equal, its k-buffer
+   overflow passes; D folds its 8.4M per-block rows (within 1e-5 of
    max, bitwise equal, beside index_add_); trace's sorted gradients
    against tests/fixtures/torch_port_trace_grad_small.npz (phase 10's
    tolerances); the trace path (forward and backward) launches kernel
    7's B and C and D once each; ms per trace call.
 33. W 128 B and C vs plain - trace's grid over bench_cloud(100_000) on
    the same view (7,168 candidates a block): B at phase 19's tolerances,
-   C on 64 middle blocks at phase 20's, bitwise repeatable; the trace
-   path launches W 128 B and C and D once each; ms per trace call.
+   C on all 1,024 blocks at phase 20's, bitwise repeatable; phase 31's
+   cull check and overflow passes; the trace path launches W 128 B and C
+   and D once each; ms per trace call.
 34. normals - B's normals mode in the brute-force trace against plain
    (normals within 2e-3), and render_gut's normals against the port's
    oracle on phase 7's probe; one trace with normals launches it once.
@@ -215,10 +221,17 @@ write over 3.35 TB/s, from this run's inputs: for G and H only the rows
 that a non-empty interval or a mark selects; for B, C and E the accept
 test on every (pair, pixel) of the tiles and the response of each
 candidate the plain forward composited, for NHT also its features at
-each such candidate) and, for kernels D and F, the time of index_add_,
+each such candidate; for trace's B and C, whose cull tests only some
+pairs, the work this run's rays need: the cull at staging, the warps'
+pyramid and the rays' sphere tests, the exact test of what the cull
+keeps, in the windows each ray walks before its kill, and the composited
+candidates' response) and, for kernels D and F, the time of index_add_,
 for G that of searchsorted + index_select, for H that of cummax + a
 gather; for C's NHT mode and F also the kernels' resources, C's sine
-error, F's set-up and kernel times apart; the
+error, F's set-up and kernel times apart; for trace's B and C
+(kernel 7 and windows of 128) the share of (pair, pixel) tests their
+cull removes (culled_share) and, as bound_all_pairs_ms, the bound of the
+exact test on every (pair, pixel), which JAX's function does; the
 card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX. Needs one card; there is no CPU fallback.
@@ -278,6 +291,13 @@ KILL_FLIP_CAP = 8
 # operations of kernel A's conic cull per pair slot
 # (ops/ut.py:tile_min_power_response)
 CULL_FLOPS = 60
+# fp32 operations of trace's cull (common.cuh): stage_cull per staged pair
+# (cull_radius: the rows' norms 15, their min and max 4, kappa 2, the
+# radius terms 8; a2 and b2 4), bundle_keeps per (pair, warp pyramid)
+# (p - c 3, |p - c| 6, the reach 5, five planes 30) and sphere_keeps per
+# (pair, pixel) in the warp's list (e 3, e x d 9, |e x d|^2 5, |e|^2 5,
+# the test 4)
+TRACE_CULL_FLOPS = {"stage": 33, "bundle": 44, "sphere": 26}
 # reported kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "bin_decode": ("threedgrut_tpu_torch/csrc/bin_decode.cu",
@@ -384,8 +404,9 @@ def raster_bound(args, outputs, rc, general, accepted, nht_flops=0,
     the response and ``nht_flops`` more (NHT_ACCEPT_FLOPS for B's
     features at the hit, NHT_BWD_ACCEPT_FLOPS for C's pullback).
     Candidates that pass the test but miss the ray's range are charged the
-    test only, so this is a floor. ``shared_tiles``: the tiles that each
-    walk the one shared segment of ``args[2]`` (kernel 7)."""
+    test only. ``shared_tiles``: the tiles that each walk the one shared
+    segment of ``args[2]`` (kernel 7). trace's B and C, whose cull leaves
+    most pairs untested, take trace_bound."""
     pairs = int(args[2][-1])
     if shared_tiles:
         pairs = int(args[2][1] - args[2][0]) * shared_tiles
@@ -393,6 +414,35 @@ def raster_bound(args, outputs, rc, general, accepted, nht_flops=0,
     per_accept = ACCEPT_FLOPS[(rc.kernel_degree, general)] + nht_flops
     return bound(nbytes(*tensors, *outputs),
                  pairs * 256 * TEST_FLOPS[general] + accepted * per_accept)
+
+
+def trace_bound(args, outputs, rc, cull, accepted):
+    """The bound of trace's B or C (windows of 128, with the cull) on
+    ``args`` writing ``outputs``, from the work this run's rays need
+    (``cull``: ops/cuda/raster.py:trace_cull_plain's counts, over the
+    windows each ray walks before its kill): the cull staged once per
+    (pair, block that walks it), each warp pyramid's test of it, the
+    sphere test of each (pair, pixel) in the warp's list, the exact test
+    of each the sphere keeps, and the ``accepted`` candidates (the plain
+    forward's composited count) carried through the response. Each pass
+    of the k-buffer past the first, and the tests of a killed ray's last
+    window after its kill, are not charged."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    ops = (cull["staged"] * TRACE_CULL_FLOPS["stage"]
+           + cull["bundle_tests"] * TRACE_CULL_FLOPS["bundle"]
+           + cull["sphere_tests"] * TRACE_CULL_FLOPS["sphere"]
+           + cull["exact_tests"] * TEST_FLOPS[True]
+           + accepted * ACCEPT_FLOPS[(rc.kernel_degree, True)])
+    return bound(nbytes(*tensors, *outputs), ops)
+
+
+def trace_bound_keys(args, outputs, rc, cull, accepted, shared_tiles=0):
+    """bound_keys of trace's B or C (trace_bound), with the bound of the
+    exact test on every (pair, pixel) (raster_bound) beside it as
+    bound_all_pairs_ms."""
+    return dict(bound_all_pairs_ms=raster_bound(
+        args, outputs, rc, True, accepted, shared_tiles=shared_tiles)[0],
+        **bound_keys(trace_bound(args, outputs, rc, cull, accepted)))
 
 
 def composited(fwd):
@@ -1710,6 +1760,31 @@ def backward_agreement(c_args, d_rows, label):
                                     for k, x in stats.items())
 
 
+def cull_check(args, label):
+    """trace's cull (kernels B and C at windows of 128) on a phase's own
+    inputs ``args``: its plain mirror in the kernels' fp32 operation order
+    and the fp32 exact test, on the card (ops/cuda/raster.py:
+    trace_cull_plain); raises if it ever culls a candidate the exact test
+    accepts. Returns (the share of (pair, pixel) tests culled, the
+    mirror's counts, a message)."""
+    from threedgrut_tpu_torch.ops.cuda.raster import TRACE_K, trace_cull_plain
+
+    c = trace_cull_plain(*args)
+    if c["culled_accepted"]:
+        raise AssertionError(f"{label}: the cull drops {c['culled_accepted']}"
+                             f" accepted candidates: {c}")
+    n = c["tests"]
+    share = (c["bundle_culled"] + c["sphere_culled"]) / n
+    return share, c, (
+        f"cull {share:.6f} of {n} (pair, pixel) tests ({c['bundle_culled'] / n:.6f}"
+        f" by the warps' bundles, {c['sphere_culled'] / n:.6f} by the rays' "
+        f"spheres), 0 of the {c['accepted']} accepted culled; "
+        f"{c['over_k']} (ray, window) with more than {TRACE_K} accepted "
+        f"(at most {c['max_window']}); the work of the walked windows: "
+        f"{c['staged']} staged pairs, {c['bundle_tests']} pyramid tests, "
+        f"{c['sphere_tests']} sphere tests, {c['exact_tests']} exact tests")
+
+
 def trace_path_run(model, ro, rd, counters, **kw):
     """trace's main path once, as a user calls it: forward and the
     backward of fixture_loss, with ``counters`` (name -> (function,
@@ -1737,7 +1812,8 @@ def trace_phases(dev, ut_cfg):
     from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs, fold_pairs_plain
     from threedgrut_tpu_torch.ops.cuda.raster import (
         rasterize_tiles, rasterize_tiles_backward, rasterize_tiles_forward,
-        rasterize_tiles_plain, repeat_fold)
+        rasterize_tiles_plain, repeat_fold, trace_kernel_attributes,
+        window_overflows)
     from threedgrut_tpu_torch.render.common import RasterConfig
     from threedgrut_tpu_torch.render.grt import prepare_trace, trace
     from threedgrut_tpu_torch.render.oracle import oracle_probe, parity_db
@@ -1759,26 +1835,35 @@ def trace_phases(dev, ut_cfg):
         raise AssertionError("8192 slots did not take the brute force")
     args = inp.args()
     with torch.no_grad():
+        window_overflows(reset=True)
         got = rasterize_tiles_forward(*args)
+        b_over = window_overflows(reset=True)["raster_fwd"]
         ref, plain_ms = timed_once(lambda: rasterize_tiles_plain(*args))
         err, msg = forward_agreement(got, ref, inp.cfg, "kernel 7 B")
         b_ms = cuda_ms(lambda: rasterize_tiles_forward(*args), 5)
+        brute_share, brute_cull, cull_msg = cull_check(args, "kernel 7")
     n_seg = int(inp.tile_start[1])
     n_acc = composited(ref)
     report["raster_fwd_shared_segment"] = dict(
-        max_abs_err=err, ms=b_ms, plain_ms=plain_ms,
-        **bound_keys(raster_bound(args, got, inp.cfg, True, n_acc,
-                                  shared_tiles=n_blocks)))
+        max_abs_err=err, ms=b_ms, plain_ms=plain_ms, culled_share=brute_share,
+        **trace_bound_keys(args, got, inp.cfg, brute_cull, n_acc,
+                           shared_tiles=n_blocks))
+    att = trace_kernel_attributes()
     phase("kernel 7 B", f"brute force, {n_seg} slots x {n_blocks} blocks of "
           f"256 rays ({TRACE_SIDE}x{TRACE_SIDE} orbit view), W 128, degree "
           f"4, {n_acc:.0f} composited: {msg}; kernel {b_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
+          f"{plain_ms:.4f} ms; {cull_msg}; k-buffer overflow passes "
+          f"{b_over}; trace kernels (registers, local bytes, shared bytes, "
+          f"dynamic shared bytes): " + ", ".join(
+              f"{k} {v['registers']}/{v['local_bytes']}/{v['shared_bytes']}/"
+              f"{v['dynamic_shared_bytes']}" for k, v in att.items()))
 
     # 32. kernel 7 backward: C over the shared segment, then D
     with torch.no_grad():
         c_args = args[:6] + (got[0], got[2], got[4], *upstream, inp.cfg,
                              inp.ray_o, True)
         d1 = rasterize_tiles_backward(*c_args)
+        c_over = window_overflows(reset=True)["raster_bwd"]
         d2 = rasterize_tiles_backward(*c_args)
         same = bool(torch.equal(d1, d2))
         del d2
@@ -1802,8 +1887,9 @@ def trace_phases(dev, ut_cfg):
         f_lib = index_add_ms(d_args)
     report["raster_bwd_shared_segment"] = dict(
         max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
-        **bound_keys(raster_bound(c_args, [d1], inp.cfg, True, n_acc,
-                                  shared_tiles=n_blocks)))
+        culled_share=brute_share,
+        **trace_bound_keys(c_args, [d1], inp.cfg, brute_cull, n_acc,
+                           shared_tiles=n_blocks))
     report["fold_shared_segment"] = dict(
         max_abs_err=f_err, ms=f_ms, plain_ms=f_plain_ms,
         **bound_keys(bound(nbytes(*d_args[:5], f1), d1.numel()),
@@ -1838,7 +1924,8 @@ def trace_phases(dev, ut_cfg):
         raise AssertionError(f"brute trace launches {got_l}")
     launches.update(got_l)
     phase("kernel 7 C and D", f"C: {c_msg} (all {n_blocks} blocks); max "
-          f"|d| {c_err:.3g}; two runs bitwise equal; kernel {c_ms:.4f} ms, "
+          f"|d| {c_err:.3g}; k-buffer overflow passes {c_over}; two runs "
+          f"bitwise equal; kernel {c_ms:.4f} ms, "
           f"plain {c_plain_ms:.4f} ms; D on its {n_blocks * n_seg} rows: max |d| {f_err:.3g} "
           f"of {f_scale:.3g}, bitwise equal, {f_ms:.4f} ms, plain "
           f"{f_plain_ms:.4f} ms, index_add_ {f_lib:.4f} ms; gradients vs "
@@ -1857,7 +1944,9 @@ def trace_phases(dev, ut_cfg):
     args = inp.args()
     seg_len = int(inp.tile_start[1])
     with torch.no_grad():
+        window_overflows(reset=True)
         got = rasterize_tiles_forward(*args)
+        b_over = window_overflows(reset=True)["raster_fwd"]
         ref, plain_ms = timed_once(lambda: rasterize_tiles_plain(*args))
         err, msg = forward_agreement(got, ref, inp.cfg, "W 128 B")
         b_ms = cuda_ms(lambda: rasterize_tiles_forward(*args), 5)
@@ -1865,18 +1954,21 @@ def trace_phases(dev, ut_cfg):
         c_args = args[:6] + (got[0], got[2], got[4], *upstream, inp.cfg,
                              inp.ray_o, False)
         d1 = rasterize_tiles_backward(*c_args)
+        c_over = window_overflows(reset=True)["raster_bwd"]
         same = bool(torch.equal(d1, rasterize_tiles_backward(*c_args)))
         c_ms = cuda_ms(lambda: rasterize_tiles_backward(*c_args), 3)
         c_err, c_plain_ms, c_msg = backward_agreement(c_args, d1,
                                                       "W 128 C")
         if not same:
             raise AssertionError("W 128 C is not bitwise repeatable")
+        grid_share, grid_cull, cull_msg = cull_check(args, "W 128")
     report["raster_fwd_window128"] = dict(
-        max_abs_err=err, ms=b_ms, plain_ms=plain_ms,
-        **bound_keys(raster_bound(args, got, inp.cfg, True, n_acc)))
+        max_abs_err=err, ms=b_ms, plain_ms=plain_ms, culled_share=grid_share,
+        **trace_bound_keys(args, got, inp.cfg, grid_cull, n_acc))
     report["raster_bwd_window128"] = dict(
         max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
-        **bound_keys(raster_bound(c_args, [d1], inp.cfg, True, n_acc)))
+        culled_share=grid_share,
+        **trace_bound_keys(c_args, [d1], inp.cfg, grid_cull, n_acc))
     del d1
     counters = {"raster_bwd_window128": (bwd_fn, "launches_window128"),
                 "raster_fwd_window128": (fwd_fn, "launches_window128"),
@@ -1890,7 +1982,8 @@ def trace_phases(dev, ut_cfg):
           f"{int(inp.accel_overflow)}, {n_acc:.0f} composited: B {msg}; "
           f"kernel {b_ms:.4f} ms, plain {plain_ms:.4f} ms; C {c_msg} (all "
           f"{n_blocks} blocks), max |d| {c_err:.3g}, two runs bitwise "
-          f"equal, kernel {c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; trace "
+          f"equal, kernel {c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; "
+          f"{cull_msg}; k-buffer overflow passes B {b_over}, C {c_over}; trace "
           f"path launches {got_l}; "
           f"{grid_ms:.3f} ms per forward trace call (host clock)")
 
@@ -1925,10 +2018,11 @@ def trace_phases(dev, ut_cfg):
         raise AssertionError(f"render_gut normals vs oracle: {o_msg} off "
                              f"{n_flip} decision flips, flip_frac "
                              f"{flip:.5f}")
+    # phase 31's rays and records: its cull's counts
     report["raster_fwd_normals"] = dict(
-        max_abs_err=err, ms=b_ms, plain_ms=plain_ms,
-        **bound_keys(raster_bound(args, got, inp.cfg, True, composited(ref),
-                                  shared_tiles=n_blocks)))
+        max_abs_err=err, ms=b_ms, plain_ms=plain_ms, culled_share=brute_share,
+        **trace_bound_keys(args, got, inp.cfg, brute_cull, composited(ref),
+                           shared_tiles=n_blocks))
     fwd_fn.launches_normals = 0
     with torch.no_grad():
         normals = trace(small, ro, rd, raster_cfg=nrc)["pred_normals"]

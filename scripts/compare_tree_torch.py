@@ -2,26 +2,42 @@
 """Time this checkout's port beside another checkout's on one NVIDIA GPU.
 
     python scripts/compare_tree_torch.py --other <dir> [--rounds 2]
+        [--groups trace,playground,guard800]
 
 ``--other`` is another checkout of the repository, e.g. an earlier
 commit unpacked with ``git archive <commit> | tar -x -C build/other``.
 Each round runs the two trees in turns (other, this, this, other), each
 in a process of its own that imports that tree's ``threedgrut_tpu_torch``
 and builds its kernels into that tree's ``build/``, and measures on the
-same card, with the inputs and timers of this checkout's chip_smoke.py:
+same card, with the inputs and timers of this checkout's chip_smoke.py.
+The groups (``--groups``, all by default; a run of the groups a change
+touches saves the minutes of the slow ones, such as ``nht_step``):
 
-- kernel C's NHT mode at 800x800 on the 100k NHT cloud (48 features),
-  degree 2 and 4, on phase 27's inputs (CUDA events);
-- kernel F with its set-up on the 800x800 bench view's 691,175 pair rows
-  x 16 (phase 37's inputs): with its set-up, the set-up alone and the
-  kernel alone (CUDA events), and with its set-up by device time
+- ``trace``: kernels B and C in trace()'s windows of 128 on phase 31's
+  (brute force over 8,192 slots, kernel 7) and phase 33's (the grid at
+  100k) inputs, by CUDA events and by device time (torch.profiler), and a
+  SHA-256 of B's five outputs; one differentiated ``trace`` call
+  (forward, then the backward of chip_smoke.py:fixture_loss) on each,
+  host ms (synchronised) and device ms;
+- ``playground``: phase 36's frame (100k, glass icosphere and mirror
+  box, 512x512, 3 bounces): host ms over 3 frames, then device busy and
+  idle share over 2 traced frames;
+- ``guard800``: kernels B and C at 800x800 on the 100k bench view in the
+  3DGUT and the 3DGRT setting (phases 4, 8 and 13-14's inputs), which
+  trace's redesign must not move: CUDA events and a SHA-256 of B's five
+  outputs and of C's;
+- ``nht_c``: kernel C's NHT mode at 800x800 on the 100k NHT cloud (48
+  features), degree 2 and 4, on phase 27's inputs (CUDA events);
+- ``f``: kernel F with its set-up on the 800x800 bench view's 691,175
+  pair rows x 16 (phase 37's inputs): with its set-up, the set-up alone
+  and the kernel alone (CUDA events), and with its set-up by device time
   (torch.profiler), beside ``index_add_`` by both, and a SHA-256 of its
   output;
-- the NHT + MCMC train step of both NHT configs
+- ``nht_step``: the NHT + MCMC train step of both NHT configs
   (scripts/bench_train_torch.py's step: host ms over 20 steps, then
   device busy and idle share over 5 traced steps);
-- the table route's raster forward and backward at 800x800
-  (``rasterize_tiles_table``: B, C, F; the same).
+- ``table_route``: the table route's raster forward and backward at
+  800x800 (``rasterize_tiles_table``: B, C, F; the same).
 
 Prints one line per tree and turn and a JSON line of all of them, with
 the card's ``nvidia-smi`` name and power limit. Needs a CUDA device.
@@ -41,6 +57,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 NHT_CONFIGS = ("apps/nerf_synthetic_3dgut_mcmc_nht",
                "apps/nerf_synthetic_3dgrt_mcmc_nht")
+# measurement groups, in the order a run takes them (GROUP_FNS below)
+GROUPS = ("trace", "playground", "guard800", "nht_c", "f", "nht_step",
+          "table_route")
 
 
 def smoke():
@@ -53,44 +72,159 @@ def smoke():
     return mod
 
 
-def child(label):
-    """One tree's measurements (this process imports that tree)."""
-    import threedgrut_tpu_torch
+def sha256(*tensors):
+    """SHA-256 of the tensors' bytes, one after another."""
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
 
-    print(f"measuring {os.path.dirname(threedgrut_tpu_torch.__file__)}",
-          flush=True)
-    import bench_train_torch as bt
-    from threedgrut_tpu_torch.ops.cameras import make_pinhole
-    from threedgrut_tpu_torch.ops.cuda import build
+
+def trace_group(cs, dev, res):
+    """trace's B and C on phases 31 and 33's inputs, and one differentiated
+    trace call on each."""
+    import numpy as np
     from threedgrut_tpu_torch.ops.cuda.raster import (
-        rasterize_tiles_backward, rasterize_tiles_table)
-    from threedgrut_tpu_torch.ops.cuda.scatter import (
-        id_runs, scatter_accumulate_rows, scatter_runs)
+        rasterize_tiles_backward, rasterize_tiles_forward)
+    from threedgrut_tpu_torch.render.grt import prepare_trace, trace
+    from threedgrut_tpu_torch.synthetic import bench_cloud
+
+    n_blocks = cs.TRACE_SIDE * cs.TRACE_SIDE // 256
+    rng = np.random.default_rng(31)
+    upstream = [torch.tensor(rng.normal(size=(16 * n_blocks, 16, c)).astype(
+        np.float32), device=dev) for c in (3, 1, 1)]
+    for label, n in (("kernel7", 8192), ("grid", 100_000)):
+        model = bench_cloud(n, seed=0, device=dev)
+        ro, rd = cs.trace_rays(model)
+        with torch.no_grad():
+            inp = prepare_trace(model, ro, rd)
+            args = inp.args()
+            out = rasterize_tiles_forward(*args)
+            c_args = args[:6] + (out[0], out[2], out[4], *upstream, inp.cfg,
+                                 inp.ray_o, inp.shared)
+            r = dict(b_sha256=sha256(*out),
+                     b_ms=cs.cuda_ms(lambda: rasterize_tiles_forward(*args),
+                                     10),
+                     b_device_ms=cs.device_ms(
+                         lambda: rasterize_tiles_forward(*args), 10),
+                     c_ms=cs.cuda_ms(
+                         lambda: rasterize_tiles_backward(*c_args), 5),
+                     c_device_ms=cs.device_ms(
+                         lambda: rasterize_tiles_backward(*c_args), 5))
+            del out, c_args
+
+        def differentiated():
+            for q in model.params().values():
+                q.grad = None
+            cs.fixture_loss(trace(model, ro, rd)).backward()
+
+        r["trace_grad_host_ms"] = cs.host_ms(differentiated, 3)
+        r["trace_grad_device_ms"] = cs.device_ms(differentiated, 3)
+        res[f"trace_{label}"] = r
+        del model, inp, args
+        torch.cuda.empty_cache()
+
+
+def playground_group(cs, dev, res):
+    """Phase 36's playground frame: host ms, device busy, idle share."""
+    import time
+
+    import bench_train_torch as bt
+    from playground_torch import build_engine
+    from threedgrut_tpu_torch.ops.cameras import orbit_camera
+    from threedgrut_tpu_torch.synthetic import bench_cloud, orbit_geometry
+
+    model = bench_cloud(100_000, seed=0, device=dev)
+    engine, center = build_engine(model, demo_primitives=True)
+    _, dist = orbit_geometry(model)
+    cam = orbit_camera(0.0, 0.35, dist, center=center,
+                       resolution=(cs.TRACE_SIDE, cs.TRACE_SIDE), device=dev)
+    engine.render(cam)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.render(cam)
+        times.append((time.perf_counter() - t0) * 1e3)
+    wall, busy, _ = bt.profile_steps(lambda: engine.render(cam), 2, top=0)
+    res["playground"] = dict(ms=sum(times) / len(times), busy_us=busy,
+                             idle=1.0 - busy / wall)
+    del engine, model
+    torch.cuda.empty_cache()
+
+
+def guard800_group(cs, dev, res):
+    """Kernels B and C at 800x800, 3DGUT and 3DGRT: times and hashes."""
+    from threedgrut_tpu_torch.ops.cameras import make_pinhole
+    from threedgrut_tpu_torch.ops.cuda.raster import (
+        rasterize_tiles_backward, rasterize_tiles_forward)
     from threedgrut_tpu_torch.ops.ut import UTConfig
     from threedgrut_tpu_torch.render.common import RasterConfig
-    from threedgrut_tpu_torch.synthetic import bench_cloud, nht_cloud
+    from threedgrut_tpu_torch.render.grt import grt_raster_config
+    from threedgrut_tpu_torch.synthetic import bench_cloud
 
-    cs = smoke()
-    dev = torch.device("cuda:0")
-    build.load_all(["bin_decode", "raster_fwd", "raster_bwd", "fold",
-                    "scatter_rows"])
     side = cs.SIDE
     cam = make_pinhole((side, side), (1.1 * side, 1.1 * side),
                        (side / 2, side / 2), device=dev)
-    ut_cfg = UTConfig()
-    res = {"tree": label}
+    model = bench_cloud(100_000, seed=0, device=dev)
+    up = cs.seeded_upstream(dev, side, side, (3, 1, 1), 7)
+    for label, rc in (("3dgut", RasterConfig()),
+                      ("3dgrt", grt_raster_config())):
+        with torch.no_grad():
+            _, b_args, fwd, c_args = cs.view_inputs(cam, UTConfig(), rc,
+                                                    model, 3, up)
+            res[f"guard800_{label}"] = dict(
+                b_sha256=sha256(*fwd),
+                c_sha256=sha256(rasterize_tiles_backward(*c_args)),
+                b_ms=cs.cuda_ms(lambda: rasterize_tiles_forward(*b_args), 20),
+                c_ms=cs.cuda_ms(lambda: rasterize_tiles_backward(*c_args),
+                                10))
+
+
+def nht_c_group(cs, dev, res):
+    """Kernel C's NHT mode at both degrees."""
+    from threedgrut_tpu_torch.ops.cameras import make_pinhole
+    from threedgrut_tpu_torch.ops.cuda.raster import rasterize_tiles_backward
+    from threedgrut_tpu_torch.ops.ut import UTConfig
+    from threedgrut_tpu_torch.synthetic import nht_cloud
+
+    side = cs.SIDE
+    cam = make_pinhole((side, side), (1.1 * side, 1.1 * side),
+                       (side / 2, side / 2), device=dev)
     with torch.no_grad():
         model = nht_cloud(100_000, seed=0, device=dev)
         up = cs.seeded_upstream(dev, side, side, (24, 1, 1), 26)
         for rc in cs.nht_settings().values():
-            c_args = cs.view_inputs(cam, ut_cfg, rc, model, 0, up)[3]
+            c_args = cs.view_inputs(cam, UTConfig(), rc, model, 0, up)[3]
             res[f"nht_c_deg{rc.kernel_degree}_ms"] = cs.cuda_ms(
                 lambda: rasterize_tiles_backward(*c_args), 10)
-        del model, c_args
-        rc = RasterConfig()
+
+
+def bench_view(cs, dev):
+    """The 800x800 3DGUT bench view and C's arguments (phases 3 and 8)."""
+    from threedgrut_tpu_torch.ops.cameras import make_pinhole
+    from threedgrut_tpu_torch.ops.ut import UTConfig
+    from threedgrut_tpu_torch.render.common import RasterConfig
+    from threedgrut_tpu_torch.synthetic import bench_cloud
+
+    side = cs.SIDE
+    cam = make_pinhole((side, side), (1.1 * side, 1.1 * side),
+                       (side / 2, side / 2), device=dev)
+    rc = RasterConfig()
+    with torch.no_grad():
         v, _, _, c_args = cs.view_inputs(
-            cam, ut_cfg, rc, bench_cloud(100_000, seed=0, device=dev), 3,
+            cam, UTConfig(), rc, bench_cloud(100_000, seed=0, device=dev), 3,
             cs.seeded_upstream(dev, side, side, (3, 1, 1), 7))
+    return rc, v, c_args
+
+
+def f_group(cs, dev, res):
+    """Kernel F with its set-up beside index_add_."""
+    from threedgrut_tpu_torch.ops.cuda.raster import rasterize_tiles_backward
+    from threedgrut_tpu_torch.ops.cuda.scatter import (
+        id_runs, scatter_accumulate_rows, scatter_runs)
+
+    _, v, c_args = bench_view(cs, dev)
+    with torch.no_grad():
         d_rec = rasterize_tiles_backward(*c_args)
         ids, n_rows = v.binning.pair_particle, v.table.shape[0]
         runs = id_runs(ids, n_rows)
@@ -111,8 +245,13 @@ def child(label):
         res["f_device_ms"] = cs.device_ms(f, 20)
         res["index_add_device_ms"] = cs.device_ms(library, 20)
         # F's output, to hold the trees' equal bit for bit
-        res["f_sha256"] = hashlib.sha256(
-            f().cpu().numpy().tobytes()).hexdigest()
+        res["f_sha256"] = sha256(f())
+
+
+def nht_step_group(cs, dev, res):
+    """The NHT + MCMC train step of both NHT configs."""
+    import bench_train_torch as bt
+
     for name in NHT_CONFIGS:
         step = bt.config_step(name, dev)
         bt.time_steps(step, 3)
@@ -121,6 +260,14 @@ def child(label):
         res[name] = dict(ms=ms, busy_us=busy, idle=1.0 - busy / wall)
         del step
         torch.cuda.empty_cache()
+
+
+def table_route_group(cs, dev, res):
+    """The table route's raster forward and backward at 800x800."""
+    import bench_train_torch as bt
+    from threedgrut_tpu_torch.ops.cuda.raster import rasterize_tiles_table
+
+    rc, v, c_args = bench_view(cs, dev)
     b = v.binning
     g_feat, g_opac, g_dep = c_args[9:12]
 
@@ -135,15 +282,73 @@ def child(label):
     ms, _ = bt.time_steps(table_step, 20)
     wall, busy, _ = bt.profile_steps(table_step, 5, top=0)
     res["table_route"] = dict(ms=ms, busy_us=busy, idle=1.0 - busy / wall)
+
+
+GROUP_FNS = {"trace": trace_group, "playground": playground_group,
+             "guard800": guard800_group, "nht_c": nht_c_group,
+             "f": f_group, "nht_step": nht_step_group,
+             "table_route": table_route_group}
+
+
+def child(label, groups):
+    """One tree's measurements (this process imports that tree)."""
+    import threedgrut_tpu_torch
+
+    print(f"measuring {os.path.dirname(threedgrut_tpu_torch.__file__)}",
+          flush=True)
+    from threedgrut_tpu_torch.ops.cuda import build
+
+    cs = smoke()
+    dev = torch.device("cuda:0")
+    build.load_all(["bin_decode", "raster_fwd", "raster_bwd", "fold",
+                    "scatter_rows"])
+    res = {"tree": label}
+    for g in groups:
+        GROUP_FNS[g](cs, dev, res)
     print("TREE " + json.dumps(res), flush=True)
 
 
-def run_tree(tree, label):
+def summary(res):
+    """One line of a tree's measurements."""
+    parts = []
+    for k in ("trace_kernel7", "trace_grid"):
+        if k in res:
+            r = res[k]
+            parts.append(
+                f"{k}: B {r['b_ms']:.4f} ms (device {r['b_device_ms']:.4f}), "
+                f"C {r['c_ms']:.4f} (device {r['c_device_ms']:.4f}), "
+                f"differentiated trace {r['trace_grad_host_ms']:.3f} ms host"
+                f" / {r['trace_grad_device_ms']:.3f} device, B sha256 "
+                f"{r['b_sha256'][:16]}")
+    for k in ("guard800_3dgut", "guard800_3dgrt"):
+        if k in res:
+            r = res[k]
+            parts.append(f"{k}: B {r['b_ms']:.4f} ms, C {r['c_ms']:.4f} ms, "
+                         f"sha256 B {r['b_sha256'][:16]} C "
+                         f"{r['c_sha256'][:16]}")
+    if "nht_c_deg2_ms" in res:
+        parts.append(f"NHT C {res['nht_c_deg2_ms']:.4f} / "
+                     f"{res['nht_c_deg4_ms']:.4f} ms (degree 2 / 4)")
+    if "f_ms" in res:
+        parts.append(f"F {res['f_ms']:.4f} ms (set-up {res['f_setup_ms']:.4f},"
+                     f" kernel {res['f_kernel_ms']:.4f}; device "
+                     f"{res['f_device_ms']:.4f}), index_add_ "
+                     f"{res['index_add_ms']:.4f} ms (device "
+                     f"{res['index_add_device_ms']:.4f})")
+    for k in NHT_CONFIGS + ("table_route", "playground"):
+        if k in res:
+            r = res[k]
+            parts.append(f"{k.split('/')[-1]} {r['ms']:.3f} ms busy "
+                         f"{r['busy_us']:.1f} us idle {r['idle']:.3f}")
+    return "; ".join(parts)
+
+
+def run_tree(tree, label, groups):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [tree, os.path.join(tree, "scripts")]))
     r = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
-                        label], cwd=tree, env=env, capture_output=True,
-                       text=True)
+                        label, "--groups", ",".join(groups)], cwd=tree,
+                       env=env, capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"{label} tree failed:\n{r.stderr[-4000:]}")
     lines = r.stdout.splitlines()
@@ -157,8 +362,14 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", help="another checkout of the repository")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help="comma-separated measurement groups")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    groups = [g for g in args.groups.split(",") if g]
+    unknown = set(groups) - set(GROUPS)
+    if unknown:
+        ap.error(f"unknown groups {sorted(unknown)}; known: {GROUPS}")
     if not torch.cuda.is_available():
         raise SystemExit("compare_tree_torch.py: needs a CUDA device")
     if args.child:
@@ -166,7 +377,7 @@ def main():
         tree = os.getcwd()
         sys.path[:] = [tree, os.path.join(tree, "scripts")] + [
             x for x in sys.path if os.path.abspath(x or ".") != HERE]
-        child(args.child)
+        child(args.child, groups)
         return
     if not args.other:
         ap.error("--other is required")
@@ -176,22 +387,9 @@ def main():
     for _ in range(args.rounds):
         for tree, label in ((other, "other"), (REPO, "this"), (REPO, "this"),
                             (other, "other")):
-            res = run_tree(tree, label)
+            res = run_tree(tree, label, groups)
             runs.append(res)
-            nht = " ".join(
-                f"{n.split('/')[-1]} {res[n]['ms']:.3f} ms busy "
-                f"{res[n]['busy_us']:.1f} us idle {res[n]['idle']:.3f};"
-                for n in NHT_CONFIGS)
-            print(f"[{label}] NHT C {res['nht_c_deg2_ms']:.4f} / "
-                  f"{res['nht_c_deg4_ms']:.4f} ms (degree 2 / 4); F "
-                  f"{res['f_ms']:.4f} ms (set-up {res['f_setup_ms']:.4f}, "
-                  f"kernel {res['f_kernel_ms']:.4f}; device "
-                  f"{res['f_device_ms']:.4f}), index_add_ "
-                  f"{res['index_add_ms']:.4f} ms (device "
-                  f"{res['index_add_device_ms']:.4f}); {nht} table route "
-                  f"{res['table_route']['ms']:.3f} ms busy "
-                  f"{res['table_route']['busy_us']:.1f} us idle "
-                  f"{res['table_route']['idle']:.3f}", flush=True)
+            print(f"[{label}] {summary(res)}", flush=True)
     print(json.dumps({"runs": runs, "card": smoke().nvidia_smi_line()}))
 
 

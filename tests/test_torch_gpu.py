@@ -35,7 +35,8 @@ from threedgrut_tpu_torch.render.grt import grt_raster_config, render_grt
 from threedgrut_tpu_torch.render.gut import prepare_view, render_gut
 from threedgrut_tpu_torch.ops.ut import UTConfig
 from threedgrut_tpu_torch.synthetic import bench_cloud
-from torch_port_utils import ADVERSARIAL_IDS, adversarial_ids
+from torch_port_utils import (ADVERSARIAL_IDS, adversarial_ids, column_rays,
+                              faint_column, far_rays, incoherent_rays)
 
 RC = RasterConfig()
 # the sorted settings of apps/nerf_synthetic_3dgrt and of
@@ -592,29 +593,78 @@ def _trace_rays(model, side):
 # the grid, each in its windows of 128 and in rank order (_sorted=False)
 TRACE = {f"{acc}-{srt}": (acc == "grid", srt == "sorted")
          for acc in ("brute", "grid") for srt in ("sorted", "rank")}
+# their rays, as (origins, directions, trace keywords): an orbit camera's;
+# a grid of rays from 300 units behind the cloud (the cull's far origins,
+# tests/test_torch_trace_cull.py); and incoherent rays, from origins
+# across the cloud in all directions, some open behind their origins
+# (warps that test every pair, and pyramids with wide apexes)
+TRACE_RAYS = {
+    "orbit": lambda m, side: (*_trace_rays(m, side), {}),
+    "far": lambda m, side: (*far_rays(m, side=side), {}),
+    "incoherent": lambda m, side: (lambda ro, rd, t_min: (
+        ro, rd, dict(t_min=t_min)))(*incoherent_rays(m, side))}
+
+
+def _far_matches_plain(cuda, accelerate, srt):
+    """Kernel B in trace()'s modes (with normals) on far rays against its
+    plain version on the same inputs on the card: from 300 units away a
+    ray's direction rounded one ulp apart moves it by 2e-5, so the CPU's
+    own trace inputs would differ. Features, opacity and T_final within
+    1e-4 but on at most 8 kill flips (chip_smoke.py phase 19's rule: T
+    within rounding of min_transmittance, one candidate apart); normals
+    3e-4 but on at most 8 rays, those within 2e-3 (phase 34's)."""
+    from threedgrut_tpu_torch.render.grt import prepare_trace
+
+    model = bench_cloud(3000, seed=3, device=cuda)
+    ro, rd = far_rays(model, side=48)
+    with torch.no_grad():
+        inp = prepare_trace(model, ro, rd,
+                            raster_cfg=RasterConfig(enable_normals=True),
+                            accelerate=accelerate, _sorted=srt)
+        got = rasterize_tiles_forward(*inp.args())
+        ref = rasterize_tiles_plain(*inp.args())
+    pix = torch.maximum(torch.maximum(
+        (got[0] - ref[0]).abs().amax(-1), (got[1] - ref[1]).abs()[..., 0]),
+        (got[4] - ref[4]).abs()[..., 0])
+    flip = pix > 1e-4
+    rc = inp.cfg
+    assert int(flip.sum()) <= 8, int(flip.sum())
+    assert float(pix.max()) <= max(rc.max_alpha * rc.min_transmittance,
+                                   1e-4)
+    assert bool((torch.maximum(got[4], ref[4])[..., 0][flip]
+                 < rc.min_transmittance).all())
+    # normals: chip_smoke.py:normals_agreement's rule (the hit's entry
+    # point cancels digits at far origins)
+    n_err = (got[5] - ref[5]).abs().amax(-1)[~flip]
+    assert int((n_err > 3e-4).sum()) <= 8 and float(n_err.max()) <= 2e-3
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rays", sorted(TRACE_RAYS))
 @pytest.mark.parametrize("mode", sorted(TRACE))
-def test_trace_matches_plain(cuda, mode):
+def test_trace_matches_plain(cuda, mode, rays):
     """trace on the card (kernel B in trace()'s modes, and its normals
     mode) against the CPU's plain versions: features and opacity within
     1e-4, normals 3e-4 (the plain version's in the kernel's fp32
-    operation order), accel_overflow equal."""
+    operation order), accel_overflow equal; from far origins against the
+    plain version on the card's own inputs (``_far_matches_plain``)."""
     from threedgrut_tpu_torch.render.grt import trace
 
     accelerate, srt = TRACE[mode]
+    if rays == "far":
+        _far_matches_plain(cuda, accelerate, srt)
+        return
     outs = []
     for dev in (cuda, torch.device("cpu")):
         model = bench_cloud(3000, seed=3, device=dev)
-        ro, rd = _trace_rays(model, 48)
+        ro, rd, kw = TRACE_RAYS[rays](model, 48)
         with torch.no_grad():
             outs.append(trace(model, ro, rd, accelerate=accelerate,
-                              _sorted=srt))
+                              _sorted=srt, **kw))
             before = rasterize_tiles.launches_normals
             outs[-1]["pred_normals"] = trace(
                 model, ro, rd, raster_cfg=RasterConfig(enable_normals=True),
-                accelerate=accelerate, _sorted=srt)["pred_normals"]
+                accelerate=accelerate, _sorted=srt, **kw)["pred_normals"]
         step = 1 if dev.type == "cuda" else 0
         assert rasterize_tiles.launches_normals == before + step
     g, c = outs
@@ -629,8 +679,9 @@ def test_trace_matches_plain(cuda, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rays", sorted(TRACE_RAYS))
 @pytest.mark.parametrize("mode", sorted(TRACE))
-def test_trace_grad_on_card_matches_cpu(cuda, mode):
+def test_trace_grad_on_card_matches_cpu(cuda, mode, rays):
     """trace's backward on the card (kernel C in trace()'s modes, then D)
     against the CPU's plain versions, max-normalised 2e-3, and bitwise
     repeatable."""
@@ -642,9 +693,9 @@ def test_trace_grad_on_card_matches_cpu(cuda, mode):
     grads = []
     for dev in (cuda, cuda, torch.device("cpu")):
         model = bench_cloud(3000, seed=4, device=dev)
-        ro, rd = _trace_rays(model, 32)
+        ro, rd, kw = TRACE_RAYS[rays](model, 32)
         before = getattr(rasterize_tiles_backward, counter)
-        out = trace(model, ro, rd, accelerate=accelerate, _sorted=srt)
+        out = trace(model, ro, rd, accelerate=accelerate, _sorted=srt, **kw)
         (out["pred_features"].square().mean()
          + 0.1 * out["pred_opacity"].mean()
          + 0.01 * out["pred_dist"].mean()).backward()
@@ -653,6 +704,45 @@ def test_trace_grad_on_card_matches_cpu(cuda, mode):
         grads.append({k: getattr(model, k).grad.cpu() for k in (
             "positions", "rotation", "scale", "density", "features_albedo",
             "features_specular")})
+    for k, g in grads[0].items():
+        assert torch.equal(g, grads[1][k])
+        r = grads[2][k]
+        scale = float(r.abs().max()) + 1e-12
+        torch.testing.assert_close(g / scale, r / scale, atol=2e-3, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("accelerate", [False, True])
+def test_trace_kbuffer_overflow_matches_plain(cuda, accelerate):
+    """Rays down a column of faint particles accept more candidates in a
+    window than the k-buffer of trace's B and C holds (up to 128): their
+    extra passes run (the kernels' overflow count grows) and trace's
+    outputs and gradients still match the CPU's plain versions (1e-4;
+    2e-3 max-normalised), the gradients bitwise repeatable."""
+    from threedgrut_tpu_torch.ops.cuda.raster import window_overflows
+    from threedgrut_tpu_torch.render.grt import trace
+
+    kw = dict(accelerate=accelerate)
+    if accelerate:
+        kw.update(grid_dims=4, max_cells=64, cell_cap=512)
+    outs, grads = [], []
+    window_overflows(reset=True)
+    for dev in (cuda, cuda, torch.device("cpu")):
+        model = faint_column(device=dev)
+        ro, rd = column_rays(device=dev)
+        out = trace(model, ro, rd, sh_degree=0, **kw)
+        (out["pred_features"].square().mean()
+         + 0.1 * out["pred_opacity"].mean()).backward()
+        outs.append({k: v.detach().cpu() for k, v in out.items()})
+        grads.append({k: getattr(model, k).grad.cpu() for k in (
+            "positions", "rotation", "scale", "density", "features_albedo")})
+    over = window_overflows(reset=True)
+    assert over["raster_fwd"] > 0 and over["raster_bwd"] > 0, over
+    assert float(outs[2]["hits_count"].max()) > 128
+    for k in ("pred_features", "pred_opacity"):
+        torch.testing.assert_close(outs[0][k], outs[2][k], atol=1e-4, rtol=0)
+    torch.testing.assert_close(outs[0]["pred_dist"], outs[2]["pred_dist"],
+                               atol=1e-3, rtol=1e-3)
     for k, g in grads[0].items():
         assert torch.equal(g, grads[1][k])
         r = grads[2][k]

@@ -226,9 +226,8 @@ __device__ __forceinline__ float3 hit_normal(const float* r, int stride,
 // (the plain version's stable sort). Returns the count; the caller
 // re-evaluates each lane's hit from shared memory, which gives the same
 // values bit for bit, so only the key and an 8-bit lane ride the sort.
-// At W = 128 (trace) the arrays are 640 B of per-thread local memory
-// (the stack frame -Xptxas -v reports): an insertion touches them only
-// for accepted candidates, a few per window on the path.
+// Kernels B, C and E take it at W = 16; trace()'s windows of 128 take the
+// k-buffer below instead.
 template <int kDeg, int kW, bool kGen>
 __device__ __forceinline__ int sort_window(const float* rec, int stride,
                                            const float* thr, int lo, int hi,
@@ -252,6 +251,343 @@ __device__ __forceinline__ int sort_window(const float* rec, int stride,
     lane[i] = static_cast<uint8_t>(j);
   }
   return n;
+}
+
+// ---- trace()'s windows of 128: the cull and the k-buffer ----
+//
+// Kernels B and C in trace()'s modes (degree 4, the general mode, windows
+// of kTraceW over per-block segments or one shared segment) test only the
+// candidates that a conservative cull keeps (the exact test accepts
+// 0.27% of the grid's and 0.033% of the brute force's (ray, candidate)
+// pairs on chip_smoke.py phases 33 and 31's inputs, which count them):
+//  1. at staging, each pair's particle is a world sphere of radius
+//     cull_radius (below) and each warp's 32 rays lie in a pyramid
+//     (warp_bundle): a pair outside a warp's pyramid is left out of that
+//     warp's list, kept in lane order (bundle_keeps);
+//  2. per ray, a listed pair whose sphere the ray's line misses is not
+//     tested (sphere_keeps);
+//  3. the rest take the exact test (eval_hit_general), whose decisions are
+//     the only ones that count: the cull removes only candidates it would
+//     reject, so the outputs are those of testing every pair.
+// The proof is in the margins (cull_radius) and, empirically, in
+// ops/cuda/raster.py:trace_cull_plain, this cull in the same fp32
+// operation order, which tests/test_torch_trace_cull.py and chip_smoke.py
+// phases 31 and 33 hold against the exact test: no culled candidate is
+// ever accepted.
+constexpr int kTraceW = 128;
+// the k-buffer: the window's accepted candidates of a ray, smallest key
+// first; a window with more takes another pass for the next kTraceK
+constexpr int kTraceK = 8;
+// extra staged rows of a pair: its sphere's squared radius terms a2 and
+// b2 for the per-ray test (sphere_keeps)
+constexpr int kCullRows = 2;
+constexpr int kWarpsTrace = kBlock / 32;
+constexpr float kEps = 5.9604645e-8f;   // 2^-24, fp32's unit roundoff
+
+// The world radius beyond which a ray's line cannot be accepted, as
+// A + B |e| (e = o - p, in world units), from the record's M rows (field f
+// at r[f * stride]) and the staged squared-distance threshold thr.
+//
+// Why: M = diag(1/s) R^T, so |M row i|^2 = 1 / s_i^2 and M's least
+// singular value is 1 / s_max. The canonical squared distance sq of a ray
+// is min over its line of |M (x - p)|^2 >= dist^2 / s_max^2, dist the
+// world distance from p to the line, so sq < thr needs dist < sqrt(thr)
+// s_max. The fp32 margins, with eps = 2^-24 and kappa = s_max / s_min
+// (the rows' fp32 norms bound the singular values to a relative
+// 4 kappa eps):
+//  - relative: 1e-4 + 16 kappa eps on the radius covers the rounding of
+//    s_max, of sq's norms and division (2.5 eps) and of this bound;
+//  - in |e|: the exact test forms a = M e and b = M d and then c = a x b,
+//    which cancels where the line passes near p while |a| reaches the
+//    hundreds (far origins): its sqrt(sq) is off by up to about (8.2 +
+//    10.4 kappa) eps |e| / s_min, s_max (8.2 kappa + 10.4 kappa^2) eps |e|
+//    in world units, and the cull's own e x d by 3 eps |e| and its dot
+//    products by 4 eps |p - c|. B = 64 (1 + kappa)^2 eps covers their sum
+//    for every kappa >= 1 with a factor of 1.5 or more; the pyramid takes
+//    2 B for the hit distance's rounding near the apex.
+// A row of norm zero gives A = inf or NaN: every test keeps the pair.
+__device__ __forceinline__ void cull_radius(const float* r, int stride,
+                                            float thr, float& a, float& b) {
+  float m[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float m0 = r[(3 + 3 * i) * stride], m1 = r[(4 + 3 * i) * stride],
+                m2 = r[(5 + 3 * i) * stride];
+    m[i] = m0 * m0 + m1 * m1 + m2 * m2;
+  }
+  const float mn = fminf(fminf(m[0], m[1]), m[2]);
+  const float mx = fmaxf(fmaxf(m[0], m[1]), m[2]);
+  const float kap = sqrtf(mx / mn);
+  const float k1 = 1.0f + kap;
+  a = sqrtf(thr / mn) * (1.0001f + 16.0f * kEps * kap);
+  b = 64.0f * kEps * k1 * k1;
+}
+
+// A warp's rays as a pyramid with apex c, expanded by rho: every point
+// o + t d (t >= 0) of a ray of the warp with a non-empty t-range lies
+// within rho of the five planes' inner sides, (x - c) . n_i <= rho.
+// mode: kBundlePlanes, or kBundleNone (no ray of the warp has a range:
+// the warp tests nothing) or kBundleAll (its rays do not fit one pyramid:
+// a ray with tmin < 0, or one more than 78 degrees off the first ray's
+// direction; the warp tests every pair).
+constexpr int kBundlePlanes = 0, kBundleNone = 1, kBundleAll = 2;
+struct Bundle {
+  float cx, cy, cz, rho;
+  float n[5][3];
+  int mode;
+};
+
+// The bundle of the calling warp's rays (every lane gets it). The axis a
+// is the first valid ray's direction, u the deviation from a of the ray
+// deviating most (so u follows a fan of rays), v = a x u; each ray's
+// gnomonic coordinates (d.u / d.a, d.v / d.a) bound the side planes,
+// padded by 1e-5 (1 + |x|), which covers their fp32 rounding (under 2e-6
+// (1 + |x|) with d.a >= 0.2 |d|) so no ray leaves its plane; the fifth
+// plane is the apex's, n = -a. c is the first valid ray's origin, rho the
+// largest distance of a valid ray's origin from it (0 for a camera's
+// rays). ops/cuda/raster.py:_warp_bundles_plain is this in the same fp32
+// operation order.
+__device__ __forceinline__ Bundle warp_bundle(const Ray& ray, bool valid,
+                                              int lane) {
+  constexpr unsigned kAll = 0xffffffffu;
+  Bundle bd;
+  const unsigned vb = __ballot_sync(kAll, valid);
+  if (vb == 0u) {
+    bd.mode = kBundleNone;
+    return bd;
+  }
+  const int l0 = __ffs(vb) - 1;
+  bd.cx = __shfl_sync(kAll, ray.ox, l0);
+  bd.cy = __shfl_sync(kAll, ray.oy, l0);
+  bd.cz = __shfl_sync(kAll, ray.oz, l0);
+  float ax = __shfl_sync(kAll, ray.dx, l0);
+  float ay = __shfl_sync(kAll, ray.dy, l0);
+  float az = __shfl_sync(kAll, ray.dz, l0);
+  const float an = 1.0f / sqrtf(ax * ax + ay * ay + az * az);
+  ax = ax * an;
+  ay = ay * an;
+  az = az * an;
+  const float ox = ray.ox - bd.cx, oy = ray.oy - bd.cy, oz = ray.oz - bd.cz;
+  float rho = valid ? sqrtf(ox * ox + oy * oy + oz * oz) : 0.f;
+  const float da = ray.dx * ax + ray.dy * ay + ray.dz * az;
+  const float qx = ray.dx - da * ax, qy = ray.dy - da * ay,
+              qz = ray.dz - da * az;
+  const float q2 = qx * qx + qy * qy + qz * qz;
+  // pyramid needs t >= 0 and every direction well in front of a
+  const bool off = valid && (ray.tmin < 0.f || !(da >= 0.2f * ray.dn));
+  if (__any_sync(kAll, off)) {
+    bd.mode = kBundleAll;
+    return bd;
+  }
+  // the most deviating valid ray (the lowest lane among equals)
+  uint64_t best = valid ? (static_cast<uint64_t>(__float_as_uint(q2)) << 32)
+                              | static_cast<uint32_t>(31 - lane)
+                        : 0ull;
+#pragma unroll
+  for (int off_ = 16; off_ > 0; off_ >>= 1) {
+    const uint64_t o = __shfl_xor_sync(kAll, best, off_);
+    best = o > best ? o : best;
+  }
+  const int lu = 31 - static_cast<int>(best & 31u);
+  float ux = __shfl_sync(kAll, qx, lu);
+  float uy = __shfl_sync(kAll, qy, lu);
+  float uz = __shfl_sync(kAll, qz, lu);
+  if (!(__uint_as_float(static_cast<uint32_t>(best >> 32)) > 1e-12f)) {
+    // every ray along a: any u across it (the axis a leans on least)
+    const float fx = fabsf(ax), fy = fabsf(ay), fz = fabsf(az);
+    ux = (fx <= fy && fx <= fz) ? 1.f : 0.f;
+    uy = (ux == 0.f && fy <= fz) ? 1.f : 0.f;
+    uz = (ux == 0.f && uy == 0.f) ? 1.f : 0.f;
+  }
+  const float ua = ux * ax + uy * ay + uz * az;
+  ux = ux - ua * ax;
+  uy = uy - ua * ay;
+  uz = uz - ua * az;
+  const float un = 1.0f / sqrtf(ux * ux + uy * uy + uz * uz);
+  ux = ux * un;
+  uy = uy * un;
+  uz = uz * un;
+  const float vx = ay * uz - az * uy, vy = az * ux - ax * uz,
+              vz = ax * uy - ay * ux;
+  const float kInf = __int_as_float(0x7f800000);
+  const float gx = (ray.dx * ux + ray.dy * uy + ray.dz * uz) / da;
+  const float gy = (ray.dx * vx + ray.dy * vy + ray.dz * vz) / da;
+  float xmax = valid ? gx : -kInf, xmin = valid ? gx : kInf;
+  float ymax = valid ? gy : -kInf, ymin = valid ? gy : kInf;
+#pragma unroll
+  for (int off_ = 16; off_ > 0; off_ >>= 1) {
+    xmax = fmaxf(xmax, __shfl_xor_sync(kAll, xmax, off_));
+    xmin = fminf(xmin, __shfl_xor_sync(kAll, xmin, off_));
+    ymax = fmaxf(ymax, __shfl_xor_sync(kAll, ymax, off_));
+    ymin = fminf(ymin, __shfl_xor_sync(kAll, ymin, off_));
+    rho = fmaxf(rho, __shfl_xor_sync(kAll, rho, off_));
+  }
+  xmax = xmax + 1e-5f * (1.0f + fabsf(xmax));
+  xmin = xmin - 1e-5f * (1.0f + fabsf(xmin));
+  ymax = ymax + 1e-5f * (1.0f + fabsf(ymax));
+  ymin = ymin - 1e-5f * (1.0f + fabsf(ymin));
+  const float pl[5][3] = {
+      {ux - xmax * ax, uy - xmax * ay, uz - xmax * az},
+      {xmin * ax - ux, xmin * ay - uy, xmin * az - uz},
+      {vx - ymax * ax, vy - ymax * ay, vz - ymax * az},
+      {ymin * ax - vx, ymin * ay - vy, ymin * az - vz},
+      {-ax, -ay, -az}};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const float s = 1.0f / sqrtf(pl[i][0] * pl[i][0] + pl[i][1] * pl[i][1] +
+                                 pl[i][2] * pl[i][2]);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) bd.n[i][k] = pl[i][k] * s;
+  }
+  bd.rho = rho;
+  bd.mode = kBundlePlanes;
+  return bd;
+}
+
+// Whether a warp of bundle bd may accept the particle at (px, py, pz) of
+// radius a + b |e|: it lies within a + 2 b (|p - c| + rho) + rho of every
+// plane's inner side (|e| <= |p - c| + rho).
+__device__ __forceinline__ bool bundle_keeps(const Bundle& bd, float px,
+                                             float py, float pz, float a,
+                                             float b) {
+  if (bd.mode != kBundlePlanes) return bd.mode == kBundleAll;
+  const float x = px - bd.cx, y = py - bd.cy, z = pz - bd.cz;
+  const float len = sqrtf(x * x + y * y + z * z);
+  const float reach = a + 2.0f * b * (len + bd.rho) + bd.rho;
+  bool out = false;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    out |= x * bd.n[i][0] + y * bd.n[i][1] + z * bd.n[i][2] > reach;
+  }
+  return !out;
+}
+
+// Whether the ray may accept the particle: its line passes within
+// a + b |e| of p, e = o - p as eval_hit_general forms it, tested squared
+// as |e x d|^2 < (a2 + b2 |e|^2) |d|^2 with a2 = 1.0625 a^2 and b2 = 17 b^2
+// ((a + b |e|)^2 <= (1 + 1/16) a^2 + 17 b^2 |e|^2); dd = |d|^2.
+__device__ __forceinline__ bool sphere_keeps(const Ray& ray, float dd,
+                                             float ex, float ey, float ez,
+                                             float a2, float b2) {
+  const float cx = ey * ray.dz - ez * ray.dy;
+  const float cy = ez * ray.dx - ex * ray.dz;
+  const float cz = ex * ray.dy - ey * ray.dx;
+  const float c2 = cx * cx + cy * cy + cz * cz;
+  const float e2 = ex * ex + ey * ey + ez * ez;
+  return !(c2 >= (a2 + b2 * e2) * dd);
+}
+
+// The sort key of an accepted candidate at staged lane j: hit_t's bits
+// made order-preserving (sign flip; -0 as +0) above the lane, so keys
+// order as (hit_t, lane), the sorted mode's stable order.
+__device__ __forceinline__ uint64_t window_key(float hit_t, int j) {
+  uint32_t bits = __float_as_uint(hit_t);
+  if ((bits << 1) == 0u) bits = 0u;
+  bits = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+  return (static_cast<uint64_t>(bits) << 32) | static_cast<uint32_t>(j);
+}
+
+// Keep the kTraceK smallest keys in buf (ascending): insert key.
+__device__ __forceinline__ void kbuffer_insert(uint64_t (&buf)[kTraceK],
+                                               uint64_t key) {
+#pragma unroll
+  for (int q = 0; q < kTraceK; ++q) {
+    const uint64_t lo = key < buf[q] ? key : buf[q];
+    key = key < buf[q] ? buf[q] : key;
+    buf[q] = lo;
+  }
+}
+
+// Take the smallest key out of buf.
+__device__ __forceinline__ uint64_t kbuffer_pop(uint64_t (&buf)[kTraceK]) {
+  const uint64_t key = buf[0];
+#pragma unroll
+  for (int q = 0; q + 1 < kTraceK; ++q) buf[q] = buf[q + 1];
+  buf[kTraceK - 1] = ~0ull;
+  return key;
+}
+
+// Passes a ray took beyond the first in a window (more than kTraceK
+// accepted candidates), summed over launches; window_overflows() reads
+// (and with reset, zeroes) it.
+__device__ unsigned long long g_window_overflows;
+
+// Stage the cull of a trace pair (record field f at r[f * stride], its
+// threshold at r[kRec * stride]): sphere_keeps' a2 and b2 in the rows
+// after the threshold; returns the bits of the warps whose bundles keep
+// the pair.
+__device__ __forceinline__ unsigned stage_cull(float* r, int stride,
+                                               const Bundle* bundles) {
+  float a, b;
+  cull_radius(r, stride, r[kRec * stride], a, b);
+  r[(kRec + 1) * stride] = 1.0625f * a * a;
+  r[(kRec + 2) * stride] = 17.0f * b * b;
+  unsigned keep = 0u;
+#pragma unroll
+  for (int w = 0; w < kWarpsTrace; ++w) {
+    keep |= static_cast<unsigned>(
+                bundle_keeps(bundles[w], r[0], r[stride], r[2 * stride], a, b))
+            << w;
+  }
+  return keep;
+}
+
+// The calling warp's list: the batch's staged lanes whose keep bits hold
+// the warp's bit, in lane order; returns the count, n_first those of the
+// batch's first window (lanes below kTraceW).
+__device__ __forceinline__ int warp_list(const uint8_t* keep, int n_lanes,
+                                         int warp, int lane, uint8_t* list,
+                                         int& n_first) {
+  int n = 0;
+  for (int q = 0; q < n_lanes / 32; ++q) {
+    const bool k = (keep[32 * q + lane] >> warp) & 1u;
+    const unsigned m = __ballot_sync(0xffffffffu, k);
+    if (k) {
+      list[n + __popc(m & ((1u << lane) - 1u))] =
+          static_cast<uint8_t>(32 * q + lane);
+    }
+    n += __popc(m);
+    if (32 * (q + 1) == kTraceW) n_first = n;
+  }
+  __syncwarp();
+  return n;
+}
+
+// One pass of a ray's k-buffer over a window's listed lanes list[i0, i1)
+// (staged records at rec[j], field f at rec[j + f * stride]): the sphere
+// test, then the exact test (eval_hit_general) of each; buf gets the
+// kTraceK smallest keys above last of the accepted. Returns how many were
+// above last: more than kTraceK calls for another pass from the largest
+// key composited.
+template <int kDeg>
+__device__ __forceinline__ int kbuffer_pass(const float* rec, int stride,
+                                            const uint8_t* list, int i0,
+                                            int i1, const Ray& ray, float dd,
+                                            const RasterParams& p,
+                                            uint64_t last,
+                                            uint64_t (&buf)[kTraceK]) {
+#pragma unroll
+  for (int q = 0; q < kTraceK; ++q) buf[q] = ~0ull;
+  int cnt = 0;
+  for (int i = i0; i < i1; ++i) {
+    const int j = list[i];
+    const float* r = rec + j;
+    if (!sphere_keeps(ray, dd, ray.ox - r[0], ray.oy - r[stride],
+                      ray.oz - r[2 * stride], r[(kRec + 1) * stride],
+                      r[(kRec + 2) * stride])) {
+      continue;
+    }
+    Hit h;
+    if (!eval_hit_general<kDeg>(r, stride, ray, r[kRec * stride], p, h)) {
+      continue;
+    }
+    const uint64_t key = window_key(h.hit_t, j);
+    if (key > last) {
+      ++cnt;
+      kbuffer_insert(buf, key);
+    }
+  }
+  return cnt;
 }
 
 // The NHT record (raster.py's NHT mode, the TPU's kernel 8; always the
@@ -405,3 +741,15 @@ int launch_nht(int degree, int window, int general, F&& launch) {
 }
 
 }  // namespace gut
+
+// The k-buffer's extra passes so far (common.cuh:g_window_overflows) into
+// *out; reset: then zero them. Returns the CUDA error.
+extern "C" int window_overflows(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, gut::g_window_overflows,
+                                         sizeof(*out));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero = 0ull;
+    err = cudaMemcpyToSymbol(gut::g_window_overflows, &zero, sizeof(zero));
+  }
+  return static_cast<int>(err);
+}

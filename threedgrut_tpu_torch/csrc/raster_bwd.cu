@@ -72,10 +72,30 @@
 // bitwise repeatable. Kernel D then folds the n_blocks rows of each slot
 // (ops/cuda/raster.py:shared_fold_meta).
 //
-// Windows of 128 (trace): the g_alpha and w of a window's touched pairs
-// sit in per-thread arrays by lane (1 KB of local memory at W = 128), and
-// a bit mask in registers says which lanes were touched, so the arrays
-// are never cleared and only touched lanes read back.
+// Windows of 128 (raster_bwd_trace_kernel: trace()'s degree-4 general
+// mode over per-block segments or a shared segment). Taking one suspect
+// away at a time from the earlier design (the sort above with its arrays
+// 128 long, then a group loop over every lane of the window) showed where
+// its 12.1 ms (grid) and 13.6 ms (kernel 7) went: the exact test of
+// every pair (4.3-4.7 ms, as in kernel B) and the group loop's visit of
+// every lane, touched or not (4-5 ms); its local-memory arrays cost
+// nothing measurable, its butterflies and group barriers 0.3-0.7 ms (on
+// an H100 80GB HBM3 at 700 W, PERF.md §6). So:
+//  - kernel B's cull, list and k-buffer (raster_fwd.cu) give each ray
+//    its accepted candidates in the sorted order;
+//  - a candidate is pulled back as it is composited: its 16 values go to
+//    the warp's value rows in shared memory, and lanes 0-15 (one field
+//    each) add the step's touched lanes' rows, in lane order, to the
+//    warp's accumulators of the window's 128 pairs (runs of one pair sum
+//    in registers first); the warp marks the pairs it touched;
+//  - at the window's end, one barrier; each touched pair's 16 fields are
+//    summed over the 8 warps in warp order, written once, and the
+//    accumulators zeroed; untouched rows are not written (the wrapper's
+//    zeros), which in kernel 7 leaves most of its [blocks x slots, 16]
+//    rows alone.
+// A fixed order throughout and no atomics on gradient values: bitwise
+// repeatable. Dynamic shared memory 102,912 bytes (staged records with
+// the cull's rows, accumulators, value rows): two blocks an SM.
 //
 // NHT mode (raster_bwd_nht_kernel; raster.py's NHT mode, the TPU's kernel
 // 8, through _bwd_chunk_grads :1899-1961: nht_hit_features for the
@@ -503,6 +523,241 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
         // every pixel dead after this window: later pairs keep their zeros
         if (n_alive == 0) done = true;
       }
+    }
+  }
+}
+
+// ---- trace()'s windows of 128 (raster_bwd_trace_kernel) ----
+
+// dynamic shared memory of the trace kernel, floats: the staged records
+// (record, threshold, the cull's rows), each warp's accumulators of the
+// window's 128 pairs, and each warp's value rows (a touched lane's 16
+// values, then the window lane of its pair)
+constexpr int kTraceRecFloats = (kStaged + gut::kCullRows) * kBatch;
+constexpr int kTraceAccFloats = kWarps * gut::kTraceW * kRec;
+constexpr int kValPadT = 33;     // value row stride: lanes hit distinct banks
+constexpr int kTraceValFloats = kWarps * (kRec * kValPadT + 32);
+constexpr int kTraceSmemBytes =
+    (kTraceRecFloats + kTraceAccFloats + kTraceValFloats) * 4;
+
+template <bool kShared>
+__global__ void __launch_bounds__(kBlock)
+raster_bwd_trace_kernel(const float* __restrict__ table,      // [C, 16]
+                        const int32_t* __restrict__ pair_particle,  // [P]
+                        const int32_t* __restrict__ tile_start,  // [T + 1]
+                        const float* __restrict__ ray_o,      // [H, W, 3]
+                        const float* __restrict__ ray_d,      // [H, W, 3]
+                        const float* __restrict__ ray_tmin,   // [H, W]
+                        const float* __restrict__ ray_tmax,   // [H, W]
+                        const float* __restrict__ fwd_feat,   // [H, W, 3]
+                        const float* __restrict__ fwd_depth,  // [H, W]
+                        const float* __restrict__ fwd_tfinal,  // [H, W]
+                        const float* __restrict__ g_feat,     // [H, W, 3]
+                        const float* __restrict__ g_opacity,  // [H, W]
+                        const float* __restrict__ g_depth_in,  // [H, W]
+                        gut::RasterParams p,
+                        float* __restrict__ d_records) {      // [P, 16]
+  constexpr int kDeg = 4;            // trace()'s degree, general mode
+  constexpr int kW = gut::kTraceW;
+  extern __shared__ __align__(16) float s_dyn[];
+  float (*s_rec)[kBatch] = reinterpret_cast<float (*)[kBatch]>(s_dyn);
+  float (*s_acc)[kW][kRec] =
+      reinterpret_cast<float (*)[kW][kRec]>(s_dyn + kTraceRecFloats);
+  __shared__ gut::Bundle s_bundle[kWarps];
+  __shared__ uint8_t s_keep[kBatch];
+  __shared__ uint8_t s_list[kWarps][kBatch];
+  // the window's touched pairs, a bit each, for two windows in turn
+  __shared__ uint32_t s_tmask[2][kW / 32];
+
+  const int tile = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // this warp's value rows: value f of lane i at val[f * kValPadT + i],
+  // the window lane of its pair at vk[i]
+  float* val = s_dyn + kTraceRecFloats + kTraceAccFloats +
+               warp * (kRec * kValPadT + 32);
+  int* vk = reinterpret_cast<int*>(val + kRec * kValPadT);
+  const int px = (tile % p.grid_x) * kTile + threadIdx.x % kTile;
+  const int py = (tile / p.grid_x) * kTile + threadIdx.x / kTile;
+  const bool inside = px < p.width && py < p.height;
+  const int64_t pix = static_cast<int64_t>(py) * p.width + px;
+
+  const gut::Ray ray =
+      gut::load_ray<true>(ray_o, ray_d, ray_tmin, ray_tmax, inside, pix);
+  float gf0 = 0.f, gf1 = 0.f, gf2 = 0.f, g_t = 0.f, gd = 0.f;
+  float t_final = 0.f, phi_total = 0.f;
+  if (inside) {
+    gf0 = g_feat[3 * pix + 0];
+    gf1 = g_feat[3 * pix + 1];
+    gf2 = g_feat[3 * pix + 2];
+    g_t = -g_opacity[pix];
+    gd = g_depth_in[pix];
+    t_final = fwd_tfinal[pix];
+    phi_total = gf0 * fwd_feat[3 * pix + 0] + gf1 * fwd_feat[3 * pix + 1] +
+                gf2 * fwd_feat[3 * pix + 2] + gd * fwd_depth[pix];
+  }
+  bool alive = inside;
+  float trans = 1.f;    // T before the current candidate
+  float psi_acc = 0.f;  // inclusive prefix of w * u
+  const gut::Bundle bd = gut::warp_bundle(ray, ray.tmax > ray.tmin, lane);
+  if (lane == 0) s_bundle[warp] = bd;
+  const float dd = ray.dx * ray.dx + ray.dy * ray.dy + ray.dz * ray.dz;
+  for (int i = threadIdx.x; i < kTraceAccFloats; i += kBlock) {
+    (&s_acc[0][0][0])[i] = 0.f;
+  }
+  if (threadIdx.x < 2 * kW / 32) (&s_tmask[0][0])[threadIdx.x] = 0u;
+
+  // kShared: every block walks the one segment [tile_start[0],
+  // tile_start[1]) and writes pair idx to row tile (end - start) + idx -
+  // start
+  const int start = tile_start[kShared ? 0 : tile];
+  const int end = tile_start[kShared ? 1 : tile + 1];
+  float* const d_rows =
+      kShared ? d_records + (static_cast<int64_t>(tile) * (end - start) -
+                             start) * kRec
+              : d_records;
+  const int first = start - start % kW;
+  int win = 0;          // running window count: picks the touched mask
+  bool done = false;
+  for (int base = first; base < end && !done; base += kBatch) {
+    // the previous batch's reads of s_rec are over before restaging
+    __syncthreads();
+    const int idx = base + threadIdx.x;
+    unsigned keep = 0u;
+    if (idx >= start && idx < end) {
+      const float4* row = reinterpret_cast<const float4*>(
+          table + static_cast<int64_t>(pair_particle[idx]) * kRec);
+      const float4 v0 = row[0], v1 = row[1], v2 = row[2], v3 = row[3];
+      const float vals[kRec] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w,
+                                v2.x, v2.y, v2.z, v2.w, v3.x, v3.y, v3.z, v3.w};
+#pragma unroll
+      for (int f = 0; f < kRec; ++f) s_rec[f][threadIdx.x] = vals[f];
+      s_rec[kRec][threadIdx.x] = gut::sq_threshold<kDeg>(v3.x, p);
+      keep = gut::stage_cull(&s_rec[0][threadIdx.x], kBatch, s_bundle);
+    }
+    s_keep[threadIdx.x] = static_cast<uint8_t>(keep);
+    __syncthreads();
+    const int nb = min(kBatch, end - base);
+    int n_first = 0;
+    const int n_list =
+        gut::warp_list(s_keep, kBatch, warp, lane, s_list[warp], n_first);
+    for (int w0 = 0; w0 < nb && !done; w0 += kW, ++win) {
+      uint32_t* tmask = s_tmask[win & 1];
+      // composite this lane's staged pair j (has) at one step of the warp:
+      // its pullback goes to the warp's value rows, and lanes 0-15 add the
+      // step's touched lanes' values, in lane order, to the accumulators
+      // of their pairs (field = lane)
+      auto step = [&](bool has, int j) {
+        bool touched = false;
+        float d[kRec];
+        if (has) {
+          gut::Hit h;
+          gut::eval_hit_general<kDeg>(&s_rec[0][j], kBatch, ray,
+                                      s_rec[kRec][j], p, h);
+          const float w = h.alpha * trans;
+          const float u = gf0 * s_rec[gut::kRgb + 0][j] +
+                          gf1 * s_rec[gut::kRgb + 1][j] +
+                          gf2 * s_rec[gut::kRgb + 2][j] + gd * h.hit_t;
+          psi_acc += w * u;
+          const float suffix = phi_total - psi_acc;
+          const float g_alpha = trans * u - (suffix + g_t * t_final) /
+                                                fmaxf(1.0f - h.alpha, 1e-6f);
+          if (w > 0.f) {
+            touched = true;
+            pullback<kDeg, true>(h, &s_rec[0][j], kBatch, g_alpha, w, gf0,
+                                 gf1, gf2, gd, ray, p, d);
+          }
+          trans *= 1.0f - h.alpha;
+          // exact kill: T_final froze here in the forward too
+          if (trans < p.min_transmittance) alive = false;
+        }
+        const unsigned m = __ballot_sync(kFull, touched);
+        if (m == 0u) return;
+        if (touched) {
+          const int k = j - w0;
+#pragma unroll
+          for (int f = 0; f < kRec; ++f) val[f * kValPadT + lane] = d[f];
+          vk[lane] = k;
+          atomicOr(&tmask[k >> 5], 1u << (k & 31));
+        }
+        __syncwarp();
+        if (lane < kRec) {
+          // runs of one pair sum in registers
+          unsigned mm = m;
+          int cur = vk[__ffs(mm) - 1];
+          float acc = 0.f;
+          while (mm) {
+            const int i = __ffs(mm) - 1;
+            mm &= mm - 1u;
+            const int k = vk[i];
+            const float v = val[lane * kValPadT + i];
+            if (k != cur) {
+              s_acc[warp][cur][lane] += acc;
+              cur = k;
+              acc = v;
+            } else {
+              acc += v;
+            }
+          }
+          s_acc[warp][cur][lane] += acc;
+        }
+        __syncwarp();
+      };
+      const int i0 = w0 ? n_first : 0, i1 = w0 ? n_list : n_first;
+      uint64_t last = 0ull;   // every key is above 0
+      bool more = alive;
+      while (__any_sync(kFull, more)) {
+        uint64_t buf[gut::kTraceK];
+        const int cnt = more ? gut::kbuffer_pass<kDeg>(
+                                   &s_rec[0][0], kBatch, s_list[warp], i0, i1,
+                                   ray, dd, p, last, buf)
+                             : 0;
+        const int n = min(cnt, gut::kTraceK);
+        for (int q = 0; __any_sync(kFull, alive && q < n); ++q) {
+          const bool has = alive && q < n;
+          int j = 0;
+          if (has) {
+            last = gut::kbuffer_pop(buf);
+            j = static_cast<int>(last & 0xffu);
+          }
+          step(has, j);
+        }
+        more = more && alive && cnt > gut::kTraceK;
+        if (more) atomicAdd(&gut::g_window_overflows, 1ull);
+      }
+      // the window's sums: each touched pair's 16 fields over the 8 warps
+      // in warp order, written once; the accumulators go back to zero
+      const int n_alive = __syncthreads_count(alive);
+      uint32_t words[kW / 32];
+      int total = 0;
+#pragma unroll
+      for (int q = 0; q < kW / 32; ++q) {
+        words[q] = tmask[q];
+        total += __popc(words[q]);
+      }
+      for (int item = threadIdx.x; item < total * kRec; item += kBlock) {
+        int r = item / kRec;
+        const int f = item % kRec;
+        int k = 0;
+#pragma unroll
+        for (int q = 0; q < kW / 32; ++q) {
+          const int c = __popc(words[q]);
+          if (r >= 0 && r < c) k = 32 * q + __fns(words[q], 0, r + 1);
+          r -= c;
+        }
+        float acc = 0.f;
+#pragma unroll
+        for (int wi = 0; wi < kWarps; ++wi) {
+          acc += s_acc[wi][k][f];
+          s_acc[wi][k][f] = 0.f;
+        }
+        d_rows[static_cast<int64_t>(base + w0 + k) * kRec + f] = acc;
+      }
+      // the next window's mask (read before the last window's barrier)
+      if (threadIdx.x < kW / 32) s_tmask[(win + 1) & 1][threadIdx.x] = 0u;
+      __syncthreads();
+      // every pixel dead after this window: later pairs keep their zeros
+      if (n_alive == 0) done = true;
     }
   }
 }
@@ -939,32 +1194,52 @@ extern "C" int raster_bwd_launch(
     });
     return attr != cudaSuccess ? static_cast<int>(attr) : err;
   }
-  return gut::launch_raster<false>(
+  cudaError_t attr = cudaSuccess;
+  const int err = gut::launch_raster<false>(
       degree, window, general, shared, 0,
       [&](auto deg, auto win, auto gen, auto sh, auto) {
-        raster_bwd_kernel<decltype(deg)::value, decltype(win)::value,
-                          decltype(gen)::value, decltype(sh)::value>
-            <<<num_tiles, kBlock, 0, stream_>>>(
-                table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
-                ray_tmax, fwd_feat, fwd_depth, fwd_tfinal, g_feat, g_opacity,
-                g_depth, p, d_records);
+        if constexpr (decltype(win)::value == gut::kTraceW) {
+          const auto kernel = raster_bwd_trace_kernel<decltype(sh)::value>;
+          attr = cudaFuncSetAttribute(
+              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+              kTraceSmemBytes);
+          if (attr != cudaSuccess) return;
+          kernel<<<num_tiles, kBlock, kTraceSmemBytes, stream_>>>(
+              table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
+              ray_tmax, fwd_feat, fwd_depth, fwd_tfinal, g_feat, g_opacity,
+              g_depth, p, d_records);
+        } else {
+          raster_bwd_kernel<decltype(deg)::value, decltype(win)::value,
+                            decltype(gen)::value, decltype(sh)::value>
+              <<<num_tiles, kBlock, 0, stream_>>>(
+                  table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
+                  ray_tmax, fwd_feat, fwd_depth, fwd_tfinal, g_feat,
+                  g_opacity, g_depth, p, d_records);
+        }
       });
+  return attr != cudaSuccess ? static_cast<int>(attr) : err;
 }
 
 // Registers, local (spill and stack) bytes, static shared bytes and
 // dynamic shared bytes a launch asks for, of kernel C's NHT mode at degree
-// 2 then 4: out[4 i + 0..3]. Returns the first error.
+// 2 then 4, then of its trace modes over per-block segments (the grid)
+// then a shared segment: out[4 i + 0..3]. Returns the first error.
 extern "C" int raster_bwd_attributes(int* out) {
-  const void* fns[] = {reinterpret_cast<const void*>(raster_bwd_nht_kernel<2>),
-                       reinterpret_cast<const void*>(raster_bwd_nht_kernel<4>)};
-  for (int i = 0; i < 2; ++i) {
+  const void* fns[] = {
+      reinterpret_cast<const void*>(raster_bwd_nht_kernel<2>),
+      reinterpret_cast<const void*>(raster_bwd_nht_kernel<4>),
+      reinterpret_cast<const void*>(raster_bwd_trace_kernel<false>),
+      reinterpret_cast<const void*>(raster_bwd_trace_kernel<true>)};
+  const int dyn[] = {kNhtSmemBytes, kNhtSmemBytes, kTraceSmemBytes,
+                     kTraceSmemBytes};
+  for (int i = 0; i < 4; ++i) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
     if (err != cudaSuccess) return static_cast<int>(err);
     out[4 * i + 0] = a.numRegs;
     out[4 * i + 1] = static_cast<int>(a.localSizeBytes);
     out[4 * i + 2] = static_cast<int>(a.sharedSizeBytes);
-    out[4 * i + 3] = kNhtSmemBytes;
+    out[4 * i + 3] = dyn[i];
   }
   return 0;
 }

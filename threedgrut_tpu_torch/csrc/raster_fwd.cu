@@ -19,7 +19,7 @@
 // are. Batches start at start rounded down to W, so no window crosses a
 // batch. Per window each thread sorts its accepted candidates by hit_t
 // (common.cuh:sort_window: insertion sort of the key and an 8-bit lane in
-// per-thread arrays), then
+// per-thread arrays; windows of 128 below), then
 // composites them in that order with the kill. Windows follow each other
 // in pair order, so T carries from one to the next as in the TPU kernel.
 //
@@ -69,9 +69,25 @@
 // trace() runs it in the general mode at degree 4, in global order or
 // W = 128.
 //
-// Windows of 128 (trace()'s sort_window = CHUNK): the sorted mode above
-// with the per-thread key and lane arrays 128 long, in local memory
-// (common.cuh:sort_window); a batch of 256 pairs holds two windows.
+// Windows of 128 (kTrace: trace()'s sort_window = CHUNK, degree 4, the
+// general mode, over per-block segments (the grid) or a shared segment
+// (kernel 7)): the sorted mode's function, redesigned for this card. Its
+// time was the exact test of every (ray, candidate) pair (5.4 of 6.9 ms
+// on kernel 7's phase-31 inputs, 4.7 of 6.0 on the grid's phase-33 ones,
+// by a breakdown of the earlier kernel on an H100 80GB HBM3 at 700 W,
+// PERF.md §6), though it accepts 0.03% and 0.27% of them. So (common.cuh, "trace()'s windows of 128"):
+//  - the thread that stages a pair tests its particle's sphere against
+//    each warp's bundle of rays; each warp lists the lanes it keeps, in
+//    lane order, and its rays walk only those (the phases keep 0.23% and
+//    1.7% of the pairs); per ray a sphere test, then the exact test;
+//  - per ray and window a register k-buffer of the kTraceK smallest
+//    (hit_t, lane) keys replaces the 640 B of local-memory arrays; a ray
+//    that accepts more takes another pass over the window's list for the
+//    keys above the last it composited (g_window_overflows counts them).
+// The cull keeps every candidate the exact test accepts, and the
+// k-buffer composites them in the sorted mode's order, so the outputs
+// are the unculled walk's bit for bit. Bound now: staging and the cull's
+// tests (~30 operations a pair and warp), a few barriers a batch.
 //
 // Normals (kNormals; raster.py compute_normals :1238-1240, :1296-1299,
 // per hit :436-449 and :531-550): sum w n of each pixel's composited
@@ -119,8 +135,18 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
   constexpr int kRecT = kNht ? gut::kRecNht : kRec;
   constexpr int kBatch = kNht ? 128 : 256;
   constexpr int kOut = kNht ? gut::kNhtOut : 3;
+  // trace()'s windows of 128: the cull and the k-buffer (common.cuh)
+  constexpr bool kTrace = kW == gut::kTraceW;
+  static_assert(!kTrace || (kGen && kDeg == 4 && !kNht), "trace's mode");
   // the record and the squared-distance threshold of each staged pair
-  __shared__ float s_rec[kRecT + 1][kBatch];
+  // (kTrace: then the cull's rows)
+  __shared__ float s_rec[kRecT + 1 + (kTrace ? gut::kCullRows : 0)][kBatch];
+  // kTrace: each warp's bundle, the warps keeping each staged pair (a bit
+  // each), and each warp's list of the lanes it keeps
+  __shared__ gut::Bundle s_bundle[kTrace ? gut::kWarpsTrace : 1];
+  __shared__ uint8_t s_keep[kTrace ? kBatch : 1];
+  __shared__ uint8_t s_list[kTrace ? gut::kWarpsTrace : 1]
+                           [kTrace ? kBatch : 1];
 
   const int tile = blockIdx.x;
   const int px = (tile % p.grid_x) * kTile + threadIdx.x % kTile;
@@ -137,6 +163,13 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
   for (int c = 0; c < kOut; ++c) feat[c] = 0.f;
   float nrm[3] = {0.f, 0.f, 0.f};   // kNormals: sum of w n
   constexpr int kWin = kW > 0 ? kW : 1;
+  float dd = 0.f;   // kTrace: |d|^2, for the sphere test
+  if constexpr (kTrace) {
+    const int lane = threadIdx.x & 31;
+    const gut::Bundle bd = gut::warp_bundle(ray, ray.tmax > ray.tmin, lane);
+    if (lane == 0) s_bundle[threadIdx.x >> 5] = bd;
+    dd = ray.dx * ray.dx + ray.dy * ray.dy + ray.dz * ray.dz;
+  }
   // blend staged pair j, accepted with hit h, and apply the exact kill
   auto composite = [&](const gut::Hit& h, int j) {
     const float w = h.alpha * trans;
@@ -176,6 +209,7 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
     // all pixels of the tile dead (or off-image): the block is done
     if (__syncthreads_count(alive) == 0) break;
     const int idx = base + threadIdx.x;
+    unsigned keep = 0u;   // kTrace: the warps that keep the pair
     if (threadIdx.x < kBatch && idx >= start && idx < end) {
       const float4* row = reinterpret_cast<const float4*>(
           table + static_cast<int64_t>(pair_particle[idx]) * kRecT);
@@ -189,7 +223,11 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
       }
       s_rec[kRecT][threadIdx.x] = gut::sq_threshold<kDeg>(
           s_rec[gut::kDensity][threadIdx.x], p);
+      if constexpr (kTrace) {
+        keep = gut::stage_cull(&s_rec[0][threadIdx.x], kBatch, s_bundle);
+      }
     }
+    if constexpr (kTrace) s_keep[threadIdx.x] = static_cast<uint8_t>(keep);
     __syncthreads();
     const int nb = min(kBatch, end - base);
     if constexpr (kW == 0) {
@@ -200,6 +238,33 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
           continue;
         }
         composite(h, j);
+      }
+    } else if constexpr (kTrace) {
+      // the warp's listed lanes, window by window; per ray the k-buffer's
+      // passes composite the accepted in (hit_t, lane) order
+      const int warp = threadIdx.x >> 5;
+      int n_first = 0;
+      const int n_list = gut::warp_list(s_keep, kBatch, warp, threadIdx.x & 31,
+                                        s_list[warp], n_first);
+      for (int wi = 0; alive && wi < kBatch / kWin; ++wi) {
+        uint64_t last = 0ull;   // every key is above 0
+        bool more = true;
+        while (alive && more) {
+          uint64_t buf[gut::kTraceK];
+          const int cnt = gut::kbuffer_pass<kDeg>(
+              &s_rec[0][0], kBatch, s_list[warp], wi ? n_first : 0,
+              wi ? n_list : n_first, ray, dd, p, last, buf);
+          for (int q = 0; alive && q < min(cnt, gut::kTraceK); ++q) {
+            last = gut::kbuffer_pop(buf);
+            const int j = static_cast<int>(last & 0xffu);
+            gut::Hit h;
+            gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
+                                      s_rec[kRecT][j], p, h);
+            composite(h, j);
+          }
+          more = cnt > gut::kTraceK;
+          if (more && alive) atomicAdd(&gut::g_window_overflows, 1ull);
+        }
       }
     } else {
       const int lo0 = max(start - base, 0);   // lanes before the tile
@@ -276,4 +341,26 @@ extern "C" int raster_fwd_launch(
                 ray_tmax, p, out_feat, out_opacity, out_depth, out_hits,
                 out_tfinal, out_normals);
       });
+}
+
+// Registers, local (spill and stack) bytes, static shared bytes and
+// dynamic shared bytes (none) of kernel B's trace modes, windows of 128
+// over per-block segments (the grid) then a shared segment, without
+// normals: out[4 i + 0..3]. Returns the first error.
+extern "C" int raster_fwd_attributes(int* out) {
+  const void* fns[] = {
+      reinterpret_cast<const void*>(
+          raster_fwd_kernel<4, gut::kTraceW, true, false, false, false>),
+      reinterpret_cast<const void*>(
+          raster_fwd_kernel<4, gut::kTraceW, true, false, true, false>)};
+  for (int i = 0; i < 2; ++i) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[4 * i + 0] = a.numRegs;
+    out[4 * i + 1] = static_cast<int>(a.localSizeBytes);
+    out[4 * i + 2] = static_cast<int>(a.sharedSizeBytes);
+    out[4 * i + 3] = 0;
+  }
+  return 0;
 }

@@ -37,7 +37,12 @@ of slot j to row t n + j, n the segment's length: one writer per row,
 and kernel D folds the tiles' rows of each slot (``repeat_fold``). trace
 runs it, and windows of 128 (``sort_window`` = 128), in the general mode
 at degree 4 only; their launches count in ``launches_shared_segment``
-and ``launches_window128``.
+and ``launches_window128``. In windows of 128 the kernels test only the
+candidates a conservative cull keeps (common.cuh: each warp's bundle of
+rays, then each ray's sphere) and sort each ray's window in a register
+k-buffer of TRACE_K keys, with extra passes for a window that accepts
+more (``window_overflows`` counts them); ``trace_cull_plain`` is the
+cull in the kernels' fp32 operation order, held against the exact test.
 
 With ``cfg.enable_normals`` kernel B also blends each hit's world normal
 (raster.py compute_normals; ``ops/hit.py:hit_normal``) into a sixth
@@ -503,7 +508,43 @@ _SIGNATURES = {
 def nht_kernel_attributes():
     """{nht2, nht4: {registers, local_bytes, shared_bytes,
     dynamic_shared_bytes}} of kernel C's NHT mode at degree 2 and 4."""
-    return build.attributes("raster_bwd", ("nht2", "nht4"))
+    att = build.attributes("raster_bwd", _BWD_ATTRIBUTES)
+    return {k: att[k] for k in ("nht2", "nht4")}
+
+
+# the kernels raster_bwd_attributes and raster_fwd_attributes list
+_BWD_ATTRIBUTES = ("nht2", "nht4", "trace_grid", "trace_shared")
+_FWD_ATTRIBUTES = ("trace_grid", "trace_shared")
+
+
+def trace_kernel_attributes():
+    """{B grid, B shared, C grid, C shared: {registers, local_bytes,
+    shared_bytes, dynamic_shared_bytes}} of kernels B and C in trace()'s
+    windows of 128 over per-block segments (the grid) and over a shared
+    segment (kernel 7)."""
+    fwd = build.attributes("raster_fwd", _FWD_ATTRIBUTES)
+    bwd = build.attributes("raster_bwd", _BWD_ATTRIBUTES)
+    return {"B grid": fwd["trace_grid"], "B shared": fwd["trace_shared"],
+            "C grid": bwd["trace_grid"], "C shared": bwd["trace_shared"]}
+
+
+def window_overflows(reset: bool = False):
+    """{raster_fwd, raster_bwd: the k-buffer's extra passes} of kernels B
+    and C in trace()'s windows of 128 since the last reset: one for each
+    time a ray accepted more than TRACE_K candidates of a window it
+    reached alive (common.cuh:g_window_overflows). ``reset`` zeroes them
+    after reading. Needs the card."""
+    out = {}
+    for name in ("raster_fwd", "raster_bwd"):
+        lib = build.load(name)
+        fn = lib.window_overflows
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        n = ctypes.c_ulonglong(0)
+        build.check_launch("window_overflows",
+                           fn(ctypes.addressof(n), int(reset)), lib)
+        out[name] = int(n.value)
+    return out
 
 
 # kernel C's NHT mode takes its fast sine and cosine for |x| up to this
@@ -672,6 +713,210 @@ def _hit_terms(rec, d, o=None, canonical=False):
         return sq, hit_t
     return sq, hit_t, torch.stack([a[i] + b[i] * tc for i in range(3)],
                                   dim=-1)
+
+
+# trace()'s cull (common.cuh, kernels B and C at windows of 128): fp32's
+# unit roundoff and the k-buffer's size
+_EPS = 2.0 ** -24
+TRACE_K = 8
+_BUNDLE_PLANES, _BUNDLE_NONE, _BUNDLE_ALL = 0, 1, 2
+
+
+def _cull_radii_plain(rec, thr):
+    """(a, b, a2, b2) [P] of records [P, 16] and their thresholds [P]:
+    common.cuh:cull_radius and stage_cull in their fp32 operation order."""
+    m = [rec[:, 3 + 3 * i] * rec[:, 3 + 3 * i]
+         + rec[:, 4 + 3 * i] * rec[:, 4 + 3 * i]
+         + rec[:, 5 + 3 * i] * rec[:, 5 + 3 * i] for i in range(3)]
+    mn = torch.minimum(torch.minimum(m[0], m[1]), m[2])
+    mx = torch.maximum(torch.maximum(m[0], m[1]), m[2])
+    kap = torch.sqrt(mx / mn)
+    k1 = 1.0 + kap
+    a = torch.sqrt(thr / mn) * (1.0001 + (16.0 * _EPS) * kap)
+    b = (64.0 * _EPS) * k1 * k1
+    return a, b, 1.0625 * a * a, 17.0 * b * b
+
+
+def _warp_bundles_plain(o, d, tmin, tmax):
+    """common.cuh:warp_bundle of rays [G, 32, 3] (origins, directions) and
+    t-ranges [G, 32], group by group, in its fp32 operation order: (mode
+    [G], apex c [G, 3], rho [G], unit plane normals [G, 5, 3])."""
+    g = o.shape[0]
+    dev = o.device
+    valid = tmax > tmin
+    l0 = torch.argmax(valid.to(torch.int32), dim=1)
+    rows = torch.arange(g, device=dev)
+    c = o[rows, l0]
+    a = d[rows, l0]
+    an = 1.0 / torch.sqrt(a[:, 0] * a[:, 0] + a[:, 1] * a[:, 1]
+                          + a[:, 2] * a[:, 2])
+    a = a * an[:, None]
+    oo = o - c[:, None]
+    rho = torch.where(valid, torch.sqrt(oo[..., 0] * oo[..., 0]
+                                        + oo[..., 1] * oo[..., 1]
+                                        + oo[..., 2] * oo[..., 2]),
+                      torch.zeros_like(oo[..., 0])).amax(1)
+    ax, ay, az = a[:, None, 0], a[:, None, 1], a[:, None, 2]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    da = dx * ax + dy * ay + dz * az
+    q = torch.stack([dx - da * ax, dy - da * ay, dz - da * az], dim=-1)
+    q2 = q[..., 0] * q[..., 0] + q[..., 1] * q[..., 1] + q[..., 2] * q[..., 2]
+    dn = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    off = (valid & ((tmin < 0.0) | ~(da >= 0.2 * dn))).any(1)
+    key = torch.where(valid, q2, torch.full_like(q2, -1.0))
+    lu = torch.argmax((key == key.amax(1, keepdim=True)).to(torch.int32),
+                      dim=1)
+    u = q[rows, lu]
+    flat = ~(q2[rows, lu] > 1e-12)
+    fa = a.abs()
+    ex = (fa[:, 0] <= fa[:, 1]) & (fa[:, 0] <= fa[:, 2])
+    ey = ~ex & (fa[:, 1] <= fa[:, 2])
+    axis = torch.stack([ex, ey, ~ex & ~ey], dim=1).to(a.dtype)
+    u = torch.where(flat[:, None], axis, u)
+    ua = u[:, 0] * a[:, 0] + u[:, 1] * a[:, 1] + u[:, 2] * a[:, 2]
+    u = u - ua[:, None] * a
+    un = 1.0 / torch.sqrt(u[:, 0] * u[:, 0] + u[:, 1] * u[:, 1]
+                          + u[:, 2] * u[:, 2])
+    u = u * un[:, None]
+    v = torch.stack([a[:, 1] * u[:, 2] - a[:, 2] * u[:, 1],
+                     a[:, 2] * u[:, 0] - a[:, 0] * u[:, 2],
+                     a[:, 0] * u[:, 1] - a[:, 1] * u[:, 0]], dim=1)
+    gx = (dx * u[:, None, 0] + dy * u[:, None, 1] + dz * u[:, None, 2]) / da
+    gy = (dx * v[:, None, 0] + dy * v[:, None, 1] + dz * v[:, None, 2]) / da
+    inf = torch.full_like(gx, math.inf)
+    bounds = []
+    for gv in (gx, gy):
+        hi = torch.where(valid, gv, -inf).amax(1)
+        lo = torch.where(valid, gv, inf).amin(1)
+        bounds += [hi + 1e-5 * (1.0 + hi.abs()), lo - 1e-5 * (1.0 + lo.abs())]
+    xmax, xmin, ymax, ymin = (x[:, None] for x in bounds)
+    pl = torch.stack([u - xmax * a, xmin * a - u, v - ymax * a, ymin * a - v,
+                      -a], dim=1)                             # [G, 5, 3]
+    s = 1.0 / torch.sqrt(pl[..., 0] * pl[..., 0] + pl[..., 1] * pl[..., 1]
+                         + pl[..., 2] * pl[..., 2])
+    mode = torch.where(off, _BUNDLE_ALL, _BUNDLE_PLANES)
+    mode = torch.where(valid.any(1), mode, _BUNDLE_NONE)
+    return mode, c, rho, pl * s[..., None]
+
+
+def _bundle_keeps_plain(bundle, p, a, b):
+    """[P] common.cuh:bundle_keeps of particles at p [P, 3] with radii
+    (a, b) [P] in bundles indexed per particle (mode [P], c [P, 3], rho
+    [P], n [P, 5, 3])."""
+    mode, c, rho, n = bundle
+    x = p - c
+    length = torch.sqrt(x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]
+                        + x[:, 2] * x[:, 2])
+    reach = a + 2.0 * b * (length + rho) + rho
+    dots = (x[:, None, 0] * n[..., 0] + x[:, None, 1] * n[..., 1]
+            + x[:, None, 2] * n[..., 2])
+    inside = ~(dots > reach[:, None]).any(1)
+    return torch.where(mode == _BUNDLE_PLANES, inside, mode == _BUNDLE_ALL)
+
+
+def _sphere_keeps_plain(e, d, a2, b2):
+    """[P, 256] common.cuh:sphere_keeps of e = o - p and directions d
+    [P, 256, 3] with squared radii (a2, b2) [P, 1]."""
+    ex, ey, ez = e[..., 0], e[..., 1], e[..., 2]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    cx = ey * dz - ez * dy
+    cy = ez * dx - ex * dz
+    cz = ex * dy - ey * dx
+    c2 = cx * cx + cy * cy + cz * cz
+    e2 = ex * ex + ey * ey + ez * ez
+    dd = dx * dx + dy * dy + dz * dz
+    return ~(c2 >= (a2 + b2 * e2) * dd)
+
+
+def trace_cull_plain(table, pair_particle, tile_start, ray_d, tmin, tmax,
+                     cfg, ray_o, shared=False):
+    """Hold trace()'s cull (kernels B and C at windows of 128) against the
+    exact test, on the kernels' arguments: the cull in the kernels' fp32
+    operation order (each warp's bundle, then each ray's sphere), and the
+    accept test of ``_hit_terms``. Returns a dict of counts over every
+    (pair, pixel) of the tiles: ``tests``; ``bundle_culled`` (outside the
+    warp's bundle), ``sphere_culled`` (in it, but the ray's line misses the
+    sphere); ``accepted``; ``culled_accepted`` (culled but accepted: must
+    be 0); ``over_k`` (a ray's windows with more than TRACE_K accepted, an
+    upper bound of the k-buffer's extra first passes: the kill may stop
+    the ray before) and ``max_window`` (the most accepted in one). And the
+    work the kernels need, where a ray walks its windows up to the one in
+    which it is killed (T at the window's start, in float64 over the
+    accepted alphas, at least ``cfg.min_transmittance``): ``staged``
+    (pairs some ray of their block walks, each staging the cull once),
+    ``bundle_tests`` (those pairs times their block's warps with a
+    pyramid, which test them), ``sphere_tests`` (walked (pair, pixel) in
+    the warp's bundle) and ``exact_tests`` (those in the ray's sphere)."""
+    s, thr_resp, log_min_alpha = _thresholds(cfg)
+    rays = _tilize_rays(ray_d, tmin, tmax, ray_o)
+    n_tiles = rays.gx * rays.gy
+    if shared:
+        pair_particle, tile_start = _unshare(pair_particle, tile_start,
+                                             n_tiles)
+    bundles = _warp_bundles_plain(
+        rays.ro.reshape(-1, 32, 3), rays.rd.reshape(-1, 32, 3),
+        rays.tmin.reshape(-1, 32), rays.tmax.reshape(-1, 32))
+    bundles = tuple(x.reshape(n_tiles, 8, *x.shape[1:]) for x in bundles)
+    planes = (bundles[0] == _BUNDLE_PLANES).sum(1)               # [T]
+    out = dict(tests=0, bundle_culled=0, sphere_culled=0, accepted=0,
+               culled_accepted=0, over_k=0, max_window=0, staged=0,
+               bundle_tests=0, sphere_tests=0, exact_tests=0)
+    starts = tile_start.to(torch.int64).cpu()
+    dev = table.device
+    for t0, t1 in _tile_groups(starts, n_tiles, _PLAIN_GROUP_PAIRS):
+        p0, p1 = int(starts[t0]), int(starts[t1])
+        if p1 == p0:
+            continue
+        rec = table[pair_particle[p0:p1].to(torch.int64)]
+        counts = (starts[t0 + 1:t1 + 1] - starts[t0:t1]).to(dev)
+        tile = torch.repeat_interleave(torch.arange(t0, t1, device=dev),
+                                       counts)
+        d, o = rays.rd[tile], rays.ro[tile]
+        sq, hit_t = _hit_terms(rec, d, o)
+        thr = torch.clamp((log_min_alpha - torch.log(
+            torch.clamp(rec[:, 12], min=1e-30))) / s, max=thr_resp)
+        thr = torch.sqrt(torch.clamp(thr, min=0.0))
+        acc = ((sq < thr[:, None]) & (hit_t > rays.tmin[tile])
+               & (hit_t < rays.tmax[tile]))
+        a, b, a2, b2 = _cull_radii_plain(rec, thr)
+        keep = torch.stack([_bundle_keeps_plain(
+            tuple(x[tile, w] for x in bundles), rec[:, 0:3], a, b)
+            for w in range(8)], dim=1)                          # [P, 8]
+        keep = keep.repeat_interleave(32, dim=1)                # [P, 256]
+        sphere = _sphere_keeps_plain(o - rec[:, None, 0:3], d, a2[:, None],
+                                     b2[:, None])
+        out["tests"] += keep.numel()
+        out["bundle_culled"] += int((~keep).sum())
+        out["sphere_culled"] += int((keep & ~sphere).sum())
+        out["accepted"] += int(acc.sum())
+        out["culled_accepted"] += int((acc & ~(keep & sphere)).sum())
+        # accepted per (ray, window): windows of 128 on the pair index
+        win = torch.arange(p0, p1, device=dev) // TRACE_WINDOW
+        per = torch.zeros((int(win[-1] - win[0]) + 1, TILE_PIXELS),
+                          dtype=torch.int64, device=dev).index_add_(
+            0, win - win[0], acc.to(torch.int64))
+        out["over_k"] += int((per > TRACE_K).sum())
+        out["max_window"] = max(out["max_window"], int(per.max()))
+        # the windows each ray walks: T at a window's start (the windows
+        # cut to tiles) at least min_transmittance
+        alpha = torch.clamp(particle_response(sq, cfg.kernel_degree)
+                            * rec[:, 12:13], max=cfg.max_alpha)
+        log1m = torch.log1p(-torch.where(acc, alpha,
+                                         torch.zeros_like(alpha)).double())
+        excl = torch.cumsum(log1m, dim=0) - log1m
+        head = torch.ones(p1 - p0, dtype=torch.bool, device=dev)
+        head[1:] = (tile[1:] != tile[:-1]) | (win[1:] != win[:-1])
+        pos = torch.arange(p1 - p0, device=dev)
+        w_first = torch.cummax(torch.where(head, pos, 0), dim=0).values
+        t_first = (starts[t0:t1] - p0).to(dev)[tile - t0]
+        walk = (torch.exp(excl[w_first] - excl[t_first])
+                >= cfg.min_transmittance)
+        staged = walk.any(1)
+        out["staged"] += int(staged.sum())
+        out["bundle_tests"] += int(planes[tile][staged].sum())
+        out["sphere_tests"] += int((keep & walk).sum())
+        out["exact_tests"] += int((keep & sphere & walk).sum())
+    return out
 
 
 def _nht_features(rec, d, o):

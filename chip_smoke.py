@@ -25,7 +25,9 @@ without printing the final result line:
 8. kernel C vs plain - raster_bwd on the phase-4 view with seeded random
    upstream gradients: per record field group (a, M, density, rgb)
    cosine >= 0.9999 and relative L2 <= 1e-3 against the float64
-   autograd plain version.
+   autograd plain version, two runs bitwise equal; its registers, local
+   and shared bytes (cudaFuncGetAttributes); its bound charges C's own
+   work per composited candidate (BWD_ACCEPT_FLOPS).
 9. kernel D vs plain - fold on kernel C's output: max |diff| <= 1e-5 of
    max |ref|, and two runs bitwise equal.
 10. gradients vs JAX - render_gut's gradients of the six parameter
@@ -55,7 +57,7 @@ whose settings tests/test_torch_grt.py holds to the YAML.
    serving, 8 views at 800x800 through make_serving_renderer (ms/frame).
 14. sorted kernel C vs plain - raster_bwd at both settings against the
    float64 autograd plain version: cosine >= 0.9999 and relative L2
-   <= 1e-3 per field group, and two runs bitwise equal.
+   <= 1e-3 per field group, and two runs bitwise equal; its resources.
 15. kernel E vs plain - wmax (the blend-weight telemetry) on the same
    view, global-Z and both sorted settings: max |diff| <= 1e-6, two runs
    bitwise equal.
@@ -84,7 +86,7 @@ rolling-shutter camera takes it, a fisheye one the shared-origin mode):
    1e-4.
 20. general kernel C vs float64 plain - cosine >= 0.9999 and relative L2
    <= 1e-3 per field group (p, M, density, rgb), two runs bitwise equal;
-   kernel D folds the result, beside index_add_.
+   its resources; kernel D folds the result, beside index_add_.
 21. general kernel E vs plain - within 1e-6 (at most 8 pairs, those of
    kill-flip pixels, within max_alpha * min_transmittance), two runs
    bitwise equal.
@@ -113,7 +115,7 @@ MCMC strategy:
    drawn from the seed (synthetic.py:nht_cloud) through the 800x800
    pinhole, which NHT renders in the general mode, at degree 2 (3DGUT)
    and degree 4 (3DGRT, unsorted as NHT composites): phase 4's
-   tolerances, kill flips counted as in phase 19.
+   tolerances, kill flips counted as in phase 19; its resources.
 27. NHT kernel C and 64-wide D vs plain - C at both degrees: cosine
    >= 0.9999 and relative L2 <= 1e-3 per field group (p, M, density, the
    48 features), two runs bitwise equal, the padding fields zero; its
@@ -285,6 +287,17 @@ NHT_ACCEPT_FLOPS = 178
 # cotangents bary_v e_k 48, and the sum of the 61 fields over the pixels
 # 61
 NHT_BWD_ACCEPT_FLOPS = 572
+# what kernel C's RGB modes do per composited candidate beyond the accept
+# (raster_bwd.cu, counted as NHT_BWD_ACCEPT_FLOPS is): composite's w 1,
+# u = <g_feat, rgb> + g_depth hit_t 7, its prefix 2, the residual 1,
+# g_alpha 7, T 2 and the kill 1 (21); pullback's g_hit_t 1 (2 in the
+# general mode, scaled by |d|); pull_ab 52 (54 at degree 4: the
+# response's slope 3, not 1): d_resp 1, the slope 1, d_sq 1, d_q 1,
+# d_inv_m 3, d_c2 1, d_m 2, g_c 6, d_a 15, d_b 21; then d_M = d_b d^T 9,
+# or general_rows 42 (d_p = -M^T d_a 15, d_M 27); d density 1, d rgb 3;
+# and the sum of the 16 fields over the pixels 16. By (degree, general):
+BWD_ACCEPT_FLOPS = {(2, False): 103, (4, False): 105, (2, True): 137,
+                    (4, True): 139}
 # pixels of a 1920x1280 general-mode view whose kernel and plain versions
 # kill one candidate apart (phase 19; 1 seen at 3DGRT in 2,457,600)
 KILL_FLIP_CAP = 8
@@ -395,14 +408,15 @@ def bound(n_bytes, flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def raster_bound(args, outputs, rc, general, accepted, nht_flops=0,
+def raster_bound(args, outputs, rc, general, accepted, extra_flops=0,
                  shared_tiles=0):
     """The bound of kernel B, C or E on ``args`` (the wrapper's tensors),
     writing ``outputs``: every pair of the tiles tested on the tile's 256
     pixels, and the ``accepted`` candidates (the plain forward's hit
     count summed over the view: those it composited) carried through
-    the response and ``nht_flops`` more (NHT_ACCEPT_FLOPS for B's
-    features at the hit, NHT_BWD_ACCEPT_FLOPS for C's pullback).
+    the response and ``extra_flops`` more (NHT_ACCEPT_FLOPS for NHT B's
+    features at the hit; kernel C's pullback: BWD_ACCEPT_FLOPS, or
+    NHT_BWD_ACCEPT_FLOPS in the NHT mode).
     Candidates that pass the test but miss the ray's range are charged the
     test only. ``shared_tiles``: the tiles that each walk the one shared
     segment of ``args[2]`` (kernel 7). trace's B and C, whose cull leaves
@@ -411,7 +425,7 @@ def raster_bound(args, outputs, rc, general, accepted, nht_flops=0,
     if shared_tiles:
         pairs = int(args[2][1] - args[2][0]) * shared_tiles
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    per_accept = ACCEPT_FLOPS[(rc.kernel_degree, general)] + nht_flops
+    per_accept = ACCEPT_FLOPS[(rc.kernel_degree, general)] + extra_flops
     return bound(nbytes(*tensors, *outputs),
                  pairs * 256 * TEST_FLOPS[general] + accepted * per_accept)
 
@@ -453,6 +467,13 @@ def composited(fwd):
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def resources(res):
+    """A kernel's resources (build.attributes) in a phase line."""
+    return (f"{res['registers']} registers, {res['local_bytes']} local "
+            f"bytes, {res['shared_bytes']} static + "
+            f"{res['dynamic_shared_bytes']} dynamic shared bytes")
 
 
 def bound_keys(b, library_ms=None):
@@ -743,7 +764,7 @@ def sorted_kernel_phases(dev, b_args, fwd, c_args, v, model, ut_cfg):
     from threedgrut_tpu_torch.ops.cameras import orbit_camera
     from threedgrut_tpu_torch.ops.cuda.raster import (
         rasterize_tiles_backward, rasterize_tiles_backward_plain,
-        rasterize_tiles_forward, rasterize_tiles_plain)
+        rasterize_tiles_forward, rasterize_tiles_plain, rgb_kernel_attributes)
     from threedgrut_tpu_torch.ops.cuda.wmax import (pair_weight_max,
                                                     pair_weight_max_plain)
     from threedgrut_tpu_torch.render.common import RasterConfig
@@ -836,14 +857,16 @@ def sorted_kernel_phases(dev, b_args, fwd, c_args, v, model, ut_cfg):
             raise AssertionError(f"sorted kernel C ({label}) vs plain "
                                  f"(cosine, rel L2): {bad}; bitwise "
                                  f"repeatable {same}")
+        res = rgb_kernel_attributes()[f"rgb_{rc.kernel_degree}_w16"]
         report["raster_bwd_sorted" + SORTED[label][1]] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            **bound_keys(raster_bound(args, [d1], rc, False,
-                                      accepted[label])))
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, resources=res,
+            **bound_keys(raster_bound(
+                args, [d1], rc, False, accepted[label],
+                BWD_ACCEPT_FLOPS[(rc.kernel_degree, False)])))
         msgs.append(f"{label}: " + ", ".join(
             f"{k} cos {x[0]:.8f} relL2 {x[1]:.3g}" for k, x in stats.items())
             + f"; max |d| {err:.3g}; two runs bitwise equal; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {resources(res)}")
     phase("sorted kernel C", "; ".join(msgs))
 
     # 15. kernel E
@@ -976,7 +999,7 @@ def general_kernel_phases(dev, model, ut_cfg):
     from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs
     from threedgrut_tpu_torch.ops.cuda.raster import (
         rasterize_tiles_backward, rasterize_tiles_backward_plain,
-        rasterize_tiles_forward, rasterize_tiles_plain)
+        rasterize_tiles_forward, rasterize_tiles_plain, rgb_kernel_attributes)
     from threedgrut_tpu_torch.ops.cuda.wmax import (pair_weight_max,
                                                     pair_weight_max_plain)
     from threedgrut_tpu_torch.render.gut import prepare_view
@@ -1085,9 +1108,15 @@ def general_kernel_phases(dev, model, ut_cfg):
                 raise AssertionError(f"general kernel C ({label}) vs plain "
                                      f"(cosine, rel L2): {bad}; bitwise "
                                      f"repeatable {same}")
+            win = rc.sort_window if rc.sorted_compositing else 0
+            res = rgb_kernel_attributes()[
+                f"rgb_{rc.kernel_degree}_w{win}_general"]
             report["raster_bwd_general" + suffix] = dict(
                 max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
-                **bound_keys(raster_bound(c_args, [d1], rc, True, n_acc)))
+                resources=res,
+                **bound_keys(raster_bound(
+                    c_args, [d1], rc, True, n_acc,
+                    BWD_ACCEPT_FLOPS[(rc.kernel_degree, True)])))
             d_args = (d1, vb.perm, vb.order, vb.excl, vb.counts, vb.limit,
                       model.capacity)
             fold_ms = cuda_ms(lambda: fold_pairs(*d_args), 20)
@@ -1096,8 +1125,9 @@ def general_kernel_phases(dev, model, ut_cfg):
                 f"{k} cos {x[0]:.8f} relL2 {x[1]:.3g}"
                 for k, x in stats.items())
                 + f"; max |d| {c_err:.3g}; two runs bitwise equal; kernel "
-                f"{c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; kernel D on it "
-                f"{fold_ms:.4f} ms, index_add_ {lib_ms:.4f} ms")
+                f"{c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; {resources(res)}"
+                f"; kernel D on it {fold_ms:.4f} ms, index_add_ "
+                f"{lib_ms:.4f} ms")
             # 21. general E
             e_args = args[:7] + (v.ray_o,)
             w1 = pair_weight_max(*e_args)
@@ -1363,13 +1393,15 @@ def nht_kernel_phases(dev, ut_cfg, cam):
     entries."""
     from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs, fold_pairs_plain
     from threedgrut_tpu_torch.ops.cuda.raster import (
-        nht_kernel_attributes, rasterize_tiles_backward,
+        nht_fwd_kernel_attributes, nht_kernel_attributes,
+        rasterize_tiles_backward,
         rasterize_tiles_backward_plain, rasterize_tiles_forward,
         rasterize_tiles_plain)
     from threedgrut_tpu_torch.synthetic import nht_cloud
 
     sin_err = nht_sincos_error(dev)
     attrs = nht_kernel_attributes()
+    b_attrs = nht_fwd_kernel_attributes()
     model = nht_cloud(100_000, seed=0, device=dev)
     w, h = cam.resolution
     upstream = seeded_upstream(dev, h, w, (24, 1, 1), 26)
@@ -1411,8 +1443,10 @@ def nht_kernel_phases(dev, ut_cfg, cam):
                     f"{err_d:.3g}, hits flip {flips:.4f}, kill flips "
                     f"{n_kill} (max |d| {float(pix.max()):.3g})")
             n_acc = composited(ref)
+            b_res = b_attrs[f"nht{rc.kernel_degree}"]
             report["raster_fwd_nht" + suffix] = dict(
                 max_abs_err=float(pix.max()), ms=b_ms, plain_ms=b_plain_ms,
+                resources=b_res,
                 **bound_keys(raster_bound(args, got, rc, True, n_acc,
                                           NHT_ACCEPT_FLOPS)))
             msg_b.append(
@@ -1420,7 +1454,8 @@ def nht_kernel_phases(dev, ut_cfg, cam):
                 f"pairs, {n_acc:.0f} composited: features |d| {err_f:.3g}, "
                 f"opacity |d| {err_o:.3g}, T_final |d| {err_t:.3g}, depth "
                 f"rel {err_d:.3g}, hits flip {flips:.5f}, kill flips "
-                f"{n_kill}; kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms")
+                f"{n_kill}; kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms; "
+                f"{resources(b_res)}")
             # 27. NHT C, then the 64-wide D on its output
             d1 = rasterize_tiles_backward(*c_args)
             d2 = rasterize_tiles_backward(*c_args)
@@ -1453,10 +1488,7 @@ def nht_kernel_phases(dev, ut_cfg, cam):
                 f"{k} cos {x[0]:.8f} relL2 {x[1]:.3g}"
                 for k, x in stats.items())
                 + f"; max |d| {c_err:.3g}; two runs bitwise equal; kernel "
-                f"{c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; "
-                f"{res['registers']} registers, {res['local_bytes']} local "
-                f"bytes, {res['shared_bytes']} static + "
-                f"{res['dynamic_shared_bytes']} dynamic shared bytes")
+                f"{c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; {resources(res)}")
             if label == "3DGUT":
                 d_args = (d1, vb.perm, vb.order, vb.excl, vb.counts,
                           vb.limit, model.capacity)
@@ -2475,7 +2507,7 @@ def main():
     from threedgrut_tpu_torch.ops.cuda.raster import (
         rasterize_tiles, rasterize_tiles_backward,
         rasterize_tiles_backward_plain, rasterize_tiles_forward,
-        rasterize_tiles_plain)
+        rasterize_tiles_plain, rgb_kernel_attributes)
     from threedgrut_tpu_torch.ops.ut import UTConfig
     from threedgrut_tpu_torch.models.gaussians import (GaussianModel,
                                                        GaussianModelConfig)
@@ -2637,9 +2669,12 @@ def main():
     phase("oracle", f"{side}x{side}, {n} particles: bulk {bulk:.1f} dB, "
           f"raw {raw:.1f} dB, flip_frac {flip:.5f}")
 
-    # 8. kernel C vs plain: seeded upstream gradients on the same view
+    # 8. kernel C vs plain: seeded upstream gradients on the same view, and
+    # bitwise repeatability
+    rgb_res = rgb_kernel_attributes()
     with torch.no_grad():
         d_rec = rasterize_tiles_backward(*c_args)
+        c_same = bool(torch.equal(d_rec, rasterize_tiles_backward(*c_args)))
         d_ref = rasterize_tiles_backward_plain(*c_args)
         torch.cuda.synchronize()
         c_stats = {}
@@ -2656,17 +2691,20 @@ def main():
                              1)
     bad = {k: v for k, v in c_stats.items()
            if not (v[0] >= 0.9999 and v[1] <= 1e-3)}
-    if bad:
-        raise AssertionError(f"kernel C vs plain (cosine, rel L2): {bad}")
+    if bad or not c_same:
+        raise AssertionError(f"kernel C vs plain (cosine, rel L2): {bad}; "
+                             f"bitwise repeatable {c_same}")
+    res = rgb_res["rgb_2_w0"]
     report["raster_bwd"] = dict(max_abs_err=c_err, ms=c_ms,
-                                plain_ms=c_plain_ms,
-                                **bound_keys(raster_bound(c_args, [d_rec],
-                                                          rc, False,
-                                                          b_accepted)))
+                                plain_ms=c_plain_ms, resources=res,
+                                **bound_keys(raster_bound(
+                                    c_args, [d_rec], rc, False, b_accepted,
+                                    BWD_ACCEPT_FLOPS[(rc.kernel_degree,
+                                                      False)])))
     phase("kernel C", ", ".join(f"{k} cos {v[0]:.8f} relL2 {v[1]:.3g}"
                                 for k, v in c_stats.items())
-          + f"; max |d| {c_err:.3g}; kernel {c_ms:.4f} ms, "
-          f"plain {c_plain_ms:.4f} ms")
+          + f"; max |d| {c_err:.3g}; two runs bitwise equal; kernel "
+          f"{c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; {resources(res)}")
 
     # 9. kernel D vs plain, and bitwise determinism
     vb = v.binning

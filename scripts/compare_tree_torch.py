@@ -23,9 +23,9 @@ touches saves the minutes of the slow ones, such as ``nht_step``):
   box, 512x512, 3 bounces): host ms over 3 frames, then device busy and
   idle share over 2 traced frames;
 - ``guard800``: kernels B and C at 800x800 on the 100k bench view in the
-  3DGUT and the 3DGRT setting (phases 4, 8 and 13-14's inputs), which
-  trace's redesign must not move: CUDA events and a SHA-256 of B's five
-  outputs and of C's;
+  3DGUT and the 3DGRT setting (phases 4, 8 and 13-14's inputs), and
+  kernels D (on C's output) and E there (phases 9 and 15): CUDA events
+  and a SHA-256 of B's five outputs, of C's, D's and E's;
 - ``nht_c``: kernel C's NHT mode at 800x800 on the 100k NHT cloud (48
   features), degree 2 and 4, on phase 27's inputs (CUDA events);
 - ``f``: kernel F with its set-up on the 800x800 bench view's 691,175
@@ -37,7 +37,24 @@ touches saves the minutes of the slow ones, such as ``nht_step``):
   (scripts/bench_train_torch.py's step: host ms over 20 steps, then
   device busy and idle share over 5 traced steps);
 - ``table_route``: the table route's raster forward and backward at
-  800x800 (``rasterize_tiles_table``: B, C, F; the same).
+  800x800 (``rasterize_tiles_table``: B, C, F; the same);
+- ``rgb_c``: kernel C's RGB modes on the inputs of chip_smoke.py phases
+  8 (3DGUT, 800x800, degree 2), 14 (3DGRT, degree 4, and sorted 3DGUT,
+  degree 2, both W 16, on phase 3's pairs) and 20 (the 1920x1280 rolling
+  shutter, general mode, 3DGUT and 3DGRT), and trace()'s brute force in
+  rank order (the general W 0 shared-segment mode, phase 31's rays):
+  CUDA events, a SHA-256 of each output, and after the run its relative
+  L2 against the other tree's output per field group (a or p, M,
+  density, rgb);
+- ``nht_b``: kernel B's NHT mode at 800x800 on the 100k NHT cloud,
+  degree 2 and 4 (phase 26's inputs): CUDA events, a SHA-256 of
+  opacity, depth, hits and T_final, and after the run the 24 features'
+  max |d| against the other tree's;
+- ``gs_steps``: the 3DGUT and 3DGRT train steps at 800x800 and the
+  3DGUT step through the 1920x1280 rolling shutter (as ``nht_step``).
+
+``rgb_c`` and ``nht_b`` leave each tree's outputs in ``--out`` (default
+``build/compare`` of this checkout) for the comparison across trees.
 
 Prints one line per tree and turn and a JSON line of all of them, with
 the card's ``nvidia-smi`` name and power limit. Needs a CUDA device.
@@ -59,7 +76,10 @@ NHT_CONFIGS = ("apps/nerf_synthetic_3dgut_mcmc_nht",
                "apps/nerf_synthetic_3dgrt_mcmc_nht")
 # measurement groups, in the order a run takes them (GROUP_FNS below)
 GROUPS = ("trace", "playground", "guard800", "nht_c", "f", "nht_step",
-          "table_route")
+          "table_route", "rgb_c", "nht_b", "gs_steps")
+# kernel C's record field groups (a or p, M, density, rgb)
+FIELD_GROUPS = {"a": slice(0, 3), "M": slice(3, 12), "density": slice(12, 13),
+                "rgb": slice(13, 16)}
 
 
 def smoke():
@@ -155,8 +175,10 @@ def playground_group(cs, dev, res):
 def guard800_group(cs, dev, res):
     """Kernels B and C at 800x800, 3DGUT and 3DGRT: times and hashes."""
     from threedgrut_tpu_torch.ops.cameras import make_pinhole
+    from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs
     from threedgrut_tpu_torch.ops.cuda.raster import (
         rasterize_tiles_backward, rasterize_tiles_forward)
+    from threedgrut_tpu_torch.ops.cuda.wmax import pair_weight_max
     from threedgrut_tpu_torch.ops.ut import UTConfig
     from threedgrut_tpu_torch.render.common import RasterConfig
     from threedgrut_tpu_torch.render.grt import grt_raster_config
@@ -170,14 +192,21 @@ def guard800_group(cs, dev, res):
     for label, rc in (("3dgut", RasterConfig()),
                       ("3dgrt", grt_raster_config())):
         with torch.no_grad():
-            _, b_args, fwd, c_args = cs.view_inputs(cam, UTConfig(), rc,
+            v, b_args, fwd, c_args = cs.view_inputs(cam, UTConfig(), rc,
                                                     model, 3, up)
+            d_rec = rasterize_tiles_backward(*c_args)
+            vb = v.binning
+            d_args = (d_rec, vb.perm, vb.order, vb.excl, vb.counts, vb.limit,
+                      model.capacity)
             res[f"guard800_{label}"] = dict(
-                b_sha256=sha256(*fwd),
-                c_sha256=sha256(rasterize_tiles_backward(*c_args)),
+                b_sha256=sha256(*fwd), c_sha256=sha256(d_rec),
+                d_sha256=sha256(fold_pairs(*d_args)),
+                e_sha256=sha256(pair_weight_max(*b_args)),
                 b_ms=cs.cuda_ms(lambda: rasterize_tiles_forward(*b_args), 20),
                 c_ms=cs.cuda_ms(lambda: rasterize_tiles_backward(*c_args),
-                                10))
+                                10),
+                d_ms=cs.cuda_ms(lambda: fold_pairs(*d_args), 20),
+                e_ms=cs.cuda_ms(lambda: pair_weight_max(*b_args), 20))
 
 
 def nht_c_group(cs, dev, res):
@@ -284,13 +313,151 @@ def table_route_group(cs, dev, res):
     res["table_route"] = dict(ms=ms, busy_us=busy, idle=1.0 - busy / wall)
 
 
+def rgb_c_inputs(cs, dev):
+    """Yield (label, C's arguments) of kernel C's RGB modes on chip_smoke.py
+    phases 8, 14, 20 and 31's inputs (``rgb_c`` above)."""
+    import numpy as np
+    from threedgrut_tpu_torch.ops.cameras import make_pinhole
+    from threedgrut_tpu_torch.ops.cuda.raster import rasterize_tiles_forward
+    from threedgrut_tpu_torch.ops.ut import UTConfig
+    from threedgrut_tpu_torch.render.common import RasterConfig
+    from threedgrut_tpu_torch.render.grt import prepare_trace
+    from threedgrut_tpu_torch.render.gut import prepare_view
+    from threedgrut_tpu_torch.synthetic import bench_camera, bench_cloud
+
+    side, ut_cfg = cs.SIDE, UTConfig()
+    cam = make_pinhole((side, side), (1.1 * side, 1.1 * side),
+                       (side / 2, side / 2), device=dev)
+    model = bench_cloud(100_000, seed=0, device=dev)
+    with torch.no_grad():
+        _, b_args, _, c_args = cs.view_inputs(
+            cam, ut_cfg, RasterConfig(), model, 3,
+            cs.seeded_upstream(dev, side, side, (3, 1, 1), 7))
+        yield "3dgut", c_args
+        for label, rc in cs.sorted_settings().items():
+            sfwd = rasterize_tiles_forward(*b_args[:6], rc)
+            yield (label.replace(" ", "").lower(), c_args[:6]
+                   + (sfwd[0], sfwd[2], sfwd[4]) + c_args[9:12] + (rc,))
+        del b_args, c_args, sfwd
+        rcam = bench_camera("rolling", device=dev)
+        w, h = rcam.resolution
+        rng = np.random.default_rng(8)
+        up = [torch.tensor(rng.normal(size=(h, w, c)).astype(np.float32),
+                           device=dev) for c in (3, 1, 1)]
+        for label, rc in cs.general_settings().items():
+            v = prepare_view(rcam, ut_cfg, rc, model, 3)
+            args = (v.table, v.binning.pair_particle, v.binning.tile_start,
+                    v.ray_d, v.tmin, v.tmax, rc, v.ray_o)
+            out = rasterize_tiles_forward(*args)
+            yield (f"rolling{label.lower()}", args[:6]
+                   + (out[0], out[2], out[4], *up, rc, v.ray_o))
+            del v, args, out
+        small = bench_cloud(8192, seed=0, device=dev)
+        ro, rd = cs.trace_rays(small)
+        inp = prepare_trace(small, ro, rd, accelerate=False, _sorted=False)
+        args = inp.args()
+        out = rasterize_tiles_forward(*args)
+        n_blocks = cs.TRACE_SIDE * cs.TRACE_SIDE // 256
+        rng = np.random.default_rng(31)
+        up = [torch.tensor(rng.normal(size=(16 * n_blocks, 16, c)).astype(
+            np.float32), device=dev) for c in (3, 1, 1)]
+        yield "shared_w0", args[:6] + (out[0], out[2], out[4], *up, inp.cfg,
+                                       inp.ray_o, inp.shared)
+
+
+def rgb_c_group(cs, dev, res, out_dir):
+    """Kernel C's RGB modes: times, hashes, and the outputs kept for the
+    comparison across trees."""
+    from threedgrut_tpu_torch.ops.cuda.raster import rasterize_tiles_backward
+
+    for label, c_args in rgb_c_inputs(cs, dev):
+        with torch.no_grad():
+            d = rasterize_tiles_backward(*c_args)
+            torch.save(d.cpu(), os.path.join(
+                out_dir, f"{res['tree']}_rgb_c_{label}.pt"))
+            res[f"rgb_c_{label}"] = dict(
+                sha256=sha256(d),
+                ms=cs.cuda_ms(lambda: rasterize_tiles_backward(*c_args), 10))
+            del d
+        torch.cuda.empty_cache()
+
+
+def nht_b_group(cs, dev, res, out_dir):
+    """Kernel B's NHT mode at both degrees: times, hashes of opacity,
+    depth, hits and T_final, and the features kept for the comparison
+    across trees."""
+    from threedgrut_tpu_torch.ops.cameras import make_pinhole
+    from threedgrut_tpu_torch.ops.cuda.raster import rasterize_tiles_forward
+    from threedgrut_tpu_torch.ops.ut import UTConfig
+    from threedgrut_tpu_torch.synthetic import nht_cloud
+
+    side = cs.SIDE
+    cam = make_pinhole((side, side), (1.1 * side, 1.1 * side),
+                       (side / 2, side / 2), device=dev)
+    with torch.no_grad():
+        model = nht_cloud(100_000, seed=0, device=dev)
+        up = cs.seeded_upstream(dev, side, side, (24, 1, 1), 26)
+        for rc in cs.nht_settings().values():
+            b_args, fwd = cs.view_inputs(cam, UTConfig(), rc, model, 0,
+                                         up)[1:3]
+            label = f"nht_b_deg{rc.kernel_degree}"
+            torch.save(fwd[0].cpu(), os.path.join(
+                out_dir, f"{res['tree']}_{label}.pt"))
+            res[label] = dict(
+                sha256=sha256(*fwd[1:]),
+                ms=cs.cuda_ms(lambda: rasterize_tiles_forward(*b_args), 20))
+
+
+def gs_steps_group(cs, dev, res):
+    """The 3DGUT and 3DGRT train steps at 800x800 and the rolling 3DGUT
+    step: host ms over 20 steps, then device busy and idle share over 5
+    traced steps."""
+    import bench_train_torch as bt
+    from threedgrut_tpu_torch.render.grt import grt_raster_config
+
+    for label, rc, camera in (("step_3dgut", None, "pinhole"),
+                              ("step_3dgrt", grt_raster_config(), "pinhole"),
+                              ("step_rolling_3dgut", None, "rolling")):
+        step = bt.BenchStep(dev, rc, camera)
+        bt.time_steps(step, 3)
+        ms, _ = bt.time_steps(step, 20)
+        wall, busy, _ = bt.profile_steps(step, 5, top=0)
+        res[label] = dict(ms=ms, busy_us=busy, idle=1.0 - busy / wall)
+        del step
+        torch.cuda.empty_cache()
+
+
+def cross_tree(runs, out_dir):
+    """Per rgb_c mode, this tree's output against the other's: relative
+    L2 per field group; per nht_b degree, the features' max |d|."""
+    labels = {k for r in runs for k in r
+              if k.startswith(("rgb_c_", "nht_b_"))}
+    out = {}
+    for k in sorted(labels):
+        this, other = (torch.load(os.path.join(out_dir, f"{t}_{k}.pt"))
+                       for t in ("this", "other"))
+        if k.startswith("nht_b_"):
+            out[k] = dict(features_max_abs_diff=float(
+                (this - other).abs().max()))
+            continue
+        rel = {}
+        for g, sl in FIELD_GROUPS.items():
+            x, y = this[:, sl].double(), other[:, sl].double()
+            rel[g] = float((x - y).norm() / y.norm().clamp(min=1e-300))
+        out[k] = dict(rel_l2=rel)
+    return out
+
+
 GROUP_FNS = {"trace": trace_group, "playground": playground_group,
              "guard800": guard800_group, "nht_c": nht_c_group,
              "f": f_group, "nht_step": nht_step_group,
-             "table_route": table_route_group}
+             "table_route": table_route_group, "rgb_c": rgb_c_group,
+             "nht_b": nht_b_group, "gs_steps": gs_steps_group}
+# the groups that keep their outputs in --out
+OUT_GROUPS = ("rgb_c", "nht_b")
 
 
-def child(label, groups):
+def child(label, groups, out_dir):
     """One tree's measurements (this process imports that tree)."""
     import threedgrut_tpu_torch
 
@@ -301,10 +468,13 @@ def child(label, groups):
     cs = smoke()
     dev = torch.device("cuda:0")
     build.load_all(["bin_decode", "raster_fwd", "raster_bwd", "fold",
-                    "scatter_rows"])
+                    "scatter_rows", "wmax"])
     res = {"tree": label}
     for g in groups:
-        GROUP_FNS[g](cs, dev, res)
+        if g in OUT_GROUPS:
+            GROUP_FNS[g](cs, dev, res, out_dir)
+        else:
+            GROUP_FNS[g](cs, dev, res)
     print("TREE " + json.dumps(res), flush=True)
 
 
@@ -324,8 +494,10 @@ def summary(res):
         if k in res:
             r = res[k]
             parts.append(f"{k}: B {r['b_ms']:.4f} ms, C {r['c_ms']:.4f} ms, "
+                         f"D {r['d_ms']:.4f} ms, E {r['e_ms']:.4f} ms, "
                          f"sha256 B {r['b_sha256'][:16]} C "
-                         f"{r['c_sha256'][:16]}")
+                         f"{r['c_sha256'][:16]} D {r['d_sha256'][:16]} E "
+                         f"{r['e_sha256'][:16]}")
     if "nht_c_deg2_ms" in res:
         parts.append(f"NHT C {res['nht_c_deg2_ms']:.4f} / "
                      f"{res['nht_c_deg4_ms']:.4f} ms (degree 2 / 4)")
@@ -335,7 +507,12 @@ def summary(res):
                      f"{res['f_device_ms']:.4f}), index_add_ "
                      f"{res['index_add_ms']:.4f} ms (device "
                      f"{res['index_add_device_ms']:.4f})")
-    for k in NHT_CONFIGS + ("table_route", "playground"):
+    for k in sorted(res):
+        if k.startswith(("rgb_c_", "nht_b_")):
+            parts.append(f"{k} {res[k]['ms']:.4f} ms sha256 "
+                         f"{res[k]['sha256'][:16]}")
+    for k in NHT_CONFIGS + ("table_route", "playground", "step_3dgut",
+                            "step_3dgrt", "step_rolling_3dgut"):
         if k in res:
             r = res[k]
             parts.append(f"{k.split('/')[-1]} {r['ms']:.3f} ms busy "
@@ -343,11 +520,12 @@ def summary(res):
     return "; ".join(parts)
 
 
-def run_tree(tree, label, groups):
+def run_tree(tree, label, groups, out_dir):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [tree, os.path.join(tree, "scripts")]))
     r = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
-                        label, "--groups", ",".join(groups)], cwd=tree,
+                        label, "--groups", ",".join(groups), "--out",
+                        out_dir], cwd=tree,
                        env=env, capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"{label} tree failed:\n{r.stderr[-4000:]}")
@@ -364,6 +542,8 @@ def main():
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--groups", default=",".join(GROUPS),
                     help="comma-separated measurement groups")
+    ap.add_argument("--out", default=os.path.join(REPO, "build", "compare"),
+                    help="where rgb_c and nht_b keep each tree's outputs")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     groups = [g for g in args.groups.split(",") if g]
@@ -377,20 +557,26 @@ def main():
         tree = os.getcwd()
         sys.path[:] = [tree, os.path.join(tree, "scripts")] + [
             x for x in sys.path if os.path.abspath(x or ".") != HERE]
-        child(args.child, groups)
+        child(args.child, groups, args.out)
         return
     if not args.other:
         ap.error("--other is required")
     other = os.path.abspath(args.other)
+    out_dir = os.path.abspath(args.out)
+    os.makedirs(out_dir, exist_ok=True)
     print(smoke().nvidia_smi_line(), flush=True)
     runs = []
     for _ in range(args.rounds):
         for tree, label in ((other, "other"), (REPO, "this"), (REPO, "this"),
                             (other, "other")):
-            res = run_tree(tree, label, groups)
+            res = run_tree(tree, label, groups, out_dir)
             runs.append(res)
             print(f"[{label}] {summary(res)}", flush=True)
-    print(json.dumps({"runs": runs, "card": smoke().nvidia_smi_line()}))
+    across = cross_tree(runs, out_dir)
+    for k, v in across.items():
+        print(f"[this vs other] {k}: {v}", flush=True)
+    print(json.dumps({"runs": runs, "across": across,
+                      "card": smoke().nvidia_smi_line()}))
 
 
 if __name__ == "__main__":

@@ -21,10 +21,11 @@ from threedgrut_tpu_torch.ops.cuda.fill import (forward_fill,
                                                 segmented_fill_rows_plain)
 from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs, fold_pairs_plain
 from threedgrut_tpu_torch.ops.cuda.raster import (
-    NHT_TRIG_FAST_MAX, FoldMeta, nht_kernel_attributes, nht_sincos,
-    rasterize_tiles, rasterize_tiles_backward,
-    rasterize_tiles_backward_plain, rasterize_tiles_forward,
-    rasterize_tiles_plain, rasterize_tiles_table)
+    NHT_TRIG_FAST_MAX, FoldMeta, nht_fwd_kernel_attributes,
+    nht_kernel_attributes, nht_sincos, rasterize_tiles,
+    rasterize_tiles_backward, rasterize_tiles_backward_plain,
+    rasterize_tiles_forward, rasterize_tiles_plain, rasterize_tiles_table,
+    rgb_kernel_attributes)
 from threedgrut_tpu_torch.ops.cuda.scatter import (
     id_runs, id_runs_plain, kernel_attributes, scatter_accumulate_rows,
     scatter_accumulate_rows_plain, scatter_runs)
@@ -515,10 +516,11 @@ def test_nht_raster_bwd_far_blends_match_plain(cuda, mode):
 
 @pytest.mark.gpu
 def test_nht_sincos_within_its_bound(cuda):
-    """Kernel C's NHT sine and cosine on the card (the Cody-Waite step and
-    the SFU up to NHT_TRIG_FAST_MAX, the accurate sincosf past it, here to
-    1e9) within 1e-6 of float64 (raster_bwd.cu:sincos_fast), and the
-    kernel's resources: two blocks an SM need <= 128 registers."""
+    """The NHT sine and cosine of kernels B and C on the card (the
+    Cody-Waite step and the SFU up to NHT_TRIG_FAST_MAX, the accurate
+    sincosf past it, here to 1e9) within 1e-6 of float64
+    (common.cuh:sincos_fast), and the resources of kernel C's NHT mode:
+    two blocks an SM need <= 128 registers."""
     rng = np.random.default_rng(9)
     x = np.concatenate([
         rng.uniform(-NHT_TRIG_FAST_MAX, NHT_TRIG_FAST_MAX, 1_000_000),
@@ -937,3 +939,264 @@ def test_fill_matches_plain(cuda):
     slots[0] = -1
     with pytest.raises(ValueError, match="negative slot"):
         segmented_fill_rows(row_vals, slots, length)
+
+
+# ---- kernel C's RGB modes and NHT kernel B on hand-built tiles ----
+
+
+def _tile_rays(device, tiles_x=1, general=False):
+    """Rays of a 16 x (16 tiles_x) pinhole image from the origin down +z
+    (focal 16): directions [16, W, 3] (unit), t-ranges, and in the general
+    mode per-pixel origins (the origin plus 1e-3 per pixel column)."""
+    w = 16 * tiles_x
+    ys, xs = torch.meshgrid(torch.arange(16.0), torch.arange(float(w)),
+                            indexing="ij")
+    d = torch.stack([(xs + 0.5 - w / 2) / 16.0, (ys + 0.5 - 8.0) / 16.0,
+                     torch.ones_like(xs)], -1)
+    d = (d / d.norm(dim=-1, keepdim=True)).to(device)
+    tmin = torch.zeros((16, w), device=device)
+    tmax = torch.full((16, w), 1e4, device=device)
+    o = None
+    if general:
+        o = torch.zeros_like(d)
+        o[..., 0] = 1e-3 * torch.arange(float(w), device=device)
+    return d, tmin, tmax, o
+
+
+def _records(p, s, density, rgb, general=False):
+    """Table rows of axis-aligned particles at p [N, 3] with scales s
+    [N, 3]: a = M (0 - p) with M = diag(1 / s) (the shared origin at 0)
+    or, ``general``, p itself; then M, density, rgb."""
+    m = torch.diag_embed(1.0 / s)
+    first = p if general else torch.einsum("nij,nj->ni", m, -p)
+    return torch.cat([first, m.reshape(-1, 9), density[:, None], rgb],
+                     -1).float().contiguous()
+
+
+def _c_agrees(cuda, rc, table, pair_particle, tile_start, d, tmin, tmax,
+              o=None, shared=False, seed=0):
+    """Kernel C on the tiles against the float64 plain version per field
+    group (cosine >= 0.9999, relative L2 <= 1e-3, the tests above), two
+    runs bitwise equal; returns (C's rows, B's outputs)."""
+    fwd = rasterize_tiles_forward(table, pair_particle, tile_start, d, tmin,
+                                  tmax, rc, o, shared)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    h, w = d.shape[:2]
+    up = [torch.randn((h, w, c), generator=g, device=cuda) for c in (3, 1, 1)]
+    args = (table, pair_particle, tile_start, d, tmin, tmax, fwd[0], fwd[2],
+            fwd[4], *up, rc, o, shared)
+    got = rasterize_tiles_backward(*args)
+    again = rasterize_tiles_backward(*args)
+    ref = rasterize_tiles_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for sl in (slice(0, 3), slice(3, 12), slice(12, 13), slice(13, 16)):
+        x, y = got[:, sl].double().flatten(), ref[:, sl].double().flatten()
+        if float(y.norm()) == 0.0:
+            assert float(x.norm()) == 0.0
+            continue
+        assert float(x @ y / (x.norm() * y.norm())) >= 0.9999
+        assert float((x - y).norm() / y.norm()) <= 1e-3
+    return got, fwd
+
+
+def _near_pixel(d, y, x, depth):
+    """A point 0.03 to the side of pixel (y, x)'s ray at ``depth`` (off
+    the ray, so c = a x b keeps its digits)."""
+    p = depth * d[y, x].cpu().double() / d[y, x, 2].cpu().double()
+    return p + torch.tensor([0.03, 0.0, 0.0], dtype=torch.float64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("general", [False, True])
+def test_raster_bwd_one_pixel_in_a_warp(cuda, general):
+    """A tile where one warp has a single composited pixel: one small
+    particle by pixel (3, 5)'s ray (0.6 sigma off it, 6 sigma off its
+    neighbours'), the rest of the tile's 40 pairs off to the side of
+    every ray; only that pair's row is written."""
+    d, tmin, tmax, o = _tile_rays(cuda, general=general)
+    rng = np.random.default_rng(0)
+    p = torch.tensor(rng.uniform(-40, 40, (40, 3)) + [0, 0, 60.0])
+    p[:, 0] = torch.where(p[:, 0] < 0, p[:, 0] - 80, p[:, 0] + 80)
+    p[17] = _near_pixel(d, 3, 5, 5.0)
+    s = torch.full((40, 3), 0.5, dtype=torch.float64)
+    s[17] = 0.05
+    table = _records(p, s, torch.full((40,), 0.8), torch.rand(40, 3).double(),
+                     general=general).to(cuda)
+    pp = torch.arange(40, dtype=torch.int32, device=cuda)
+    ts = torch.tensor([0, 40], dtype=torch.int32, device=cuda)
+    got, fwd = _c_agrees(cuda, RC, table, pp, ts, d, tmin, tmax, o)
+    assert int((fwd[3] > 0).sum()) == 1 and float(fwd[3][3, 5]) == 1.0
+    touched = got.abs().sum(-1) > 0
+    assert touched.tolist() == [i == 17 for i in range(40)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["3dgut", "grt"])
+def test_raster_bwd_tile_dies_early(cuda, mode):
+    """A tile whose pixels all die in its first 16 pairs (wide particles of
+    alpha ~0.9 one behind the other), with 600 pairs behind them: C leaves
+    at the kill and the later rows keep their zeros."""
+    rc = {"3dgut": RC, "grt": SORTED["grt"]}[mode]
+    d, tmin, tmax, _ = _tile_rays(cuda)
+    n = 620
+    z = torch.arange(n, dtype=torch.float64) * 0.05 + 5.0
+    p = torch.stack([torch.zeros(n, dtype=torch.float64),
+                     torch.zeros(n, dtype=torch.float64), z], -1)
+    s = torch.full((n, 3), 20.0, dtype=torch.float64)
+    table = _records(p, s, torch.full((n,), 0.9), torch.rand(n, 3).double()
+                     ).to(cuda)
+    pp = torch.arange(n, dtype=torch.int32, device=cuda)
+    ts = torch.tensor([0, n], dtype=torch.int32, device=cuda)
+    got, fwd = _c_agrees(cuda, rc, table, pp, ts, d, tmin, tmax)
+    assert float(fwd[3].max()) <= 16
+    assert float(got[16:].abs().sum()) == 0.0
+    assert float(got[:4].abs().sum()) > 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["3dgut", "grt", "sorted3dgut"])
+def test_raster_bwd_tile_spans_three_batches(cuda, mode):
+    """A tile of 700 faint particles over its pixels (three batches of 256
+    pairs): every pixel lives through all of them."""
+    rc = {"3dgut": RC, **SORTED}[mode]
+    d, tmin, tmax, _ = _tile_rays(cuda)
+    n = 700
+    rng = np.random.default_rng(1)
+    z = np.sort(rng.uniform(5.0, 30.0, n))
+    xy = rng.uniform(-0.5, 0.5, (n, 2)) * z[:, None]
+    p = torch.tensor(np.concatenate([xy, z[:, None]], -1))
+    s = torch.tensor(rng.uniform(0.2, 1.0, (n, 3)))
+    table = _records(p, s, torch.full((n,), 0.03),
+                     torch.tensor(rng.uniform(0, 1, (n, 3)))).to(cuda)
+    pp = torch.arange(n, dtype=torch.int32, device=cuda)
+    ts = torch.tensor([0, n], dtype=torch.int32, device=cuda)
+    got, fwd = _c_agrees(cuda, rc, table, pp, ts, d, tmin, tmax)
+    assert float(fwd[4].min()) > rc.min_transmittance
+    assert float(got[512:].abs().sum()) > 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["grt", "sorted3dgut"])
+@pytest.mark.parametrize("general", [False, True])
+def test_sorted_raster_bwd_windows_cut_by_tiles(cuda, mode, general):
+    """Three tiles of [0, 5), [5, 37) and [37, 50) pairs, so windows of 16
+    on the global pair index are cut by each tile's start and end, and 10
+    culled pairs past the last tile: each tile's rows agree with the plain
+    version and the culled rows stay zero."""
+    rc = SORTED[mode]
+    d, tmin, tmax, o = _tile_rays(cuda, tiles_x=3, general=general)
+    rng = np.random.default_rng(2)
+    bounds = [0, 5, 37, 50]
+    rows = []
+    for t in range(3):
+        n = bounds[t + 1] - bounds[t]
+        z = rng.uniform(5.0, 12.0, n)    # unsorted: the windows sort them
+        x = (rng.uniform(-0.5, 0.5, n) + (t - 1)) * z
+        y = rng.uniform(-0.5, 0.5, n) * z
+        rows.append(np.stack([x, y, z], -1))
+    p = torch.tensor(np.concatenate(rows + [rng.uniform(-3, 3, (10, 3))
+                                            + [0, 0, 8.0]]))
+    s = torch.tensor(rng.uniform(0.3, 1.5, (60, 3)))
+    table = _records(p, s, torch.full((60,), 0.5),
+                     torch.tensor(rng.uniform(0, 1, (60, 3))),
+                     general=general).to(cuda)
+    pp = torch.arange(60, dtype=torch.int32, device=cuda)
+    ts = torch.tensor(bounds, dtype=torch.int32, device=cuda)
+    got, _ = _c_agrees(cuda, rc, table, pp, ts, d, tmin, tmax, o)
+    assert float(got[50:].abs().sum()) == 0.0
+    for t in range(3):
+        assert float(got[bounds[t]:bounds[t + 1]].abs().sum()) > 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sort", [False, True])
+def test_raster_bwd_degree4_alpha_clamped(cuda, sort):
+    """Degree 4 with alpha clamped at max_alpha (dense particles whose
+    centres reach alpha_raw > 0.99): no alpha gradient there, so their
+    density rows come from the unclamped pixels alone."""
+    rc = SORTED["grt"].replace(sorted_compositing=sort)
+    d, tmin, tmax, _ = _tile_rays(cuda)
+    n = 48
+    rng = np.random.default_rng(3)
+    z = np.sort(rng.uniform(5.0, 20.0, n))
+    xy = rng.uniform(-0.4, 0.4, (n, 2)) * z[:, None]
+    p = torch.tensor(np.concatenate([xy, z[:, None]], -1))
+    s = torch.tensor(rng.uniform(0.5, 2.0, (n, 3)))
+    table = _records(p, s, torch.full((n,), 5.0),
+                     torch.tensor(rng.uniform(0, 1, (n, 3)))).to(cuda)
+    pp = torch.arange(n, dtype=torch.int32, device=cuda)
+    ts = torch.tensor([0, n], dtype=torch.int32, device=cuda)
+    got, fwd = _c_agrees(cuda, rc, table, pp, ts, d, tmin, tmax)
+    # some composited hits were clamped: their opacity reached max_alpha
+    assert float(fwd[1].max()) >= rc.max_alpha
+
+
+@pytest.mark.gpu
+def test_raster_bwd_shared_segment_global_order(cuda):
+    """The general W 0 shared-segment mode (trace()'s brute force in rank
+    order): every block walks one segment and writes its rows at t n + j;
+    against the plain version, bitwise repeatable."""
+    from threedgrut_tpu_torch.render.grt import prepare_trace
+
+    model = bench_cloud(3000, seed=3, device=cuda)
+    ro, rd = _trace_rays(model, 48)
+    inp = prepare_trace(model, ro, rd, accelerate=False, _sorted=False)
+    a = inp.args()
+    assert inp.shared and not inp.cfg.sorted_compositing
+    before = rasterize_tiles_backward.launches_shared_segment
+    _c_agrees(cuda, inp.cfg, a[0].detach(), *a[1:6], inp.ray_o, True)
+    assert rasterize_tiles_backward.launches_shared_segment == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [9000.0, 2.0 ** 21])
+def test_nht_raster_fwd_far_blends(cuda, shift):
+    """Kernel B in the NHT mode with half the particles' control features
+    moved by ``shift`` (the blends move by as much): 9,000 takes the fast
+    sine's Cody-Waite step far from [-pi, pi], 2^21 the accurate sincosf
+    past kTrigFastMax (2^20). Opacity, depth, hits and T_final equal B's
+    on the unmoved table bit for bit; bitwise repeatable; the features
+    against the float64 plain version at 9,000: cosine >= 0.999 and
+    relative L2 <= 1e-2 (a float32 blend near 9,000 carries ~5e-4 of
+    rounding, test_nht_raster_bwd_far_blends_match_plain's tolerances).
+    At 2^21 a float32 blend's own rounding (ulp 0.25, and its barycentric
+    weights' times 2^21) leaves no digit of its sine to compare; each
+    feature, a sum of w sin or w cos, stays within sum w = 1 - T."""
+    rc = NHT["3dgut"]
+    v = _nht_view(cuda, rc)
+    b = v.binning
+    table = v.table.clone()
+    table[::2, 13:61] += shift
+    args = (table, b.pair_particle, b.tile_start, v.ray_d, v.tmin, v.tmax,
+            rc, v.ray_o)
+    got = rasterize_tiles_forward(*args)
+    again = rasterize_tiles_forward(*args)
+    base = rasterize_tiles_forward(v.table, *args[1:])
+    ref = rasterize_tiles_plain(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    for i in (1, 2, 3, 4):
+        assert torch.equal(got[i], base[i])
+    assert bool(torch.isfinite(got[0]).all())
+    if shift < NHT_TRIG_FAST_MAX:
+        x, y = got[0].double().flatten(), ref[0].double().flatten()
+        assert float(x @ y / (x.norm() * y.norm())) >= 0.999
+        assert float((x - y).norm() / y.norm()) <= 1e-2
+    else:
+        assert bool((got[0].abs().amax(-1) <= (1.0 - got[4][..., 0])
+                     * (1.0 + 1e-5) + 1e-6).all())
+
+
+@pytest.mark.gpu
+def test_redesigned_kernels_resources(cuda):
+    """Kernel C's RGB modes and kernel B's NHT mode fit three blocks an SM:
+    <= 80 registers, and the shared memory of three within the SM's
+    228 KB."""
+    rgb = rgb_kernel_attributes()
+    assert len(rgb) == 9
+    for a in list(rgb.values()) + list(nht_fwd_kernel_attributes().values()):
+        assert a["registers"] <= 80
+        shared = a["shared_bytes"] + a["dynamic_shared_bytes"]
+        assert 0 < shared <= 227 * 1024 // 3

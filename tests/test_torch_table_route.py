@@ -24,10 +24,10 @@ CPU, plain versions against the JAX functions in Pallas interpret mode:
     adversarial ids (one id owning 5,000 pairs, all ids distinct, ids out
     of range, no pairs): bit for bit a sequential fp32 ``np.add.at``, and
     within 1e-6 of max of JAX's scatter in interpret mode;
-  * kernel C's NHT sine and cosine in its plain version
+  * the NHT sine and cosine of kernels B and C in its plain version
     (``nht_sincos_plain``: the Cody-Waite step emulated in float32, the
     SFU's sine as float64) within 1.5e-7 of float64 over the fast path's
-    range (raster_bwd.cu:sincos_fast states it; the card's own, with the
+    range (common.cuh:sincos_fast states it; the card's own, with the
     SFU, is held to 1e-6 by tests/test_torch_gpu.py and chip_smoke.py).
 """
 

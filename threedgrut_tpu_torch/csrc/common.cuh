@@ -227,14 +227,17 @@ __device__ __forceinline__ float3 hit_normal(const float* r, int stride,
 // re-evaluates each lane's hit from shared memory, which gives the same
 // values bit for bit, so only the key and an 8-bit lane ride the sort.
 // Kernels B, C and E take it at W = 16; trace()'s windows of 128 take the
-// k-buffer below instead.
+// k-buffer below instead. With ``alpha`` (kernel C) each candidate's
+// alpha rides beside its key, so a walk that needs only alpha and hit_t
+// does not test the lane again.
 template <int kDeg, int kW, bool kGen>
 __device__ __forceinline__ int sort_window(const float* rec, int stride,
                                            const float* thr, int lo, int hi,
                                            const Ray& ray,
                                            const RasterParams& p,
                                            float (&key)[kW],
-                                           uint8_t (&lane)[kW]) {
+                                           uint8_t (&lane)[kW],
+                                           float* alpha = nullptr) {
   int n = 0;
   for (int j = lo; j < hi; ++j) {
     Hit h;
@@ -245,10 +248,12 @@ __device__ __forceinline__ int sort_window(const float* rec, int stride,
     while (i > 0 && key[i - 1] > h.hit_t) {
       key[i] = key[i - 1];
       lane[i] = lane[i - 1];
+      if (alpha) alpha[i] = alpha[i - 1];
       --i;
     }
     key[i] = h.hit_t;
     lane[i] = static_cast<uint8_t>(j);
+    if (alpha) alpha[i] = h.alpha;
   }
   return n;
 }
@@ -634,13 +639,123 @@ __device__ __forceinline__ NhtHit nht_hit(const Hit& h) {
   return n;
 }
 
-// The blend of control dim k at the hit: sum_v w_v f[v][k].
-__device__ __forceinline__ float nht_blend(const float* r, int stride,
-                                           const NhtHit& n, int k) {
-  return n.w[0] * r[(kNhtFeat + k) * stride] +
-         n.w[1] * r[(kNhtFeat + kNhtDim + k) * stride] +
-         n.w[2] * r[(kNhtFeat + 2 * kNhtDim + k) * stride] +
-         n.w[3] * r[(kNhtFeat + 3 * kNhtDim + k) * stride];
+// A staged NHT record (kernels B and C): a row of kNhtRow floats, pair
+// after pair in shared memory, with kNhtRowPad floats of padding before the
+// 64 fields (so the 48 control features start 16-byte aligned, four
+// control dims of a vertex to a float4; the hit test's 13 fields are the
+// row's first four float4) and the squared-distance threshold last.
+constexpr int kNhtRowPad = 3;
+constexpr int kNhtRow = kNhtRowPad + kRecNht + 1;
+static_assert((kNhtRowPad + kNhtFeat) % 4 == 0 && kNhtRow % 4 == 0,
+              "float4 rows and features");
+
+// Stage record ``rec`` of the [C, 64] table into row ``dst`` (16-byte
+// aligned) with float4 copies: each float4 stored takes the last three
+// fields of one float4 read and the first of the next. The row's first
+// padding float gets the largest |control feature| (for nht_far).
+template <int kDeg>
+__device__ __forceinline__ void stage_nht_row(const float* rec, float* dst,
+                                              const RasterParams& p) {
+  const float4* src = reinterpret_cast<const float4*>(rec);
+  float4* out = reinterpret_cast<float4*>(dst);
+  float4 prev = make_float4(0.f, 0.f, 0.f, 0.f);
+  float dens = 0.f, fmax_abs = 0.f;
+#pragma unroll
+  for (int q = 0; q < kRecNht / 4; ++q) {
+    const float4 cur = src[q];
+    // fields 13-15, then 16-63, are the features (and 3 padding zeros)
+    const float m4 = fmaxf(fmaxf(fabsf(cur.y), fabsf(cur.z)),
+                           fmaxf(fabsf(cur.w), q > 3 ? fabsf(cur.x) : 0.f));
+    if (q == 3) dens = cur.x;
+    if (q >= 3) fmax_abs = fmaxf(fmax_abs, m4);
+    out[q] = make_float4(prev.y, prev.z, prev.w, cur.x);
+    prev = cur;
+  }
+  static_assert(kDensity == 12 && kNhtFeat == 13, "density in float4 3");
+  dst[0] = fmax_abs;
+  out[kRecNht / 4] = make_float4(prev.y, prev.z, prev.w,
+                                 sq_threshold<kDeg>(dens, p));
+}
+
+// The fast sine and cosine below hold for |x| <= kTrigFastMax = 2^20,
+// far past any blend of trained features; a hit whose blends may pass it
+// (nht_far) takes the accurate libdevice sincosf instead (nht_dims<true>).
+// Past ~2^23 the reduced argument leaves [-4, 4] and the fast path's
+// error grows.
+constexpr float kTrigFastMax = 1048576.0f;
+
+// sin x and cos x of an NHT blend: a two-constant Cody-Waite step onto
+// about [-pi, pi], j = rint(x / 2pi), r = (x - j C1) - j C2 with C1 =
+// fp32(2pi) and C2 = fp32(2pi - C1), each step one rounding (x - j C1 is
+// exact: both are multiples of 2^-21 and |r| < 4; the constants' own
+// error, j 7e-15, is far below), then the SFU's sine and cosine
+// (__sincosf: at most 2^-21.41 = 3.6e-7 absolute on [-pi, pi], CUDA's
+// stated bound). Error against float64: the reduction within 1.21e-7 on
+// |x| <= kTrigFastMax (its float32 emulation, ops/cuda/raster.py:
+// nht_sincos_plain, holds sin and cos of r within 1.5e-7;
+// tests/test_torch_table_route.py); the whole is held to 1e-6 on the
+// card over 6M arguments of that range (chip_smoke.py phase 27 prints
+// it).
+__device__ __forceinline__ void sincos_fast(float x, float& s, float& c) {
+  const float j = rintf(__fmul_rn(x, 0.159154937f));
+  float r = __fmaf_rn(-j, 6.28318548f, x);
+  r = __fmaf_rn(-j, -1.74845553e-07f, r);
+  __sincosf(r, &s, &c);
+}
+
+__device__ __forceinline__ float part4(const float4& a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+
+// Whether a hit with barycentric weights wb on a staged NHT row may have
+// a blend past kTrigFastMax: |b_k| <= max_v |f_v| sum_v |wb_v|, the
+// largest |feature| staged in the row's first float; the 0.999 covers
+// the float32 rounding of the blend and of this bound. Kernels B and C
+// take the accurate sine for such a hit (never for trained features:
+// the bound is ~1).
+__device__ __forceinline__ bool nht_far(const float* row,
+                                        const float (&wb)[4]) {
+  const float sw = (fabsf(wb[0]) + fabsf(wb[1])) + (fabsf(wb[2]) +
+                                                    fabsf(wb[3]));
+  return !(row[0] * sw <= 0.999f * kTrigFastMax);
+}
+
+// The libdevice sincosf, out of line: the accurate path of a far hit
+// keeps its Payne-Hanek frame out of the unrolled hot loop.
+__device__ __noinline__ void sincos_accurate(float x, float& s, float& c) {
+  sincosf(x, &s, &c);
+}
+
+// Control dims 4c .. 4c + 3 of an accepted hit with barycentric weights
+// wb on a staged NHT row (its control features at ``feat``, 16-byte
+// aligned, vertex-major): f[v][i], vertex v's value of dim 4c + i (one
+// float4 load a vertex); the blends b_i = sum_v wb_v f[v][i] in explicit
+// FMAs; and sn[i], cs[i] their sine and cosine: sincos_fast, or with
+// kAccurate (a hit nht_far finds) the libdevice sincosf. Kernels B and C
+// both take a hit's features from here, so they agree on them bit for
+// bit.
+template <bool kAccurate>
+__device__ __forceinline__ void nht_dims(const float* feat,
+                                         const float (&wb)[4], int c,
+                                         float (&f)[4][4], float (&sn)[4],
+                                         float (&cs)[4]) {
+  float4 fv[4];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    fv[v] = *reinterpret_cast<const float4*>(feat + v * kNhtDim + 4 * c);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) f[v][i] = part4(fv[v], i);
+    const float b = __fmaf_rn(wb[0], f[0][i], __fmaf_rn(wb[1], f[1][i],
+                    __fmaf_rn(wb[2], f[2][i], __fmul_rn(wb[3], f[3][i]))));
+    if constexpr (kAccurate) {
+      sincos_accurate(b, sn[i], cs[i]);
+    } else {
+      sincos_fast(b, sn[i], cs[i]);
+    }
+  }
 }
 
 // Call launch(deg, win, gen) with the kernel degree, sort window and

@@ -34,33 +34,55 @@
 // folds the rows unchanged and autograd maps (p, M) back to the
 // parameters.
 //
-// Reduction over pixels: each pair's 16 gradients are summed over the
-// block's 256 pixels in a fixed order (xor-butterfly inside each warp, then
-// the 8 warp partials in warp order through shared memory) and written
-// once, with no atomics: a pair belongs to one tile, so rows never race and
-// the result is the same run to run. A warp in which no pixel touched the
-// pair skips its butterfly and contributes zeros.
-//
-// Bound on this card: the per-(pixel, pair) arithmetic (~150 flops and one
-// expf) and the 16-value warp butterflies (80 shuffles per warp and pair
-// that some pixel of the warp hit). Device memory traffic is 64 B gathered
-// and 64 B written per pair and block. The block leaves once every pixel
-// is dead (__syncthreads_count, checked at every group of pairs); pairs it
-// never reaches, and culled pairs past the last tile, keep the zeros the
-// wrapper allocates.
+// Reduction over pixels and what bounds this kernel on the card. Its
+// bound (chip_smoke.py:BWD_ACCEPT_FLOPS) is the hit test of every (pixel,
+// pair) and ~100-140 operations a composited candidate; its time goes to
+// issuing instructions. A breakdown of the earlier design (each suspect
+// taken away in turn, on chip_smoke.py phases 8, 14 and 20's inputs;
+// PERF.md §6, H100 80GB HBM3, 700 W) put it beside the walk (the test, T
+// and the kill, 0.38-1.25 ms) in a per-(warp, pair) xor butterfly of the 16
+// values (0.2-1.0 ms), in the publish of zeros, a barrier every 16 pairs
+// and the 8-warp sum of every pair even where no pixel touched it (0.4 ms
+// at 3DGUT, 6.7 of trace's brute force), and in the pullback (0.1-0.5 ms,
+// under -fmad=false). So:
+//  - a warp whose lanes touch no pair costs a ballot; one with a touched
+//    lane writes its 32 lanes' values (zeros for an untouched lane) to
+//    its value rows in shared memory with four float4 stores, each lane
+//    sums one field over its half warp's 16 rows in a fixed order
+//    (half_sum), one shuffle adds the two halves, and the warp's sum goes
+//    to its partial of the pair with the pair's bit in its mask;
+//  - a group of 32 pairs (W = 16: a window) ends at one barrier; the
+//    pairs some warp touched are summed over the warps that touched them
+//    in warp order and written once; the rest keep the wrapper's zeros;
+//  - warp w takes the 8x4 pixel block (w % 2, w / 2) of the tile, not two
+//    rows: a particle's footprint touches fewer warps, so fewer warps run
+//    the pullback and the sum for it (up to 6% of the time);
+//  - the pullback and the suffix residual are in explicit FMAs (the
+//    division an approximate one); the hit test, T and the kill keep
+//    kernel B's unfused operations, so the decisions are B's.
+// No atomics on gradient values and a fixed order throughout: bitwise
+// repeatable; a pair belongs to one tile, so rows never race. What is
+// left is the walk and, at ~9 composited pixels of 32 a touched warp,
+// the pullback and the sum run with most lanes idle (the breakdown of
+// this design in PERF.md §6). The block leaves once every pixel is dead
+// (__syncthreads_count at each group's barrier); pairs it never reaches,
+// and culled pairs past the last tile, keep the wrapper's zeros. Dynamic
+// shared memory 70,656 bytes, at most 80 registers: three blocks an SM.
 //
 // Sorted mode: windows of W pairs aligned on the global pair index and
 // cut to the tile, in kernel B's order (raster_fwd.cu). Per window each
-// thread sorts its accepted candidates by hit_t (common.cuh:sort_window)
-// and walks them in that order: T, the psi prefix (so the residual S_j)
-// and the kill follow the sorted walk, as in the forward. It stores g_alpha
-// and w in per-thread arrays indexed by the pair's own lane (the TPU
-// kernel's bitonic_replay_unsort); then the block pulls the window back
-// pair by pair in lane order with the unsorted path's reduction. The
-// reduction groups of 16 pairs tile each window (one group for W = 16),
-// and the kill check that ends the block waits for the window's last
-// group. Rows of the window outside the tile's [start, end)
-// belong to another tile's block and are not written.
+// thread sorts its accepted candidates by hit_t (common.cuh:sort_window,
+// which keeps each candidate's alpha beside its key) and walks them in
+// that order: T, the psi prefix (so the residual S_j) and the kill
+// follow the sorted walk, as in the forward, with no second test. It
+// keeps g_alpha and w by the pair's window lane (the TPU kernel's
+// bitonic_replay_unsort); then the warp pulls back each window lane one
+// of its pixels touched, in lane order (testing it again there), through
+// the global-Z order's sum. Pulling each candidate back as it is
+// composited instead needs a sum keyed by window lane at every step of
+// the walk; measured, it was no faster at 800x800 and 22% slower in the
+// general mode (PERF.md §6). The touched lanes all lie in the
+// tile's [start, end).
 //
 // Shared-segment mode (kShared; raster.py:_bwd_strip_kernel with
 // shared_segments :2051-2167, the TPU's kernel 7, trace()'s brute force):
@@ -138,12 +160,13 @@
 //    groups of 8 pairs then meet at one block barrier and are summed in
 //    warp order, as before: a fixed order throughout, no atomics, bitwise
 //    repeatable.
-//  - Sine and cosine: sincos_fast, a two-constant Cody-Waite step onto
-//    [-pi, pi] and the SFU (__sincosf), within 1e-6 of float64 on the
-//    card for blends up to kTrigFastMax = 2^20 (chip_smoke.py phase 27
-//    measures it). A hit with a blend past that redoes its features with
-//    the accurate libdevice sincosf (nht_features<true>), out of the
-//    unrolled loop.
+//  - Sine and cosine: common.cuh:sincos_fast, a two-constant Cody-Waite
+//    step onto [-pi, pi] and the SFU (__sincosf), within 1e-6 of float64
+//    on the card for blends up to kTrigFastMax = 2^20 (chip_smoke.py
+//    phase 27 measures it); a hit whose blends may pass that
+//    (common.cuh:nht_far) takes the accurate libdevice sincosf
+//    (nht_features<true>), out of the unrolled loop. Kernel B takes the
+//    same sines (common.cuh:nht_dims), so the residual's F and u agree.
 //  - Contraction: the file keeps -fmad=false, so the hit test
 //    (common.cuh:eval_hit_general) and the transmittance take kernel B's
 //    accept and kill decisions; the blends, the feature path and the
@@ -161,9 +184,8 @@
 //
 // Numerics: fp32, built with -fmad=false like kernel B, and the hit math is
 // the same common.cuh:eval_hit, so accept and kill decisions equal the
-// forward's. The W = 0 degree-2 path does the training slice's kernel's
-// fp32 arithmetic in the same order, so its gradients are unchanged. The
-// NHT mode's pullback uses explicit FMAs and the SFU sine (above).
+// forward's. What decides nothing (the pullbacks, the residual, the NHT
+// features) is written in explicit FMAs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -177,14 +199,15 @@ using gut::kTile;
 
 constexpr int kBatch = 256;        // pairs staged per batch
 constexpr int kStaged = kRec + 1;  // + squared-distance threshold
-constexpr int kGroup = 16;         // pairs per reduction group
 constexpr int kWarps = kBlock / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 // The cotangents of a and b of one accepted candidate (_fast_pullback)
 // through alpha = min(max_alpha, resp(sq) density), sq = |a x b|^2 / |b|^2
 // (g_eff: alpha's cotangent where alpha_raw is under max_alpha, else 0)
-// and tc = -(a . b) / |b|^2 (g_tc), with b = M d.
+// and tc = -(a . b) / |b|^2 (g_tc), with b = M d. The pullback takes no
+// decision, so it is written in explicit FMAs under the file's
+// -fmad=false.
 struct GradAB {
   float ax, ay, az, bx, by, bz;
 };
@@ -193,50 +216,59 @@ template <int kDeg>
 __device__ __forceinline__ GradAB pull_ab(const gut::Hit& h, float g_eff,
                                           float dens, float g_tc,
                                           const gut::RasterParams& p) {
-  const float d_resp = g_eff * dens;
+  const float d_resp = __fmul_rn(g_eff, dens);
   // particle_response_dsq: d resp / d sq
-  const float d_sq = d_resp * gut::response_dsq<kDeg>(h, p);
-  const float d_q = -g_tc * h.inv_m;
-  const float d_inv_m = d_sq * h.c2 - g_tc * h.q;
-  const float d_c2 = d_sq * h.inv_m;
-  const float d_m = -d_inv_m * h.inv_m * h.inv_m;
-  const float gcx = 2.0f * d_c2 * h.cx;
-  const float gcy = 2.0f * d_c2 * h.cy;
-  const float gcz = 2.0f * d_c2 * h.cz;
-  const float ax = h.ax, ay = h.ay, az = h.az;
+  const float slope = kDeg == 4
+      ? __fmul_rn(__fmul_rn(h.resp, p.gg_scale), __fmul_rn(2.0f, h.sq))
+      : __fmul_rn(h.resp, p.gg_scale);
+  const float d_sq = __fmul_rn(d_resp, slope);
+  const float d_q = -__fmul_rn(g_tc, h.inv_m);
+  const float d_inv_m = __fmaf_rn(d_sq, h.c2, -__fmul_rn(g_tc, h.q));
+  const float d_c2 = __fmul_rn(d_sq, h.inv_m);
+  const float d_m2 = -2.0f * __fmul_rn(__fmul_rn(d_inv_m, h.inv_m), h.inv_m);
+  const float gcx = __fmul_rn(2.0f * d_c2, h.cx);
+  const float gcy = __fmul_rn(2.0f * d_c2, h.cy);
+  const float gcz = __fmul_rn(2.0f * d_c2, h.cz);
   // c = a x b: d_a = b x g_c, d_b = g_c x a; q = a . b; m = |b|^2
   GradAB g;
-  g.ax = h.by * gcz - h.bz * gcy + d_q * h.bx;
-  g.ay = h.bz * gcx - h.bx * gcz + d_q * h.by;
-  g.az = h.bx * gcy - h.by * gcx + d_q * h.bz;
-  g.bx = gcy * az - gcz * ay + d_q * ax + 2.0f * d_m * h.bx;
-  g.by = gcz * ax - gcx * az + d_q * ay + 2.0f * d_m * h.by;
-  g.bz = gcx * ay - gcy * ax + d_q * az + 2.0f * d_m * h.bz;
+  g.ax = __fmaf_rn(d_q, h.bx, __fmaf_rn(h.by, gcz, -__fmul_rn(h.bz, gcy)));
+  g.ay = __fmaf_rn(d_q, h.by, __fmaf_rn(h.bz, gcx, -__fmul_rn(h.bx, gcz)));
+  g.az = __fmaf_rn(d_q, h.bz, __fmaf_rn(h.bx, gcy, -__fmul_rn(h.by, gcx)));
+  g.bx = __fmaf_rn(d_m2, h.bx, __fmaf_rn(d_q, h.ax,
+         __fmaf_rn(gcy, h.az, -__fmul_rn(gcz, h.ay))));
+  g.by = __fmaf_rn(d_m2, h.by, __fmaf_rn(d_q, h.ay,
+         __fmaf_rn(gcz, h.ax, -__fmul_rn(gcx, h.az))));
+  g.bz = __fmaf_rn(d_m2, h.bz, __fmaf_rn(d_q, h.az,
+         __fmaf_rn(gcx, h.ay, -__fmul_rn(gcy, h.ax))));
   return g;
 }
 
 // The general mode's map of (d_a, d_b) through a = M e, e = o - p and
-// b = M d onto rows 0-11 of its record: d_p = -M^T d_a,
-// d_M[i][k] = d_a[i] e[k] + d_b[i] d[k].
-template <int kN>
+// b = M d onto rows 0-11 of its record (field f at r[f * stride]):
+// d_p = -M^T d_a, d_M[i][k] = d_a[i] e[k] + d_b[i] d[k].
 __device__ __forceinline__ void general_rows(const GradAB& g,
                                              const gut::Hit& h,
                                              const float* r, int stride,
                                              const gut::Ray& ray,
-                                             float (&d)[kN]) {
-  const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
-  d[0] = -(r[3 * stride] * g.ax + r[6 * stride] * g.ay + r[9 * stride] * g.az);
-  d[1] = -(r[4 * stride] * g.ax + r[7 * stride] * g.ay + r[10 * stride] * g.az);
-  d[2] = -(r[5 * stride] * g.ax + r[8 * stride] * g.ay + r[11 * stride] * g.az);
-  d[3] = g.ax * h.ex + g.bx * dx;
-  d[4] = g.ax * h.ey + g.bx * dy;
-  d[5] = g.ax * h.ez + g.bx * dz;
-  d[6] = g.ay * h.ex + g.by * dx;
-  d[7] = g.ay * h.ey + g.by * dy;
-  d[8] = g.ay * h.ez + g.by * dz;
-  d[9] = g.az * h.ex + g.bz * dx;
-  d[10] = g.az * h.ey + g.bz * dy;
-  d[11] = g.az * h.ez + g.bz * dz;
+                                             float* d, int d_stride) {
+  const float ga[3] = {g.ax, g.ay, g.az}, gb[3] = {g.bx, g.by, g.bz};
+  const float ee[3] = {h.ex, h.ey, h.ez};
+  const float dd[3] = {ray.dx, ray.dy, ray.dz};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    d[c * d_stride] = -__fmaf_rn(
+        r[(3 + c) * stride], g.ax, __fmaf_rn(r[(6 + c) * stride], g.ay,
+                                             __fmul_rn(r[(9 + c) * stride],
+                                                       g.az)));
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      d[(3 + 3 * i + c) * d_stride] =
+          __fmaf_rn(ga[i], ee[c], __fmul_rn(gb[i], dd[c]));
+    }
+  }
 }
 
 // Pull (g_alpha, g_hit_t = g_depth w, g_rgb = g_feat w) of one accepted
@@ -253,83 +285,88 @@ __device__ __forceinline__ void pullback(const gut::Hit& h, const float* r,
                                          float gd, const gut::Ray& ray,
                                          const gut::RasterParams& p,
                                          float (&d)[kRec]) {
-  const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
-  const float g_ht = kGen ? gd * w * ray.dn : gd * w;
+  const float g_ht = kGen ? __fmul_rn(__fmul_rn(gd, w), ray.dn)
+                          : __fmul_rn(gd, w);
   // alpha = min(max_alpha, alpha_raw): no gradient when clamped
   const float g_eff = h.alpha_raw < p.max_alpha ? g_alpha : 0.f;
   const GradAB g =
       pull_ab<kDeg>(h, g_eff, r[gut::kDensity * stride], g_ht, p);
-  const float dbx = g.bx, dby = g.by, dbz = g.bz;
   if constexpr (kGen) {
-    general_rows(g, h, r, stride, ray, d);
+    general_rows(g, h, r, stride, ray, d, 1);
   } else {
+    const float gb[3] = {g.bx, g.by, g.bz};
+    const float dd[3] = {ray.dx, ray.dy, ray.dz};
     d[0] = g.ax;
     d[1] = g.ay;
     d[2] = g.az;
     // b = M d: d_M[i][k] = d_b[i] * d[k] (row-major M)
-    d[3] = dbx * dx;
-    d[4] = dbx * dy;
-    d[5] = dbx * dz;
-    d[6] = dby * dx;
-    d[7] = dby * dy;
-    d[8] = dby * dz;
-    d[9] = dbz * dx;
-    d[10] = dbz * dy;
-    d[11] = dbz * dz;
-  }
-  d[12] = g_eff * h.resp;
-  d[13] = gf0 * w;
-  d[14] = gf1 * w;
-  d[15] = gf2 * w;
-}
-
-// Sum d over the warp (xor butterfly, skipped when no lane of the warp
-// touched the pair) and publish it: lane f writes field f of the warp sum.
-__device__ __forceinline__ void warp_publish(float (&d)[kRec], bool touched,
-                                             int lane, float* out) {
-  if (__any_sync(kFull, touched)) {
 #pragma unroll
-    for (int f = 0; f < kRec; ++f) {
-      float v = d[f];
+    for (int i = 0; i < 3; ++i) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        v += __shfl_xor_sync(kFull, v, off);
-      }
-      d[f] = v;
+      for (int c = 0; c < 3; ++c) d[3 + 3 * i + c] = __fmul_rn(gb[i], dd[c]);
     }
   }
-  if (lane < kRec) {
-    float v = 0.f;
+  d[12] = __fmul_rn(g_eff, h.resp);
+  d[13] = __fmul_rn(gf0, w);
+  d[14] = __fmul_rn(gf1, w);
+  d[15] = __fmul_rn(gf2, w);
+}
+
+// ---- the RGB modes (raster_bwd_kernel) ----
+
+// pairs per block-level reduction group in global-Z order (W = 0); the
+// sorted mode reduces each window of W
+constexpr int kGroup = 32;
+// a lane's value row: its 16 values padded to 20 floats, so the four
+// float4 stores of 8 lanes at a time fall in distinct banks
+constexpr int kValRow = 20;
+// dynamic shared memory, floats: the staged records and thresholds, each
+// warp's value rows, and the warp partials of two groups ([warp][pair]
+// [field]; a window of 16 takes half the room)
+constexpr int kRgbRecFloats = kStaged * kBatch;
+constexpr int kRgbValFloats = kWarps * 32 * kValRow;
+constexpr int kRgbAccFloats = 2 * kWarps * kGroup * kRec;
+constexpr int kRgbSmemBytes =
+    (kRgbRecFloats + kRgbValFloats + kRgbAccFloats) * 4;
+// blocks an SM: the shared memory of three fits the SM's 228 KB
+constexpr int kRgbBlocksPerSm = 3;
+
+// A lane's 16 values into its value row (zeros for an untouched lane):
+// four float4 stores.
+__device__ __forceinline__ void store_row(float* row, const float (&d)[kRec],
+                                          bool touched) {
+  float4* r4 = reinterpret_cast<float4*>(row);
+  if (touched) {
 #pragma unroll
-    for (int f = 0; f < kRec; ++f) v = (lane == f) ? d[f] : v;
-    out[lane] = v;
+    for (int q = 0; q < kRec / 4; ++q) {
+      r4[q] = make_float4(d[4 * q], d[4 * q + 1], d[4 * q + 2], d[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kRec / 4; ++q) r4[q] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-// Set bit k of a window's touched mask, and read the 16 bits of the group
-// starting at lane g0 (a multiple of 16): the words are selected in an
-// unrolled loop, so the mask stays in registers.
-template <int kWords>
-__device__ __forceinline__ void mask_set(uint32_t (&m)[kWords], int k) {
+// Field ``fld`` of the lanes of this lane's half warp (rows at
+// val[(h0 + i) * kValRow], h0 = lane & 16; an untouched lane's row holds
+// zeros): every row is read at once and summed in a fixed order (four
+// running sums over i mod 4, then (0 + 1) + (2 + 3)); then lanes 0-15
+// add the upper half's sum, so they hold the warp's.
+__device__ __forceinline__ float half_sum(const float* val, int fld,
+                                          int lane) {
+  const int h0 = lane & 16;
+  float v[16];
 #pragma unroll
-  for (int q = 0; q < kWords; ++q) {
-    if (q == (k >> 5)) m[q] |= 1u << (k & 31);
-  }
-}
-
-template <int kWords>
-__device__ __forceinline__ uint32_t mask_group(const uint32_t (&m)[kWords],
-                                               int g0) {
-  uint32_t word = 0;
+  for (int i = 0; i < 16; ++i) v[i] = val[(h0 + i) * kValRow + fld];
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int q = 0; q < kWords; ++q) {
-    if (q == (g0 >> 5)) word = m[q];
-  }
-  return (word >> (g0 & 31)) & 0xffffu;
+  for (int i = 0; i < 16; ++i) acc[i & 3] += v[i];
+  const float sum = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  return sum + __shfl_down_sync(kFull, sum, 16);
 }
 
 template <int kDeg, int kW, bool kGen, bool kShared>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, kRgbBlocksPerSm)
 raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
                   const int32_t* __restrict__ pair_particle,  // [P]
                   const int32_t* __restrict__ tile_start,     // [T + 1]
@@ -345,16 +382,26 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
                   const float* __restrict__ g_depth_in,       // [H, W]
                   gut::RasterParams p,
                   float* __restrict__ d_records) {            // [P, 16]
-  __shared__ float s_rec[kStaged][kBatch];
-  // per-warp partial sums of one group, double-buffered so one barrier
-  // per group separates writing a group from reading it back
-  __shared__ float s_part[2][kWarps][kGroup][kRec];
+  constexpr int kWin = kW > 0 ? kW : 1;
+  static_assert(kW == 0 || kW == 16, "windows of 16: a window in a group");
+  extern __shared__ __align__(16) float s_dyn[];
+  float (*s_rec)[kBatch] = reinterpret_cast<float (*)[kBatch]>(s_dyn);
+  float* const s_acc = s_dyn + kRgbRecFloats + kRgbValFloats;
+  // each warp's touched pairs of a group or window, for two in turn
+  __shared__ uint32_t s_wmask[2][kWarps];
 
   const int tile = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int px = (tile % p.grid_x) * kTile + threadIdx.x % kTile;
-  const int py = (tile / p.grid_x) * kTile + threadIdx.x / kTile;
+  // this warp's value rows: lane i's value f at val[i * kValRow + f]
+  float* const val = s_dyn + kRgbRecFloats + warp * 32 * kValRow;
+  // the field this lane sums, over the lanes of its half of the warp
+  const int fld = lane & 15;
+  // warp w covers the 8x4 pixel block (w % 2, w / 2) of the tile
+  const int px = (tile % p.grid_x) * kTile + (threadIdx.x >> 5) % 2 * 8 +
+                 (threadIdx.x & 7);
+  const int py = (tile / p.grid_x) * kTile + (threadIdx.x >> 6) * 4 +
+                 ((threadIdx.x >> 3) & 3);
   const bool inside = px < p.width && py < p.height;
   const int64_t pix = static_cast<int64_t>(py) * p.width + px;
 
@@ -375,16 +422,62 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
   bool alive = inside;
   float trans = 1.f;    // T before the current candidate
   float psi_acc = 0.f;  // inclusive prefix of w * u
-  constexpr int kWin = kW > 0 ? kW : 1;
-  static_assert(kW % kGroup == 0, "reduction groups tile each window");
-  // the suffix-sum cotangent of alpha, and accumulate w u
-  auto g_alpha_of = [&](const gut::Hit& h, int j, float w) {
-    const float u = gf0 * s_rec[gut::kRgb + 0][j] +
-                    gf1 * s_rec[gut::kRgb + 1][j] +
-                    gf2 * s_rec[gut::kRgb + 2][j] + gd * h.hit_t;
-    psi_acc += w * u;
+  // composite accepted candidate j (its alpha and hit_t) at this pixel's
+  // place in the walk: returns w and sets g_alpha, its suffix-sum
+  // cotangent (the residual in FMAs, the division approximate: they
+  // decide nothing; T, w and the kill keep kernel B's unfused products)
+  auto composite = [&](float alpha, float hit_t, int j, float& g_alpha) {
+    const float w = alpha * trans;
+    const float u = __fmaf_rn(gf0, s_rec[gut::kRgb + 0][j], __fmaf_rn(
+        gf1, s_rec[gut::kRgb + 1][j], __fmaf_rn(
+            gf2, s_rec[gut::kRgb + 2][j], __fmul_rn(gd, hit_t))));
+    psi_acc = __fmaf_rn(w, u, psi_acc);
     const float suffix = phi_total - psi_acc;
-    return trans * u - (suffix + g_t * t_final) / fmaxf(1.0f - h.alpha, 1e-6f);
+    g_alpha = __fmaf_rn(trans, u,
+                        -__fdividef(__fmaf_rn(g_t, t_final, suffix),
+                                    fmaxf(1.0f - alpha, 1e-6f)));
+    trans *= 1.0f - alpha;
+    // exact kill: T_final froze here in the forward too
+    if (trans < p.min_transmittance) alive = false;
+    return w;
+  };
+  // this warp's sum of the pullbacks d of the lanes that touched staged
+  // pair j (touched), as lanes 0-15's fields of part (this warp's
+  // partial of the pair); false when no lane did
+  auto reduce = [&](bool touched, const float (&d)[kRec], float* part) {
+    const unsigned m = __ballot_sync(kFull, touched);
+    if (m == 0u) return false;
+    store_row(val + lane * kValRow, d, touched);
+    __syncwarp();
+    const float acc = half_sum(val, fld, lane);
+    if (lane < 16) part[lane] = acc;
+    __syncwarp();   // read before the next pair's rows are written
+    return true;
+  };
+  // after the barrier that ends a group of pairs (W = 16: a window),
+  // each pair some warp touched (bit jj of the warps' masks in wmasks):
+  // its 16 fields summed over the warps that touched it, in warp order
+  // (warp wi's partial of pair jj at parts[(wi * n + jj) * kRec]), and
+  // written to row row0 + jj; rows no pixel touched keep the wrapper's
+  // zeros
+  auto flush = [&](const uint32_t* wmasks, const float* parts, int n,
+                   int64_t row0) {
+    uint32_t wm[kWarps], any = 0u;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) {
+      wm[wi] = wmasks[wi];
+      any |= wm[wi];
+    }
+    for (int item = threadIdx.x; item < __popc(any) * kRec; item += kBlock) {
+      const int jj = __fns(any, 0, item / kRec + 1);
+      const int f = item % kRec;
+      float acc = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < kWarps; ++wi) {
+        if ((wm[wi] >> jj) & 1u) acc += parts[(wi * n + jj) * kRec + f];
+      }
+      d_records[(row0 + jj) * kRec + f] = acc;
+    }
   };
 
   // kShared: every block walks the one segment [tile_start[0],
@@ -392,13 +485,11 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
   // start
   const int start = tile_start[kShared ? 0 : tile];
   const int end = tile_start[kShared ? 1 : tile + 1];
-  float* const d_rows =
-      kShared ? d_records + (static_cast<int64_t>(tile) * (end - start) -
-                             start) * kRec
-              : d_records;
+  const int64_t rows0 =
+      kShared ? static_cast<int64_t>(tile) * (end - start) - start : 0;
   // sorted mode: batches (and so windows) start on a multiple of W
   const int first = start - start % kWin;
-  int group = 0;        // running group count: picks the s_part buffer
+  int group = 0;        // running group (window) count: picks the buffer
   bool done = false;
   for (int base = first; base < end && !done; base += kBatch) {
     // the previous batch's reads of s_rec are over before restaging
@@ -418,40 +509,34 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
     const int nb = min(kBatch, end - base);
     if constexpr (kW == 0) {
       for (int g0 = 0; g0 < nb; g0 += kGroup, ++group) {
-        float (*part)[kGroup][kRec] = s_part[group & 1];
+        // this warp's partials of the group's pairs: field f of pair jj at
+        // part[jj * kRec + f]
+        float* const part =
+            s_acc + ((group & 1) * kWarps + warp) * kGroup * kRec;
         const int ng = min(kGroup, nb - g0);
-        for (int jj = 0; jj < ng; ++jj) {
+        uint32_t wmask = 0;   // the group's pairs some lane touched
+        // a warp whose pixels are all dead has nothing to add
+        for (int jj = 0; jj < ng && __any_sync(kFull, alive); ++jj) {
           const int j = g0 + jj;
           float d[kRec];
-#pragma unroll
-          for (int f = 0; f < kRec; ++f) d[f] = 0.f;
           bool touched = false;
           gut::Hit h;
           if (alive && gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
                                                  s_rec[kRec][j], p, h)) {
-            const float w = h.alpha * trans;
-            const float g_alpha = g_alpha_of(h, j, w);
-            if (w > 0.f) {
-              touched = true;
-              pullback<kDeg, kGen>(h, &s_rec[0][j], kBatch, g_alpha, w, gf0,
-                                   gf1, gf2, gd, ray, p, d);
+            float g_alpha;
+            const float w = composite(h.alpha, h.hit_t, j, g_alpha);
+            touched = w > 0.f;
+            if (touched) {
+              pullback<kDeg, kGen>(h, &s_rec[0][j], kBatch, g_alpha, w,
+                                   gf0, gf1, gf2, gd, ray, p, d);
             }
-            trans *= 1.0f - h.alpha;
-            // exact kill: T_final froze here in the forward too
-            if (trans < p.min_transmittance) alive = false;
           }
-          warp_publish(d, touched, lane, part[warp][jj]);
+          if (reduce(touched, d, part + jj * kRec)) wmask |= 1u << jj;
         }
+        if (lane == 0) s_wmask[group & 1][warp] = wmask;
         const int n_alive = __syncthreads_count(alive);
-        // thread t sums field (t % 16) of pair (t / 16) over the 8 warps
-        const int jj = threadIdx.x / kRec;
-        const int f = threadIdx.x % kRec;
-        if (jj < ng) {
-          float acc = 0.f;
-#pragma unroll
-          for (int wi = 0; wi < kWarps; ++wi) acc += part[wi][jj][f];
-          d_rows[static_cast<int64_t>(base + g0 + jj) * kRec + f] = acc;
-        }
+        flush(s_wmask[group & 1], s_acc + (group & 1) * kWarps * kGroup * kRec,
+              kGroup, rows0 + base + g0);
         if (n_alive == 0) {
           done = true;   // every pixel dead: later pairs keep their zeros
           break;
@@ -459,67 +544,57 @@ raster_bwd_kernel(const float* __restrict__ table,            // [C, 16]
       }
     } else {
       const int lo0 = max(start - base, 0);   // lanes before the tile
-      for (int w0 = 0; w0 < nb && !done; w0 += kWin) {
-        // g_alpha and w of the window's touched pairs, by lane, and the
-        // touched lanes' bits
-        constexpr int kWords = (kWin + 31) / 32;
+      for (int w0 = 0; w0 < nb && !done; w0 += kWin, ++group) {
+        // this warp's partials of the window's lanes: field f of window
+        // lane k at part[k * kRec + f]
+        float* const part =
+            s_acc + ((group & 1) * kWarps + warp) * kWin * kRec;
+        // the walk in the window's sorted order (the sort keeps each
+        // candidate's alpha and hit_t, so no second test): g_alpha and w
+        // of the window lanes this pixel composited and touched, by lane
         float ga[kWin], wv[kWin];
-        uint32_t touched_mask[kWords];
-#pragma unroll
-        for (int q = 0; q < kWords; ++q) touched_mask[q] = 0u;
+        uint32_t mine = 0u;
         if (alive) {
-          float key[kWin];
+          float key[kWin], alpha[kWin];
           uint8_t order[kWin];
           const int n = gut::sort_window<kDeg, kWin, kGen>(
               &s_rec[0][0], kBatch, s_rec[kRec], max(w0, lo0),
-              min(w0 + kWin, nb), ray, p, key, order);
+              min(w0 + kWin, nb), ray, p, key, order, alpha);
           for (int i = 0; alive && i < n; ++i) {
             const int j = order[i];
-            gut::Hit h;
-            gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
-                                      s_rec[kRec][j], p, h);
-            const float w = h.alpha * trans;
-            const float g_alpha = g_alpha_of(h, j, w);
+            float g_alpha;
+            const float w = composite(alpha[i], key[i], j, g_alpha);
             if (w > 0.f) {
               ga[j - w0] = g_alpha;
               wv[j - w0] = w;
-              mask_set(touched_mask, j - w0);
+              mine |= 1u << (j - w0);
             }
-            trans *= 1.0f - h.alpha;
-            if (trans < p.min_transmittance) alive = false;
           }
         }
-        int n_alive = 1;
-        for (int g0 = 0; g0 < kWin; g0 += kGroup, ++group) {
-          float (*part)[kGroup][kRec] = s_part[group & 1];
-          const uint32_t gbits = mask_group(touched_mask, g0);
-          for (int jj = 0; jj < kGroup; ++jj) {
-            const int k = g0 + jj;
+        // the window lanes some lane of the warp touched, in lane order:
+        // each one's pullback on the lanes that touched it, reduced as in
+        // global-Z order
+        const uint32_t wmask = __reduce_or_sync(kFull, mine);
+        for (uint32_t mm = wmask; mm; mm &= mm - 1u) {
+          const int k = __ffs(mm) - 1;
+          const bool touched = (mine >> k) & 1u;
+          float d[kRec];
+          if (touched) {
             const int j = w0 + k;
-            float d[kRec];
-#pragma unroll
-            for (int f = 0; f < kRec; ++f) d[f] = 0.f;
-            const bool touched = (gbits >> jj) & 1u;
-            if (touched) {
-              gut::Hit h;
-              gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
-                                        s_rec[kRec][j], p, h);
-              pullback<kDeg, kGen>(h, &s_rec[0][j], kBatch, ga[k], wv[k], gf0,
-                                   gf1, gf2, gd, ray, p, d);
-            }
-            warp_publish(d, touched, lane, part[warp][jj]);
+            gut::Hit h;
+            gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
+                                      s_rec[kRec][j], p, h);
+            pullback<kDeg, kGen>(h, &s_rec[0][j], kBatch, ga[k], wv[k], gf0,
+                                 gf1, gf2, gd, ray, p, d);
           }
-          n_alive = __syncthreads_count(alive);
-          const int jj = threadIdx.x / kRec;
-          const int f = threadIdx.x % kRec;
-          const int row = base + w0 + g0 + jj;
-          if (row >= start && row < end) {
-            float acc = 0.f;
-#pragma unroll
-            for (int wi = 0; wi < kWarps; ++wi) acc += part[wi][jj][f];
-            d_rows[static_cast<int64_t>(row) * kRec + f] = acc;
-          }
+          reduce(touched, d, part + k * kRec);
         }
+        if (lane == 0) s_wmask[group & 1][warp] = wmask;
+        const int n_alive = __syncthreads_count(alive);
+        // (the touched window lanes all lie in [start, end), where the
+        // walk took its candidates)
+        flush(s_wmask[group & 1], s_acc + (group & 1) * kWarps * kWin * kRec,
+              kWin, rows0 + base + w0);
         // every pixel dead after this window: later pairs keep their zeros
         if (n_alive == 0) done = true;
       }
@@ -765,14 +840,9 @@ raster_bwd_trace_kernel(const float* __restrict__ table,      // [C, 16]
 // ---- NHT mode (raster_bwd_nht_kernel) ----
 
 constexpr int kBatchNht = 128;   // records staged per batch (34.8 KB)
-// a staged record's row: 3 floats of padding, the 64 fields from
-// kRowField (so the 48 control features start 16-byte aligned, four
-// control dims of a vertex to a float4), then the squared-distance
-// threshold
-constexpr int kRowField = 3;
-constexpr int kRowNht = kRowField + gut::kRecNht + 1;
-static_assert((kRowField + gut::kNhtFeat) % 4 == 0 && kRowNht % 4 == 0,
-              "float4 rows and features");
+// a staged record's row: common.cuh:kNhtRow
+constexpr int kRowField = gut::kNhtRowPad;
+constexpr int kRowNht = gut::kNhtRow;
 constexpr int kGroupNht = 8;     // pairs per block-level reduction group
 // gradient fields written per pair: p, M, density, 48 features (the
 // record's last 3 slots are padding and keep the wrapper's zeros)
@@ -794,109 +864,32 @@ constexpr int kNhtValFloats = kWarps * kValRows * kValPad;
 constexpr int kNhtSmemBytes =
     (kNhtRecFloats + kNhtPartFloats + kNhtValFloats) * 4;
 
-// The fast sine and cosine below hold for |x| <= kTrigFastMax = 2^20,
-// far past any blend of trained features; a hit with a blend past it
-// redoes its features with the accurate libdevice sincosf
-// (nht_features<true>), whose Payne-Hanek reduction keeps a local-memory
-// frame, outside the unrolled hot loop. Past ~2^23 the reduced argument
-// leaves [-4, 4] and the fast path's error grows.
-constexpr float kTrigFastMax = 1048576.0f;
-
-// sin x and cos x of an NHT blend: a two-constant Cody-Waite step onto
-// about [-pi, pi], j = rint(x / 2pi), r = (x - j C1) - j C2 with C1 =
-// fp32(2pi) and C2 = fp32(2pi - C1), each step one rounding (x - j C1 is
-// exact: both are multiples of 2^-21 and |r| < 4; the constants' own
-// error, j 7e-15, is far below), then the SFU's sine and cosine
-// (__sincosf: at most 2^-21.41 = 3.6e-7 absolute on [-pi, pi], CUDA's
-// stated bound). Error against float64: the reduction within 1.21e-7 on
-// |x| <= kTrigFastMax (its float32 emulation, ops/cuda/raster.py:
-// nht_sincos_plain, holds sin and cos of r within 1.5e-7;
-// tests/test_torch_table_route.py); the whole is held to 1e-6 on the
-// card over 6M arguments of that range (chip_smoke.py phase 27 prints
-// it).
-__device__ __forceinline__ void sincos_fast(float x, float& s, float& c) {
-  const float j = rintf(__fmul_rn(x, 0.159154937f));
-  float r = __fmaf_rn(-j, 6.28318548f, x);
-  r = __fmaf_rn(-j, -1.74845553e-07f, r);
-  __sincosf(r, &s, &c);
-}
-
-// pull_ab in explicit FMAs: the NHT pullback takes no decision, so it
-// need not keep the file's no-contraction order.
-template <int kDeg>
-__device__ __forceinline__ GradAB pull_ab_fma(const gut::Hit& h, float g_eff,
-                                              float dens, float g_tc,
-                                              const gut::RasterParams& p) {
-  const float d_resp = __fmul_rn(g_eff, dens);
-  const float slope = kDeg == 4
-      ? __fmul_rn(__fmul_rn(h.resp, p.gg_scale), __fmul_rn(2.0f, h.sq))
-      : __fmul_rn(h.resp, p.gg_scale);
-  const float d_sq = __fmul_rn(d_resp, slope);
-  const float d_q = -__fmul_rn(g_tc, h.inv_m);
-  const float d_inv_m = __fmaf_rn(d_sq, h.c2, -__fmul_rn(g_tc, h.q));
-  const float d_c2 = __fmul_rn(d_sq, h.inv_m);
-  const float d_m2 = -2.0f * __fmul_rn(__fmul_rn(d_inv_m, h.inv_m), h.inv_m);
-  const float gcx = __fmul_rn(2.0f * d_c2, h.cx);
-  const float gcy = __fmul_rn(2.0f * d_c2, h.cy);
-  const float gcz = __fmul_rn(2.0f * d_c2, h.cz);
-  GradAB g;
-  g.ax = __fmaf_rn(d_q, h.bx, __fmaf_rn(h.by, gcz, -__fmul_rn(h.bz, gcy)));
-  g.ay = __fmaf_rn(d_q, h.by, __fmaf_rn(h.bz, gcx, -__fmul_rn(h.bx, gcz)));
-  g.az = __fmaf_rn(d_q, h.bz, __fmaf_rn(h.bx, gcy, -__fmul_rn(h.by, gcx)));
-  g.bx = __fmaf_rn(d_m2, h.bx, __fmaf_rn(d_q, h.ax,
-         __fmaf_rn(gcy, h.az, -__fmul_rn(gcz, h.ay))));
-  g.by = __fmaf_rn(d_m2, h.by, __fmaf_rn(d_q, h.ay,
-         __fmaf_rn(gcz, h.ax, -__fmul_rn(gcx, h.az))));
-  g.bz = __fmaf_rn(d_m2, h.bz, __fmaf_rn(d_q, h.az,
-         __fmaf_rn(gcx, h.ay, -__fmul_rn(gcy, h.ax))));
-  return g;
-}
-
 // The ray features' part of one accepted hit: per control dim k, the
-// blend b_k of the staged record r at the barycentric weights wb, its sine
-// and cosine, their part of u (added to ``u``), the blend's cotangent e_k
-// = w (cos b_k g_sin,k - sin b_k g_cos,k) (w held constant) into this
-// lane's value row ``val``, and e_k's part of each barycentric weight's
-// cotangent (added to ``dw``). Returns whether a blend was past
-// kTrigFastMax (kAccurate: the libdevice sincosf, never).
-__device__ __forceinline__ float part4(const float4& a, int i) {
-  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
-}
-
+// blend b_k of the staged row at the barycentric weights wb and its sine
+// and cosine (common.cuh:nht_dims, which kernel B shares), their part of
+// u (added to ``u``), the blend's cotangent e_k = w (cos b_k g_sin,k -
+// sin b_k g_cos,k) (w held constant) into this lane's value row ``val``,
+// and e_k's part of each barycentric weight's cotangent (added to
+// ``dw``). kAccurate: the libdevice sincosf, for a hit that
+// common.cuh:nht_far finds may pass the fast sine's range.
 template <bool kAccurate>
-__device__ __forceinline__ bool nht_features(
+__device__ __forceinline__ void nht_features(
     const float* row, const float (&wb)[4],
     const float (&gs)[gut::kNhtDim], const float (&gc)[gut::kNhtDim],
     float w, float* val, float& u, float (&dw)[4]) {
-  bool far = false;
-  // control dims 4c .. 4c + 3: one float4 load a vertex
+  // control dims 4c .. 4c + 3
   auto dims = [&](int c) {
-    float4 fv[4];
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      fv[v] = *reinterpret_cast<const float4*>(
-          row + kRowField + gut::kNhtFeat + v * gut::kNhtDim + 4 * c);
-    }
+    float f[4][4], sk[4], ck[4];
+    gut::nht_dims<kAccurate>(row + kRowField + gut::kNhtFeat, wb, c, f, sk,
+                             ck);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int k = 4 * c + i;
-      float f[4];
-#pragma unroll
-      for (int v = 0; v < 4; ++v) f[v] = part4(fv[v], i);
-      const float b = __fmaf_rn(wb[0], f[0], __fmaf_rn(wb[1], f[1],
-                      __fmaf_rn(wb[2], f[2], __fmul_rn(wb[3], f[3]))));
-      float sk, ck;
-      if constexpr (kAccurate) {
-        sincosf(b, &sk, &ck);
-      } else {
-        far |= !(fabsf(b) <= kTrigFastMax);
-        sincos_fast(b, sk, ck);
-      }
-      u = __fmaf_rn(gs[k], sk, __fmaf_rn(gc[k], ck, u));
+      u = __fmaf_rn(gs[k], sk[i], __fmaf_rn(gc[k], ck[i], u));
       const float e =
-          __fmul_rn(w, __fmaf_rn(ck, gs[k], -__fmul_rn(sk, gc[k])));
+          __fmul_rn(w, __fmaf_rn(ck[i], gs[k], -__fmul_rn(sk[i], gc[k])));
 #pragma unroll
-      for (int v = 0; v < 4; ++v) dw[v] = __fmaf_rn(f[v], e, dw[v]);
+      for (int v = 0; v < 4; ++v) dw[v] = __fmaf_rn(f[v][i], e, dw[v]);
       val[(kValE + k) * kValPad] = e;
     }
   };
@@ -907,7 +900,6 @@ __device__ __forceinline__ bool nht_features(
 #pragma unroll
     for (int c = 0; c < gut::kNhtDim / 4; ++c) dims(c);
   }
-  return far;
 }
 
 template <int kDeg>
@@ -1005,22 +997,9 @@ raster_bwd_nht_kernel(const float* __restrict__ table,      // [C, 64]
     __syncthreads();
     const int idx = base + threadIdx.x;
     if (threadIdx.x < kBatchNht && idx < end) {
-      // the row shifted by kRowField: each float4 stored takes the last
-      // three fields of one float4 read and the first of the next
-      const float4* src = reinterpret_cast<const float4*>(
-          table + static_cast<int64_t>(pair_particle[idx]) * kR);
-      float4* dst = reinterpret_cast<float4*>(s_rec + threadIdx.x * kRowNht);
-      float4 prev = make_float4(0.f, 0.f, 0.f, 0.f);
-      float dens = 0.f;
-#pragma unroll
-      for (int q = 0; q < kR / 4; ++q) {
-        const float4 cur = src[q];
-        if (q == gut::kDensity / 4) dens = cur.x;
-        dst[q] = make_float4(prev.y, prev.z, prev.w, cur.x);
-        prev = cur;
-      }
-      dst[kR / 4] = make_float4(prev.y, prev.z, prev.w,
-                                gut::sq_threshold<kDeg>(dens, p));
+      gut::stage_nht_row<kDeg>(
+          table + static_cast<int64_t>(pair_particle[idx]) * kR,
+          s_rec + threadIdx.x * kRowNht, p);
     }
     __syncthreads();
     const int nb = min(kBatchNht, end - base);
@@ -1049,13 +1028,11 @@ raster_bwd_nht_kernel(const float* __restrict__ table,      // [C, 64]
           const float w = h.alpha * trans;
           float u = gd * h.hit_t;
           float dw[4] = {0.f, 0.f, 0.f, 0.f};
-          if (nht_features<false>(row, n.w, gs, gc, w, val + lane, u,
-                                  dw)) {
-            // a blend past the fast sine's range: the accurate one
-            u = gd * h.hit_t;
-#pragma unroll
-            for (int v = 0; v < 4; ++v) dw[v] = 0.f;
+          // a blend that may pass the fast sine's range: the accurate one
+          if (gut::nht_far(row, n.w)) {
             nht_features<true>(row, n.w, gs, gc, w, val + lane, u, dw);
+          } else {
+            nht_features<false>(row, n.w, gs, gc, w, val + lane, u, dw);
           }
           psi_acc = __fmaf_rn(w, u, psi_acc);
           const float suffix = phi_total - psi_acc;
@@ -1081,30 +1058,14 @@ raster_bwd_nht_kernel(const float* __restrict__ table,      // [C, 64]
                 __fmaf_rn(dcx, h.bx, __fmaf_rn(dcy, h.by,
                                                __fmul_rn(dcz, h.bz))));
             const float g_eff = h.alpha_raw < p.max_alpha ? g_alpha : 0.f;
-            const GradAB g = pull_ab_fma<kDeg>(
+            const GradAB g = pull_ab<kDeg>(
                 h, g_eff, r[gut::kDensity], g_tc, p);
-            const float gax = g.ax + dcx, gay = g.ay + dcy, gaz = g.az + dcz;
-            const float gbx = __fmaf_rn(dcx, n.tc, g.bx);
-            const float gby = __fmaf_rn(dcy, n.tc, g.by);
-            const float gbz = __fmaf_rn(dcz, n.tc, g.bz);
-            // d_p = -M^T d_a, d_M[i][k] = d_a[i] e[k] + d_b[i] d[k]
-            const float ga[3] = {gax, gay, gaz}, gb[3] = {gbx, gby, gbz};
-            const float ee[3] = {h.ex, h.ey, h.ez};
-            const float dd[3] = {ray.dx, ray.dy, ray.dz};
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-              val[c * kValPad + lane] = -__fmaf_rn(
-                  r[3 + c], gax, __fmaf_rn(r[6 + c], gay,
-                                           __fmul_rn(r[9 + c], gaz)));
-            }
-#pragma unroll
-            for (int i = 0; i < 3; ++i) {
-#pragma unroll
-              for (int c = 0; c < 3; ++c) {
-                val[(3 + 3 * i + c) * kValPad + lane] =
-                    __fmaf_rn(ga[i], ee[c], __fmul_rn(gb[i], dd[c]));
-              }
-            }
+            // d_a and d_b with c's cotangent, then onto p and M
+            const GradAB gc_ab{g.ax + dcx, g.ay + dcy, g.az + dcz,
+                               __fmaf_rn(dcx, n.tc, g.bx),
+                               __fmaf_rn(dcy, n.tc, g.by),
+                               __fmaf_rn(dcz, n.tc, g.bz)};
+            general_rows(gc_ab, h, r, 1, ray, val + lane, kValPad);
             val[gut::kDensity * kValPad + lane] = __fmul_rn(g_eff, h.resp);
           }
           trans *= 1.0f - h.alpha;
@@ -1209,12 +1170,17 @@ extern "C" int raster_bwd_launch(
               ray_tmax, fwd_feat, fwd_depth, fwd_tfinal, g_feat, g_opacity,
               g_depth, p, d_records);
         } else {
-          raster_bwd_kernel<decltype(deg)::value, decltype(win)::value,
-                            decltype(gen)::value, decltype(sh)::value>
-              <<<num_tiles, kBlock, 0, stream_>>>(
-                  table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
-                  ray_tmax, fwd_feat, fwd_depth, fwd_tfinal, g_feat,
-                  g_opacity, g_depth, p, d_records);
+          const auto kernel =
+              raster_bwd_kernel<decltype(deg)::value, decltype(win)::value,
+                                decltype(gen)::value, decltype(sh)::value>;
+          attr = cudaFuncSetAttribute(
+              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+              kRgbSmemBytes);
+          if (attr != cudaSuccess) return;
+          kernel<<<num_tiles, kBlock, kRgbSmemBytes, stream_>>>(
+              table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
+              ray_tmax, fwd_feat, fwd_depth, fwd_tfinal, g_feat, g_opacity,
+              g_depth, p, d_records);
         }
       });
   return attr != cudaSuccess ? static_cast<int>(attr) : err;
@@ -1222,41 +1188,53 @@ extern "C" int raster_bwd_launch(
 
 // Registers, local (spill and stack) bytes, static shared bytes and
 // dynamic shared bytes a launch asks for, of kernel C's NHT mode at degree
-// 2 then 4, then of its trace modes over per-block segments (the grid)
-// then a shared segment: out[4 i + 0..3]. Returns the first error.
+// 2 then 4, of its trace modes over per-block segments (the grid) then a
+// shared segment, then of its RGB modes: shared origin at degree 2 and 4
+// in global-Z order (W 0), then W 16; the same in the general mode; and
+// the general W 0 shared-segment mode: out[4 i + 0..3]. Returns the first
+// error.
 extern "C" int raster_bwd_attributes(int* out) {
   const void* fns[] = {
       reinterpret_cast<const void*>(raster_bwd_nht_kernel<2>),
       reinterpret_cast<const void*>(raster_bwd_nht_kernel<4>),
       reinterpret_cast<const void*>(raster_bwd_trace_kernel<false>),
-      reinterpret_cast<const void*>(raster_bwd_trace_kernel<true>)};
-  const int dyn[] = {kNhtSmemBytes, kNhtSmemBytes, kTraceSmemBytes,
-                     kTraceSmemBytes};
-  for (int i = 0; i < 4; ++i) {
+      reinterpret_cast<const void*>(raster_bwd_trace_kernel<true>),
+      reinterpret_cast<const void*>(raster_bwd_kernel<2, 0, false, false>),
+      reinterpret_cast<const void*>(raster_bwd_kernel<4, 0, false, false>),
+      reinterpret_cast<const void*>(raster_bwd_kernel<2, 16, false, false>),
+      reinterpret_cast<const void*>(raster_bwd_kernel<4, 16, false, false>),
+      reinterpret_cast<const void*>(raster_bwd_kernel<2, 0, true, false>),
+      reinterpret_cast<const void*>(raster_bwd_kernel<4, 0, true, false>),
+      reinterpret_cast<const void*>(raster_bwd_kernel<2, 16, true, false>),
+      reinterpret_cast<const void*>(raster_bwd_kernel<4, 16, true, false>),
+      reinterpret_cast<const void*>(raster_bwd_kernel<4, 0, true, true>)};
+  constexpr int n = sizeof(fns) / sizeof(fns[0]);
+  for (int i = 0; i < n; ++i) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
     if (err != cudaSuccess) return static_cast<int>(err);
     out[4 * i + 0] = a.numRegs;
     out[4 * i + 1] = static_cast<int>(a.localSizeBytes);
     out[4 * i + 2] = static_cast<int>(a.sharedSizeBytes);
-    out[4 * i + 3] = dyn[i];
+    out[4 * i + 3] = i < 2 ? kNhtSmemBytes
+                           : i < 4 ? kTraceSmemBytes : kRgbSmemBytes;
   }
   return 0;
 }
 
 namespace {
 
-// The NHT mode's sine and cosine on given arguments (sincos_fast within
-// kTrigFastMax, the libdevice sincosf past it), for measuring its error on
-// the card.
+// The NHT sine and cosine on given arguments (common.cuh:sincos_fast
+// within kTrigFastMax, the libdevice sincosf past it), for measuring its
+// error on the card.
 __global__ void nht_sincos_kernel(const float* __restrict__ x, int n,
                                   float* __restrict__ s,
                                   float* __restrict__ c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float si, ci;
-  if (fabsf(x[i]) <= kTrigFastMax) {
-    sincos_fast(x[i], si, ci);
+  if (fabsf(x[i]) <= gut::kTrigFastMax) {
+    gut::sincos_fast(x[i], si, ci);
   } else {
     sincosf(x[i], &si, &ci);
   }

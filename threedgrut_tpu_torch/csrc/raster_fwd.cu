@@ -43,21 +43,37 @@
 // Dead pixels drop out of the walk, and the block leaves once every pixel
 // of the tile is dead (__syncthreads_count), as the reference does.
 //
-// NHT mode (kNht; raster.py's NHT mode, the TPU's kernel 8:
-// tetra_barycentric :593 and nht_feature_weighted_sum :609 inside
+// NHT mode (raster_fwd_nht_kernel; raster.py's NHT mode, the TPU's kernel
+// 8: tetra_barycentric :593 and nht_feature_weighted_sum :609 inside
 // _fwd_strip_kernel). Always the general mode in global-Z order, as JAX
 // runs NHT. The record is 64 floats (common.cuh:kRecNht): p, M, density
 // and 4 x 12 tetrahedron control features. Per (pixel, pair) it takes
 // eval_hit_general's a = M (o - p) and b = M d, forms the canonical hit
 // point c = a - b (a . b) / |b|^2 and its barycentric weights
 // (common.cuh:nht_hit), blends the 4 vertices' features for each of the
-// 12 control dims and accumulates w sin and w cos of each (sincosf, not
-// the fast __sincosf) into 24 register accumulators: the 24 ray
-// features. A 64-float record staged for 256 pairs would overflow the
-// 48 KB of static shared memory, so NHT batches are 128 pairs (33 KB with
-// the threshold row). Bound: the per-accepted-hit arithmetic, 12 sincosf
-// and ~130 flops beside the general hit's ~70; staging moves 256 B per
-// pair and block.
+// 12 control dims and accumulates w sin and w cos of each into 24
+// register accumulators: the 24 ray features. Its bound is that
+// arithmetic (~180 operations a composited hit beside the general test).
+// A breakdown of the earlier design (the RGB kernel's kNht branch; each
+// suspect taken away in turn on chip_smoke.py phase 26's inputs; PERF.md
+// §6, H100 80GB HBM3, 700 W) put 1.4 of its 2.0 ms (degree 2) in
+// the features: the 12 libdevice sincosf 0.67 ms, -fmad=false 0.22 ms.
+// So, in a kernel of its own:
+//  - the features come from common.cuh:nht_dims, which kernel C's NHT
+//    mode shares: blends in explicit FMAs, sincos_fast (a Cody-Waite step
+//    and the SFU) and the accurate sincosf for a hit whose blends may
+//    pass 2^20 (common.cuh:nht_far, from the largest |feature| staged in
+//    the row's padding); the features accumulate in FMAs;
+//  - the records are staged pair-major in rows of 68 floats
+//    (common.cuh:kNhtRow: float4 loads of the test's fields and of a
+//    vertex's four control dims), 128 pairs a batch;
+//  - warp w takes the 8x4 pixel block (w % 2, w / 2) of the tile, so
+//    fewer warps run the features for a particle's footprint (7%);
+//  - at most 80 registers: three blocks an SM.
+// The test, w, depth, hits, T and the kill keep the unfused operations
+// and the order of the RGB walk, so opacity, depth, hits and T_final
+// are those of the earlier design bit for bit; only the 24 features move
+// (the sine; 4.2e-7 at most on the bench view).
 //
 // Shared-segment mode (kShared; raster.py:_fwd_strip_kernel with
 // shared_segments :1158-1166, the TPU's kernel 7, which trace()'s brute
@@ -114,10 +130,9 @@ using gut::kBlock;
 using gut::kRec;
 using gut::kTile;
 
-template <int kDeg, int kW, bool kGen, bool kNht, bool kShared,
-          bool kNormals>
+template <int kDeg, int kW, bool kGen, bool kShared, bool kNormals>
 __global__ void __launch_bounds__(kBlock)
-raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
+raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
                   const int32_t* __restrict__ pair_particle,  // [P]
                   const int32_t* __restrict__ tile_start,     // [T + 1]
                   const float* __restrict__ ray_o,        // [H, W, 3], kGen
@@ -125,22 +140,19 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
                   const float* __restrict__ ray_tmin,     // [H, W]
                   const float* __restrict__ ray_tmax,     // [H, W]
                   gut::RasterParams p,
-                  float* __restrict__ out_feat,           // [H, W, kOut]
+                  float* __restrict__ out_feat,           // [H, W, 3]
                   float* __restrict__ out_opacity,        // [H, W]
                   float* __restrict__ out_depth,          // [H, W]
                   float* __restrict__ out_hits,           // [H, W]
                   float* __restrict__ out_tfinal,         // [H, W]
                   float* __restrict__ out_normals) {      // [H, W, 3]
-  // record width, pairs per batch and ray features of the mode
-  constexpr int kRecT = kNht ? gut::kRecNht : kRec;
-  constexpr int kBatch = kNht ? 128 : 256;
-  constexpr int kOut = kNht ? gut::kNhtOut : 3;
+  constexpr int kBatch = 256;   // pairs staged per batch
   // trace()'s windows of 128: the cull and the k-buffer (common.cuh)
   constexpr bool kTrace = kW == gut::kTraceW;
-  static_assert(!kTrace || (kGen && kDeg == 4 && !kNht), "trace's mode");
+  static_assert(!kTrace || (kGen && kDeg == 4), "trace's mode");
   // the record and the squared-distance threshold of each staged pair
   // (kTrace: then the cull's rows)
-  __shared__ float s_rec[kRecT + 1 + (kTrace ? gut::kCullRows : 0)][kBatch];
+  __shared__ float s_rec[kRec + 1 + (kTrace ? gut::kCullRows : 0)][kBatch];
   // kTrace: each warp's bundle, the warps keeping each staged pair (a bit
   // each), and each warp's list of the lanes it keeps
   __shared__ gut::Bundle s_bundle[kTrace ? gut::kWarpsTrace : 1];
@@ -158,9 +170,7 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
       gut::load_ray<kGen>(ray_o, ray_d, ray_tmin, ray_tmax, inside, pix);
   bool alive = inside;
   float trans = 1.f, depth = 0.f, hits = 0.f;
-  float feat[kOut];
-#pragma unroll
-  for (int c = 0; c < kOut; ++c) feat[c] = 0.f;
+  float feat[3] = {0.f, 0.f, 0.f};
   float nrm[3] = {0.f, 0.f, 0.f};   // kNormals: sum of w n
   constexpr int kWin = kW > 0 ? kW : 1;
   float dd = 0.f;   // kTrace: |d|^2, for the sphere test
@@ -173,19 +183,8 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
   // blend staged pair j, accepted with hit h, and apply the exact kill
   auto composite = [&](const gut::Hit& h, int j) {
     const float w = h.alpha * trans;
-    if constexpr (kNht) {
-      const gut::NhtHit n = gut::nht_hit(h);
 #pragma unroll
-      for (int k = 0; k < gut::kNhtDim; ++k) {
-        float sn, cs;
-        sincosf(gut::nht_blend(&s_rec[0][j], kBatch, n, k), &sn, &cs);
-        feat[2 * k] += w * sn;
-        feat[2 * k + 1] += w * cs;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) feat[c] += w * s_rec[gut::kRgb + c][j];
-    }
+    for (int c = 0; c < 3; ++c) feat[c] += w * s_rec[gut::kRgb + c][j];
     if constexpr (kNormals) {
       const float3 n = gut::hit_normal(&s_rec[0][j], kBatch, h);
       nrm[0] += w * n.x;
@@ -210,18 +209,18 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
     if (__syncthreads_count(alive) == 0) break;
     const int idx = base + threadIdx.x;
     unsigned keep = 0u;   // kTrace: the warps that keep the pair
-    if (threadIdx.x < kBatch && idx >= start && idx < end) {
+    if (idx >= start && idx < end) {
       const float4* row = reinterpret_cast<const float4*>(
-          table + static_cast<int64_t>(pair_particle[idx]) * kRecT);
+          table + static_cast<int64_t>(pair_particle[idx]) * kRec);
 #pragma unroll
-      for (int q = 0; q < kRecT / 4; ++q) {
+      for (int q = 0; q < kRec / 4; ++q) {
         const float4 v = row[q];
         s_rec[4 * q + 0][threadIdx.x] = v.x;
         s_rec[4 * q + 1][threadIdx.x] = v.y;
         s_rec[4 * q + 2][threadIdx.x] = v.z;
         s_rec[4 * q + 3][threadIdx.x] = v.w;
       }
-      s_rec[kRecT][threadIdx.x] = gut::sq_threshold<kDeg>(
+      s_rec[kRec][threadIdx.x] = gut::sq_threshold<kDeg>(
           s_rec[gut::kDensity][threadIdx.x], p);
       if constexpr (kTrace) {
         keep = gut::stage_cull(&s_rec[0][threadIdx.x], kBatch, s_bundle);
@@ -234,7 +233,7 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
       for (int j = 0; alive && j < nb; ++j) {
         gut::Hit h;
         if (!gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
-                                       s_rec[kRecT][j], p, h)) {
+                                       s_rec[kRec][j], p, h)) {
           continue;
         }
         composite(h, j);
@@ -259,7 +258,7 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
             const int j = static_cast<int>(last & 0xffu);
             gut::Hit h;
             gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
-                                      s_rec[kRecT][j], p, h);
+                                      s_rec[kRec][j], p, h);
             composite(h, j);
           }
           more = cnt > gut::kTraceK;
@@ -272,13 +271,13 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
         float key[kWin];
         uint8_t lane[kWin];
         const int n = gut::sort_window<kDeg, kWin, kGen>(
-            &s_rec[0][0], kBatch, s_rec[kRecT], max(w0, lo0),
+            &s_rec[0][0], kBatch, s_rec[kRec], max(w0, lo0),
             min(w0 + kWin, nb), ray, p, key, lane);
         for (int i = 0; alive && i < n; ++i) {
           const int j = lane[i];
           gut::Hit h;
           gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
-                                    s_rec[kRecT][j], p, h);
+                                    s_rec[kRec][j], p, h);
           composite(h, j);
         }
       }
@@ -287,7 +286,7 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
   }
   if (inside) {
 #pragma unroll
-    for (int c = 0; c < kOut; ++c) out_feat[kOut * pix + c] = feat[c];
+    for (int c = 0; c < 3; ++c) out_feat[3 * pix + c] = feat[c];
     out_opacity[pix] = 1.0f - trans;
     out_depth[pix] = depth;
     out_hits[pix] = hits;
@@ -296,6 +295,122 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, kRecT]
 #pragma unroll
       for (int c = 0; c < 3; ++c) out_normals[3 * pix + c] = nrm[c];
     }
+  }
+}
+
+// ---- the NHT mode (raster_fwd_nht_kernel) ----
+
+// records staged per batch, and blocks an SM (at most 80 registers):
+// measured faster than 256 and two or four (PERF.md §6)
+constexpr int kBatchNht = 128;
+static_assert(kBatchNht <= kBlock, "a thread stages a record");
+
+template <int kDeg>
+__global__ void __launch_bounds__(kBlock, 3)
+raster_fwd_nht_kernel(const float* __restrict__ table,      // [C, 64]
+                      const int32_t* __restrict__ pair_particle,  // [P]
+                      const int32_t* __restrict__ tile_start,     // [T + 1]
+                      const float* __restrict__ ray_o,      // [H, W, 3]
+                      const float* __restrict__ ray_d,      // [H, W, 3]
+                      const float* __restrict__ ray_tmin,   // [H, W]
+                      const float* __restrict__ ray_tmax,   // [H, W]
+                      gut::RasterParams p,
+                      float* __restrict__ out_feat,         // [H, W, 24]
+                      float* __restrict__ out_opacity,      // [H, W]
+                      float* __restrict__ out_depth,        // [H, W]
+                      float* __restrict__ out_hits,         // [H, W]
+                      float* __restrict__ out_tfinal) {     // [H, W]
+  constexpr int kD = gut::kNhtDim;
+  // the batch's staged rows (common.cuh:kNhtRow)
+  __shared__ __align__(16) float s_row[kBatchNht * gut::kNhtRow];
+  const int tile = blockIdx.x;
+  // warp w covers the 8x4 pixel block (w % 2, w / 2) of the tile
+  const int px = (tile % p.grid_x) * kTile + (threadIdx.x >> 5) % 2 * 8 +
+                 (threadIdx.x & 7);
+  const int py = (tile / p.grid_x) * kTile + (threadIdx.x >> 6) * 4 +
+                 ((threadIdx.x >> 3) & 3);
+  const bool inside = px < p.width && py < p.height;
+  const int64_t pix = static_cast<int64_t>(py) * p.width + px;
+
+  const gut::Ray ray =
+      gut::load_ray<true>(ray_o, ray_d, ray_tmin, ray_tmax, inside, pix);
+  bool alive = inside;
+  float trans = 1.f, depth = 0.f, hits = 0.f;
+  float feat[gut::kNhtOut];
+#pragma unroll
+  for (int c = 0; c < gut::kNhtOut; ++c) feat[c] = 0.f;
+
+  const int start = tile_start[tile];
+  const int end = tile_start[tile + 1];
+  for (int base = start; base < end; base += kBatchNht) {
+    // all pixels of the tile dead (or off-image): the block is done
+    if (__syncthreads_count(alive) == 0) break;
+    const int idx = base + threadIdx.x;
+    if (threadIdx.x < kBatchNht && idx < end) {
+      gut::stage_nht_row<kDeg>(
+          table + static_cast<int64_t>(pair_particle[idx]) * gut::kRecNht,
+          s_row + threadIdx.x * gut::kNhtRow, p);
+    }
+    __syncthreads();
+    const int nb = min(kBatchNht, end - base);
+    for (int j = 0; alive && j < nb; ++j) {
+      const float* row = s_row + j * gut::kNhtRow;
+      // the fields of the hit test: the row's first four float4
+      float geo[16];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 t = reinterpret_cast<const float4*>(row)[q];
+        geo[4 * q + 0] = t.x;
+        geo[4 * q + 1] = t.y;
+        geo[4 * q + 2] = t.z;
+        geo[4 * q + 3] = t.w;
+      }
+      gut::Hit h;
+      if (!gut::eval_hit_general<kDeg>(geo + gut::kNhtRowPad, 1, ray,
+                                       row[gut::kNhtRow - 1], p, h)) {
+        continue;
+      }
+      const float w = h.alpha * trans;
+      const gut::NhtHit n = gut::nht_hit(h);
+      // w sin and w cos of the 12 blends (common.cuh:nht_dims, as kernel
+      // C takes them), four control dims at a time; a hit whose blends
+      // may pass the fast sine's range takes the accurate one
+      const float* fr = row + gut::kNhtRowPad + gut::kNhtFeat;
+      auto add = [&](auto accurate) {
+#pragma unroll
+        for (int c = 0; c < kD / 4; ++c) {
+          float f[4][4], sn[4], cs[4];
+          gut::nht_dims<decltype(accurate)::value>(fr, n.w, c, f, sn, cs);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int k = 4 * c + i;
+            feat[2 * k] = __fmaf_rn(w, sn[i], feat[2 * k]);
+            feat[2 * k + 1] = __fmaf_rn(w, cs[i], feat[2 * k + 1]);
+          }
+        }
+      };
+      if (gut::nht_far(row, n.w)) {
+        add(std::true_type{});
+      } else {
+        add(std::false_type{});
+      }
+      // depth, hits, T and the kill: kernel B's unfused order
+      depth += w * h.hit_t;
+      hits += w > 0.f ? 1.f : 0.f;
+      trans *= 1.0f - h.alpha;
+      if (trans < p.min_transmittance) alive = false;
+    }
+    __syncthreads();
+  }
+  if (inside) {
+#pragma unroll
+    for (int c = 0; c < gut::kNhtOut; ++c) {
+      out_feat[gut::kNhtOut * pix + c] = feat[c];
+    }
+    out_opacity[pix] = 1.0f - trans;
+    out_depth[pix] = depth;
+    out_hits[pix] = hits;
+    out_tfinal[pix] = trans;
   }
 }
 
@@ -323,18 +438,18 @@ extern "C" int raster_fwd_launch(
   if (nht) {
     if (shared || normals) return static_cast<int>(cudaErrorInvalidValue);
     return gut::launch_nht(degree, window, general, [&](auto deg) {
-      raster_fwd_kernel<decltype(deg)::value, 0, true, true, false, false>
+      raster_fwd_nht_kernel<decltype(deg)::value>
           <<<num_tiles, kBlock, 0, stream_>>>(
               table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
               ray_tmax, p, out_feat, out_opacity, out_depth, out_hits,
-              out_tfinal, out_normals);
+              out_tfinal);
     });
   }
   return gut::launch_raster<true>(
       degree, window, general, shared, normals,
       [&](auto deg, auto win, auto gen, auto sh, auto nrm) {
         raster_fwd_kernel<decltype(deg)::value, decltype(win)::value,
-                          decltype(gen)::value, false, decltype(sh)::value,
+                          decltype(gen)::value, decltype(sh)::value,
                           decltype(nrm)::value>
             <<<num_tiles, kBlock, 0, stream_>>>(
                 table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
@@ -346,14 +461,17 @@ extern "C" int raster_fwd_launch(
 // Registers, local (spill and stack) bytes, static shared bytes and
 // dynamic shared bytes (none) of kernel B's trace modes, windows of 128
 // over per-block segments (the grid) then a shared segment, without
-// normals: out[4 i + 0..3]. Returns the first error.
+// normals, then of its NHT mode at degree 2 and 4: out[4 i + 0..3].
+// Returns the first error.
 extern "C" int raster_fwd_attributes(int* out) {
   const void* fns[] = {
       reinterpret_cast<const void*>(
-          raster_fwd_kernel<4, gut::kTraceW, true, false, false, false>),
+          raster_fwd_kernel<4, gut::kTraceW, true, false, false>),
       reinterpret_cast<const void*>(
-          raster_fwd_kernel<4, gut::kTraceW, true, false, true, false>)};
-  for (int i = 0; i < 2; ++i) {
+          raster_fwd_kernel<4, gut::kTraceW, true, true, false>),
+      reinterpret_cast<const void*>(raster_fwd_nht_kernel<2>),
+      reinterpret_cast<const void*>(raster_fwd_nht_kernel<4>)};
+  for (int i = 0; i < 4; ++i) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -512,9 +512,31 @@ def nht_kernel_attributes():
     return {k: att[k] for k in ("nht2", "nht4")}
 
 
-# the kernels raster_bwd_attributes and raster_fwd_attributes list
-_BWD_ATTRIBUTES = ("nht2", "nht4", "trace_grid", "trace_shared")
-_FWD_ATTRIBUTES = ("trace_grid", "trace_shared")
+# the kernels raster_bwd_attributes and raster_fwd_attributes list: C's
+# NHT and trace modes, then its RGB modes by degree, window and geometry
+# (rgb_<degree>_w<window>[_general]; rgb_4_w0_shared: trace()'s brute force
+# in rank order); B's trace and NHT modes
+_BWD_ATTRIBUTES = ("nht2", "nht4", "trace_grid", "trace_shared",
+                   "rgb_2_w0", "rgb_4_w0", "rgb_2_w16", "rgb_4_w16",
+                   "rgb_2_w0_general", "rgb_4_w0_general",
+                   "rgb_2_w16_general", "rgb_4_w16_general",
+                   "rgb_4_w0_shared")
+_FWD_ATTRIBUTES = ("trace_grid", "trace_shared", "nht2", "nht4")
+
+
+def rgb_kernel_attributes():
+    """{rgb_<degree>_w<window>[_general|_shared]: {registers, local_bytes,
+    shared_bytes, dynamic_shared_bytes}} of kernel C's RGB modes
+    (raster_bwd.cu:raster_bwd_kernel)."""
+    att = build.attributes("raster_bwd", _BWD_ATTRIBUTES)
+    return {k: v for k, v in att.items() if k.startswith("rgb_")}
+
+
+def nht_fwd_kernel_attributes():
+    """{nht2, nht4: {registers, ...}} of kernel B's NHT mode
+    (raster_fwd.cu:raster_fwd_nht_kernel) at degree 2 and 4."""
+    att = build.attributes("raster_fwd", _FWD_ATTRIBUTES)
+    return {k: att[k] for k in ("nht2", "nht4")}
 
 
 def trace_kernel_attributes():
@@ -547,13 +569,13 @@ def window_overflows(reset: bool = False):
     return out
 
 
-# kernel C's NHT mode takes its fast sine and cosine for |x| up to this
-# (raster_bwd.cu:kTrigFastMax, 2^20), the accurate sincosf past it
+# kernels B and C take their NHT fast sine and cosine for |x| up to this
+# (common.cuh:kTrigFastMax, 2^20), the accurate sincosf past it
 NHT_TRIG_FAST_MAX = 1048576.0
 
 
 def nht_sincos(x: torch.Tensor):
-    """(sin x, cos x) as kernel C's NHT mode computes them (raster_bwd.cu:
+    """(sin x, cos x) as kernels B and C compute an NHT hit's (common.cuh:
     sincos_fast within NHT_TRIG_FAST_MAX), for a float32 tensor; on the
     CPU ``nht_sincos_plain``. Measures the function; no path calls it."""
     build.check_tensor("x", x, torch.float32, tuple(x.shape), x.device)

@@ -14,7 +14,10 @@ without printing the final result line:
    PyTorch version.
 4. kernel B vs plain - raster_fwd on the same view and pairs: features,
    opacity and T_final within 1e-4, depth within 1e-3 relative, hit
-   counts differing on < 1% of pixels.
+   counts differing on < 1% of pixels; its cull's plain mirror and the
+   fp32 exact test on the same inputs on the card
+   (ops/cuda/raster.py:cull_plain): no culled candidate accepted, the
+   share culled, the work it leaves (B's bound); its registers.
 5. JAX values - render_gut against the JAX outputs saved in
    tests/fixtures/torch_port_gut_small.npz, at the CPU test tolerances.
 6. serving slice - make_serving_renderer on the 100k cloud, 8 orbit
@@ -53,14 +56,15 @@ min_transmittance 1e-4, W = 16), read from the sorted gradient fixture,
 whose settings tests/test_torch_grt.py holds to the YAML.
 
 13. sorted kernel B vs plain - raster_fwd on the phase-3 view and pairs
-   with both sorted settings: the tolerances of phase 4; then 3DGRT
-   serving, 8 views at 800x800 through make_serving_renderer (ms/frame).
+   with both sorted settings: the tolerances of phase 4, and phase 4's
+   cull check; then 3DGRT serving, 8 views at 800x800 through
+   make_serving_renderer (ms/frame).
 14. sorted kernel C vs plain - raster_bwd at both settings against the
    float64 autograd plain version: cosine >= 0.9999 and relative L2
    <= 1e-3 per field group, and two runs bitwise equal; its resources.
 15. kernel E vs plain - wmax (the blend-weight telemetry) on the same
    view, global-Z and both sorted settings: max |diff| <= 1e-6, two runs
-   bitwise equal.
+   bitwise equal; its cull (B's) checked on each setting's inputs.
 16. sorted gradients vs JAX - render_gut's gradients with both sorted
    settings against tests/fixtures/torch_port_grt_grad_small.npz:
    max-normalised error <= 2e-3 and cosine >= 0.9999.
@@ -83,13 +87,13 @@ rolling-shutter camera takes it, a fisheye one the shared-origin mode):
    min_transmittance: one candidate more in one version, at most
    max_alpha * min_transmittance apart); and general B on those rays (all from the mid-shutter centre)
    against shared-origin B with the table built at that centre, within
-   1e-4.
+   1e-4; phase 4's cull check.
 20. general kernel C vs float64 plain - cosine >= 0.9999 and relative L2
    <= 1e-3 per field group (p, M, density, rgb), two runs bitwise equal;
    its resources; kernel D folds the result, beside index_add_.
 21. general kernel E vs plain - within 1e-6 (at most 8 pairs, those of
    kill-flip pixels, within max_alpha * min_transmittance), two runs
-   bitwise equal.
+   bitwise equal; its cull is phase 19's (the same inputs).
 22. general gradients vs JAX - both settings against
    tests/fixtures/torch_port_shutter_grad_small.npz: phase 10's
    tolerances.
@@ -148,7 +152,7 @@ brute force; windows of 128 for both regimes; the normals mode of B):
    bench_cloud(8192) (SH 3) on the 512x512 orbit view's rays (1,024
    blocks of 256), windows of 128: phase 19's tolerances; its cull's
    plain mirror and the fp32 exact test on the same inputs on the card
-   (ops/cuda/raster.py:trace_cull_plain): no culled candidate accepted,
+   (ops/cuda/raster.py:cull_plain): no culled candidate accepted,
    the share culled; the k-buffer's overflow passes
    (common.cuh:g_window_overflows); the four trace instantiations'
    registers, local and shared bytes (cudaFuncGetAttributes).
@@ -223,17 +227,19 @@ write over 3.35 TB/s, from this run's inputs: for G and H only the rows
 that a non-empty interval or a mark selects; for B, C and E the accept
 test on every (pair, pixel) of the tiles and the response of each
 candidate the plain forward composited, for NHT also its features at
-each such candidate; for trace's B and C, whose cull tests only some
-pairs, the work this run's rays need: the cull at staging, the warps'
-pyramid and the rays' sphere tests, the exact test of what the cull
-keeps, in the windows each ray walks before its kill, and the composited
-candidates' response) and, for kernels D and F, the time of index_add_,
+each such candidate; for B and E in their RGB modes and trace's B and
+C, whose cull tests only some pairs, the work this run's rays need: the
+cull at staging, the warps' pyramid tests (and trace's rays' sphere
+tests), the exact test of what the cull keeps, in the windows each ray
+walks before its kill, and the composited candidates' response) and, for
+kernels D and F, the time of index_add_,
 for G that of searchsorted + index_select, for H that of cummax + a
 gather; for C's NHT mode and F also the kernels' resources, C's sine
-error, F's set-up and kernel times apart; for trace's B and C
-(kernel 7 and windows of 128) the share of (pair, pixel) tests their
-cull removes (culled_share) and, as bound_all_pairs_ms, the bound of the
-exact test on every (pair, pixel), which JAX's function does; the
+error, F's set-up and kernel times apart; for B and E in their RGB
+modes and trace's B and C (kernel 7 and windows of 128) the share of
+(pair, pixel) tests their cull removes (culled_share) and, as
+bound_all_pairs_ms, the bound of the exact test on every (pair, pixel),
+which JAX's function does; B's registers in its RGB modes; the
 card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX. Needs one card; there is no CPU fallback.
@@ -311,6 +317,24 @@ CULL_FLOPS = 60
 # (pair, pixel) in the warp's list (e 3, e x d 9, |e x d|^2 5, |e|^2 5,
 # the test 4)
 TRACE_CULL_FLOPS = {"stage": 33, "bundle": 44, "sphere": 26}
+# fp32 operations of the cull of B's and E's RGB modes (common.cuh:
+# stage_rgb_row), by (general, ellipsoid); no sphere test. The sphere:
+# per staged pair cull_radius 29 (trace's stage_cull without a2 and b2),
+# and in the shared-origin mode the centre 19 (3 divisions, -M^T u 15,
+# b's margin 1) and the reach taken once 9 (|p| 6, a + 2 b |p| 3); per
+# (pair, warp pyramid) the five planes 30, or in the general mode
+# bundle_keeps 44 as trace's. The ellipsoid (degree 2 in global-Z order)
+# adds per staged pair cull_quadric 65 (kappa^2 1, the weights 6, g 3,
+# the six entries 54, a^2 1) less the sphere's reach 1 (shared: 9 - 1 +
+# 65 + 2 b |p| 2 = 121 in all; general 29 + 65 = 94), and per pyramid the
+# apex plane 7 and four side planes of 21 (dot 5, n^T Q n 11, the least
+# 1, d 1, d^2 1, two tests 2): 91, and in the general mode p - c 3, |p -
+# c| 6 and the slack 4 more (104)
+RGB_CULL_FLOPS = {
+    (False, False): {"stage": 57, "bundle": 30, "sphere": 0},
+    (True, False): {"stage": 29, "bundle": 44, "sphere": 0},
+    (False, True): {"stage": 121, "bundle": 91, "sphere": 0},
+    (True, True): {"stage": 94, "bundle": 104, "sphere": 0}}
 # reported kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "bin_decode": ("threedgrut_tpu_torch/csrc/bin_decode.cu",
@@ -419,8 +443,9 @@ def raster_bound(args, outputs, rc, general, accepted, extra_flops=0,
     NHT_BWD_ACCEPT_FLOPS in the NHT mode).
     Candidates that pass the test but miss the ray's range are charged the
     test only. ``shared_tiles``: the tiles that each walk the one shared
-    segment of ``args[2]`` (kernel 7). trace's B and C, whose cull leaves
-    most pairs untested, take trace_bound."""
+    segment of ``args[2]`` (kernel 7). Kernels whose cull leaves pairs
+    untested (B and E in their RGB modes, trace's B and C) take
+    cull_bound, with this beside it (cull_bound_keys)."""
     pairs = int(args[2][-1])
     if shared_tiles:
         pairs = int(args[2][1] - args[2][0]) * shared_tiles
@@ -430,33 +455,47 @@ def raster_bound(args, outputs, rc, general, accepted, extra_flops=0,
                  pairs * 256 * TEST_FLOPS[general] + accepted * per_accept)
 
 
-def trace_bound(args, outputs, rc, cull, accepted):
-    """The bound of trace's B or C (windows of 128, with the cull) on
-    ``args`` writing ``outputs``, from the work this run's rays need
-    (``cull``: ops/cuda/raster.py:trace_cull_plain's counts, over the
-    windows each ray walks before its kill): the cull staged once per
-    (pair, block that walks it), each warp pyramid's test of it, the
-    sphere test of each (pair, pixel) in the warp's list, the exact test
-    of each the sphere keeps, and the ``accepted`` candidates (the plain
-    forward's composited count) carried through the response. Each pass
-    of the k-buffer past the first, and the tests of a killed ray's last
-    window after its kill, are not charged."""
+def cull_bound(args, outputs, rc, cull, accepted, general, flops):
+    """The bound of a kernel whose cull leaves pairs untested, on ``args``
+    writing ``outputs``, from the work this run's rays need (``cull``:
+    ops/cuda/raster.py:cull_plain's counts, over the windows each ray
+    walks before its kill): the cull staged once per (pair, block that
+    walks it), each warp pyramid's test of it, the sphere test of each
+    (pair, pixel) in the warp's list (trace only), the exact test of each
+    the cull keeps, and the ``accepted`` candidates (the plain forward's
+    composited count) carried through the response; ``flops``:
+    TRACE_CULL_FLOPS, or RGB_CULL_FLOPS of the mode. Each k-buffer pass
+    past the first (trace), and the tests of a killed ray's last window
+    after its kill, are not charged."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    ops = (cull["staged"] * TRACE_CULL_FLOPS["stage"]
-           + cull["bundle_tests"] * TRACE_CULL_FLOPS["bundle"]
-           + cull["sphere_tests"] * TRACE_CULL_FLOPS["sphere"]
-           + cull["exact_tests"] * TEST_FLOPS[True]
-           + accepted * ACCEPT_FLOPS[(rc.kernel_degree, True)])
+    ops = (cull["staged"] * flops["stage"]
+           + cull["bundle_tests"] * flops["bundle"]
+           + cull["sphere_tests"] * flops["sphere"]
+           + cull["exact_tests"] * TEST_FLOPS[general]
+           + accepted * ACCEPT_FLOPS[(rc.kernel_degree, general)])
     return bound(nbytes(*tensors, *outputs), ops)
 
 
-def trace_bound_keys(args, outputs, rc, cull, accepted, shared_tiles=0):
-    """bound_keys of trace's B or C (trace_bound), with the bound of the
-    exact test on every (pair, pixel) (raster_bound) beside it as
-    bound_all_pairs_ms."""
+def cull_bound_keys(args, outputs, rc, cull, accepted, general=True,
+                    flops=TRACE_CULL_FLOPS, shared_tiles=0):
+    """bound_keys of cull_bound (trace's B or C by default), with the
+    bound of the exact test on every (pair, pixel) (raster_bound) beside
+    it as bound_all_pairs_ms."""
     return dict(bound_all_pairs_ms=raster_bound(
-        args, outputs, rc, True, accepted, shared_tiles=shared_tiles)[0],
-        **bound_keys(trace_bound(args, outputs, rc, cull, accepted)))
+        args, outputs, rc, general, accepted, shared_tiles=shared_tiles)[0],
+        **bound_keys(cull_bound(args, outputs, rc, cull, accepted, general,
+                                flops)))
+
+
+def rgb_bound_keys(args, outputs, rc, cull, accepted):
+    """cull_bound_keys of kernel B or E in an RGB mode with a cull (``args``
+    with a ray_o: the general mode; the ellipsoid at degree 2 in global-Z
+    order, else the sphere). B at degree 4 in global-Z order walks every
+    pair: raster_bound is its bound."""
+    general = len(args) > 7 and args[7] is not None
+    ellipsoid = not rc.sorted_compositing and rc.kernel_degree == 2
+    return cull_bound_keys(args, outputs, rc, cull, accepted, general,
+                           RGB_CULL_FLOPS[(general, ellipsoid)])
 
 
 def composited(fwd):
@@ -773,7 +812,7 @@ def sorted_kernel_phases(dev, b_args, fwd, c_args, v, model, ut_cfg):
     from threedgrut_tpu_torch.synthetic import orbit_geometry
 
     settings = sorted_settings()
-    report, accepted = {}, {}
+    report, accepted, culls = {}, {}, {}
     # 13. sorted kernel B
     msgs = []
     for label, rc in settings.items():
@@ -794,6 +833,8 @@ def sorted_kernel_phases(dev, b_args, fwd, c_args, v, model, ut_cfg):
                            ).abs().max())
             ms = cuda_ms(lambda: rasterize_tiles_forward(*args), 20)
             plain_ms = cuda_ms(lambda: rasterize_tiles_plain(*args), 2)
+            share, culls[label], cull_msg = cull_check(
+                args, f"sorted kernel B ({label})")
         if not (err_f <= 1e-4 and err_o <= 1e-4 and err_t <= 1e-4
                 and err_d <= 1e-3 and flips < 0.01):
             raise AssertionError(
@@ -801,16 +842,19 @@ def sorted_kernel_phases(dev, b_args, fwd, c_args, v, model, ut_cfg):
                 f" opacity {err_o:.3g}, T_final {err_t:.3g}, depth rel "
                 f"{err_d:.3g}, hits flip {flips:.4f}")
         accepted[label] = composited(ref)
+        res = rgb_kernel_attributes("raster_fwd")[
+            f"rgb_{rc.kernel_degree}_w16"]
         report["raster_fwd_sorted" + SORTED[label][1]] = dict(
             max_abs_err=max(err_f, err_o, err_t), ms=ms, plain_ms=plain_ms,
-            **bound_keys(raster_bound(args, got, rc, False,
-                                      accepted[label])))
+            culled_share=share, resources=res,
+            **rgb_bound_keys(args, got, rc, culls[label], accepted[label]))
         msgs.append(f"{label} (degree {rc.kernel_degree}, W "
                     f"{rc.sort_window}): features |d| {err_f:.3g}, opacity |d| "
                     f"{err_o:.3g}, T_final |d| {err_t:.3g}, depth rel "
                     f"{err_d:.3g}, hits flip {flips:.5f} (sorted vs "
                     f"global-Z features |d| {moved:.3g}); kernel {ms:.4f} "
-                    f"ms, plain {plain_ms:.4f} ms")
+                    f"ms, plain {plain_ms:.4f} ms; {cull_msg}; "
+                    f"{resources(res)}")
     phase("sorted kernel B", "; ".join(msgs))
 
     # 3DGRT serving: 8 orbit views through make_serving_renderer
@@ -869,7 +913,7 @@ def sorted_kernel_phases(dev, b_args, fwd, c_args, v, model, ut_cfg):
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {resources(res)}")
     phase("sorted kernel C", "; ".join(msgs))
 
-    # 15. kernel E
+    # 15. kernel E (its cull is B's: held again on each setting's inputs)
     msgs = []
     for label, rc in (("global-Z", RasterConfig()), *settings.items()):
         args = b_args[:6] + (rc,)
@@ -883,17 +927,18 @@ def sorted_kernel_phases(dev, b_args, fwd, c_args, v, model, ut_cfg):
             live = float((w1 > 0).float().mean())
             ms = cuda_ms(lambda: pair_weight_max(*args), 20)
             plain_ms = cuda_ms(lambda: pair_weight_max_plain(*args), 2)
+            share, cull, cull_msg = cull_check(args, f"kernel E ({label})")
         if not (err <= 1e-6 and same):
             raise AssertionError(f"kernel E ({label}) vs plain: max |d| "
                                  f"{err:.3g}; bitwise repeatable {same}")
         if label == "3DGRT":
-            report["wmax"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  **bound_keys(raster_bound(
-                                      args, [w1], rc, False,
-                                      accepted[label])))
+            report["wmax"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                culled_share=share,
+                **rgb_bound_keys(args, [w1], rc, cull, accepted[label]))
         msgs.append(f"{label}: max |d| {err:.3g}, two runs bitwise equal, "
                     f"{live:.3f} of the pairs weighted; kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms")
+                    f"plain {plain_ms:.4f} ms; {cull_msg}")
     phase("kernel E", "; ".join(msgs))
     return report
 
@@ -1064,6 +1109,8 @@ def general_kernel_phases(dev, model, ut_cfg):
                            - got[0]).abs().max())
             b_ms = cuda_ms(lambda: rasterize_tiles_forward(*args), 20)
             b_plain_ms = cuda_ms(lambda: rasterize_tiles_plain(*args), 2)
+            share, cull, cull_msg = cull_check(
+                args, f"general kernel B ({label})")
             if not (err_f <= 1e-4 and err_o <= 1e-4 and err_t <= 1e-4
                     and err_d <= 1e-3 and flips < 0.01 and kill_ok
                     and cross <= 1e-4 and same_origin):
@@ -1075,10 +1122,13 @@ def general_kernel_phases(dev, model, ut_cfg):
                     f"{cap:.3g}); vs shared-origin B {cross:.3g} (one "
                     f"origin {same_origin})")
             n_acc = composited(ref)
+            win = rc.sort_window if rc.sorted_compositing else 0
+            b_res = rgb_kernel_attributes("raster_fwd")[
+                f"rgb_{rc.kernel_degree}_w{win}_general"]
             report["raster_fwd_general" + suffix] = dict(
                 max_abs_err=float(pix.max()), ms=b_ms,
-                plain_ms=b_plain_ms,
-                **bound_keys(raster_bound(args, got, rc, True, n_acc)))
+                plain_ms=b_plain_ms, culled_share=share, resources=b_res,
+                **rgb_bound_keys(args, got, rc, cull, n_acc))
             msg_b.append(
                 f"{label} (degree {rc.kernel_degree}, W "
                 f"{rc.sort_window if rc.sorted_compositing else 0}), "
@@ -1088,7 +1138,8 @@ def general_kernel_phases(dev, model, ut_cfg):
                 f"{n_kill} of {pix.numel()} pixels (max |d| "
                 f"{float(pix.max()):.3g}); vs shared-origin "
                 f"B at the mid-shutter centre |d| {cross:.3g}; kernel "
-                f"{b_ms:.4f} ms, plain {b_plain_ms:.4f} ms")
+                f"{b_ms:.4f} ms, plain {b_plain_ms:.4f} ms; {cull_msg}; "
+                f"{resources(b_res)}")
             # 20. general C, and D on its output
             c_args = args[:6] + (got[0], got[2], got[4], *upstream, rc,
                                  v.ray_o)
@@ -1108,7 +1159,6 @@ def general_kernel_phases(dev, model, ut_cfg):
                 raise AssertionError(f"general kernel C ({label}) vs plain "
                                      f"(cosine, rel L2): {bad}; bitwise "
                                      f"repeatable {same}")
-            win = rc.sort_window if rc.sorted_compositing else 0
             res = rgb_kernel_attributes()[
                 f"rgb_{rc.kernel_degree}_w{win}_general"]
             report["raster_bwd_general" + suffix] = dict(
@@ -1152,15 +1202,15 @@ def general_kernel_phases(dev, model, ut_cfg):
             if label == "3DGUT":
                 report["wmax_general"] = dict(
                     max_abs_err=float(e_diff.max()), ms=e_ms,
-                    plain_ms=e_plain_ms,
-                    **bound_keys(raster_bound(e_args, [w1], rc, True,
-                                              n_acc)))
+                    plain_ms=e_plain_ms, culled_share=share,
+                    **rgb_bound_keys(e_args, [w1], rc, cull, n_acc))
             msg_e.append(f"{label}: max |d| {e_err:.3g} ({n_e_flip} pairs "
                          f"of kill-flip pixels up to "
                          f"{float(e_diff.max()):.3g}), two runs bitwise "
                          f"equal, {float((w1 > 0).float().mean()):.3f} of "
                          f"the pairs weighted; kernel {e_ms:.4f} ms, plain "
-                         f"{e_plain_ms:.4f} ms")
+                         f"{e_plain_ms:.4f} ms; its cull is phase 19's "
+                         f"(the same inputs): {share:.6f} culled")
             del v, got, ref, d1, d2, d_ref
     phase("general kernel B", f"rolling shutter {w}x{h}, 100k: "
           + "; ".join(msg_b))
@@ -1793,15 +1843,15 @@ def backward_agreement(c_args, d_rows, label):
 
 
 def cull_check(args, label):
-    """trace's cull (kernels B and C at windows of 128) on a phase's own
-    inputs ``args``: its plain mirror in the kernels' fp32 operation order
-    and the fp32 exact test, on the card (ops/cuda/raster.py:
-    trace_cull_plain); raises if it ever culls a candidate the exact test
-    accepts. Returns (the share of (pair, pixel) tests culled, the
-    mirror's counts, a message)."""
-    from threedgrut_tpu_torch.ops.cuda.raster import TRACE_K, trace_cull_plain
+    """The cull of a launch (kernels B and E in their RGB modes, trace's B
+    and C at windows of 128) on a phase's own inputs ``args``: its plain
+    mirror in the kernels' fp32 operation order and the fp32 exact test,
+    on the card (ops/cuda/raster.py:cull_plain); raises if it ever culls
+    a candidate the exact test accepts. Returns (the share of (pair,
+    pixel) tests culled, the mirror's counts, a message)."""
+    from threedgrut_tpu_torch.ops.cuda.raster import TRACE_K, cull_plain
 
-    c = trace_cull_plain(*args)
+    c = cull_plain(*args)
     if c["culled_accepted"]:
         raise AssertionError(f"{label}: the cull drops {c['culled_accepted']}"
                              f" accepted candidates: {c}")
@@ -1878,8 +1928,8 @@ def trace_phases(dev, ut_cfg):
     n_acc = composited(ref)
     report["raster_fwd_shared_segment"] = dict(
         max_abs_err=err, ms=b_ms, plain_ms=plain_ms, culled_share=brute_share,
-        **trace_bound_keys(args, got, inp.cfg, brute_cull, n_acc,
-                           shared_tiles=n_blocks))
+        **cull_bound_keys(args, got, inp.cfg, brute_cull, n_acc,
+                          shared_tiles=n_blocks))
     att = trace_kernel_attributes()
     phase("kernel 7 B", f"brute force, {n_seg} slots x {n_blocks} blocks of "
           f"256 rays ({TRACE_SIDE}x{TRACE_SIDE} orbit view), W 128, degree "
@@ -1920,8 +1970,8 @@ def trace_phases(dev, ut_cfg):
     report["raster_bwd_shared_segment"] = dict(
         max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
         culled_share=brute_share,
-        **trace_bound_keys(c_args, [d1], inp.cfg, brute_cull, n_acc,
-                           shared_tiles=n_blocks))
+        **cull_bound_keys(c_args, [d1], inp.cfg, brute_cull, n_acc,
+                          shared_tiles=n_blocks))
     report["fold_shared_segment"] = dict(
         max_abs_err=f_err, ms=f_ms, plain_ms=f_plain_ms,
         **bound_keys(bound(nbytes(*d_args[:5], f1), d1.numel()),
@@ -1996,11 +2046,11 @@ def trace_phases(dev, ut_cfg):
         grid_share, grid_cull, cull_msg = cull_check(args, "W 128")
     report["raster_fwd_window128"] = dict(
         max_abs_err=err, ms=b_ms, plain_ms=plain_ms, culled_share=grid_share,
-        **trace_bound_keys(args, got, inp.cfg, grid_cull, n_acc))
+        **cull_bound_keys(args, got, inp.cfg, grid_cull, n_acc))
     report["raster_bwd_window128"] = dict(
         max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
         culled_share=grid_share,
-        **trace_bound_keys(c_args, [d1], inp.cfg, grid_cull, n_acc))
+        **cull_bound_keys(c_args, [d1], inp.cfg, grid_cull, n_acc))
     del d1
     counters = {"raster_bwd_window128": (bwd_fn, "launches_window128"),
                 "raster_fwd_window128": (fwd_fn, "launches_window128"),
@@ -2053,8 +2103,8 @@ def trace_phases(dev, ut_cfg):
     # phase 31's rays and records: its cull's counts
     report["raster_fwd_normals"] = dict(
         max_abs_err=err, ms=b_ms, plain_ms=plain_ms, culled_share=brute_share,
-        **trace_bound_keys(args, got, inp.cfg, brute_cull, composited(ref),
-                           shared_tiles=n_blocks))
+        **cull_bound_keys(args, got, inp.cfg, brute_cull, composited(ref),
+                          shared_tiles=n_blocks))
     fwd_fn.launches_normals = 0
     with torch.no_grad():
         normals = trace(small, ro, rd, raster_cfg=nrc)["pred_normals"]
@@ -2578,6 +2628,7 @@ def main():
         flips = float((got[3] != ref[3]).float().mean())
         b_ms = cuda_ms(lambda: rasterize_tiles_forward(*b_args), 20)
         b_plain_ms = cuda_ms(lambda: rasterize_tiles_plain(*b_args), 3)
+        b_share, b_cull, cull_msg = cull_check(b_args, "kernel B")
     if not (err_f <= 1e-4 and err_o <= 1e-4 and err_t <= 1e-4
             and err_d <= 1e-3 and flips < 0.01):
         raise AssertionError(
@@ -2585,14 +2636,17 @@ def main():
             f" T_final {err_t:.3g}, depth rel {err_d:.3g}, "
             f"hits flip {flips:.4f}")
     b_accepted = composited(ref)
+    b_res = rgb_kernel_attributes("raster_fwd")["rgb_2_w0"]
     report["raster_fwd"] = dict(max_abs_err=max(err_f, err_o, err_t),
                                 ms=b_ms, plain_ms=b_plain_ms,
-                                **bound_keys(raster_bound(b_args, got, rc,
-                                                          False, b_accepted)))
+                                culled_share=b_share, resources=b_res,
+                                **rgb_bound_keys(b_args, got, rc, b_cull,
+                                                 b_accepted))
     phase("kernel B", f"features |d| {err_f:.3g}, opacity |d| {err_o:.3g}, "
           f"T_final |d| {err_t:.3g}, depth rel {err_d:.3g}, "
           f"hits flip {flips:.5f}; "
-          f"kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms")
+          f"kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms; {cull_msg}; "
+          f"{resources(b_res)}")
 
     # 5. against the JAX package's values
     fx = os.path.join(REPO, "tests", "fixtures", "torch_port_gut_small.npz")

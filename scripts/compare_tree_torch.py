@@ -51,7 +51,13 @@ touches saves the minutes of the slow ones, such as ``nht_step``):
   opacity, depth, hits and T_final, and after the run the 24 features'
   max |d| against the other tree's;
 - ``gs_steps``: the 3DGUT and 3DGRT train steps at 800x800 and the
-  3DGUT step through the 1920x1280 rolling shutter (as ``nht_step``).
+  3DGUT step through the 1920x1280 rolling shutter (as ``nht_step``);
+- ``rgb_b``: kernels B and E in their eight RGB modes (degree 2 and 4,
+  W 0 and 16, shared origin and general) on the inputs of chip_smoke.py
+  phases 4 and 13-15 (the 800x800 bench view: 3DGUT, 3DGRT and sorted
+  3DGUT, and degree 4 at W 0) and 19 and 21 (the 1920x1280 rolling
+  shutter: the same four settings in the general mode): CUDA events,
+  device time, and a SHA-256 of B's five outputs and of E's ``wpair``.
 
 ``rgb_c`` and ``nht_b`` leave each tree's outputs in ``--out`` (default
 ``build/compare`` of this checkout) for the comparison across trees.
@@ -76,7 +82,7 @@ NHT_CONFIGS = ("apps/nerf_synthetic_3dgut_mcmc_nht",
                "apps/nerf_synthetic_3dgrt_mcmc_nht")
 # measurement groups, in the order a run takes them (GROUP_FNS below)
 GROUPS = ("trace", "playground", "guard800", "nht_c", "f", "nht_step",
-          "table_route", "rgb_c", "nht_b", "gs_steps")
+          "table_route", "rgb_c", "nht_b", "gs_steps", "rgb_b")
 # kernel C's record field groups (a or p, M, density, rgb)
 FIELD_GROUPS = {"a": slice(0, 3), "M": slice(3, 12), "density": slice(12, 13),
                 "rgb": slice(13, 16)}
@@ -427,6 +433,56 @@ def gs_steps_group(cs, dev, res):
         torch.cuda.empty_cache()
 
 
+def rgb_b_inputs(cs, dev):
+    """Yield (label, B's and E's arguments) of the eight RGB modes
+    (``rgb_b`` above): the 800x800 bench view (shared origin) and the
+    1920x1280 rolling shutter (general), each with 3DGUT (degree 2, W 0),
+    3DGRT (degree 4, W 16), sorted 3DGUT (degree 2, W 16) and degree 4 at
+    W 0."""
+    from threedgrut_tpu_torch.ops.cameras import make_pinhole
+    from threedgrut_tpu_torch.ops.ut import UTConfig
+    from threedgrut_tpu_torch.render.common import RasterConfig
+    from threedgrut_tpu_torch.render.gut import prepare_view
+    from threedgrut_tpu_torch.synthetic import bench_camera, bench_cloud
+
+    side = cs.SIDE
+    grt = cs.sorted_settings()["3DGRT"]
+    settings = {"3dgut": RasterConfig(), "3dgrt": grt,
+                "sorted3dgut": cs.sorted_settings()["sorted 3DGUT"],
+                "deg4_w0": grt.replace(sorted_compositing=False)}
+    model = bench_cloud(100_000, seed=0, device=dev)
+    cams = {"": make_pinhole((side, side), (1.1 * side, 1.1 * side),
+                             (side / 2, side / 2), device=dev),
+            "rolling_": bench_camera("rolling", device=dev)}
+    for prefix, cam in cams.items():
+        with torch.no_grad():
+            v = prepare_view(cam, UTConfig(), RasterConfig(), model, 3)
+        base = (v.table, v.binning.pair_particle, v.binning.tile_start,
+                v.ray_d, v.tmin, v.tmax)
+        for label, rc in settings.items():
+            yield prefix + label, base + (rc, v.ray_o)
+        del v, base
+
+
+def rgb_b_group(cs, dev, res):
+    """Kernels B and E in their eight RGB modes: times and hashes."""
+    from threedgrut_tpu_torch.ops.cuda.raster import rasterize_tiles_forward
+    from threedgrut_tpu_torch.ops.cuda.wmax import pair_weight_max
+
+    for label, args in rgb_b_inputs(cs, dev):
+        with torch.no_grad():
+            res[f"rgb_b_{label}"] = dict(
+                b_sha256=sha256(*rasterize_tiles_forward(*args)),
+                e_sha256=sha256(pair_weight_max(*args)),
+                b_ms=cs.cuda_ms(lambda: rasterize_tiles_forward(*args), 20),
+                b_device_ms=cs.device_ms(
+                    lambda: rasterize_tiles_forward(*args), 20),
+                e_ms=cs.cuda_ms(lambda: pair_weight_max(*args), 20),
+                e_device_ms=cs.device_ms(lambda: pair_weight_max(*args),
+                                         20))
+        torch.cuda.empty_cache()
+
+
 def cross_tree(runs, out_dir):
     """Per rgb_c mode, this tree's output against the other's: relative
     L2 per field group; per nht_b degree, the features' max |d|."""
@@ -452,7 +508,8 @@ GROUP_FNS = {"trace": trace_group, "playground": playground_group,
              "guard800": guard800_group, "nht_c": nht_c_group,
              "f": f_group, "nht_step": nht_step_group,
              "table_route": table_route_group, "rgb_c": rgb_c_group,
-             "nht_b": nht_b_group, "gs_steps": gs_steps_group}
+             "nht_b": nht_b_group, "gs_steps": gs_steps_group,
+             "rgb_b": rgb_b_group}
 # the groups that keep their outputs in --out
 OUT_GROUPS = ("rgb_c", "nht_b")
 
@@ -507,6 +564,14 @@ def summary(res):
                      f"{res['f_device_ms']:.4f}), index_add_ "
                      f"{res['index_add_ms']:.4f} ms (device "
                      f"{res['index_add_device_ms']:.4f})")
+    for k in sorted(res):
+        if k.startswith("rgb_b_"):
+            r = res[k]
+            parts.append(f"{k} B {r['b_ms']:.4f} ms (device "
+                         f"{r['b_device_ms']:.4f}) sha256 "
+                         f"{r['b_sha256'][:16]}, E {r['e_ms']:.4f} ms "
+                         f"(device {r['e_device_ms']:.4f}) sha256 "
+                         f"{r['e_sha256'][:16]}")
     for k in sorted(res):
         if k.startswith(("rgb_c_", "nht_b_")):
             parts.append(f"{k} {res[k]['ms']:.4f} ms sha256 "

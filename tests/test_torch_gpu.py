@@ -21,7 +21,7 @@ from threedgrut_tpu_torch.ops.cuda.fill import (forward_fill,
                                                 segmented_fill_rows_plain)
 from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs, fold_pairs_plain
 from threedgrut_tpu_torch.ops.cuda.raster import (
-    NHT_TRIG_FAST_MAX, FoldMeta, nht_fwd_kernel_attributes,
+    NHT_TRIG_FAST_MAX, FoldMeta, cull_plain, nht_fwd_kernel_attributes,
     nht_kernel_attributes, nht_sincos, rasterize_tiles,
     rasterize_tiles_backward, rasterize_tiles_backward_plain,
     rasterize_tiles_forward, rasterize_tiles_plain, rasterize_tiles_table,
@@ -1200,3 +1200,90 @@ def test_redesigned_kernels_resources(cuda):
         assert a["registers"] <= 80
         shared = a["shared_bytes"] + a["dynamic_shared_bytes"]
         assert 0 < shared <= 227 * 1024 // 3
+
+
+# ---- kernels B and E in their eight RGB modes (the per-warp cull) ----
+
+# (degree, window, general): launch_mode's eight modes
+RGB_MODES = [(deg, win, gen) for deg in (2, 4) for win in (0, 16)
+             for gen in (False, True)]
+
+
+def _rgb_mode_args(device, deg, win, gen):
+    """B's and E's arguments of one RGB mode on a 200x224 view (partial
+    tiles at the bottom): the pinhole (shared origin) or per-pixel origins
+    (the general mode), min_transmittance 1e-3 at degree 4 (3DGRT's)."""
+    rc = RasterConfig(kernel_degree=deg, sorted_compositing=win > 0,
+                      sort_window=16,
+                      min_transmittance=1e-3 if deg == 4 else 1e-4)
+    v = _general_view(device, rc) if gen else _view(device, rc=rc)
+    return (v.table, v.binning.pair_particle, v.binning.tile_start, v.ray_d,
+            v.tmin, v.tmax, rc, v.ray_o)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deg,win,gen", RGB_MODES)
+def test_rgb_modes_of_b_and_e_match_plain(cuda, deg, win, gen):
+    """B (features, opacity and T_final within 1e-4, depth 1e-3, hits on
+    99% of pixels) and E (within 1e-6, bitwise repeatable) against their
+    plain versions in each RGB mode, and the plain version that rejects
+    what the kernels' cull drops equal to the one that tests every pair;
+    one launch each in the mode's counter."""
+    args = _rgb_mode_args(cuda, deg, win, gen)
+    counter = "launches_general" if gen else "launches"
+    before = getattr(rasterize_tiles, counter)
+    got = rasterize_tiles_forward(*args)
+    assert getattr(rasterize_tiles, counter) == before + 1
+    ref = rasterize_tiles_plain(*args)
+    torch.cuda.synchronize()
+    for i in (0, 1, 4):        # features, opacity, T_final
+        torch.testing.assert_close(got[i], ref[i], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[2], ref[2], atol=1e-3, rtol=1e-3)
+    assert (got[3] != ref[3]).float().mean() < 0.01
+    assert float(got[1].mean()) > 0.05
+    culled = rasterize_tiles_plain(*args, cull=True)
+    for x, y in zip(culled, ref):
+        assert torch.equal(x, y)
+    w1 = pair_weight_max(*args)
+    w2 = pair_weight_max(*args)
+    w_ref = pair_weight_max_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(w1, w2)
+    torch.testing.assert_close(w1, w_ref, atol=1e-6, rtol=0)
+    assert float(w1.max()) > 0.1
+    assert cull_plain(*args)["culled_accepted"] == 0
+
+
+@pytest.mark.gpu
+def test_rgb_b_kernel_resources(cuda):
+    """Kernel B's eight RGB instantiations: no spills past their stack,
+    and the static shared memory of four blocks within the SM's 228 KB."""
+    att = rgb_kernel_attributes("raster_fwd")
+    assert len(att) == 8
+    for a in att.values():
+        assert 0 < a["registers"] <= 255
+        assert 0 < a["shared_bytes"] <= 227 * 1024 // 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [16 + 4 * 8, 16 + 4 * 16])
+def test_nht_kernels_refuse_other_feature_widths(cuda, width):
+    """The NHT kernels are built for 12 control features a vertex (64-float
+    records): B and C refuse another width on the card (the plain
+    versions take any)."""
+    v = _general_view(cuda)
+    n = v.table.shape[0]
+    table = torch.zeros((n, width), device=cuda)
+    table[:, :13] = v.table[:, :13]
+    b = v.binning
+    args = (table, b.pair_particle, b.tile_start, v.ray_d, v.tmin, v.tmax,
+            RC, v.ray_o)
+    with pytest.raises(NotImplementedError, match="built for 64"):
+        rasterize_tiles_forward(*args)
+    h, w = v.ray_d.shape[:2]
+    f = (width - 16) // 2
+    zeros = [torch.zeros((h, w, c), device=cuda) for c in (f, 1, 1, f, 1, 1)]
+    with pytest.raises(NotImplementedError, match="built for 64"):
+        rasterize_tiles_backward(table, b.pair_particle, b.tile_start,
+                                 v.ray_d, v.tmin, v.tmax, *zeros, RC,
+                                 v.ray_o)

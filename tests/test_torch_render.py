@@ -173,6 +173,29 @@ def test_serve_batch_matches_per_view(scenes):
     assert float(imgs.std()) > 0.0
 
 
+def test_serve_turns_normals_off(scenes, monkeypatch):
+    """A served view never builds normals, as JAX's serving_raster_config
+    trims them: render_gut gets the config with enable_normals False."""
+    from threedgrut_tpu_torch.render import serve as serve_mod
+
+    _, state, _ = scenes[0]
+    model = model_from_state(state)
+    seen = []
+
+    def spy(cam, ut_cfg, raster_cfg, model, sh_degree):
+        seen.append(raster_cfg)
+        return render_gut(cam, ut_cfg, raster_cfg, model, sh_degree)
+
+    monkeypatch.setattr(serve_mod, "render_gut", spy)
+    cam = orbit_camera(0.0, 0.3, 4.0, center=(0.0, 0.0, 4.2),
+                       resolution=RES)
+    imgs = make_serving_renderer(model, RC.replace(enable_normals=True),
+                                 sh_degree=3)([cam])
+    assert imgs.shape == (1, RES[1], RES[0], 3)
+    assert len(seen) == 1 and seen[0].enable_normals is False
+    assert seen[0] == RC
+
+
 def test_checkpoint_round_trip(scenes, tmp_path):
     cam, state, _ = scenes[0]
     tcam, model = torch_scene(cam, state)

@@ -1,7 +1,7 @@
 """trace()'s cull (kernels B and C in their windows of 128; common.cuh:
 cull_radius, warp_bundle, bundle_keeps, sphere_keeps) through its plain
 mirror in the kernels' fp32 operation order
-(ops/cuda/raster.py:trace_cull_plain): on every (pair, pixel) of seeded
+(ops/cuda/raster.py:cull_plain): on every (pair, pixel) of seeded
 scenes it never culls a candidate that the exact test of ``_hit_terms``
 accepts, and it culls at least a stated share of them. The card runs the
 same mirror on chip_smoke.py phases 31 and 33's inputs.
@@ -28,7 +28,7 @@ from threedgrut_tpu_torch.models.gaussians import (GaussianModel,
                                                    GaussianModelConfig)
 from threedgrut_tpu_torch.ops.cuda.raster import (_thresholds, TRACE_K,
                                                   rasterize_tiles_plain,
-                                                  trace_cull_plain)
+                                                  cull_plain)
 from threedgrut_tpu_torch.render.common import camera_rays_world
 from threedgrut_tpu_torch.render.grt import prepare_trace
 from threedgrut_tpu_torch.synthetic import bench_cloud, orbit_cameras
@@ -164,7 +164,7 @@ def test_cull_never_drops_an_accepted_candidate(case):
     make_model, make_rays, kw, floor = CASES[case]
     model = make_model()
     with torch.no_grad():
-        got = trace_cull_plain(*_case_inputs(model, make_rays, kw).args())
+        got = cull_plain(*_case_inputs(model, make_rays, kw).args())
     assert got["culled_accepted"] == 0, got
     assert got["accepted"] > 0, got
     share = (got["bundle_culled"] + got["sphere_culled"]) / got["tests"]
@@ -184,7 +184,7 @@ def test_cull_sees_windows_over_the_kbuffer():
     model = faint_column()
     ro, rd = column_rays()
     with torch.no_grad():
-        got = trace_cull_plain(*prepare_trace(model, ro, rd,
+        got = cull_plain(*prepare_trace(model, ro, rd,
                                               accelerate=False).args())
     assert got["culled_accepted"] == 0, got
     assert got["over_k"] > 0 and got["max_window"] > 2 * TRACE_K, got
@@ -210,7 +210,7 @@ def test_cull_counts_the_work_the_kernels_need(case):
                                      else {}))
     with torch.no_grad():
         inp = prepare_trace(model, ro, rd, **kw)
-        got = trace_cull_plain(*inp.args())
+        got = cull_plain(*inp.args())
         ref = rasterize_tiles_plain(*inp.args())
     kept = got["tests"] - got["bundle_culled"]
     tested = kept - got["sphere_culled"]

@@ -286,8 +286,23 @@ constexpr int kTraceK = 8;
 // extra staged rows of a pair: its sphere's squared radius terms a2 and
 // b2 for the per-ray test (sphere_keeps)
 constexpr int kCullRows = 2;
-constexpr int kWarpsTrace = kBlock / 32;
+constexpr int kWarps = kBlock / 32;
 constexpr float kEps = 5.9604645e-8f;   // 2^-24, fp32's unit roundoff
+
+// The least and largest squared norm of record r's M rows (field f at
+// r[f * stride]): 1 / s_max^2 and 1 / s_min^2.
+__device__ __forceinline__ void row_norm_range(const float* r, int stride,
+                                               float& mn, float& mx) {
+  float m[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float m0 = r[(3 + 3 * i) * stride], m1 = r[(4 + 3 * i) * stride],
+                m2 = r[(5 + 3 * i) * stride];
+    m[i] = m0 * m0 + m1 * m1 + m2 * m2;
+  }
+  mn = fminf(fminf(m[0], m[1]), m[2]);
+  mx = fmaxf(fmaxf(m[0], m[1]), m[2]);
+}
 
 // The world radius beyond which a ray's line cannot be accepted, as
 // A + B |e| (e = o - p, in world units), from the record's M rows (field f
@@ -313,15 +328,8 @@ constexpr float kEps = 5.9604645e-8f;   // 2^-24, fp32's unit roundoff
 // A row of norm zero gives A = inf or NaN: every test keeps the pair.
 __device__ __forceinline__ void cull_radius(const float* r, int stride,
                                             float thr, float& a, float& b) {
-  float m[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float m0 = r[(3 + 3 * i) * stride], m1 = r[(4 + 3 * i) * stride],
-                m2 = r[(5 + 3 * i) * stride];
-    m[i] = m0 * m0 + m1 * m1 + m2 * m2;
-  }
-  const float mn = fminf(fminf(m[0], m[1]), m[2]);
-  const float mx = fmaxf(fmaxf(m[0], m[1]), m[2]);
+  float mn, mx;
+  row_norm_range(r, stride, mn, mx);
   const float kap = sqrtf(mx / mn);
   const float k1 = 1.0f + kap;
   a = sqrtf(thr / mn) * (1.0001f + 16.0f * kEps * kap);
@@ -449,6 +457,18 @@ __device__ __forceinline__ Bundle warp_bundle(const Ray& ray, bool valid,
   return bd;
 }
 
+// Whether x (the particle's centre from the apex c) lies within reach of
+// every plane's inner side.
+__device__ __forceinline__ bool planes_keep(const Bundle& bd, float x,
+                                            float y, float z, float reach) {
+  bool out = false;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    out |= x * bd.n[i][0] + y * bd.n[i][1] + z * bd.n[i][2] > reach;
+  }
+  return !out;
+}
+
 // Whether a warp of bundle bd may accept the particle at (px, py, pz) of
 // radius a + b |e|: it lies within a + 2 b (|p - c| + rho) + rho of every
 // plane's inner side (|e| <= |p - c| + rho).
@@ -458,13 +478,7 @@ __device__ __forceinline__ bool bundle_keeps(const Bundle& bd, float px,
   if (bd.mode != kBundlePlanes) return bd.mode == kBundleAll;
   const float x = px - bd.cx, y = py - bd.cy, z = pz - bd.cz;
   const float len = sqrtf(x * x + y * y + z * z);
-  const float reach = a + 2.0f * b * (len + bd.rho) + bd.rho;
-  bool out = false;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    out |= x * bd.n[i][0] + y * bd.n[i][1] + z * bd.n[i][2] > reach;
-  }
-  return !out;
+  return planes_keep(bd, x, y, z, a + 2.0f * b * (len + bd.rho) + bd.rho);
 }
 
 // Whether the ray may accept the particle: its line passes within
@@ -529,7 +543,7 @@ __device__ __forceinline__ unsigned stage_cull(float* r, int stride,
   r[(kRec + 2) * stride] = 17.0f * b * b;
   unsigned keep = 0u;
 #pragma unroll
-  for (int w = 0; w < kWarpsTrace; ++w) {
+  for (int w = 0; w < kWarps; ++w) {
     keep |= static_cast<unsigned>(
                 bundle_keeps(bundles[w], r[0], r[stride], r[2 * stride], a, b))
             << w;
@@ -556,6 +570,303 @@ __device__ __forceinline__ int warp_list(const uint8_t* keep, int n_lanes,
   }
   __syncwarp();
   return n;
+}
+
+// ---- kernels B and E in their RGB modes: the per-warp cull ----
+//
+// Kernels B (raster_fwd_rgb_kernel) and E (wmax_kernel) in the eight
+// modes of launch_mode (but B at degree 4 in global-Z order,
+// raster_fwd.cu says why) take trace's cull without its per-ray sphere
+// test: the thread that stages a pair tests the particle against each
+// warp's pyramid of 8x4 rays (warp_bundle): at degree 2 in global-Z
+// order its acceptance ellipsoid on the side planes (cull_quadric,
+// ellipsoid_keeps), elsewhere its sphere (cull_sphere, bundle_keeps;
+// stage_rgb_row says why); each warp lists the staged
+// lanes it keeps, in lane order (warp_list), and its rays walk only
+// those with the exact test. A culled candidate is one the exact test
+// rejects, so the walk composites what testing every pair composites,
+// in the same order, bit for bit.
+// ops/cuda/raster.py:cull_plain mirrors it in the same fp32 operation
+// order; tests/test_torch_tile_cull.py and chip_smoke.py phases 4, 13,
+// 15, 19 and 21 hold it against the exact test.
+//
+// A staged pair is a row of kRgbRow floats in shared memory, pair after
+// pair: the record's 16 fields (four float4), then the squared-distance
+// threshold and 3 floats of padding.
+constexpr int kRgbRow = kRec + 4;
+constexpr int kThrSlot = kRec;
+
+// The four float4 of a staged row's record into registers.
+__device__ __forceinline__ void load_rgb_row(const float* row,
+                                             float (&r)[kRec]) {
+#pragma unroll
+  for (int q = 0; q < kRec / 4; ++q) {
+    const float4 t = reinterpret_cast<const float4*>(row)[q];
+    r[4 * q + 0] = t.x;
+    r[4 * q + 1] = t.y;
+    r[4 * q + 2] = t.z;
+    r[4 * q + 3] = t.w;
+  }
+}
+
+// The world sphere of record r with threshold thr: its centre (x, y, z)
+// relative to the origin of the mode's rays and its radius a + b |e|
+// (cull_radius). The general mode's record holds the centre p. A
+// shared-origin record holds a = M (o - p) instead, so the centre is
+// re-derived as p - o = -M^-1 a, with M^-1 = M^T diag(1 / |M row i|^2)
+// (M = diag(1/s) R^T); the rays then start at 0.
+//
+// Margin of the re-derivation (eps = 2^-24): the fp32 rows of M are
+// orthogonal up to the rounding of R from a unit quaternion and of M's
+// entries, so |M^T diag(1 / |row i|^2) M - I| <= 16 eps; each of the
+// three terms M_ij a_i / |row i|^2 is at most |p - o| and carries at most
+// 5 roundings (|row|^2 3, the division, the product), the sum 2 more,
+// so each component is off by at most 21 eps 3 |p - o| and the vector by
+// 37 eps |p - o|: 53 eps |p - o| in all. bundle_keeps' reach grows by
+// 2 b |p - c|, so 64 eps more in b covers it more than twice.
+template <bool kGen>
+__device__ __forceinline__ void cull_sphere(const float (&r)[kRec],
+                                            float thr, float& x, float& y,
+                                            float& z, float& a, float& b) {
+  cull_radius(r, 1, thr, a, b);
+  if constexpr (kGen) {
+    x = r[0];
+    y = r[1];
+    z = r[2];
+  } else {
+    float u[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float m0 = r[3 + 3 * i], m1 = r[4 + 3 * i], m2 = r[5 + 3 * i];
+      u[i] = r[i] / (m0 * m0 + m1 * m1 + m2 * m2);
+    }
+    x = -(r[3] * u[0] + r[6] * u[1] + r[9] * u[2]);
+    y = -(r[4] * u[0] + r[7] * u[1] + r[10] * u[2]);
+    z = -(r[5] * u[0] + r[8] * u[1] + r[11] * u[2]);
+    b = b + 64.0f * kEps;
+  }
+}
+
+// The side planes' quadratic monomials of a warp's pyramid (n the unit
+// normal of side plane i): nx^2, ny^2, nz^2, 2 nx ny, 2 nx nz, 2 ny nz,
+// so n^T Q n of a symmetric Q (q00, q11, q22, q01, q02, q12) is their
+// dot product (quadric_extent). Zero for a bundle without planes.
+struct PlaneQuads {
+  float m[4][6];
+};
+
+__device__ __forceinline__ PlaneQuads plane_quads(const Bundle& bd) {
+  PlaneQuads pq;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool on = bd.mode == kBundlePlanes;
+    const float nx = on ? bd.n[i][0] : 0.f, ny = on ? bd.n[i][1] : 0.f,
+                nz = on ? bd.n[i][2] : 0.f;
+    pq.m[i][0] = nx * nx;
+    pq.m[i][1] = ny * ny;
+    pq.m[i][2] = nz * nz;
+    pq.m[i][3] = 2.0f * nx * ny;
+    pq.m[i][4] = 2.0f * nx * nz;
+    pq.m[i][5] = 2.0f * ny * nz;
+  }
+  return pq;
+}
+
+// The acceptance ellipsoid of record r with threshold thr,
+// {x : |M (x - p)|^2 <= thr}, as the quadric Q = thr f M^T diag(1 /
+// |M row k|^4) M: with M's rows orthogonal (M = diag(1/s) R^T, so
+// M^-1 = M^T diag(1 / |M row k|^2)), n^T Q n / f is the square of the
+// ellipsoid's extent from p along a unit n, thr |M^-T n|^2. f covers the
+// fp32 rounding of Q and of n^T Q n (each term's at most 5 eps relative,
+// the terms at most 3 kappa^2 times the form, kappa^2 = the rows' largest
+// squared norm over their least: 30 eps kappa^2), the rows' orthogonality
+// (16 eps kappa on |M^-T n|, 32 eps kappa on its square) and the exact
+// test's own rounding of sq (2.5 eps): f = 1.0003 + 256 eps kappa^2
+// covers their sum at least 4 times.
+__device__ __forceinline__ void cull_quadric(const float (&r)[kRec],
+                                             float thr, float kap2,
+                                             float (&q)[6]) {
+  float w[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float m0 = r[3 + 3 * k], m1 = r[4 + 3 * k], m2 = r[5 + 3 * k];
+    const float im = 1.0f / (m0 * m0 + m1 * m1 + m2 * m2);
+    w[k] = im * im;
+  }
+  const float g = thr * (1.0003f + 256.0f * kEps * kap2);
+  // S_jl = sum_k M_kj M_kl w_k for (j, l) = 00, 11, 22, 01, 02, 12
+  auto entry = [&](int j, int l) {
+    return (r[3 + j] * r[3 + l] * w[0] + r[6 + j] * r[6 + l] * w[1] +
+            r[9 + j] * r[9 + l] * w[2]) * g;
+  };
+  q[0] = entry(0, 0);
+  q[1] = entry(1, 1);
+  q[2] = entry(2, 2);
+  q[3] = entry(0, 1);
+  q[4] = entry(0, 2);
+  q[5] = entry(1, 2);
+}
+
+// n^T Q n for side plane i of a warp (plane_quads).
+__device__ __forceinline__ float quadric_extent(const float (&q)[6],
+                                                const float (&m)[6]) {
+  return q[0] * m[0] + q[1] * m[1] + q[2] * m[2] + q[3] * m[3] +
+         q[4] * m[4] + q[5] * m[5];
+}
+
+// Whether a warp of bundle bd (side-plane monomials pq) may accept the
+// particle centred at x (from the apex c) with sphere radius a (a2 =
+// a a), quadric q and slack base = 2 b (|p - c| + rho) + rho (what
+// bundle_keeps adds to a): on each side plane its ellipsoid's extent (the
+// least of it and the sphere's) within base of the plane's inner side;
+// on the apex plane its sphere.
+__device__ __forceinline__ bool ellipsoid_keeps(const Bundle& bd,
+                                                const PlaneQuads& pq,
+                                                float x, float y, float z,
+                                                float a, float a2,
+                                                const float (&q)[6],
+                                                float base) {
+  bool out = x * bd.n[4][0] + y * bd.n[4][1] + z * bd.n[4][2] > a + base;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float d =
+        x * bd.n[i][0] + y * bd.n[i][1] + z * bd.n[i][2] - base;
+    const float lim = fminf(quadric_extent(q, pq.m[i]), a2);
+    out |= d > 0.f && d * d > lim;
+  }
+  return !out;
+}
+
+// Stage the record at src (a row of the [C, 16] table) into row dst and
+// cull it: returns the bits of the warps whose pyramids keep the pair,
+// by its ellipsoid (kEllipsoid: ellipsoid_keeps) or its sphere
+// (bundle_keeps). The ellipsoid culls twice the sphere's share on the
+// bench views but costs ~3x at staging: it pays at degree 2 in global-Z
+// order, where a ray walks the most pairs, and not in windows of 16 or
+// at degree 4, whose rays die sooner (PERF.md §6).
+template <int kDeg, bool kGen, bool kEllipsoid>
+__device__ __forceinline__ unsigned stage_rgb_row(const float* src,
+                                                  float* dst,
+                                                  const Bundle* bundles,
+                                                  const PlaneQuads* quads,
+                                                  const RasterParams& p) {
+  float r[kRec];
+#pragma unroll
+  for (int q = 0; q < kRec / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(src)[q];
+    reinterpret_cast<float4*>(dst)[q] = v;
+    r[4 * q + 0] = v.x;
+    r[4 * q + 1] = v.y;
+    r[4 * q + 2] = v.z;
+    r[4 * q + 3] = v.w;
+  }
+  const float thr = sq_threshold<kDeg>(r[kDensity], p);
+  reinterpret_cast<float4*>(dst)[kRec / 4] = make_float4(thr, 0.f, 0.f, 0.f);
+  float x, y, z, a, b;
+  cull_sphere<kGen>(r, thr, x, y, z, a, b);
+  // shared origin: every pyramid's apex is 0 and its rho 0, so |p - c|
+  // is taken once
+  const float len0 = kGen ? 0.f : sqrtf(x * x + y * y + z * z);
+  unsigned keep = 0u;
+  if constexpr (kEllipsoid) {
+    float mn, mx, q[6];
+    row_norm_range(r, 1, mn, mx);
+    cull_quadric(r, thr, mx / mn, q);
+    const float a2 = a * a;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const Bundle& bd = bundles[w];
+      bool k = bd.mode == kBundleAll;
+      if (bd.mode == kBundlePlanes) {
+        float ex = x, ey = y, ez = z, base = 2.0f * b * len0;
+        if constexpr (kGen) {
+          ex = x - bd.cx;
+          ey = y - bd.cy;
+          ez = z - bd.cz;
+          const float len = sqrtf(ex * ex + ey * ey + ez * ez);
+          base = 2.0f * b * (len + bd.rho) + bd.rho;
+        }
+        k = ellipsoid_keeps(bd, quads[w], ex, ey, ez, a, a2, q, base);
+      }
+      keep |= static_cast<unsigned>(k) << w;
+    }
+  } else if constexpr (kGen) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      keep |= static_cast<unsigned>(bundle_keeps(bundles[w], x, y, z, a, b))
+              << w;
+    }
+  } else {
+    const float reach = a + 2.0f * b * len0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const Bundle& bd = bundles[w];
+      const bool k = bd.mode == kBundlePlanes
+                         ? planes_keep(bd, x, y, z, reach)
+                         : bd.mode == kBundleAll;
+      keep |= static_cast<unsigned>(k) << w;
+    }
+  }
+  return keep;
+}
+
+// sort_window over a warp's listed lanes list[i0, i1) of one window
+// (staged rows at rows + j kRgbRow): the accepted ones by (hit_t, list
+// order), their alphas beside; pos gets each one's offset in the list
+// from i0. The list keeps lane order, so the order is the unculled
+// sort's. A candidate at or past the largest key so far (most: the pairs
+// come in depth order) is appended without reading the arrays back.
+template <int kDeg, int kW, bool kGen>
+__device__ __forceinline__ int sort_list(const float* rows,
+                                         const uint8_t* list, int i0, int i1,
+                                         const Ray& ray,
+                                         const RasterParams& p,
+                                         float (&key)[kW], uint8_t (&pos)[kW],
+                                         float (&alpha)[kW]) {
+  int n = 0;
+  float last = 0.f;   // the largest key so far (n > 0)
+  for (int i = i0; i < i1; ++i) {
+    const float* row = rows + list[i] * kRgbRow;
+    float r[kRec];
+    load_rgb_row(row, r);
+    Hit h;
+    if (!eval_ray<kDeg, kGen>(r, 1, ray, row[kThrSlot], p, h)) continue;
+    int q = n++;
+    if (q == 0 || !(last > h.hit_t)) {
+      last = h.hit_t;
+    } else {
+      while (q > 0 && key[q - 1] > h.hit_t) {
+        key[q] = key[q - 1];
+        pos[q] = pos[q - 1];
+        alpha[q] = alpha[q - 1];
+        --q;
+      }
+    }
+    key[q] = h.hit_t;
+    pos[q] = static_cast<uint8_t>(i - i0);
+    alpha[q] = h.alpha;
+  }
+  return n;
+}
+
+// The end of the window that starts at list[i]: the first list index
+// past it whose lane lies in another window of kW lanes.
+template <int kW>
+__device__ __forceinline__ int window_end(const uint8_t* list, int i, int n) {
+  const int wi = list[i] / kW;
+  int i1 = i + 1;
+  while (i1 < n && list[i1] / kW == wi) ++i1;
+  return i1;
+}
+
+// The pixel of thread t in a tile's 16x16 block: warp w takes the 8x4
+// block (w % 2, w / 2), lane l its pixel (l % 8, l / 8); (dx, dy) from
+// the tile's corner.
+__device__ __forceinline__ int warp_block_x(int t) {
+  return ((t >> 5) & 1) * 8 + (t & 7);
+}
+__device__ __forceinline__ int warp_block_y(int t) {
+  return (t >> 6) * 4 + ((t >> 3) & 3);
 }
 
 // One pass of a ray's k-buffer over a window's listed lanes list[i0, i1)

@@ -18,8 +18,8 @@
 // [start, end), as the TPU kernel's windows of its 128-aligned chunks
 // are. Batches start at start rounded down to W, so no window crosses a
 // batch. Per window each thread sorts its accepted candidates by hit_t
-// (common.cuh:sort_window: insertion sort of the key and an 8-bit lane in
-// per-thread arrays; windows of 128 below), then
+// (common.cuh:sort_list: insertion sort of the key, the alpha and an
+// 8-bit offset in per-thread arrays; windows of 128 below), then
 // composites them in that order with the kill. Windows follow each other
 // in pair order, so T carries from one to the next as in the TPU kernel.
 //
@@ -36,6 +36,37 @@
 // pair_particle (fusing render/gut.py's table[idx] gather: no [P, 16]
 // records array exists). Every thread then reads the same staged record at
 // the same time, a shared-memory broadcast.
+//
+// The RGB modes (rgb_forward: degree 2 in global-Z order and degree 2
+// or 4 at W 16, shared or per-pixel origin, with or without normals;
+// degree 4 in global-Z order below). A breakdown of the
+// earlier design (raster_fwd_kernel then took them; each suspect taken
+// away in turn on chip_smoke.py phases 4, 13 and 19's inputs; PERF.md §6,
+// H100 80GB HBM3, 700 W) put 91-94% of its time in the test of every
+// staged pair on every pixel: ~50 instructions, none contracted, since
+// the decisions must stay those of kernels C and E and of the plain
+// version. Staging, the gather and the barriers took 0.05-0.10 ms. So:
+//  - a conservative per-warp cull (common.cuh, "kernels B and E in their
+//    RGB modes"): the thread that stages a pair tests the particle
+//    against each warp's pyramid of rays (its acceptance ellipsoid at
+//    degree 2 in global-Z order, its sphere at W 16), and each warp's
+//    rays walk only the lanes it keeps, in lane order (window by window
+//    at W 16). The cull keeps every candidate the exact test accepts, so
+//    the outputs are those of testing every pair, bit for bit. A bench
+//    particle covers most of a tile: the ellipsoid culls 26-34% of the
+//    tests, the sphere 10-17%; four blocks an SM at degree 2 in
+//    global-Z order;
+//  - warp w takes the 8x4 pixel block (w % 2, w / 2) of the tile, which
+//    narrows its pyramid;
+//  - records staged pair-major as float4 (common.cuh:kRgbRow): five
+//    shared loads a test, not seventeen;
+//  - at W 16 the sort keeps each accepted candidate's alpha beside its
+//    key (common.cuh:sort_list), so only the normals test it again.
+// Its bound is the test (~50 instructions) of what the cull leaves;
+// normals take the same walk. Degree 4 in global-Z order keeps the
+// earlier walk of every pair (raster_fwd_kernel): its rays die within a
+// few dozen pairs, and there the staging, cull and lists cost more than
+// they save (4-13% slower, PERF.md §6).
 //
 // Bound on this card: the per-(pixel, pair) arithmetic (~40 flops and one
 // expf) and the latency of the one dependent gather per batch; device
@@ -149,15 +180,16 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
   constexpr int kBatch = 256;   // pairs staged per batch
   // trace()'s windows of 128: the cull and the k-buffer (common.cuh)
   constexpr bool kTrace = kW == gut::kTraceW;
-  static_assert(!kTrace || (kGen && kDeg == 4), "trace's mode");
+  static_assert(kTrace ? (kGen && kDeg == 4) : kW == 0,
+                "trace's modes, and global-Z order; rgb_forward takes W 16");
   // the record and the squared-distance threshold of each staged pair
   // (kTrace: then the cull's rows)
   __shared__ float s_rec[kRec + 1 + (kTrace ? gut::kCullRows : 0)][kBatch];
   // kTrace: each warp's bundle, the warps keeping each staged pair (a bit
   // each), and each warp's list of the lanes it keeps
-  __shared__ gut::Bundle s_bundle[kTrace ? gut::kWarpsTrace : 1];
+  __shared__ gut::Bundle s_bundle[kTrace ? gut::kWarps : 1];
   __shared__ uint8_t s_keep[kTrace ? kBatch : 1];
-  __shared__ uint8_t s_list[kTrace ? gut::kWarpsTrace : 1]
+  __shared__ uint8_t s_list[kTrace ? gut::kWarps : 1]
                            [kTrace ? kBatch : 1];
 
   const int tile = blockIdx.x;
@@ -202,7 +234,7 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
   // tile_start[1])
   const int start = tile_start[kShared ? 0 : tile];
   const int end = tile_start[kShared ? 1 : tile + 1];
-  // sorted mode: batches (and so windows) start on a multiple of W
+  // windows of 128: batches (and so windows) start on a multiple of W
   const int first = start - start % kWin;
   for (int base = first; base < end; base += kBatch) {
     // all pixels of the tile dead (or off-image): the block is done
@@ -238,7 +270,7 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
         }
         composite(h, j);
       }
-    } else if constexpr (kTrace) {
+    } else {
       // the warp's listed lanes, window by window; per ray the k-buffer's
       // passes composite the accepted in (hit_t, lane) order
       const int warp = threadIdx.x >> 5;
@@ -265,21 +297,149 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
           if (more && alive) atomicAdd(&gut::g_window_overflows, 1ull);
         }
       }
-    } else {
-      const int lo0 = max(start - base, 0);   // lanes before the tile
-      for (int w0 = 0; alive && w0 < nb; w0 += kWin) {
-        float key[kWin];
-        uint8_t lane[kWin];
-        const int n = gut::sort_window<kDeg, kWin, kGen>(
-            &s_rec[0][0], kBatch, s_rec[kRec], max(w0, lo0),
-            min(w0 + kWin, nb), ray, p, key, lane);
-        for (int i = 0; alive && i < n; ++i) {
-          const int j = lane[i];
-          gut::Hit h;
-          gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
-                                    s_rec[kRec][j], p, h);
-          composite(h, j);
+    }
+    __syncthreads();
+  }
+  if (inside) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) out_feat[3 * pix + c] = feat[c];
+    out_opacity[pix] = 1.0f - trans;
+    out_depth[pix] = depth;
+    out_hits[pix] = hits;
+    out_tfinal[pix] = trans;
+    if constexpr (kNormals) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) out_normals[3 * pix + c] = nrm[c];
+    }
+  }
+}
+
+// ---- the RGB modes (rgb_forward) ----
+
+// pairs staged per batch, one a thread
+constexpr int kBatchRgb = kBlock;
+
+template <int kDeg, int kW, bool kGen, bool kNormals>
+__device__ __forceinline__ void rgb_forward(
+    const float* __restrict__ table,            // [C, 16]
+    const int32_t* __restrict__ pair_particle,  // [P]
+    const int32_t* __restrict__ tile_start,     // [T + 1]
+    const float* __restrict__ ray_o,            // [H, W, 3], kGen
+    const float* __restrict__ ray_d,            // [H, W, 3]
+    const float* __restrict__ ray_tmin,         // [H, W]
+    const float* __restrict__ ray_tmax,         // [H, W]
+    gut::RasterParams p,
+    float* __restrict__ out_feat,               // [H, W, 3]
+    float* __restrict__ out_opacity,            // [H, W]
+    float* __restrict__ out_depth,              // [H, W]
+    float* __restrict__ out_hits,               // [H, W]
+    float* __restrict__ out_tfinal,             // [H, W]
+    float* __restrict__ out_normals) {          // [H, W, 3]
+  static_assert(kW == 0 || kW == 16, "launch_mode's windows");
+  constexpr unsigned kFull = 0xffffffffu;
+  // the batch's staged rows (common.cuh:kRgbRow), each warp's bundle, the
+  // warps keeping each staged pair (a bit each) and each warp's list
+  __shared__ __align__(16) float s_row[kBatchRgb * gut::kRgbRow];
+  __shared__ gut::Bundle s_bundle[gut::kWarps];
+  constexpr bool kEllipsoid = kW == 0 && kDeg == 2;
+  __shared__ gut::PlaneQuads s_quads[kEllipsoid ? gut::kWarps : 1];
+  __shared__ uint8_t s_keep[kBatchRgb];
+  __shared__ uint8_t s_list[gut::kWarps][kBatchRgb];
+
+  const int tile = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int px = (tile % p.grid_x) * kTile + gut::warp_block_x(threadIdx.x);
+  const int py = (tile / p.grid_x) * kTile + gut::warp_block_y(threadIdx.x);
+  const bool inside = px < p.width && py < p.height;
+  const int64_t pix = static_cast<int64_t>(py) * p.width + px;
+
+  const gut::Ray ray =
+      gut::load_ray<kGen>(ray_o, ray_d, ray_tmin, ray_tmax, inside, pix);
+  {
+    const gut::Bundle bd = gut::warp_bundle(ray, ray.tmax > ray.tmin, lane);
+    if (lane == 0) {
+      s_bundle[warp] = bd;
+      if constexpr (kEllipsoid) s_quads[warp] = gut::plane_quads(bd);
+    }
+  }
+  bool alive = inside;
+  float trans = 1.f, depth = 0.f, hits = 0.f;
+  float feat[3] = {0.f, 0.f, 0.f};
+  float nrm[3] = {0.f, 0.f, 0.f};   // kNormals: sum of w n
+  // blend a candidate accepted with alpha and hit_t (rgb: its three
+  // colour fields; kNormals: its record r and hit h), then the exact kill
+  auto composite = [&](float alpha, float hit_t, const float* rgb,
+                       const float* r, const gut::Hit* h) {
+    const float w = alpha * trans;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) feat[c] += w * rgb[c];
+    if constexpr (kNormals) {
+      const float3 n = gut::hit_normal(r, 1, *h);
+      nrm[0] += w * n.x;
+      nrm[1] += w * n.y;
+      nrm[2] += w * n.z;
+    }
+    depth += w * hit_t;
+    hits += w > 0.f ? 1.f : 0.f;
+    trans *= 1.0f - alpha;
+    if (trans < p.min_transmittance) alive = false;
+  };
+
+  const int start = tile_start[tile];
+  const int end = tile_start[tile + 1];
+  // sorted mode: batches (and so windows) start on a multiple of W
+  const int first = kW ? start - start % kW : start;
+  for (int base = first; base < end; base += kBatchRgb) {
+    // all pixels of the tile dead (or off-image): the block is done
+    if (__syncthreads_count(alive) == 0) break;
+    const int idx = base + threadIdx.x;
+    unsigned keep = 0u;
+    if (idx >= start && idx < end) {
+      keep = gut::stage_rgb_row<kDeg, kGen, kEllipsoid>(
+          table + static_cast<int64_t>(pair_particle[idx]) * kRec,
+          s_row + threadIdx.x * gut::kRgbRow, s_bundle, s_quads, p);
+    }
+    s_keep[threadIdx.x] = static_cast<uint8_t>(keep);
+    __syncthreads();
+    const uint8_t* list = s_list[warp];
+    int n = 0, n_first;
+    if (__any_sync(kFull, alive)) {
+      n = gut::warp_list(s_keep, kBatchRgb, warp, lane, s_list[warp],
+                         n_first);
+    }
+    if constexpr (kW == 0) {
+      for (int i = 0; alive && i < n; ++i) {
+        const float* row = s_row + list[i] * gut::kRgbRow;
+        float r[kRec];
+        gut::load_rgb_row(row, r);
+        gut::Hit h;
+        if (!gut::eval_ray<kDeg, kGen>(r, 1, ray, row[gut::kThrSlot], p, h)) {
+          continue;
         }
+        composite(h.alpha, h.hit_t, r + gut::kRgb, r, &h);
+      }
+    } else {
+      // window by window of the list: the sort keeps each candidate's
+      // alpha beside its key, so only the normals test a lane again
+      for (int i = 0; alive && i < n;) {
+        const int i1 = gut::window_end<kW>(list, i, n);
+        float key[kW], alpha[kW];
+        uint8_t pos[kW];
+        const int m = gut::sort_list<kDeg, kW, kGen>(s_row, list, i, i1, ray,
+                                                     p, key, pos, alpha);
+        for (int k = 0; alive && k < m; ++k) {
+          const float* row = s_row + list[i + pos[k]] * gut::kRgbRow;
+          if constexpr (kNormals) {
+            float r[kRec];
+            gut::load_rgb_row(row, r);
+            gut::Hit h;
+            gut::eval_ray<kDeg, kGen>(r, 1, ray, row[gut::kThrSlot], p, h);
+            composite(alpha[k], key[k], r + gut::kRgb, r, &h);
+          } else {
+            composite(alpha[k], key[k], row + gut::kRgb, nullptr, nullptr);
+          }
+        }
+        i = i1;
       }
     }
     __syncthreads();
@@ -296,6 +456,52 @@ raster_fwd_kernel(const float* __restrict__ table,        // [C, 16]
       for (int c = 0; c < 3; ++c) out_normals[3 * pix + c] = nrm[c];
     }
   }
+}
+
+// The RGB modes' entries: at degree 2 in global-Z order (the ellipsoid
+// cull) at most 64 registers, four blocks an SM, measured faster than
+// the compiler's own choice of 69-78; in windows of 16 the compiler's
+// own (PERF.md §6). Degree 4 in global-Z order takes raster_fwd_kernel's
+// walk of every pair: its rays die within a few dozen pairs, and this
+// walk's staging, cull and lists made it 4-13% slower there.
+template <int kDeg, bool kGen, bool kNormals>
+__global__ void __launch_bounds__(kBlock, 4)
+raster_fwd_rgb_kernel(const float* __restrict__ table,
+                      const int32_t* __restrict__ pair_particle,
+                      const int32_t* __restrict__ tile_start,
+                      const float* __restrict__ ray_o,
+                      const float* __restrict__ ray_d,
+                      const float* __restrict__ ray_tmin,
+                      const float* __restrict__ ray_tmax,
+                      gut::RasterParams p, float* __restrict__ out_feat,
+                      float* __restrict__ out_opacity,
+                      float* __restrict__ out_depth,
+                      float* __restrict__ out_hits,
+                      float* __restrict__ out_tfinal,
+                      float* __restrict__ out_normals) {
+  rgb_forward<kDeg, 0, kGen, kNormals>(
+      table, pair_particle, tile_start, ray_o, ray_d, ray_tmin, ray_tmax, p,
+      out_feat, out_opacity, out_depth, out_hits, out_tfinal, out_normals);
+}
+
+template <int kDeg, bool kGen, bool kNormals>
+__global__ void __launch_bounds__(kBlock)
+raster_fwd_rgb_sorted_kernel(const float* __restrict__ table,
+                             const int32_t* __restrict__ pair_particle,
+                             const int32_t* __restrict__ tile_start,
+                             const float* __restrict__ ray_o,
+                             const float* __restrict__ ray_d,
+                             const float* __restrict__ ray_tmin,
+                             const float* __restrict__ ray_tmax,
+                             gut::RasterParams p, float* __restrict__ out_feat,
+                             float* __restrict__ out_opacity,
+                             float* __restrict__ out_depth,
+                      float* __restrict__ out_hits,
+                             float* __restrict__ out_tfinal,
+                             float* __restrict__ out_normals) {
+  rgb_forward<kDeg, 16, kGen, kNormals>(
+      table, pair_particle, tile_start, ray_o, ray_d, ray_tmin, ray_tmax, p,
+      out_feat, out_opacity, out_depth, out_hits, out_tfinal, out_normals);
 }
 
 // ---- the NHT mode (raster_fwd_nht_kernel) ----
@@ -448,30 +654,57 @@ extern "C" int raster_fwd_launch(
   return gut::launch_raster<true>(
       degree, window, general, shared, normals,
       [&](auto deg, auto win, auto gen, auto sh, auto nrm) {
-        raster_fwd_kernel<decltype(deg)::value, decltype(win)::value,
-                          decltype(gen)::value, decltype(sh)::value,
-                          decltype(nrm)::value>
-            <<<num_tiles, kBlock, 0, stream_>>>(
-                table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
-                ray_tmax, p, out_feat, out_opacity, out_depth, out_hits,
-                out_tfinal, out_normals);
+        constexpr int kDeg = decltype(deg)::value, kW = decltype(win)::value;
+        constexpr bool kGen = decltype(gen)::value,
+                       kSh = decltype(sh)::value,
+                       kNrm = decltype(nrm)::value;
+        if constexpr (!kSh && kW == 0 && kDeg == 2) {
+          raster_fwd_rgb_kernel<kDeg, kGen, kNrm>
+              <<<num_tiles, kBlock, 0, stream_>>>(
+                  table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
+                  ray_tmax, p, out_feat, out_opacity, out_depth, out_hits,
+                  out_tfinal, out_normals);
+        } else if constexpr (!kSh && kW == 16) {
+          raster_fwd_rgb_sorted_kernel<kDeg, kGen, kNrm>
+              <<<num_tiles, kBlock, 0, stream_>>>(
+                  table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
+                  ray_tmax, p, out_feat, out_opacity, out_depth, out_hits,
+                  out_tfinal, out_normals);
+        } else {
+          raster_fwd_kernel<kDeg, kW, kGen, kSh, kNrm>
+              <<<num_tiles, kBlock, 0, stream_>>>(
+                  table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
+                  ray_tmax, p, out_feat, out_opacity, out_depth, out_hits,
+                  out_tfinal, out_normals);
+        }
       });
 }
 
 // Registers, local (spill and stack) bytes, static shared bytes and
 // dynamic shared bytes (none) of kernel B's trace modes, windows of 128
 // over per-block segments (the grid) then a shared segment, without
-// normals, then of its NHT mode at degree 2 and 4: out[4 i + 0..3].
-// Returns the first error.
+// normals; of its NHT mode at degree 2 and 4; then of its RGB modes
+// without normals, degree 2 then 4 for W 0, W 16, general W 0 and general
+// W 16: out[4 i + 0..3]. Returns the first error.
 extern "C" int raster_fwd_attributes(int* out) {
+  using V = const void*;
   const void* fns[] = {
-      reinterpret_cast<const void*>(
+      reinterpret_cast<V>(
           raster_fwd_kernel<4, gut::kTraceW, true, false, false>),
-      reinterpret_cast<const void*>(
+      reinterpret_cast<V>(
           raster_fwd_kernel<4, gut::kTraceW, true, true, false>),
-      reinterpret_cast<const void*>(raster_fwd_nht_kernel<2>),
-      reinterpret_cast<const void*>(raster_fwd_nht_kernel<4>)};
-  for (int i = 0; i < 4; ++i) {
+      reinterpret_cast<V>(raster_fwd_nht_kernel<2>),
+      reinterpret_cast<V>(raster_fwd_nht_kernel<4>),
+      reinterpret_cast<V>(raster_fwd_rgb_kernel<2, false, false>),
+      reinterpret_cast<V>(raster_fwd_kernel<4, 0, false, false, false>),
+      reinterpret_cast<V>(raster_fwd_rgb_sorted_kernel<2, false, false>),
+      reinterpret_cast<V>(raster_fwd_rgb_sorted_kernel<4, false, false>),
+      reinterpret_cast<V>(raster_fwd_rgb_kernel<2, true, false>),
+      reinterpret_cast<V>(raster_fwd_kernel<4, 0, true, false, false>),
+      reinterpret_cast<V>(raster_fwd_rgb_sorted_kernel<2, true, false>),
+      reinterpret_cast<V>(raster_fwd_rgb_sorted_kernel<4, true, false>)};
+  constexpr int kFns = sizeof(fns) / sizeof(fns[0]);
+  for (int i = 0; i < kFns; ++i) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
     if (err != cudaSuccess) return static_cast<int>(err);

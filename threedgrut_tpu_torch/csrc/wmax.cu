@@ -7,28 +7,36 @@
 // TPU kernel streams 128-pair chunks, takes the max of each chunk's
 // [256 pixels x 128] weights over pixels and read-modify-writes the row of
 // a chunk it shares with the previous tile (race-free only because TPU grid
-// steps run one after another). This kernel takes kernel B's shape: one
-// 256-thread block per 16x16 tile, one thread per pixel, 256-pair batches
-// staged in shared memory with the table gather fused in, the same walk,
-// kill and (sorted mode) windows as raster_fwd.cu. A pair belongs to one
-// tile, so its max is taken inside one block: no cross-block race.
+// steps run one after another). This kernel takes kernel B's shape
+// (raster_fwd.cu:raster_fwd_rgb_kernel): one 256-thread block per 16x16
+// tile, warp w on its 8x4 pixel block, 256-pair batches staged in shared
+// memory with the table gather fused in, the same cull (common.cuh,
+// "kernels B and E in their RGB modes"), walk, kill and (sorted mode)
+// windows. A pair belongs to one tile, so its max is taken inside one
+// block: no cross-block race.
 //
-// Per batch, every thread computes its pixel's w for each pair, in pair
-// order (W = 0) or, per window of W, in its sorted order with w stored
-// back at the pair's own lane (the TPU kernel's unsort_w). The block's max
-// per pair is a warp max (__reduce_max_sync on the float's bits: the order
-// of non-negative floats is that of their bits) and then one shared-memory
-// atomicMax per warp. A max does not depend on the order it is taken in,
-// so the result is deterministic. Thread t then writes pair base + t once.
-// Pairs the block never reaches (every pixel dead first), and culled pairs
-// past the last tile, keep the zeros the wrapper allocates, as the TPU
-// kernel's zero rows do (raster.py:2272-2287).
+// Per batch, each warp walks the staged pairs its pyramid keeps while a
+// ray of it lives. In pair order (W = 0) the block's max per pair is a
+// warp max (__reduce_max_sync on the float's bits: the order of
+// non-negative floats is that of their bits) and then one shared-memory
+// atomicMax per warp. Per window of W (the sorted mode) each ray takes
+// the window's pairs in its own sorted order, so each weight goes into
+// the pair's max by a shared atomicMax of its own: the earlier design's
+// per-ray row of the window's weights and 16 warp maxima a window was
+// slower than the parent on the sorted-3DGUT view (PERF.md §6). A max
+// does not depend on the order it is taken in, and a culled pair is one
+// the ray rejects (weight 0), so the result is the unculled kernel's bit
+// for bit. Thread t then writes pair base + t once. Pairs the block never
+// reaches (every pixel dead first), and culled pairs past the last tile,
+// keep the zeros the wrapper allocates, as the TPU kernel's zero rows do
+// (raster.py:2272-2287).
 //
 // In the general-geometry mode (kGen) the hit is common.cuh:
 // eval_hit_general with the pixel's own ray origin, as in kernel B.
 //
-// Bound on this card: kernel B's per-(pixel, pair) arithmetic plus one
-// warp reduction per pair; 64 B gathered and 4 B written per pair.
+// Bound on this card: kernel B's per-(pixel, pair) arithmetic (the test
+// of what the cull leaves) plus one warp reduction per walked pair; 64 B
+// gathered and 4 B written per pair.
 //
 // Numerics: fp32, -fmad=false, the hit math of common.cuh:eval_hit, so w
 // is kernel B's weight bit for bit.
@@ -43,102 +51,116 @@ using gut::kBlock;
 using gut::kRec;
 using gut::kTile;
 
-constexpr int kBatch = 256;        // pairs staged per batch
-constexpr int kStaged = kRec + 1;  // + squared-distance threshold
+constexpr int kBatch = kBlock;     // pairs staged per batch, one a thread
 constexpr unsigned kFull = 0xffffffffu;
 
 template <int kDeg, int kW, bool kGen>
-__global__ void __launch_bounds__(kBlock)
-wmax_kernel(const float* __restrict__ table,            // [C, 16]
-            const int32_t* __restrict__ pair_particle,  // [P]
-            const int32_t* __restrict__ tile_start,     // [T + 1]
-            const float* __restrict__ ray_o,            // [H, W, 3], kGen
-            const float* __restrict__ ray_d,            // [H, W, 3]
-            const float* __restrict__ ray_tmin,         // [H, W]
-            const float* __restrict__ ray_tmax,         // [H, W]
-            gut::RasterParams p,
-            float* __restrict__ wpair) {                // [P]
-  __shared__ float s_rec[kStaged][kBatch];
+__device__ __forceinline__ void wmax_body(
+    const float* __restrict__ table,            // [C, 16]
+    const int32_t* __restrict__ pair_particle,  // [P]
+    const int32_t* __restrict__ tile_start,     // [T + 1]
+    const float* __restrict__ ray_o,            // [H, W, 3], kGen
+    const float* __restrict__ ray_d,            // [H, W, 3]
+    const float* __restrict__ ray_tmin,         // [H, W]
+    const float* __restrict__ ray_tmax,         // [H, W]
+    gut::RasterParams p,
+    float* __restrict__ wpair) {                // [P]
+  static_assert(kW == 0 || kW == 16, "launch_mode's windows");
+  // kernel B's staged rows, bundles, keep bits and lists
+  // (raster_fwd.cu:rgb_forward)
+  __shared__ __align__(16) float s_row[kBatch * gut::kRgbRow];
+  __shared__ gut::Bundle s_bundle[gut::kWarps];
+  constexpr bool kEllipsoid = kW == 0 && kDeg == 2;
+  __shared__ gut::PlaneQuads s_quads[kEllipsoid ? gut::kWarps : 1];
+  __shared__ uint8_t s_keep[kBatch];
+  __shared__ uint8_t s_list[gut::kWarps][kBatch];
   __shared__ unsigned s_wmax[kBatch];   // bits of the batch's per-pair max
 
   const int tile = blockIdx.x;
-  const int lane_id = threadIdx.x & 31;
-  const int px = (tile % p.grid_x) * kTile + threadIdx.x % kTile;
-  const int py = (tile / p.grid_x) * kTile + threadIdx.x / kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int px = (tile % p.grid_x) * kTile + gut::warp_block_x(threadIdx.x);
+  const int py = (tile / p.grid_x) * kTile + gut::warp_block_y(threadIdx.x);
   const bool inside = px < p.width && py < p.height;
   const int64_t pix = static_cast<int64_t>(py) * p.width + px;
 
   const gut::Ray ray =
       gut::load_ray<kGen>(ray_o, ray_d, ray_tmin, ray_tmax, inside, pix);
+  {
+    const gut::Bundle bd = gut::warp_bundle(ray, ray.tmax > ray.tmin, lane);
+    if (lane == 0) {
+      s_bundle[warp] = bd;
+      if constexpr (kEllipsoid) s_quads[warp] = gut::plane_quads(bd);
+    }
+  }
   bool alive = inside;
   float trans = 1.f;
-  constexpr int kWin = kW > 0 ? kW : 1;
-  // the weight of staged pair j, accepted with hit h; applies the kill
-  auto blend = [&](const gut::Hit& h) {
-    const float w = h.alpha * trans;
-    trans *= 1.0f - h.alpha;
+  // the weight of a candidate accepted with alpha; applies the kill
+  auto blend = [&](float alpha) {
+    const float w = alpha * trans;
+    trans *= 1.0f - alpha;
     if (trans < p.min_transmittance) alive = false;
     return w;
   };
-  // the block's max of w over pixels for staged pair j (all threads call)
+  // the block's max of w over pixels for staged pair j (the whole warp
+  // calls)
   auto reduce = [&](float w, int j) {
     const unsigned v = __reduce_max_sync(kFull, __float_as_uint(w));
-    if (lane_id == 0 && v != 0u) atomicMax(&s_wmax[j], v);
+    if (lane == 0 && v != 0u) atomicMax(&s_wmax[j], v);
   };
 
   const int start = tile_start[tile];
   const int end = tile_start[tile + 1];
   // sorted mode: batches (and so windows) start on a multiple of W
-  const int first = start - start % kWin;
+  const int first = kW ? start - start % kW : start;
   for (int base = first; base < end; base += kBatch) {
     // all pixels of the tile dead (or off-image): the block is done
     if (__syncthreads_count(alive) == 0) break;
     const int idx = base + threadIdx.x;
     s_wmax[threadIdx.x] = 0u;
+    unsigned keep = 0u;
     if (idx >= start && idx < end) {
-      const float4* row = reinterpret_cast<const float4*>(
-          table + static_cast<int64_t>(pair_particle[idx]) * kRec);
-      const float4 v0 = row[0], v1 = row[1], v2 = row[2], v3 = row[3];
-      const float vals[kRec] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w,
-                                v2.x, v2.y, v2.z, v2.w, v3.x, v3.y, v3.z, v3.w};
-#pragma unroll
-      for (int f = 0; f < kRec; ++f) s_rec[f][threadIdx.x] = vals[f];
-      s_rec[kRec][threadIdx.x] = gut::sq_threshold<kDeg>(v3.x, p);
+      keep = gut::stage_rgb_row<kDeg, kGen, kEllipsoid>(
+          table + static_cast<int64_t>(pair_particle[idx]) * kRec,
+          s_row + threadIdx.x * gut::kRgbRow, s_bundle, s_quads, p);
     }
+    s_keep[threadIdx.x] = static_cast<uint8_t>(keep);
     __syncthreads();
-    const int nb = min(kBatch, end - base);
-    const int lo0 = max(start - base, 0);   // lanes before the tile
+    const uint8_t* list = s_list[warp];
+    int n = 0, n_first;
+    if (__any_sync(kFull, alive)) {
+      n = gut::warp_list(s_keep, kBatch, warp, lane, s_list[warp], n_first);
+    }
+    // the warp walks its list while a ray of it lives
     if constexpr (kW == 0) {
-      for (int j = 0; j < nb; ++j) {
+      for (int i = 0; i < n && __any_sync(kFull, alive); ++i) {
+        const float* row = s_row + list[i] * gut::kRgbRow;
+        float r[kRec];
+        gut::load_rgb_row(row, r);
         float w = 0.f;
         gut::Hit h;
-        if (alive && gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
-                                               s_rec[kRec][j], p, h)) {
-          w = blend(h);
+        if (alive && gut::eval_ray<kDeg, kGen>(r, 1, ray, row[gut::kThrSlot],
+                                               p, h)) {
+          w = blend(h.alpha);
         }
-        reduce(w, j);
+        reduce(w, list[i]);
       }
     } else {
-      for (int w0 = 0; w0 < nb; w0 += kWin) {
-        float wv[kWin];   // w of the window's pairs, by lane
-#pragma unroll
-        for (int k = 0; k < kWin; ++k) wv[k] = 0.f;
-        if (alive) {
-          float key[kWin];
-          uint8_t order[kWin];
-          const int n = gut::sort_window<kDeg, kWin, kGen>(
-              &s_rec[0][0], kBatch, s_rec[kRec], max(w0, lo0),
-              min(w0 + kWin, nb), ray, p, key, order);
-          for (int i = 0; alive && i < n; ++i) {
-            const int j = order[i];
-            gut::Hit h;
-            gut::eval_ray<kDeg, kGen>(&s_rec[0][j], kBatch, ray,
-                                      s_rec[kRec][j], p, h);
-            wv[j - w0] = blend(h);
+      // window by window of the list, in each ray's sorted order; a
+      // weight goes straight into the pair's max (a shared atomicMax: the
+      // rays of a warp take the window's pairs in their own orders)
+      for (int i = 0; alive && i < n;) {
+        const int i1 = gut::window_end<kW>(list, i, n);
+        float key[kW], alpha[kW];
+        uint8_t pos[kW];
+        const int m = gut::sort_list<kDeg, kW, kGen>(s_row, list, i, i1, ray,
+                                                     p, key, pos, alpha);
+        for (int k = 0; alive && k < m; ++k) {
+          const float w = blend(alpha[k]);
+          if (w > 0.f) {
+            atomicMax(&s_wmax[list[i + pos[k]]], __float_as_uint(w));
           }
         }
-        const int nw = min(kWin, nb - w0);
-        for (int k = 0; k < nw; ++k) reduce(wv[k], w0 + k);
+        i = i1;
       }
     }
     __syncthreads();
@@ -146,6 +168,37 @@ wmax_kernel(const float* __restrict__ table,            // [C, 16]
       wpair[idx] = __uint_as_float(s_wmax[threadIdx.x]);
     }
   }
+}
+
+// E's entries, as B's (raster_fwd.cu:raster_fwd_rgb_kernel): at degree 2
+// in global-Z order (the ellipsoid cull) four blocks an SM, elsewhere the
+// compiler's own register count (measured faster there, PERF.md §6).
+template <int kDeg, int kW, bool kGen>
+__global__ void __launch_bounds__(kBlock, 4)
+wmax_capped_kernel(const float* __restrict__ table,
+                   const int32_t* __restrict__ pair_particle,
+                   const int32_t* __restrict__ tile_start,
+                   const float* __restrict__ ray_o,
+                   const float* __restrict__ ray_d,
+                   const float* __restrict__ ray_tmin,
+                   const float* __restrict__ ray_tmax, gut::RasterParams p,
+                   float* __restrict__ wpair) {
+  wmax_body<kDeg, kW, kGen>(table, pair_particle, tile_start, ray_o, ray_d,
+                            ray_tmin, ray_tmax, p, wpair);
+}
+
+template <int kDeg, int kW, bool kGen>
+__global__ void __launch_bounds__(kBlock)
+wmax_kernel(const float* __restrict__ table,
+            const int32_t* __restrict__ pair_particle,
+            const int32_t* __restrict__ tile_start,
+            const float* __restrict__ ray_o,
+            const float* __restrict__ ray_d,
+            const float* __restrict__ ray_tmin,
+            const float* __restrict__ ray_tmax, gut::RasterParams p,
+            float* __restrict__ wpair) {
+  wmax_body<kDeg, kW, kGen>(table, pair_particle, tile_start, ray_o, ray_d,
+                            ray_tmin, ray_tmax, p, wpair);
 }
 
 }  // namespace
@@ -164,13 +217,19 @@ extern "C" int wmax_launch(const float* table, const int32_t* pair_particle,
   gut::RasterParams p{width, height, grid_x, min_transmittance, max_alpha,
                       sq_thr_response, log_min_alpha, gg_scale};
   if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
+  const auto stream_ = static_cast<cudaStream_t>(stream);
   return gut::launch_mode(degree, window, general, [&](auto deg, auto win,
                                                        auto gen) {
-    wmax_kernel<decltype(deg)::value, decltype(win)::value,
-                decltype(gen)::value>
-        <<<num_tiles, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-            table, pair_particle, tile_start, ray_o, ray_d, ray_tmin,
-            ray_tmax, p,
-            wpair);
+    constexpr int kDeg = decltype(deg)::value, kW = decltype(win)::value;
+    constexpr bool kGen = decltype(gen)::value;
+    if constexpr (kW == 0 && kDeg == 2) {
+      wmax_capped_kernel<kDeg, kW, kGen><<<num_tiles, kBlock, 0, stream_>>>(
+          table, pair_particle, tile_start, ray_o, ray_d, ray_tmin, ray_tmax,
+          p, wpair);
+    } else {
+      wmax_kernel<kDeg, kW, kGen><<<num_tiles, kBlock, 0, stream_>>>(
+          table, pair_particle, tile_start, ray_o, ray_d, ray_tmin, ray_tmax,
+          p, wpair);
+    }
   });
 }

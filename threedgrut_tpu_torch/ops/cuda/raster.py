@@ -12,6 +12,18 @@ Their headers say what bounds them and how they are laid out. On CPU
 tensors the wrappers run the plain PyTorch versions
 ``rasterize_tiles_plain`` and ``rasterize_tiles_backward_plain``.
 
+Kernel B in these modes (and kernel E, ``ops/cuda/wmax.py``) tests only
+the (pair, pixel) candidates a conservative cull keeps: each warp of 8x4
+pixels forms the pyramid of its rays, and the thread that stages a pair
+tests the particle's acceptance ellipsoid (degree 2 in global-Z order)
+or sphere (elsewhere) against it (common.cuh, "kernels B and E in their
+RGB modes"); B at degree 4 in global-Z order, whose rays die within a
+few dozen pairs, walks every pair as before. A culled candidate is one the exact test rejects, so the
+outputs are those of testing every pair. ``cull_plain`` is this cull,
+and trace's below, in the kernels' fp32 operation order, held against
+the exact test; ``rasterize_tiles_plain(..., cull=True)`` composites as
+the kernels walk.
+
 The general-geometry mode (``ray_o`` given; raster.py chunk_hits_general
 and the general pullback of _bwd_chunk_grads, the TPU's kernel 5) takes
 a per-pixel ray origin: a rolling-shutter camera, or a caller's own rays.
@@ -41,8 +53,7 @@ and ``launches_window128``. In windows of 128 the kernels test only the
 candidates a conservative cull keeps (common.cuh: each warp's bundle of
 rays, then each ray's sphere) and sort each ray's window in a register
 k-buffer of TRACE_K keys, with extra passes for a window that accepts
-more (``window_overflows`` counts them); ``trace_cull_plain`` is the
-cull in the kernels' fp32 operation order, held against the exact test.
+more (``window_overflows`` counts them).
 
 With ``cfg.enable_normals`` kernel B also blends each hit's world normal
 (raster.py compute_normals; ``ops/hit.py:hit_normal``) into a sixth
@@ -515,20 +526,23 @@ def nht_kernel_attributes():
 # the kernels raster_bwd_attributes and raster_fwd_attributes list: C's
 # NHT and trace modes, then its RGB modes by degree, window and geometry
 # (rgb_<degree>_w<window>[_general]; rgb_4_w0_shared: trace()'s brute force
-# in rank order); B's trace and NHT modes
-_BWD_ATTRIBUTES = ("nht2", "nht4", "trace_grid", "trace_shared",
-                   "rgb_2_w0", "rgb_4_w0", "rgb_2_w16", "rgb_4_w16",
-                   "rgb_2_w0_general", "rgb_4_w0_general",
-                   "rgb_2_w16_general", "rgb_4_w16_general",
-                   "rgb_4_w0_shared")
-_FWD_ATTRIBUTES = ("trace_grid", "trace_shared", "nht2", "nht4")
+# in rank order); B's trace and NHT modes, then its RGB modes (without
+# normals) as C's
+_RGB_MODES = ("rgb_2_w0", "rgb_4_w0", "rgb_2_w16", "rgb_4_w16",
+              "rgb_2_w0_general", "rgb_4_w0_general", "rgb_2_w16_general",
+              "rgb_4_w16_general")
+_BWD_ATTRIBUTES = ("nht2", "nht4", "trace_grid", "trace_shared") + \
+    _RGB_MODES + ("rgb_4_w0_shared",)
+_FWD_ATTRIBUTES = ("trace_grid", "trace_shared", "nht2", "nht4") + _RGB_MODES
 
 
-def rgb_kernel_attributes():
+def rgb_kernel_attributes(kernel: str = "raster_bwd"):
     """{rgb_<degree>_w<window>[_general|_shared]: {registers, local_bytes,
     shared_bytes, dynamic_shared_bytes}} of kernel C's RGB modes
-    (raster_bwd.cu:raster_bwd_kernel)."""
-    att = build.attributes("raster_bwd", _BWD_ATTRIBUTES)
+    (raster_bwd.cu:raster_bwd_kernel), or with ``kernel="raster_fwd"``
+    kernel B's (raster_fwd.cu:raster_fwd_rgb_kernel, without normals)."""
+    att = build.attributes(kernel, _BWD_ATTRIBUTES if kernel == "raster_bwd"
+                           else _FWD_ATTRIBUTES)
     return {k: v for k, v in att.items() if k.startswith("rgb_")}
 
 
@@ -737,19 +751,25 @@ def _hit_terms(rec, d, o=None, canonical=False):
                                   dim=-1)
 
 
-# trace()'s cull (common.cuh, kernels B and C at windows of 128): fp32's
-# unit roundoff and the k-buffer's size
+# the cull of kernels B and E in their RGB modes and of trace's B and C
+# (common.cuh): fp32's unit roundoff and trace's k-buffer size
 _EPS = 2.0 ** -24
 TRACE_K = 8
 _BUNDLE_PLANES, _BUNDLE_NONE, _BUNDLE_ALL = 0, 1, 2
 
 
+def _row_norms_plain(rec):
+    """[3] x [P]: |M row i|^2 of records [P, 16] (common.cuh:cull_radius's
+    m[i])."""
+    return [rec[:, 3 + 3 * i] * rec[:, 3 + 3 * i]
+            + rec[:, 4 + 3 * i] * rec[:, 4 + 3 * i]
+            + rec[:, 5 + 3 * i] * rec[:, 5 + 3 * i] for i in range(3)]
+
+
 def _cull_radii_plain(rec, thr):
     """(a, b, a2, b2) [P] of records [P, 16] and their thresholds [P]:
     common.cuh:cull_radius and stage_cull in their fp32 operation order."""
-    m = [rec[:, 3 + 3 * i] * rec[:, 3 + 3 * i]
-         + rec[:, 4 + 3 * i] * rec[:, 4 + 3 * i]
-         + rec[:, 5 + 3 * i] * rec[:, 5 + 3 * i] for i in range(3)]
+    m = _row_norms_plain(rec)
     mn = torch.minimum(torch.minimum(m[0], m[1]), m[2])
     mx = torch.maximum(torch.maximum(m[0], m[1]), m[2])
     kap = torch.sqrt(mx / mn)
@@ -759,10 +779,23 @@ def _cull_radii_plain(rec, thr):
     return a, b, 1.0625 * a * a, 17.0 * b * b
 
 
-def _warp_bundles_plain(o, d, tmin, tmax):
+def _cull_centres_plain(rec, general):
+    """[P, 3] common.cuh:cull_sphere's centres: the general mode's p, or a
+    shared-origin record's p - o = -M^T diag(1 / |M row i|^2) a."""
+    if general:
+        return rec[:, 0:3]
+    m = _row_norms_plain(rec)
+    u = [rec[:, i] / m[i] for i in range(3)]
+    return torch.stack([-(rec[:, 3 + j] * u[0] + rec[:, 6 + j] * u[1]
+                          + rec[:, 9 + j] * u[2]) for j in range(3)], dim=1)
+
+
+def _warp_bundles_plain(o, d, tmin, tmax, dn=None):
     """common.cuh:warp_bundle of rays [G, 32, 3] (origins, directions) and
     t-ranges [G, 32], group by group, in its fp32 operation order: (mode
-    [G], apex c [G, 3], rho [G], unit plane normals [G, 5, 3])."""
+    [G], apex c [G, 3], rho [G], unit plane normals [G, 5, 3]). ``dn``
+    [G, 32]: the kernels' |d| (1 in the shared-origin mode), by default
+    computed from d."""
     g = o.shape[0]
     dev = o.device
     valid = tmax > tmin
@@ -783,7 +816,8 @@ def _warp_bundles_plain(o, d, tmin, tmax):
     da = dx * ax + dy * ay + dz * az
     q = torch.stack([dx - da * ax, dy - da * ay, dz - da * az], dim=-1)
     q2 = q[..., 0] * q[..., 0] + q[..., 1] * q[..., 1] + q[..., 2] * q[..., 2]
-    dn = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    if dn is None:
+        dn = torch.sqrt(dx * dx + dy * dy + dz * dz)
     off = (valid & ((tmin < 0.0) | ~(da >= 0.2 * dn))).any(1)
     key = torch.where(valid, q2, torch.full_like(q2, -1.0))
     lu = torch.argmax((key == key.amax(1, keepdim=True)).to(torch.int32),
@@ -850,36 +884,177 @@ def _sphere_keeps_plain(e, d, a2, b2):
     return ~(c2 >= (a2 + b2 * e2) * dd)
 
 
-def trace_cull_plain(table, pair_particle, tile_start, ray_d, tmin, tmax,
-                     cfg, ray_o, shared=False):
-    """Hold trace()'s cull (kernels B and C at windows of 128) against the
-    exact test, on the kernels' arguments: the cull in the kernels' fp32
-    operation order (each warp's bundle, then each ray's sphere), and the
-    accept test of ``_hit_terms``. Returns a dict of counts over every
-    (pair, pixel) of the tiles: ``tests``; ``bundle_culled`` (outside the
-    warp's bundle), ``sphere_culled`` (in it, but the ray's line misses the
-    sphere); ``accepted``; ``culled_accepted`` (culled but accepted: must
-    be 0); ``over_k`` (a ray's windows with more than TRACE_K accepted, an
-    upper bound of the k-buffer's extra first passes: the kill may stop
-    the ray before) and ``max_window`` (the most accepted in one). And the
-    work the kernels need, where a ray walks its windows up to the one in
-    which it is killed (T at the window's start, in float64 over the
-    accepted alphas, at least ``cfg.min_transmittance``): ``staged``
-    (pairs some ray of their block walks, each staging the cull once),
-    ``bundle_tests`` (those pairs times their block's warps with a
-    pyramid, which test them), ``sphere_tests`` (walked (pair, pixel) in
-    the warp's bundle) and ``exact_tests`` (those in the ray's sphere)."""
+def _plane_quads_plain(n):
+    """[..., 4, 6] common.cuh:plane_quads of unit plane normals [..., 5,
+    3]: the four side planes' nx^2, ny^2, nz^2, 2 nx ny, 2 nx nz,
+    2 ny nz."""
+    nx, ny, nz = n[..., :4, 0], n[..., :4, 1], n[..., :4, 2]
+    return torch.stack([nx * nx, ny * ny, nz * nz, 2.0 * nx * ny,
+                        2.0 * nx * nz, 2.0 * ny * nz], dim=-1)
+
+
+def _cull_quadric_plain(rec, thr):
+    """[P, 6] common.cuh:cull_quadric of records [P, 16] with thresholds
+    [P]: the acceptance ellipsoid's quadric (q00, q11, q22, q01, q02,
+    q12), in its fp32 operation order."""
+    m = _row_norms_plain(rec)
+    w = [(1.0 / m[k]) * (1.0 / m[k]) for k in range(3)]
+    mn = torch.minimum(torch.minimum(m[0], m[1]), m[2])
+    mx = torch.maximum(torch.maximum(m[0], m[1]), m[2])
+    g = thr * (1.0003 + (256.0 * _EPS) * (mx / mn))
+
+    def entry(j, k):
+        return (rec[:, 3 + j] * rec[:, 3 + k] * w[0]
+                + rec[:, 6 + j] * rec[:, 6 + k] * w[1]
+                + rec[:, 9 + j] * rec[:, 9 + k] * w[2]) * g
+
+    return torch.stack([entry(0, 0), entry(1, 1), entry(2, 2), entry(0, 1),
+                        entry(0, 2), entry(1, 2)], dim=1)
+
+
+def _ellipsoid_keeps_plain(bundle, quads, p, a, b, q):
+    """[P] common.cuh:ellipsoid_keeps (with stage_rgb_row's slack) of
+    particles centred at p [P, 3] with sphere radius a, b [P] and
+    quadrics q [P, 6] in bundles and side-plane monomials [P, 4, 6]
+    indexed per particle."""
+    mode, c, rho, n = bundle
+    x = p - c
+    length = torch.sqrt(x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]
+                        + x[:, 2] * x[:, 2])
+    base = 2.0 * b * (length + rho) + rho
+    dots = (x[:, None, 0] * n[..., 0] + x[:, None, 1] * n[..., 1]
+            + x[:, None, 2] * n[..., 2])                        # [P, 5]
+    out = dots[:, 4] > a + base
+    a2 = a * a
+    for i in range(4):
+        m = quads[:, i]
+        e2 = (q[:, 0] * m[:, 0] + q[:, 1] * m[:, 1] + q[:, 2] * m[:, 2]
+              + q[:, 3] * m[:, 3] + q[:, 4] * m[:, 4] + q[:, 5] * m[:, 5])
+        d = dots[:, i] - base
+        out |= (d > 0.0) & (d * d > torch.fmin(e2, a2))
+    return torch.where(mode == _BUNDLE_PLANES, ~out, mode == _BUNDLE_ALL)
+
+
+def _warp_of_pixel(trace):
+    """[256] the warp of each pixel of a tile (row-major 16 x 16): trace's
+    kernels give warp w the rows 2w and 2w + 1; kernels B and E in their
+    RGB modes the 8x4 block (w % 2, w / 2) (common.cuh:warp_block_x)."""
+    t = torch.arange(TILE_PIXELS)
+    if trace:
+        return t // 32
+    x, y = t % TILE_X, t // TILE_X
+    return (y // 4) * 2 + x // 8
+
+
+class _Cull(NamedTuple):
+    """The cull's per-view set-up (``_cull_setup``): the kernels' warp of
+    each pixel, each warp's bundle ([T, 8, ...] of
+    ``_warp_bundles_plain``) and, where B and E test the ellipsoid (their
+    RGB modes at degree 2 in global-Z order), its side planes' monomials
+    ([T, 8, 4, 6])."""
+    trace: bool
+    general: bool
+    warp_of: torch.Tensor
+    bundles: tuple
+    quads: Optional[torch.Tensor]
+
+
+def _cull_setup(rays: _Tiled, cfg, shared) -> _Cull:
+    """The warps' bundles of a launch on ``rays``: trace's kernels
+    (windows of 128, or a shared segment) or B's and E's RGB modes."""
+    trace = shared or _window(cfg) == TRACE_WINDOW
+    general = rays.ro is not None
+    warp_of = _warp_of_pixel(trace).to(rays.rd.device)
+    by_warp = torch.argsort(warp_of, stable=True)     # warp-major pixels
+    rd = rays.rd[:, by_warp]
+    ro = rays.ro[:, by_warp] if general else torch.zeros_like(rd)
+    bundles = _warp_bundles_plain(
+        ro.reshape(-1, 32, 3), rd.reshape(-1, 32, 3),
+        rays.tmin[:, by_warp].reshape(-1, 32),
+        rays.tmax[:, by_warp].reshape(-1, 32),
+        None if general else torch.ones_like(rd[..., 0]).reshape(-1, 32))
+    bundles = tuple(x.reshape(rays.rd.shape[0], 8, *x.shape[1:])
+                    for x in bundles)
+    ellipsoid = (not trace and not cfg.sorted_compositing
+                 and cfg.kernel_degree == 2)
+    return _Cull(trace, general, warp_of, bundles,
+                 _plane_quads_plain(bundles[3]) if ellipsoid else None)
+
+
+def _cull_keeps(cull: _Cull, rec, tile, d, o, thr):
+    """(pyramid, sphere) [P, 256]: the (pair, pixel) each test keeps, for
+    records ``rec`` [P, 16] of tiles ``tile`` [P] with thresholds ``thr``
+    [P] (rays d, o [P, 256, 3]). Trace's kernels test each warp's pyramid
+    against the sphere, then each ray's sphere; B's and E's RGB modes the
+    pyramid against the ellipsoid (degree 2 in global-Z order) or the
+    sphere (common.cuh:stage_rgb_row), with no per-ray test (all kept)."""
+    a, b, a2, b2 = _cull_radii_plain(rec, thr)
+    if not cull.general:
+        b = b + 64.0 * _EPS
+    centre = _cull_centres_plain(rec, cull.general)
+    if cull.quads is None:     # the sphere: bundle_keeps
+        keep = torch.stack([_bundle_keeps_plain(
+            tuple(x[tile, w] for x in cull.bundles), centre, a, b)
+            for w in range(8)], dim=1)
+    else:
+        q = _cull_quadric_plain(rec, thr)
+        keep = torch.stack([_ellipsoid_keeps_plain(
+            tuple(x[tile, w] for x in cull.bundles), cull.quads[tile, w],
+            centre, a, b, q) for w in range(8)], dim=1)
+    keep = keep[:, cull.warp_of]                                # [P, 256]
+    if not cull.trace:
+        return keep, torch.ones_like(keep)
+    return keep, _sphere_keeps_plain(o - rec[:, None, 0:3], d, a2[:, None],
+                                     b2[:, None])
+
+
+def _sq_thresholds(rec, cfg):
+    """[P] common.cuh:sq_threshold of records [P, R]."""
     s, thr_resp, log_min_alpha = _thresholds(cfg)
+    thr = torch.clamp((log_min_alpha - torch.log(
+        torch.clamp(rec[:, 12], min=1e-30))) / s, max=thr_resp)
+    if cfg.kernel_degree == 4:
+        thr = torch.sqrt(torch.clamp(thr, min=0.0))
+    return thr
+
+
+def cull_plain(table, pair_particle, tile_start, ray_d, tmin, tmax, cfg,
+               ray_o=None, shared=False):
+    """Hold the cull of a kernel launch against the exact test, on the
+    kernels' arguments: kernels B and E in their RGB modes (each warp of
+    8x4 pixels tests the particle's ellipsoid, at degree 2 in global-Z
+    order, or its sphere against its pyramid, then the exact test; a
+    shared-origin record's centre re-derived from a,
+    common.cuh:stage_rgb_row; B at degree 4 in global-Z order tests every
+    pair, and E's cull is what this counts there), or
+    trace's B and C (windows of 128 or a shared segment: warps of 16x2
+    pixels, each ray's sphere test after the pyramid's). The cull runs in
+    the kernels' fp32 operation order, the accept test is ``_hit_terms``'.
+    Returns a dict of counts over every (pair, pixel) of the tiles:
+    ``tests``; ``bundle_culled`` (outside the warp's pyramid),
+    ``sphere_culled`` (in it, but the ray's line misses the sphere: trace
+    only); ``accepted``; ``culled_accepted`` (culled but accepted: must
+    be 0); per ray and window (windows of 128, 16, or single pairs in
+    global-Z order) ``over_k`` (windows with more than TRACE_K accepted,
+    for trace an upper bound of the k-buffer's extra first passes: the
+    kill may stop the ray before) and ``max_window`` (the most accepted in
+    one). And the work the kernels need, where a ray walks its windows up
+    to the one in which it is killed (T at the window's start, in float64
+    over the accepted alphas, at least ``cfg.min_transmittance``):
+    ``staged`` (pairs some ray of their block walks, each staging the cull
+    once), ``bundle_tests`` (those pairs times their block's warps with a
+    pyramid, which test them), ``sphere_tests`` (walked (pair, pixel) in
+    the warp's list, trace only) and ``exact_tests`` (those the cull
+    keeps)."""
     rays = _tilize_rays(ray_d, tmin, tmax, ray_o)
     n_tiles = rays.gx * rays.gy
     if shared:
         pair_particle, tile_start = _unshare(pair_particle, tile_start,
                                              n_tiles)
-    bundles = _warp_bundles_plain(
-        rays.ro.reshape(-1, 32, 3), rays.rd.reshape(-1, 32, 3),
-        rays.tmin.reshape(-1, 32), rays.tmax.reshape(-1, 32))
-    bundles = tuple(x.reshape(n_tiles, 8, *x.shape[1:]) for x in bundles)
-    planes = (bundles[0] == _BUNDLE_PLANES).sum(1)               # [T]
+    cull = _cull_setup(rays, cfg, shared)
+    window = (TRACE_WINDOW if cull.trace and cfg.sorted_compositing
+              else max(_window(cfg), 1))
+    planes = (cull.bundles[0] == _BUNDLE_PLANES).sum(1)         # [T]
     out = dict(tests=0, bundle_culled=0, sphere_culled=0, accepted=0,
                culled_accepted=0, over_k=0, max_window=0, staged=0,
                bundle_tests=0, sphere_tests=0, exact_tests=0)
@@ -893,27 +1068,20 @@ def trace_cull_plain(table, pair_particle, tile_start, ray_d, tmin, tmax,
         counts = (starts[t0 + 1:t1 + 1] - starts[t0:t1]).to(dev)
         tile = torch.repeat_interleave(torch.arange(t0, t1, device=dev),
                                        counts)
-        d, o = rays.rd[tile], rays.ro[tile]
+        d = rays.rd[tile]
+        o = rays.ro[tile] if cull.general else None
         sq, hit_t = _hit_terms(rec, d, o)
-        thr = torch.clamp((log_min_alpha - torch.log(
-            torch.clamp(rec[:, 12], min=1e-30))) / s, max=thr_resp)
-        thr = torch.sqrt(torch.clamp(thr, min=0.0))
+        thr = _sq_thresholds(rec, cfg)
         acc = ((sq < thr[:, None]) & (hit_t > rays.tmin[tile])
                & (hit_t < rays.tmax[tile]))
-        a, b, a2, b2 = _cull_radii_plain(rec, thr)
-        keep = torch.stack([_bundle_keeps_plain(
-            tuple(x[tile, w] for x in bundles), rec[:, 0:3], a, b)
-            for w in range(8)], dim=1)                          # [P, 8]
-        keep = keep.repeat_interleave(32, dim=1)                # [P, 256]
-        sphere = _sphere_keeps_plain(o - rec[:, None, 0:3], d, a2[:, None],
-                                     b2[:, None])
+        keep, sphere = _cull_keeps(cull, rec, tile, d, o, thr)
         out["tests"] += keep.numel()
         out["bundle_culled"] += int((~keep).sum())
         out["sphere_culled"] += int((keep & ~sphere).sum())
         out["accepted"] += int(acc.sum())
         out["culled_accepted"] += int((acc & ~(keep & sphere)).sum())
-        # accepted per (ray, window): windows of 128 on the pair index
-        win = torch.arange(p0, p1, device=dev) // TRACE_WINDOW
+        # accepted per (ray, window): windows on the pair index
+        win = torch.arange(p0, p1, device=dev) // window
         per = torch.zeros((int(win[-1] - win[0]) + 1, TILE_PIXELS),
                           dtype=torch.int64, device=dev).index_add_(
             0, win - win[0], acc.to(torch.int64))
@@ -936,7 +1104,8 @@ def trace_cull_plain(table, pair_particle, tile_start, ray_d, tmin, tmax,
         staged = walk.any(1)
         out["staged"] += int(staged.sum())
         out["bundle_tests"] += int(planes[tile][staged].sum())
-        out["sphere_tests"] += int((keep & walk).sum())
+        if cull.trace:
+            out["sphere_tests"] += int((keep & walk).sum())
         out["exact_tests"] += int((keep & sphere & walk).sum())
     return out
 
@@ -989,7 +1158,7 @@ def _normal_terms(rec, d, o=None):
 
 
 def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
-                     pair_weights=False):
+                     pair_weights=False, cull: Optional[_Cull] = None):
     """Composite tiles [t0, t1) of pair records ``rec`` [P_g, R] (the
     group's pairs, f32). Returns (acc [G, 256, F + 2] = features, depth,
     hits, and with ``cfg.enable_normals`` 3 more channels of the blended
@@ -1006,8 +1175,8 @@ def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
     each pixel's
     candidates are permuted into ``_window_order`` first (the sort key is
     the fp32 hit distance), composited in that order, and the weights put
-    back in pair order."""
-    s, thr_resp, log_min_alpha = _thresholds(cfg)
+    back in pair order. With ``cull`` (``_cull_setup``) a candidate the
+    kernels' cull drops is rejected too, as the kernels walk."""
     dev = rec.device
     p0, p1 = int(starts[t0]), int(starts[t1])
     counts = (starts[t0 + 1:t1 + 1] - starts[t0:t1]).to(dev)
@@ -1017,11 +1186,12 @@ def _composite_group(rec, starts, t0, t1, rays: _Tiled, cfg, rec64=None,
     o = None if rays.ro is None else rays.ro[tile]
     sq, hit_t = _hit_terms(rec, d, o)
     dens = rec[:, 12:13]
-    thr = torch.clamp((log_min_alpha - torch.log(torch.clamp(dens, min=1e-30)))
-                      / s, max=thr_resp)
-    if cfg.kernel_degree == 4:
-        thr = torch.sqrt(torch.clamp(thr, min=0.0))
-    keep = (sq < thr) & (hit_t > rays.tmin[tile]) & (hit_t < rays.tmax[tile])
+    thr = _sq_thresholds(rec, cfg)
+    keep = ((sq < thr[:, None]) & (hit_t > rays.tmin[tile])
+            & (hit_t < rays.tmax[tile]))
+    if cull is not None:
+        pyramid, sphere = _cull_keeps(cull, rec, tile, d, o, thr)
+        keep = keep & pyramid & sphere
     order = (_window_order(keep, hit_t, p0, tile, _window(cfg))
              if cfg.sorted_compositing else None)
     nht = rec.shape[1] != RECORD_DIM
@@ -1100,7 +1270,7 @@ def _unshare(pair_particle, tile_start, n_tiles):
 
 
 def rasterize_tiles_plain(table, pair_particle, tile_start, ray_d, tmin,
-                          tmax, cfg, ray_o=None, shared=False):
+                          tmax, cfg, ray_o=None, shared=False, cull=False):
     """Plain PyTorch version of ``rasterize_tiles_forward``.
 
     Vectorised over (pair, pixel): per-pair alpha for the 256 pixels of
@@ -1108,7 +1278,9 @@ def rasterize_tiles_plain(table, pair_particle, tile_start, ray_d, tmin,
     prefix sum (float64) within each tile's segment, the exact kill as a
     mask on it, and ``index_add`` into the pixels. Tiles are processed in
     groups so the temporaries stay bounded. A shared segment runs as its
-    copies per tile (``_unshare``).
+    copies per tile (``_unshare``). ``cull``: the kernels' cull rejects
+    what it drops (``_composite_group``); it drops nothing the exact test
+    accepts, so the result is the same.
     """
     h, w = ray_d.shape[:2]
     nht = _is_nht(table, cfg, ray_o)
@@ -1125,12 +1297,14 @@ def rasterize_tiles_plain(table, pair_particle, tile_start, ray_d, tmin,
     out[..., nf + 2] = 1.0
     starts = tile_start.to(torch.int64).cpu()
     group = _PLAIN_GROUP_PAIRS // (_NHT_GROUP_SHRINK if nht else 1)
+    setup = _cull_setup(rays, cfg, shared) if cull else None
     for t0, t1 in _tile_groups(starts, n_tiles, group):
         p0, p1 = int(starts[t0]), int(starts[t1])
         if p1 == p0:
             continue
         rec = table[pair_particle[p0:p1].to(torch.int64)]
-        acc, t_final = _composite_group(rec, starts, t0, t1, rays, cfg)
+        acc, t_final = _composite_group(rec, starts, t0, t1, rays, cfg,
+                                        cull=setup)
         out[t0:t1, :, 0:nf + 2] = acc[..., 0:nf + 2]
         out[t0:t1, :, nf + 2] = t_final
         out[t0:t1, :, nf + 3:] = acc[..., nf + 2:]

@@ -19,8 +19,8 @@ import torch
 
 from . import build
 from .raster import (_PLAIN_GROUP_PAIRS, WINDOWS, _check_inputs,
-                     _composite_group, _count, _is_nht, _lib, _mode, _ptr,
-                     _tile_groups, _tilize_rays, _window)
+                     _composite_group, _count, _cull_setup, _is_nht, _lib,
+                     _mode, _ptr, _tile_groups, _tilize_rays, _window)
 
 
 def pair_weight_max(table: torch.Tensor, pair_particle: torch.Tensor,
@@ -61,10 +61,12 @@ pair_weight_max.launches_general = 0
 
 
 def pair_weight_max_plain(table, pair_particle, tile_start, ray_d, tmin,
-                          tmax, cfg, ray_o=None) -> torch.Tensor:
+                          tmax, cfg, ray_o=None, cull=False) -> torch.Tensor:
     """Plain PyTorch version of ``pair_weight_max``: the float64 weights
-    of ``_composite_group`` in pair order, maxed over the pixels."""
+    of ``_composite_group`` in pair order, maxed over the pixels (with
+    ``cull``, what the kernels' cull drops rejected too: the same)."""
     rays = _tilize_rays(ray_d, tmin, tmax, ray_o)
+    setup = _cull_setup(rays, cfg, False) if cull else None
     wpair = torch.zeros(pair_particle.shape[0], dtype=torch.float32,
                         device=table.device)
     starts = tile_start.to(torch.int64).cpu()
@@ -74,7 +76,7 @@ def pair_weight_max_plain(table, pair_particle, tile_start, ray_d, tmin,
             continue
         rec = table[pair_particle[p0:p1].to(torch.int64)]
         _, _, wgt = _composite_group(rec, starts, t0, t1, rays, cfg,
-                                     pair_weights=True)
+                                     pair_weights=True, cull=setup)
         wpair[p0:p1] = wgt.amax(dim=1).to(torch.float32)
     return wpair
 

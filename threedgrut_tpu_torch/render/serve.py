@@ -8,6 +8,7 @@ the 3DGRT one with ``render/grt.py:grt_raster_config()``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import torch
@@ -28,8 +29,11 @@ def make_serving_renderer(model: GaussianModel, raster_cfg: RasterConfig,
     resolution, one camera model and one shutter type (JAX
     render/serve.py:49-50): pinhole or fisheye, global or rolling.
     ``background`` (optional [3], default black) is composited
-    against the residual transmittance, as the eval renderer does."""
+    against the residual transmittance, as the eval renderer does.
+    Normals are off whatever ``raster_cfg`` says: a served view returns
+    colour only (JAX render/serve.py:serving_raster_config)."""
     ut_cfg = ut_cfg or UTConfig()
+    raster_cfg = dataclasses.replace(raster_cfg, enable_normals=False)
     bg = (torch.zeros(3, dtype=torch.float32, device=model.device)
           if background is None
           else torch.as_tensor(background, dtype=torch.float32,

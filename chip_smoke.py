@@ -11,7 +11,7 @@ without printing the final result line:
    (sm_90a), one nvcc process per source, all started together.
 3. kernel A vs plain - bin_decode on the 100k bench cloud, one 800x800
    view: pair_tile, pair_particle and tile_start EQUAL to the plain
-   PyTorch version.
+   PyTorch version; ms by CUDA events and device time (torch.profiler).
 4. kernel B vs plain - raster_fwd on the same view and pairs: features,
    opacity and T_final within 1e-4, depth within 1e-3 relative, hit
    counts differing on < 1% of pixels; its cull's plain mirror and the
@@ -31,8 +31,12 @@ without printing the final result line:
    autograd plain version, two runs bitwise equal; its registers, local
    and shared bytes (cudaFuncGetAttributes); its bound charges C's own
    work per composited candidate (BWD_ACCEPT_FLOPS).
-9. kernel D vs plain - fold on kernel C's output: max |diff| <= 1e-5 of
-   max |ref|, and two runs bitwise equal.
+9. kernel D vs plain - fold on kernel C's output as render_gut's
+   backward calls it (the tile sort inverted by D's library, the culled
+   rows past tile_start[-1] not read): max |diff| <= 1e-5 of max |ref|,
+   and two runs bitwise equal; the inversion equal to its plain version;
+   ms by events and device time, beside index_add_ (and argsort); D's
+   bound charges the rows before the culled ones.
 10. gradients vs JAX - render_gut's gradients of the six parameter
    leaves against tests/fixtures/torch_port_grad_small.npz:
    max-normalised error <= 2e-3 and cosine >= 0.9999.
@@ -90,7 +94,8 @@ rolling-shutter camera takes it, a fisheye one the shared-origin mode):
    1e-4; phase 4's cull check.
 20. general kernel C vs float64 plain - cosine >= 0.9999 and relative L2
    <= 1e-3 per field group (p, M, density, rgb), two runs bitwise equal;
-   its resources; kernel D folds the result, beside index_add_.
+   its resources; kernel D folds the result (phase 9's checks and
+   timers), beside index_add_.
 21. general kernel E vs plain - within 1e-6 (at most 8 pairs, those of
    kill-flip pixels, within max_alpha * min_transmittance), two runs
    bitwise equal; its cull is phase 19's (the same inputs).
@@ -126,7 +131,8 @@ MCMC strategy:
    registers, local and shared bytes (cudaFuncGetAttributes); its sine
    and cosine within 1e-6 of float64 on 6M arguments of the fast path's
    range (|x| <= 2^20) and 1M past it; D on C's output
-   within 1e-5 of max, two runs bitwise equal, beside index_add_.
+   within 1e-5 of max, two runs bitwise equal, by events and device
+   time, beside index_add_.
 28. NHT gradients vs JAX - render_gut's gradients of the five leaves
    against tests/fixtures/torch_port_nht_grad_small.npz: phase 10's
    tolerances.
@@ -159,16 +165,22 @@ brute force; windows of 128 for both regimes; the normals mode of B):
 32. kernel 7 C and D vs plain - C over the shared segment with seeded
    upstream gradients against the float64 plain backward on all 1,024
    blocks: phase 20's tolerances, two runs bitwise equal, its k-buffer
-   overflow passes; D folds its 8.4M per-block rows (within 1e-5 of
-   max, bitwise equal, beside index_add_); trace's sorted gradients
+   overflow passes; D's shared-segment mode folds its 8.4M per-block
+   rows (each slot's rows summed over the blocks, then the segment's
+   fold) within 1e-5 of max of repeat_fold + the float64 plain fold,
+   bitwise equal, by events and device time, beside index_add_, its
+   bound on the rows of the owned slots, the segment's fold and the
+   output; trace's sorted gradients
    against tests/fixtures/torch_port_trace_grad_small.npz (phase 10's
    tolerances); the trace path (forward and backward) launches kernel
    7's B and C and D once each; ms per trace call.
 33. W 128 B and C vs plain - trace's grid over bench_cloud(100_000) on
    the same view (7,168 candidates a block): B at phase 19's tolerances,
-   C on all 1,024 blocks at phase 20's, bitwise repeatable; phase 31's
+   C on all 1,024 blocks at phase 20's, bitwise repeatable; D on C's
+   rows through the inverse of the grid's own sort (phase 9's checks and
+   timers; its bound on the rows some particle owns); phase 31's
    cull check and overflow passes; the trace path launches W 128 B and C
-   and D once each; ms per trace call.
+   and D once each and D's inversion never; ms per trace call.
 34. normals - B's normals mode in the brute-force trace against plain
    (normals within 2e-3), and render_gut's normals against the port's
    oracle on phase 7's probe; one trace with normals launches it once.
@@ -398,6 +410,16 @@ KERNELS = {
                                   "threedgrut_tpu/ops/pallas/raster.py:2051"),
     "fold_shared_segment": ("threedgrut_tpu_torch/csrc/fold.cu",
                             "threedgrut_tpu/ops/pallas/fold.py:76"),
+    # kernel D on the grid trace's rows (pairs naming particles directly,
+    # the inverse from the caller's sort): fold_sorted_intervals's
+    # _fold_kernel, the narrow fold the JAX grid backward reaches
+    "fold_grid": ("threedgrut_tpu_torch/csrc/fold.cu",
+                  "threedgrut_tpu/ops/pallas/fold.py:38"),
+    # the inverse of the tile sort, which D's wrapper takes from D's own
+    # library where the caller has none (render/gut.py:_grf_bwd's
+    # un-permute, fused into the TPU's fold)
+    "fold_invert": ("threedgrut_tpu_torch/csrc/fold.cu",
+                    "threedgrut_tpu/ops/pallas/fold.py:76"),
     "raster_fwd_window128": ("threedgrut_tpu_torch/csrc/raster_fwd.cu",
                              "threedgrut_tpu/ops/pallas/raster.py:885"),
     "raster_bwd_window128": ("threedgrut_tpu_torch/csrc/raster_bwd.cu",
@@ -523,19 +545,61 @@ def bound_keys(b, library_ms=None):
 def index_add_ms(d_args):
     """Kernel D's yardstick: the time of the one PyTorch call that sums
     each particle's pair rows, torch.zeros(N, R).index_add_(0,
-    particle_of_pair, d_records), on the fold's own inputs (timed only;
-    the port never calls it)."""
-    d_rec, perm, order, _, counts, limit, capacity = d_args
+    particle_of_pair, d_records), on the fold's own inputs (fold_pairs's
+    arguments, through perm or the inverse; timed only; the port never
+    calls it)."""
+    d_rec, perm, order, _, counts, limit, capacity = d_args[:7]
+    inv = d_args[7] if len(d_args) > 7 else None
     owner = torch.repeat_interleave(
         torch.arange(order.shape[0], device=d_rec.device),
         counts.to(torch.int64))[:limit]
-    slot = perm.to(torch.int64)
-    keep = slot < owner.shape[0]    # slots no rank owns (trace's dead row)
-    particle = order.to(torch.int64)[owner][slot[keep]]
-    rows = d_rec[keep]
+    if inv is not None:
+        particle = order.to(torch.int64)[owner]
+        rows = d_rec[inv[:owner.shape[0]].to(torch.int64)]
+    else:
+        slot = perm.to(torch.int64)
+        keep = slot < owner.shape[0]    # slots no rank owns (trace's dead row)
+        particle = order.to(torch.int64)[owner][slot[keep]]
+        rows = d_rec[keep]
     return cuda_ms(lambda: torch.zeros(
         (capacity, d_rec.shape[1]), dtype=torch.float32,
         device=d_rec.device).index_add_(0, particle, rows), 20)
+
+
+def fold_check(fn, plain, label, reps=20):
+    """Kernel D's wrapper call fn() against its float64 plain version
+    plain(): within 1e-5 of max |ref| and two runs bitwise equal, else
+    raise. Returns (report keys: max_abs_err, ms by events, device_ms,
+    plain_ms; max |ref|; the output)."""
+    f1, f2 = fn(), fn()
+    ref, plain_ms = timed_once(plain)
+    err = float((f1 - ref).abs().max())
+    scale = float(ref.abs().max())
+    same = bool(torch.equal(f1, f2))
+    if not (err <= 1e-5 * scale and same):
+        raise AssertionError(f"kernel D ({label}) vs plain: max |d| "
+                             f"{err:.3g} (max |ref| {scale:.3g}); bitwise "
+                             f"repeatable {same}")
+    return (dict(max_abs_err=err, ms=cuda_ms(fn, reps),
+                 device_ms=device_ms(fn, reps), plain_ms=plain_ms),
+            scale, f1)
+
+
+def fold_bound(d_rec, rows_read, index_tensors, out):
+    """Kernel D's bound: the ``rows_read`` gradient rows its data needs
+    (those some rank owns and, with n_valid, before the culled ones), its
+    index inputs and the output, each once; one fp32 add per element
+    read."""
+    row_bytes = rows_read * d_rec.shape[1] * d_rec.element_size()
+    return bound(row_bytes + nbytes(*index_tensors, out),
+                 rows_read * d_rec.shape[1])
+
+
+def fold_msg(keys, scale, lib_ms):
+    return (f"max |d| {keys['max_abs_err']:.3g} of {scale:.3g}, two runs "
+            f"bitwise equal, {keys['ms']:.4f} ms (device "
+            f"{keys['device_ms']:.4f}), plain {keys['plain_ms']:.4f} ms, "
+            f"index_add_ {lib_ms:.4f} ms")
 
 
 def nvidia_smi_line():
@@ -584,22 +648,76 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps):
-    """Device time per call of fn(): the device time of the kernels it
-    launches over reps calls (torch.profiler), after one warm-up; unlike
-    cuda_ms it leaves out the host's enqueueing."""
-    from torch.profiler import ProfilerActivity, profile
+def _profiled_calls(fn, reps):
+    """[({kernel name: records}, device us) of one call of fn(), the same
+    of reps calls], from one torch.profiler session. The profiler drops
+    the records of a session's first milliseconds (on the H100: up to the
+    first 69 kernels, and a whole kernel's records of a short window): the
+    session opens with reps pad calls and a 20 ms wait, and a kernel is
+    counted in the span between marks set on the host's clock (which the
+    profiler's device times share) in which it starts; each span begins a
+    millisecond after the work before it has ended."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()
-    torch.cuda.synchronize()
+    def mark(name):
+        torch.cuda.synchronize()
+        time.sleep(1e-3)
+        with record_function(name):
+            pass
+        time.sleep(1e-3)
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               ) / reps / 1e3
+        time.sleep(0.02)
+        mark("device_ms_one")
+        fn()
+        mark("device_ms_reps")
+        for _ in range(reps):
+            fn()
+        mark("device_ms_end")
+    events = prof.events()
+    marks = {e.name: e.time_range.start for e in events
+             if e.name.startswith("device_ms_")}
+    spans = [(marks["device_ms_one"], marks["device_ms_reps"]),
+             (marks["device_ms_reps"], marks["device_ms_end"])]
+    out = [({}, 0.0), ({}, 0.0)]
+    for e in events:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name.startswith("device_ms_")):
+            continue
+        for k, (t0, t1) in enumerate(spans):
+            if t0 <= e.time_range.start < t1:
+                counts, us = out[k]
+                counts[e.name] = counts.get(e.name, 0) + 1
+                out[k] = (counts, us + e.time_range.elapsed_us())
+    return out
+
+
+# profiler sessions device_ms takes before it gives up
+DEVICE_MS_WINDOWS = 5
+
+
+def device_ms(fn, reps):
+    """Device time per call of fn(): the device time of the kernels it
+    launches over reps calls (torch.profiler), after one warm-up; unlike
+    cuda_ms it leaves out the host's enqueueing. The kernels of one call,
+    by name and launches, are read first; the reps calls count only if
+    they hold each of them exactly reps times that and no other, else
+    both are taken again, up to DEVICE_MS_WINDOWS times, and then it
+    raises (a reading short of a kernel's records is never returned)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(DEVICE_MS_WINDOWS):
+        (one, _), (counts, total) = _profiled_calls(fn, reps)
+        if one and counts == {k: c * reps for k, c in one.items()}:
+            return total / reps / 1e3
+        print(f"device_ms: windows disagree: one call {one}, {reps} calls "
+              f"{counts}", flush=True)
+    raise RuntimeError(f"device_ms: no window of {reps} calls held every "
+                       f"kernel of one call in {DEVICE_MS_WINDOWS} tries")
 
 
 def seeded_upstream(dev, h, w, channels, seed):
@@ -1041,7 +1159,7 @@ def general_kernel_phases(dev, model, ut_cfg):
     against shared-origin B with the table built at the rays' common
     origin; kernel D on C's output beside index_add_. Returns the report
     entries."""
-    from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs
+    from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs, fold_pairs_plain
     from threedgrut_tpu_torch.ops.cuda.raster import (
         rasterize_tiles_backward, rasterize_tiles_backward_plain,
         rasterize_tiles_forward, rasterize_tiles_plain, rgb_kernel_attributes)
@@ -1168,16 +1286,17 @@ def general_kernel_phases(dev, model, ut_cfg):
                     c_args, [d1], rc, True, n_acc,
                     BWD_ACCEPT_FLOPS[(rc.kernel_degree, True)])))
             d_args = (d1, vb.perm, vb.order, vb.excl, vb.counts, vb.limit,
-                      model.capacity)
-            fold_ms = cuda_ms(lambda: fold_pairs(*d_args), 20)
+                      model.capacity, None, vb.num_pairs)
+            d_keys, d_scale, _ = fold_check(
+                lambda: fold_pairs(*d_args),
+                lambda: fold_pairs_plain(*d_args), f"rolling {label}")
             lib_ms = index_add_ms(d_args)
             msg_c.append(f"{label}: " + ", ".join(
                 f"{k} cos {x[0]:.8f} relL2 {x[1]:.3g}"
                 for k, x in stats.items())
                 + f"; max |d| {c_err:.3g}; two runs bitwise equal; kernel "
                 f"{c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; {resources(res)}"
-                f"; kernel D on it {fold_ms:.4f} ms, index_add_ "
-                f"{lib_ms:.4f} ms")
+                f"; kernel D on it: {fold_msg(d_keys, d_scale, lib_ms)}")
             # 21. general E
             e_args = args[:7] + (v.ray_o,)
             w1 = pair_weight_max(*e_args)
@@ -1541,28 +1660,20 @@ def nht_kernel_phases(dev, ut_cfg, cam):
                 f"{c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; {resources(res)}")
             if label == "3DGUT":
                 d_args = (d1, vb.perm, vb.order, vb.excl, vb.counts,
-                          vb.limit, model.capacity)
-                f1 = fold_pairs(*d_args)
-                f2 = fold_pairs(*d_args)
-                f_ref, f_plain_ms = timed_once(
-                    lambda: fold_pairs_plain(*d_args))
-                f_err = float((f1 - f_ref).abs().max())
-                f_scale = float(f_ref.abs().max())
-                f_same = bool(torch.equal(f1, f2))
-                f_ms = cuda_ms(lambda: fold_pairs(*d_args), 20)
+                          vb.limit, model.capacity, None, vb.num_pairs)
+                f_keys, f_scale, f1 = fold_check(
+                    lambda: fold_pairs(*d_args),
+                    lambda: fold_pairs_plain(*d_args), "64 wide")
+                if f1.shape[1] != 64:
+                    raise AssertionError(f"NHT rows {f1.shape[1]} wide")
                 f_lib = index_add_ms(d_args)
-                if not (f1.shape[1] == 64 and f_err <= 1e-5 * f_scale
-                        and f_same):
-                    raise AssertionError(
-                        f"kernel D (64 wide) vs plain: max |d| {f_err:.3g} "
-                        f"(max |ref| {f_scale:.3g}); bitwise {f_same}")
                 report["fold_64"] = dict(
-                    max_abs_err=f_err, ms=f_ms, plain_ms=f_plain_ms,
-                    **bound_keys(bound(nbytes(*d_args[:5], f1), d1.numel()),
-                                 library_ms=f_lib))
-                msg += (f"; kernel D 64 wide: max |d| {f_err:.3g} of "
-                        f"{f_scale:.3g}, bitwise equal, {f_ms:.4f} ms, plain "
-                        f"{f_plain_ms:.4f} ms, index_add_ {f_lib:.4f} ms")
+                    **f_keys, **bound_keys(fold_bound(
+                        d1, int(vb.num_pairs),
+                        (vb.perm, *d_args[2:5], vb.num_pairs), f1),
+                        library_ms=f_lib))
+                msg += (f"; kernel D 64 wide: "
+                        f"{fold_msg(f_keys, f_scale, f_lib)}")
             msg_c.append(msg)
             del v, got, ref, d1, d2, d_ref
     phase("NHT kernel B", f"{w}x{h} pinhole (general mode), 100k, 48 NHT "
@@ -1891,7 +2002,8 @@ def trace_phases(dev, ut_cfg):
     their plain versions, the JAX gradient fixture, the trace path's
     launches, and the grid against brute force. Returns (report entries,
     launches)."""
-    from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs, fold_pairs_plain
+    from threedgrut_tpu_torch.ops.cuda.fold import (
+        fold_pairs, fold_pairs_plain, fold_shared_segment, invert_permutation)
     from threedgrut_tpu_torch.ops.cuda.raster import (
         rasterize_tiles, rasterize_tiles_backward, rasterize_tiles_forward,
         rasterize_tiles_plain, repeat_fold, trace_kernel_attributes,
@@ -1955,28 +2067,29 @@ def trace_phases(dev, ut_cfg):
         if not same or d1.shape[0] != n_blocks * n_seg:
             raise AssertionError(f"kernel 7 C: bitwise repeatable {same}, "
                                  f"rows {d1.shape[0]}")
-        g = repeat_fold(inp.fold, n_blocks)
-        d_args = (d1, g.perm, g.order, g.excl, g.counts, g.limit,
-                  inp.table.shape[0])
-        f1, f2 = fold_pairs(*d_args), fold_pairs(*d_args)
-        f_ref, f_plain_ms = timed_once(lambda: fold_pairs_plain(*d_args))
-        f_err = float((f1 - f_ref).abs().max())
-        f_scale = float(f_ref.abs().max())
-        if not (f_err <= 1e-5 * f_scale and torch.equal(f1, f2)):
-            raise AssertionError(f"kernel D on kernel 7's rows: max |d| "
-                                 f"{f_err:.3g} of {f_scale:.3g}")
-        f_ms = cuda_ms(lambda: fold_pairs(*d_args), 10)
+        # D's shared-segment mode, as the backward calls it, against the
+        # plain composition: the segment's fold repeated per block
+        fm, cap = inp.fold, inp.table.shape[0]
+        g = repeat_fold(fm, n_blocks)
+        d_args = (d1, g.perm, g.order, g.excl, g.counts, g.limit, cap)
+        f_keys, f_scale, f1 = fold_check(
+            lambda: fold_shared_segment(d1, n_blocks, fm.order, fm.excl,
+                                        fm.counts, fm.limit, cap),
+            lambda: fold_pairs_plain(*d_args), "kernel 7's rows", 10)
         f_lib = index_add_ms(d_args)
+        n_owned = int(fm.counts.sum())      # the slots some rank owns
     report["raster_bwd_shared_segment"] = dict(
         max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
         culled_share=brute_share,
         **cull_bound_keys(c_args, [d1], inp.cfg, brute_cull, n_acc,
                           shared_tiles=n_blocks))
+    # the bound: the blocks' rows of the owned slots, the segment's fold
+    # and the output (not repeat_fold's permutation of every row)
     report["fold_shared_segment"] = dict(
-        max_abs_err=f_err, ms=f_ms, plain_ms=f_plain_ms,
-        **bound_keys(bound(nbytes(*d_args[:5], f1), d1.numel()),
-                     library_ms=f_lib))
-    del d1, f1, f2, f_ref
+        **f_keys, **bound_keys(fold_bound(
+            d1, n_blocks * n_owned, (fm.inv_perm, fm.order, fm.excl,
+                                     fm.counts), f1), library_ms=f_lib))
+    del d1, f1, d_args, g
     # the sorted trace's gradients against JAX's sorted vjp
     with np.load(TRACE_GRAD_FIXTURE) as f:
         gmodel = fixture_model(f, dev)
@@ -2000,7 +2113,7 @@ def trace_phases(dev, ut_cfg):
                                               "launches_shared_segment"),
                 "raster_bwd_shared_segment": (bwd_fn,
                                               "launches_shared_segment"),
-                "fold_shared_segment": (fold_pairs, "launches")}
+                "fold_shared_segment": (fold_shared_segment, "launches")}
     got_l, brute_ms, _ = trace_path_run(small, ro, rd, counters)
     if got_l != {k: 1 for k in counters}:
         raise AssertionError(f"brute trace launches {got_l}")
@@ -2008,9 +2121,9 @@ def trace_phases(dev, ut_cfg):
     phase("kernel 7 C and D", f"C: {c_msg} (all {n_blocks} blocks); max "
           f"|d| {c_err:.3g}; k-buffer overflow passes {c_over}; two runs "
           f"bitwise equal; kernel {c_ms:.4f} ms, "
-          f"plain {c_plain_ms:.4f} ms; D on its {n_blocks * n_seg} rows: max |d| {f_err:.3g} "
-          f"of {f_scale:.3g}, bitwise equal, {f_ms:.4f} ms, plain "
-          f"{f_plain_ms:.4f} ms, index_add_ {f_lib:.4f} ms; gradients vs "
+          f"plain {c_plain_ms:.4f} ms; D on its {n_blocks * n_seg} rows "
+          f"(shared-segment mode, against repeat_fold + the plain fold): "
+          f"{fold_msg(f_keys, f_scale, f_lib)}; gradients vs "
           f"{os.path.basename(TRACE_GRAD_FIXTURE)} (sorted): " + ", ".join(
               f"{k} {x[0]:.2g}/{x[1]:.7f}" for k, x in errs.items())
           + f"; trace path (forward + backward) launches {got_l}; "
@@ -2044,6 +2157,19 @@ def trace_phases(dev, ut_cfg):
         if not same:
             raise AssertionError("W 128 C is not bitwise repeatable")
         grid_share, grid_cull, cull_msg = cull_check(args, "W 128")
+        # D on the grid's rows as the backward calls it: the pairs name
+        # particles directly, the inverse is the caller's sort's
+        fm, cap = inp.fold, inp.table.shape[0]
+        g_args = (d1, None, fm.order, fm.excl, fm.counts, fm.limit, cap,
+                  fm.inv_perm)
+        g_keys, g_scale, g1 = fold_check(lambda: fold_pairs(*g_args),
+                                         lambda: fold_pairs_plain(*g_args),
+                                         "the grid trace's rows")
+        g_lib = index_add_ms(g_args)
+        report["fold_grid"] = dict(**g_keys, **bound_keys(fold_bound(
+            d1, int(fm.counts.sum()), (fm.inv_perm, fm.order, fm.excl,
+                                       fm.counts), g1), library_ms=g_lib))
+        del g1, g_args
     report["raster_fwd_window128"] = dict(
         max_abs_err=err, ms=b_ms, plain_ms=plain_ms, culled_share=grid_share,
         **cull_bound_keys(args, got, inp.cfg, grid_cull, n_acc))
@@ -2054,17 +2180,22 @@ def trace_phases(dev, ut_cfg):
     del d1
     counters = {"raster_bwd_window128": (bwd_fn, "launches_window128"),
                 "raster_fwd_window128": (fwd_fn, "launches_window128"),
-                "fold": (fold_pairs, "launches")}
+                "fold_grid": (fold_pairs, "launches")}
+    invert_permutation.launches = 0
     got_l, grid_ms, _ = trace_path_run(big, ro, rd, counters)
-    if got_l != {k: 1 for k in counters}:
-        raise AssertionError(f"grid trace launches {got_l}")
-    launches["raster_bwd_window128"] = got_l["raster_bwd_window128"]
+    if got_l != {k: 1 for k in counters} or invert_permutation.launches:
+        raise AssertionError(f"grid trace launches {got_l}, inversions "
+                             f"{invert_permutation.launches} (none: the "
+                             f"caller's sort gives the inverse)")
+    for k in ("raster_bwd_window128", "fold_grid"):
+        launches[k] = got_l[k]
     phase("W 128 B and C", f"the grid at 100k, {n_blocks} blocks x "
           f"{seg_len} candidates, accel_overflow "
           f"{int(inp.accel_overflow)}, {n_acc:.0f} composited: B {msg}; "
           f"kernel {b_ms:.4f} ms, plain {plain_ms:.4f} ms; C {c_msg} (all "
           f"{n_blocks} blocks), max |d| {c_err:.3g}, two runs bitwise "
-          f"equal, kernel {c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; "
+          f"equal, kernel {c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; D on "
+          f"C's rows: {fold_msg(report['fold_grid'], g_scale, g_lib)}; "
           f"{cull_msg}; k-buffer overflow passes B {b_over}, C {c_over}; trace "
           f"path launches {got_l}; "
           f"{grid_ms:.3f} ms per forward trace call (host clock)")
@@ -2345,7 +2476,8 @@ def table_route_phase(dev, v, b_args, c_args, fwd):
     from threedgrut_tpu_torch.render.grt import grt_raster_config
 
     b = v.binning
-    fold = FoldMeta(b.perm, b.order, b.excl, b.counts, b.limit)
+    fold = FoldMeta(b.perm, b.order, b.excl, b.counts, b.limit,
+                    n_valid=b.num_pairs)
     g_feat, g_opac, g_dep = c_args[9:12]
 
     def step(rc, table_route):
@@ -2552,8 +2684,9 @@ def main():
     from threedgrut_tpu_torch.ops.cuda import build
     from threedgrut_tpu_torch.ops.cuda.expand import (
         expand_decode_pairs, expand_decode_pairs_plain)
-    from threedgrut_tpu_torch.ops.cuda.fold import (fold_pairs,
-                                                    fold_pairs_plain)
+    from threedgrut_tpu_torch.ops.cuda.fold import (
+        fold_pairs, fold_pairs_plain, invert_permutation,
+        invert_permutation_plain)
     from threedgrut_tpu_torch.ops.cuda.raster import (
         rasterize_tiles, rasterize_tiles_backward,
         rasterize_tiles_backward_plain, rasterize_tiles_forward,
@@ -2604,16 +2737,18 @@ def main():
         a_err = max(float((g - r).abs().max()) if g.numel() else 0.0
                     for g, r in zip(got, ref))
         a_ms = cuda_ms(lambda: expand_decode_pairs(*a_args), 20)
+        a_dev_ms = device_ms(lambda: expand_decode_pairs(*a_args), 20)
         a_plain_ms = cuda_ms(lambda: expand_decode_pairs_plain(*a_args), 5)
     n_pairs = int(got[2][-1])
     report["bin_decode"] = dict(
-        max_abs_err=a_err, ms=a_ms, plain_ms=a_plain_ms,
+        max_abs_err=a_err, ms=a_ms, device_ms=a_dev_ms, plain_ms=a_plain_ms,
         **bound_keys(bound(nbytes(*a_args[:4],
                                   *expand_decode_pairs(*a_args)),
                            s.total * CULL_FLOPS)))
     phase("kernel A", f"{s.total} slots, {n_pairs} pairs after the cull: "
           f"pair_tile, pair_particle, tile_start equal to plain; "
-          f"kernel {a_ms:.4f} ms, plain {a_plain_ms:.4f} ms")
+          f"kernel {a_ms:.4f} ms (device {a_dev_ms:.4f}), plain "
+          f"{a_plain_ms:.4f} ms")
 
     # 4. kernel B vs plain
     with torch.no_grad():
@@ -2760,32 +2895,39 @@ def main():
           + f"; max |d| {c_err:.3g}; two runs bitwise equal; kernel "
           f"{c_ms:.4f} ms, plain {c_plain_ms:.4f} ms; {resources(res)}")
 
-    # 9. kernel D vs plain, and bitwise determinism
+    # 9. kernel D vs plain, and bitwise determinism: as render_gut's
+    # backward calls it (the binning's FoldMeta: perm, inverted by D's
+    # library, and n_valid), and the inversion alone
     vb = v.binning
     d_args = (d_rec, vb.perm, vb.order, vb.excl, vb.counts, vb.limit,
-              model.capacity)
+              model.capacity, None, vb.num_pairs)
     with torch.no_grad():
-        d1 = fold_pairs(*d_args)
-        d2 = fold_pairs(*d_args)
-        d_ref = fold_pairs_plain(*d_args)
-        torch.cuda.synchronize()
-        d_err = float((d1 - d_ref).abs().max())
-        d_scale = float(d_ref.abs().max())
-        same = bool(torch.equal(d1, d2))
-        d_ms = cuda_ms(lambda: fold_pairs(*d_args), 20)
-        d_plain_ms = cuda_ms(lambda: fold_pairs_plain(*d_args), 5)
+        keys, d_scale, d1 = fold_check(lambda: fold_pairs(*d_args),
+                                       lambda: fold_pairs_plain(*d_args),
+                                       "16 wide")
         d_lib_ms = index_add_ms(d_args)
-    if not (d_err <= 1e-5 * d_scale and same):
-        raise AssertionError(f"kernel D vs plain: max |d| {d_err:.3g} "
-                             f"(max |ref| {d_scale:.3g}); bitwise "
-                             f"deterministic {same}")
+        inv = invert_permutation(vb.perm)
+        if not torch.equal(inv, invert_permutation_plain(vb.perm)):
+            raise AssertionError("D's inversion differs from the plain one")
+        inv_keys = dict(
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: invert_permutation(vb.perm), 20),
+            device_ms=device_ms(lambda: invert_permutation(vb.perm), 20),
+            plain_ms=cuda_ms(lambda: invert_permutation_plain(vb.perm), 20))
+        inv_lib_ms = cuda_ms(lambda: torch.argsort(vb.perm), 20)
     report["fold"] = dict(
-        max_abs_err=d_err, ms=d_ms, plain_ms=d_plain_ms,
-        **bound_keys(bound(nbytes(*d_args[:5], d1), d_rec.numel()),
-                     library_ms=d_lib_ms))
-    phase("kernel D", f"max |d| {d_err:.3g} of max |ref| {d_scale:.3g}; "
-          f"two runs bitwise equal; kernel {d_ms:.4f} ms, "
-          f"plain {d_plain_ms:.4f} ms, index_add_ {d_lib_ms:.4f} ms")
+        **keys, **bound_keys(fold_bound(
+            d_rec, int(vb.num_pairs), (vb.perm, *d_args[2:5],
+                                       vb.num_pairs), d1),
+            library_ms=d_lib_ms))
+    report["fold_invert"] = dict(
+        **inv_keys, **bound_keys(bound(nbytes(vb.perm, inv), 0),
+                                 library_ms=inv_lib_ms))
+    phase("kernel D", f"16 wide, {vb.limit} pairs ({int(vb.num_pairs)} "
+          f"before the culled): {fold_msg(keys, d_scale, d_lib_ms)}; its "
+          f"inversion equal to plain, {inv_keys['ms']:.4f} ms (device "
+          f"{inv_keys['device_ms']:.4f}), plain {inv_keys['plain_ms']:.4f} "
+          f"ms, argsort {inv_lib_ms:.4f} ms")
 
     # 10. render gradients against the JAX package's
     grad_fx = os.path.join(REPO, "tests", "fixtures",
@@ -2817,11 +2959,12 @@ def main():
     step = BenchStep(dev)
     time_steps(step, 3)                       # warm-up
     counters = (expand_decode_pairs, rasterize_tiles,
-                rasterize_tiles_backward, fold_pairs)
+                rasterize_tiles_backward, fold_pairs, invert_permutation)
     for fn in counters:
         fn.launches = 0
     step_ms, losses = time_steps(step, TRAIN_STEPS)
-    launches = dict(zip(("bin_decode", "raster_fwd", "raster_bwd", "fold"),
+    launches = dict(zip(("bin_decode", "raster_fwd", "raster_bwd", "fold",
+                         "fold_invert"),
                         (fn.launches for fn in counters)))
     if any(n != TRAIN_STEPS for n in launches.values()):
         raise AssertionError(f"train-step launches {launches}, expected "

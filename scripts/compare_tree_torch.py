@@ -57,10 +57,20 @@ touches saves the minutes of the slow ones, such as ``nht_step``):
   phases 4 and 13-15 (the 800x800 bench view: 3DGUT, 3DGRT and sorted
   3DGUT, and degree 4 at W 0) and 19 and 21 (the 1920x1280 rolling
   shutter: the same four settings in the general mode): CUDA events,
-  device time, and a SHA-256 of B's five outputs and of E's ``wpair``.
+  device time, and a SHA-256 of B's five outputs and of E's ``wpair``;
+- ``binning_fold``: kernel A on phase 3's slots (its two outputs and the
+  sort's tile_start hashed) and kernel D in every mode as that tree's
+  backward calls it, with its wrapper's set-up (the inverse of the tile
+  sort; the parent's ``repeat_fold`` of kernel 7's segment): 16 wide on
+  the 800x800 3DGUT and 3DGRT views (phases 9 and 14), the 1920x1280
+  rolling 3DGUT view (phase 20), 64 wide on the NHT view (phase 27),
+  kernel 7's 8.4M per-block rows (phase 32) and the grid trace's rows
+  (phase 33): CUDA events, device time and a SHA-256 of each output, and
+  after the run each output's max |d| against the other tree's.
 
-``rgb_c`` and ``nht_b`` leave each tree's outputs in ``--out`` (default
-``build/compare`` of this checkout) for the comparison across trees.
+``rgb_c``, ``nht_b`` and ``binning_fold`` leave each tree's outputs in
+``--out`` (default ``build/compare`` of this checkout) for the
+comparison across trees.
 
 Prints one line per tree and turn and a JSON line of all of them, with
 the card's ``nvidia-smi`` name and power limit. Needs a CUDA device.
@@ -82,7 +92,8 @@ NHT_CONFIGS = ("apps/nerf_synthetic_3dgut_mcmc_nht",
                "apps/nerf_synthetic_3dgrt_mcmc_nht")
 # measurement groups, in the order a run takes them (GROUP_FNS below)
 GROUPS = ("trace", "playground", "guard800", "nht_c", "f", "nht_step",
-          "table_route", "rgb_c", "nht_b", "gs_steps", "rgb_b")
+          "table_route", "rgb_c", "nht_b", "gs_steps", "rgb_b",
+          "binning_fold")
 # kernel C's record field groups (a or p, M, density, rgb)
 FIELD_GROUPS = {"a": slice(0, 3), "M": slice(3, 12), "density": slice(12, 13),
                 "rgb": slice(13, 16)}
@@ -427,8 +438,9 @@ def gs_steps_group(cs, dev, res):
         step = bt.BenchStep(dev, rc, camera)
         bt.time_steps(step, 3)
         ms, _ = bt.time_steps(step, 20)
-        wall, busy, _ = bt.profile_steps(step, 5, top=0)
-        res[label] = dict(ms=ms, busy_us=busy, idle=1.0 - busy / wall)
+        wall, busy, kernels = bt.profile_steps(step, 5, top=0)
+        res[label] = dict(ms=ms, busy_us=busy, idle=1.0 - busy / wall,
+                          kernels=kernels)
         del step
         torch.cuda.empty_cache()
 
@@ -483,15 +495,165 @@ def rgb_b_group(cs, dev, res):
         torch.cuda.empty_cache()
 
 
+def binning_fold_calls(cs, dev):
+    """Yield (label, a call of kernel A or D as this tree's main path makes
+    it, the one PyTorch call of the same function or None) on the inputs
+    of chip_smoke.py phases 3, 9, 14, 20, 27, 32 and 33 (``binning_fold``
+    above): D's yardstick is ``index_add_`` of its rows by particle, the
+    rows of no particle (trace's dead row) left out. A tree whose fold
+    module has no ``fold_shared_segment`` (before the fold's redesign)
+    folds kernel 7's rows through ``repeat_fold`` and reads no
+    ``n_valid``."""
+    import numpy as np
+    from threedgrut_tpu_torch.ops import binning
+    from threedgrut_tpu_torch.ops.cameras import make_pinhole
+    from threedgrut_tpu_torch.ops.cuda import fold as fmod
+    from threedgrut_tpu_torch.ops.cuda.expand import expand_decode_pairs
+    from threedgrut_tpu_torch.ops.cuda.raster import (
+        rasterize_tiles_backward, rasterize_tiles_forward, repeat_fold)
+    from threedgrut_tpu_torch.ops.ut import UTConfig
+    from threedgrut_tpu_torch.render.common import RasterConfig
+    from threedgrut_tpu_torch.render.grt import prepare_trace
+    from threedgrut_tpu_torch.render.gut import prepare_view
+    from threedgrut_tpu_torch.synthetic import (bench_camera, bench_cloud,
+                                                nht_cloud)
+
+    redesigned = hasattr(fmod, "fold_shared_segment")
+
+    def binned(d_rec, b, cap):
+        args = (d_rec, b.perm, b.order, b.excl, b.counts, b.limit, cap)
+        if redesigned:
+            return lambda: fmod.fold_pairs(*args, None, b.num_pairs)
+        return lambda: fmod.fold_pairs(*args)
+
+    def index_add(rows, particle, cap):
+        return lambda: torch.zeros((cap, rows.shape[1]), device=dev
+                                   ).index_add_(0, particle, rows)
+
+    side, ut_cfg = cs.SIDE, UTConfig()
+    cam = make_pinhole((side, side), (1.1 * side, 1.1 * side),
+                       (side / 2, side / 2), device=dev)
+    model = bench_cloud(100_000, seed=0, device=dev)
+    up = cs.seeded_upstream(dev, side, side, (3, 1, 1), 7)
+    grid = (side // 16, side // 16)
+    with torch.no_grad():
+        for label, rc in (("3dgut", RasterConfig()),
+                          ("3dgrt", cs.sorted_settings()["3DGRT"])):
+            v, _, _, c_args = cs.view_inputs(cam, ut_cfg, rc, model, 3, up)
+            if label == "3dgut":
+                s = binning.pair_slots(v.proj, grid, ut_cfg.alpha_threshold)
+                a_args = (s.rows, s.order, s.excl, s.counts, s.total, grid)
+                yield "a", lambda: expand_decode_pairs(*a_args), None
+            d_rec = rasterize_tiles_backward(*c_args)
+            pp = v.binning.pair_particle.long()
+            yield (f"d16_{label}", binned(d_rec, v.binning, model.capacity),
+                   index_add(d_rec, pp, model.capacity))
+            del v, c_args, d_rec
+        rcam = bench_camera("rolling", device=dev)
+        w, h = rcam.resolution
+        rng = np.random.default_rng(8)
+        rup = [torch.tensor(rng.normal(size=(h, w, c)).astype(np.float32),
+                            device=dev) for c in (3, 1, 1)]
+        rc = RasterConfig()
+        v = prepare_view(rcam, ut_cfg, rc, model, 3)
+        args = (v.table, v.binning.pair_particle, v.binning.tile_start,
+                v.ray_d, v.tmin, v.tmax, rc, v.ray_o)
+        out = rasterize_tiles_forward(*args)
+        d_rec = rasterize_tiles_backward(*(args[:6] + (
+            out[0], out[2], out[4], *rup, rc, v.ray_o)))
+        yield ("d16_rolling", binned(d_rec, v.binning, model.capacity),
+               index_add(d_rec, v.binning.pair_particle.long(),
+                         model.capacity))
+        del v, args, out, d_rec
+        nmodel = nht_cloud(100_000, seed=0, device=dev)
+        v, _, _, c_args = cs.view_inputs(
+            cam, ut_cfg, cs.nht_settings()["3DGUT"], nmodel, 0,
+            cs.seeded_upstream(dev, side, side, (24, 1, 1), 26))
+        d_rec = rasterize_tiles_backward(*c_args)
+        yield ("d64_nht", binned(d_rec, v.binning, nmodel.capacity),
+               index_add(d_rec, v.binning.pair_particle.long(),
+                         nmodel.capacity))
+        del v, c_args, nmodel, d_rec
+    torch.cuda.empty_cache()
+    n_blocks = cs.TRACE_SIDE * cs.TRACE_SIDE // 256
+    rng = np.random.default_rng(31)
+    tup = [torch.tensor(rng.normal(size=(16 * n_blocks, 16, c)).astype(
+        np.float32), device=dev) for c in (3, 1, 1)]
+    for label, n in (("kernel7", 8192), ("grid", 100_000)):
+        cloud = bench_cloud(n, seed=0, device=dev)
+        ro, rd = cs.trace_rays(cloud)
+        with torch.enable_grad():
+            inp = prepare_trace(cloud, ro, rd)
+        with torch.no_grad():
+            args = inp.args()
+            out = rasterize_tiles_forward(*args)
+            d1 = rasterize_tiles_backward(*(args[:6] + (
+                out[0], out[2], out[4], *tup, inp.cfg, inp.ray_o,
+                inp.shared)))
+            fm, cap = inp.fold, inp.table.shape[0]
+            # each row's particle: the pair's (grid), or the segment
+            # slot's (kernel 7: row t P + j holds slot j)
+            pid = inp.pair_particle.long()
+            if label == "kernel7":
+                pid = pid.repeat(n_blocks)
+            keep = pid < cap - 1            # the dead row is the last
+            lib = index_add(d1[keep], pid[keep], cap)
+            if label == "grid":
+                yield "d16_grid", lambda: fmod.fold_pairs(
+                    d1, fm.perm, fm.order, fm.excl, fm.counts, fm.limit,
+                    cap, *((fm.inv_perm,) if redesigned else ())), lib
+            elif redesigned:
+                yield "d16_kernel7", lambda: fmod.fold_shared_segment(
+                    d1, n_blocks, fm.order, fm.excl, fm.counts, fm.limit,
+                    cap), lib
+            else:
+                def parent_kernel7():
+                    g = repeat_fold(fm, n_blocks)
+                    return fmod.fold_pairs(d1, g.perm, g.order, g.excl,
+                                           g.counts, g.limit, cap)
+                yield "d16_kernel7", parent_kernel7, lib
+            del inp, args, out, d1, pid, keep, lib
+        torch.cuda.empty_cache()
+
+
+def binning_fold_group(cs, dev, res, out_dir):
+    """Kernels A and D: times, hashes, and the outputs kept for the
+    comparison across trees (A with the sort's tile_start)."""
+    from threedgrut_tpu_torch.ops import binning
+
+    for label, fn, lib in binning_fold_calls(cs, dev):
+        with torch.no_grad():
+            outs = fn()
+            if label == "a":
+                outs = binning.sort_pairs(*outs, (cs.SIDE // 16) ** 2)[:3]
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            torch.save([o.cpu() for o in outs], os.path.join(
+                out_dir, f"{res['tree']}_binning_fold_{label}.pt"))
+            r = dict(sha256=sha256(*outs), ms=cs.cuda_ms(fn, 20),
+                     device_ms=cs.device_ms(fn, 20))
+            if lib is not None:
+                r.update(index_add_ms=cs.cuda_ms(lib, 20),
+                         index_add_device_ms=cs.device_ms(lib, 20))
+            res[f"binning_fold_{label}"] = r
+            del outs
+
+
 def cross_tree(runs, out_dir):
     """Per rgb_c mode, this tree's output against the other's: relative
-    L2 per field group; per nht_b degree, the features' max |d|."""
+    L2 per field group; per nht_b degree, the features' max |d|; per
+    binning_fold call, each output's max |d| and the other's max |x|."""
     labels = {k for r in runs for k in r
-              if k.startswith(("rgb_c_", "nht_b_"))}
+              if k.startswith(("rgb_c_", "nht_b_", "binning_fold_"))}
     out = {}
     for k in sorted(labels):
         this, other = (torch.load(os.path.join(out_dir, f"{t}_{k}.pt"))
                        for t in ("this", "other"))
+        if k.startswith("binning_fold_"):
+            out[k] = dict(max_abs_diff=[
+                float((x.double() - y.double()).abs().max())
+                for x, y in zip(this, other)], other_max_abs=[
+                float(y.double().abs().max()) for y in other])
+            continue
         if k.startswith("nht_b_"):
             out[k] = dict(features_max_abs_diff=float(
                 (this - other).abs().max()))
@@ -509,9 +671,9 @@ GROUP_FNS = {"trace": trace_group, "playground": playground_group,
              "f": f_group, "nht_step": nht_step_group,
              "table_route": table_route_group, "rgb_c": rgb_c_group,
              "nht_b": nht_b_group, "gs_steps": gs_steps_group,
-             "rgb_b": rgb_b_group}
+             "rgb_b": rgb_b_group, "binning_fold": binning_fold_group}
 # the groups that keep their outputs in --out
-OUT_GROUPS = ("rgb_c", "nht_b")
+OUT_GROUPS = ("rgb_c", "nht_b", "binning_fold")
 
 
 def child(label, groups, out_dir):
@@ -576,12 +738,21 @@ def summary(res):
         if k.startswith(("rgb_c_", "nht_b_")):
             parts.append(f"{k} {res[k]['ms']:.4f} ms sha256 "
                          f"{res[k]['sha256'][:16]}")
+        elif k.startswith("binning_fold_"):
+            r = res[k]
+            parts.append(f"{k} {r['ms']:.4f} ms (device "
+                         f"{r['device_ms']:.4f}) sha256 {r['sha256'][:16]}"
+                         + (f", index_add_ {r['index_add_ms']:.4f} ms "
+                            f"(device {r['index_add_device_ms']:.4f})"
+                            if "index_add_ms" in r else ""))
     for k in NHT_CONFIGS + ("table_route", "playground", "step_3dgut",
                             "step_3dgrt", "step_rolling_3dgut"):
         if k in res:
             r = res[k]
             parts.append(f"{k.split('/')[-1]} {r['ms']:.3f} ms busy "
-                         f"{r['busy_us']:.1f} us idle {r['idle']:.3f}")
+                         f"{r['busy_us']:.1f} us idle {r['idle']:.3f}"
+                         + (f" kernels {r['kernels']:.1f}" if "kernels" in r
+                            else ""))
     return "; ".join(parts)
 
 

@@ -19,13 +19,16 @@ from threedgrut_tpu_torch.ops.cuda.fill import (forward_fill,
                                                 forward_fill_plain,
                                                 segmented_fill_rows,
                                                 segmented_fill_rows_plain)
-from threedgrut_tpu_torch.ops.cuda.fold import fold_pairs, fold_pairs_plain
+from threedgrut_tpu_torch.ops.cuda.fold import (fold_pairs, fold_pairs_plain,
+                                                fold_shared_segment,
+                                                invert_permutation,
+                                                invert_permutation_plain)
 from threedgrut_tpu_torch.ops.cuda.raster import (
     NHT_TRIG_FAST_MAX, FoldMeta, cull_plain, nht_fwd_kernel_attributes,
     nht_kernel_attributes, nht_sincos, rasterize_tiles,
     rasterize_tiles_backward, rasterize_tiles_backward_plain,
     rasterize_tiles_forward, rasterize_tiles_plain, rasterize_tiles_table,
-    rgb_kernel_attributes)
+    repeat_fold, rgb_kernel_attributes)
 from threedgrut_tpu_torch.ops.cuda.scatter import (
     id_runs, id_runs_plain, kernel_attributes, scatter_accumulate_rows,
     scatter_accumulate_rows_plain, scatter_runs)
@@ -1287,3 +1290,244 @@ def test_nht_kernels_refuse_other_feature_widths(cuda, width):
         rasterize_tiles_backward(table, b.pair_particle, b.tile_start,
                                  v.ray_d, v.tmin, v.tmax, *zeros, RC,
                                  v.ray_o)
+
+
+# kernel A's adversarial runs on an 800x800 view's 50 x 50 tiles: one
+# particle over the whole image (a run of 2,500 slots) among small ones;
+# runs cut by max_pairs inside the long run; and zero-count ranks
+# interleaved, at the start and end of the kernel's rank chunks
+A_CASES = ("whole_image", "max_pairs_cut", "zero_counts")
+
+
+def _decode_inputs(device, case, n=700, grid=(50, 50)):
+    """(rows, order, excl, counts, limit) of ``case`` (A_CASES)."""
+    rng = np.random.default_rng(11)
+    gx, gy = grid
+    lo_x = rng.integers(0, gx, n)
+    lo_y = rng.integers(0, gy, n)
+    w = np.minimum(rng.integers(1, 6, n), gx - lo_x)
+    h = np.minimum(rng.integers(1, 6, n), gy - lo_y)
+    cx = (lo_x + w / 2) * 16 + rng.normal(0, 8, n)
+    cy = (lo_y + h / 2) * 16 + rng.normal(0, 8, n)
+    a = rng.uniform(1e-4, 2e-2, n)
+    c = rng.uniform(1e-4, 2e-2, n)
+    b = rng.uniform(-0.5, 0.5, n) * np.sqrt(a * c)
+    max_power = rng.uniform(0.5, 6.0, n)
+    # the whole image: particle 0, a wide conic culling the corners
+    lo_x[0], lo_y[0], w[0], h[0] = 0, 0, gx, gy
+    cx[0], cy[0], a[0], c[0], b[0], max_power[0] = 400, 400, 1e-4, 1.5e-4, 0, 5
+    counts = (w * h).astype(np.int64)
+    order = rng.permutation(n)
+    order = np.concatenate([[0], order[order != 0]])   # the long run first
+    if case == "zero_counts":
+        order = rng.permutation(n)
+        counts[rng.random(n) < 0.5] = 0
+        counts[order[[0, 127, 128, 255, 256, n - 1]]] = 0
+        counts[1] = gx * gy
+        lo_x[1], lo_y[1], w[1], h[1] = 0, 0, gx, gy
+    cnt = counts[order]
+    excl = np.cumsum(cnt) - cnt
+    limit = int(cnt.sum())
+    if case == "max_pairs_cut":
+        limit = 1_234        # inside the 2,500-slot run
+    rows = np.stack([lo_x, lo_y, w, a, b, c, cx, cy, max_power],
+                    axis=1).astype(np.float32)
+    t = lambda x: torch.tensor(x.astype(np.int32), device=device)
+    return (torch.tensor(rows, device=device), t(order), t(excl), t(cnt),
+            limit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("case", A_CASES)
+def test_bin_decode_adversarial_runs_equal_plain(cuda, case, cull):
+    """Kernel A on long runs, runs cut by the buffer and zero-count ranks:
+    pair_tile and pair_particle equal to the plain version, with the
+    conic cull on and off."""
+    rows, order, excl, counts, limit = _decode_inputs(cuda, case)
+    before = expand_decode_pairs.launches
+    got = expand_decode_pairs(rows, order, excl, counts, limit, (50, 50),
+                              cull)
+    assert expand_decode_pairs.launches == before + 1
+    ref = expand_decode_pairs_plain(rows, order, excl, counts, limit,
+                                    (50, 50), cull)
+    torch.cuda.synchronize()
+    assert got[0].shape == (limit,)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    culled = int((got[0] == 2500).sum())
+    assert (culled > 0) == cull
+
+
+def _fold_runs(device, width, seed, n=3000, long_run=5000):
+    """(d_records, perm, inv_perm, order, excl, counts, limit, n_valid) of
+    random runs with one of ``long_run`` slots, a third of the ranks with
+    none, and the last 15% of the tile-sorted rows culled (random rows
+    there all the same: n_valid must keep them out)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 12, n)
+    counts[rng.random(n) < 0.33] = 0
+    counts[n // 3] = long_run
+    limit = int(counts.sum())
+    perm = rng.permutation(limit).astype(np.int32)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(limit, dtype=np.int32)
+    t = lambda x: torch.tensor(x.astype(np.int32), device=device)
+    d = torch.tensor(rng.normal(size=(limit, width)).astype(np.float32),
+                     device=device)
+    n_valid = torch.tensor(int(limit * 0.85), dtype=torch.int32,
+                           device=device)
+    return (d, t(perm), t(inv), t(rng.permutation(n)),
+            t(np.cumsum(counts) - counts), t(counts), limit, n_valid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [16, 64])
+def test_fold_adversarial_runs_match_plain(cuda, width):
+    """Kernel D on a 5,000-slot run (folded by the warp: runs past four
+    batches of a rank's lanes),
+    zero-count ranks and culled rows (n_valid): within 1e-5 of max of
+    the float64 plain version, bitwise repeatable, the same through the
+    inverse as through perm (D's own inversion); every row without
+    n_valid."""
+    d, perm, inv, order, excl, counts, limit, nv = _fold_runs(cuda, width,
+                                                              width)
+    cap = order.shape[0]
+    counter = "launches" if width == 16 else "launches_wide"
+    before = (getattr(fold_pairs, counter), invert_permutation.launches)
+    got = fold_pairs(d, perm, order, excl, counts, limit, cap, None, nv)
+    assert (getattr(fold_pairs, counter), invert_permutation.launches) == (
+        before[0] + 1, before[1] + 1)
+    again = fold_pairs(d, None, order, excl, counts, limit, cap, inv, nv)
+    assert invert_permutation.launches == before[1] + 1
+    assert torch.equal(invert_permutation(perm), inv)
+    assert torch.equal(invert_permutation_plain(perm), inv)
+    ref = fold_pairs_plain(d, perm, order, excl, counts, limit, cap, None,
+                           nv)
+    zeroed = d.clone()
+    zeroed[int(nv):] = 0.0
+    old = fold_pairs_plain(zeroed, perm, order, excl, counts, limit, cap)
+    every = fold_pairs(d, perm, order, excl, counts, limit, cap)
+    every_ref = fold_pairs_plain(d, perm, order, excl, counts, limit, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(ref, old)
+    for g, r in ((got, ref), (every, every_ref)):
+        torch.testing.assert_close(g, r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()))
+    # the long run's particle and the zero-count ranks
+    assert float(got[int(order[cap // 3])].abs().max()) > 0
+    zero = order[counts == 0].long()
+    assert float(got[zero].abs().max()) == 0.0
+
+
+def _segment_meta(device, n_seg, cap, n_active, seed):
+    from threedgrut_tpu_torch.render.grt import _segment_fold
+
+    rng = np.random.default_rng(seed)
+    order = torch.tensor(rng.permutation(cap).astype(np.int32),
+                         device=device)
+    return _segment_fold(order, n_active, n_seg, cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [16, 64])
+def test_fold_shared_segment_matches_repeat_fold(cuda, width):
+    """Kernel D's shared-segment mode against repeat_fold + the plain
+    fold, over 1,024 tiles of a 1,152-slot segment and over two groups of
+    tiles summed in group order (the backward's tile-row groups): within
+    1e-5 of max, bitwise repeatable."""
+    n_seg, cap, n_active, tiles = 1152, 1100, 1050, 1024
+    meta = _segment_meta(cuda, n_seg, cap, n_active, width)
+    g = torch.Generator(device=cuda).manual_seed(width)
+    d = torch.randn((tiles * n_seg, width), generator=g, device=cuda)
+    rep = repeat_fold(meta, tiles)
+    ref = fold_pairs_plain(d, rep.perm, rep.order, rep.excl, rep.counts,
+                           rep.limit, cap + 1)
+    args = (meta.order, meta.excl, meta.counts, meta.limit, cap + 1)
+    before = fold_shared_segment.launches
+    got = fold_shared_segment(d, tiles, *args)
+    again = fold_shared_segment(d, tiles, *args)
+    assert fold_shared_segment.launches == before + 2
+    split = 384 * n_seg
+    groups = (fold_shared_segment(d[:split], 384, *args)
+              + fold_shared_segment(d[split:], tiles - 384, *args))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for x in (got, groups):
+        torch.testing.assert_close(x, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+    assert float(got[cap].abs().max()) == 0.0    # the dead row
+
+
+@pytest.mark.gpu
+def test_trace_backward_tile_row_groups_on_card(cuda, monkeypatch):
+    """trace()'s brute-force backward with its blocks' rows folded in
+    three tile-row groups (SHARED_BWD_BYTES cut) against one group, on
+    the card: D's shared mode launches once a group; the gradients agree
+    within fp32 rounding of the group sums."""
+    from threedgrut_tpu_torch.ops.cuda import raster
+    from threedgrut_tpu_torch.render.grt import trace
+
+    model = bench_cloud(3000, seed=4, device=cuda)
+    ro, rd = _trace_rays(model, 48)
+
+    def grads():
+        for p in model.params().values():
+            p.grad = None
+        out = trace(model, ro, rd, accelerate=False)
+        (out["pred_features"].square().mean()
+         + 0.1 * out["pred_opacity"].mean()).backward()
+        return {k: p.grad.clone() for k, p in model.params().items()}
+
+    one = grads()
+    n_seg = -(-model.capacity // 128) * 128
+    # 48 x 48 rays: 9 blocks as a [144, 16] image, 9 tile rows of one block
+    monkeypatch.setattr(raster, "SHARED_BWD_BYTES", 3 * n_seg * 16 * 4)
+    before = fold_shared_segment.launches
+    three = grads()
+    assert fold_shared_segment.launches == before + 3
+    for k, g in one.items():
+        scale = float(g.abs().max()) + 1e-30
+        torch.testing.assert_close(three[k] / scale, g / scale, rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_fold_meta_paths_match_old_composition(cuda):
+    """The FoldMeta the port now builds against the composition it
+    replaces, on the card: render_gut's binning with n_valid (random
+    rows past tile_start[-1] left out) against the plain fold of the
+    rows with those zeroed; the grid trace's _particle_fold (the sort's
+    indices as the inverse, no perm) against the scatter-inverted perm."""
+    from threedgrut_tpu_torch.render.grt import _particle_fold
+
+    v = _view(cuda)
+    b = v.binning
+    g = torch.Generator(device=cuda).manual_seed(3)
+    d = torch.randn((b.limit, 16), generator=g, device=cuda)
+    cap = b.order.shape[0]
+    got = fold_pairs(d, b.perm, b.order, b.excl, b.counts, b.limit, cap,
+                     n_valid=b.num_pairs)
+    zeroed = d.clone()
+    zeroed[int(b.num_pairs):] = 0.0
+    ref = fold_pairs_plain(zeroed, b.perm, b.order, b.excl, b.counts,
+                           b.limit, cap)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+    rng = np.random.default_rng(6)
+    pid = torch.tensor(rng.integers(0, cap + 1, 200_000).astype(np.int32),
+                       device=cuda)
+    meta = _particle_fold(pid, cap)
+    perm = torch.empty_like(meta.inv_perm)
+    perm[meta.inv_perm.long()] = torch.arange(pid.numel(), dtype=torch.int32,
+                                              device=cuda)
+    d = torch.randn((pid.numel(), 16), generator=g, device=cuda)
+    before = invert_permutation.launches
+    got = fold_pairs(d, meta.perm, meta.order, meta.excl, meta.counts,
+                     meta.limit, cap + 1, meta.inv_perm)
+    assert invert_permutation.launches == before    # no inversion
+    ref = fold_pairs_plain(d, perm, meta.order, meta.excl, meta.counts,
+                           meta.limit, cap + 1)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))

@@ -46,7 +46,9 @@ TPU's kernel 7, which ``render/grt.py:trace`` takes by brute force):
 ``tile_start`` is [2] and every tile composites the one segment
 [tile_start[0], tile_start[1]). Kernel C then writes tile t's gradient
 of slot j to row t n + j, n the segment's length: one writer per row,
-and kernel D folds the tiles' rows of each slot (``repeat_fold``). trace
+and kernel D sums each slot's rows over the tiles, then folds the slots
+(``fold_shared_segment``; ``repeat_fold`` with ``fold_pairs`` is the
+same function over n_tiles n slots). trace
 runs it, and windows of 128 (``sort_window`` = 128), in the general mode
 at degree 4 only; their launches count in ``launches_shared_segment``
 and ``launches_window128``. In windows of 128 the kernels test only the
@@ -93,7 +95,7 @@ import torch
 from ..hit import _GG_SCALE, nht_hit_features, particle_response
 from ..ut import TILE_PIXELS, TILE_X, TILE_Y
 from . import build
-from .fold import fold_pairs
+from .fold import fold_pairs, fold_shared_segment
 from .scatter import scatter_accumulate_rows
 
 # a = M(o - p) (general mode: p) (3), M = diag(1/s) R^T (9), density, rgb(3)
@@ -107,12 +109,21 @@ NHT_FEAT_SLOT = 13
 
 class FoldMeta(NamedTuple):
     """The binning's map from tile-sorted pairs back to particles
-    (``ops/binning.py:Binning``; the arguments of ``fold_pairs``)."""
-    perm: torch.Tensor     # [P] i32 tile-sorted position -> pre-sort slot
+    (``ops/binning.py:Binning``; the arguments of ``fold_pairs``). At
+    least one of ``perm`` and ``inv_perm`` is given; kernel D reads the
+    inverse, and inverts ``perm`` itself where it is missing (a shared
+    segment's ``perm`` is the identity, which D's shared mode reads
+    neither)."""
+    perm: Optional[torch.Tensor]  # [P] i32 tile-sorted position -> pre slot
     order: torch.Tensor    # [N] i32 depth rank -> particle
     excl: torch.Tensor     # [N] i32 first pre-sort slot per depth rank
     counts: torch.Tensor   # [N] i32 slot count per depth rank
     limit: int             # pair slots kept (P)
+    # [P] i32 pre-sort slot -> tile-sorted position
+    inv_perm: Optional[torch.Tensor] = None
+    # [] i32 pairs before the culled ones (tile_start[-1]); rows past it
+    # are zero and are not read
+    n_valid: Optional[torch.Tensor] = None
 
 
 # the kernels are built for these degrees and sorted-mode windows: every
@@ -245,7 +256,8 @@ def rasterize_tiles(table: torch.Tensor, pair_particle: torch.Tensor,
         fold: the binning's FoldMeta; needed when ``table`` requires
             grad, for the backward's fold into the table. With
             ``shared``, the FoldMeta of the one segment (its P slots),
-            which the backward repeats per tile (``repeat_fold``).
+            which the backward applies to each slot's sum over the tiles
+            (``fold_shared_segment``).
         ray_o: [H, W, 3] f32 per-pixel world ray origins: the general
             mode. None: every ray starts at the origin the table's a was
             built from.
@@ -404,7 +416,9 @@ def repeat_fold(fold: FoldMeta, n_tiles: int) -> FoldMeta:
     """The FoldMeta of a shared segment's per-tile gradient rows: ``fold``
     describes the segment's P slots once; kernel C's row t P + j is tile
     t's copy of slot j. Slot s of ``fold`` becomes the pre-sort slots
-    s T + t, so each depth rank owns its slots' T tiles in tile order."""
+    s T + t, so each depth rank owns its slots' T tiles in tile order.
+    With ``fold_pairs_plain`` it is the plain composition that
+    ``fold_shared_segment`` is held against; no render path builds it."""
     p = fold.perm.shape[0]
     tiles = torch.arange(n_tiles, dtype=torch.int32, device=fold.perm.device)
     perm = (fold.perm[None, :] * n_tiles + tiles[:, None]).reshape(-1)
@@ -465,7 +479,8 @@ class _Rasterize(torch.autograd.Function):
                                                   table.shape[0])
             else:
                 d_table = fold_pairs(d_records, f.perm, f.order, f.excl,
-                                     f.counts, f.limit, table.shape[0])
+                                     f.counts, f.limit, table.shape[0],
+                                     f.inv_perm, f.n_valid)
             return (d_table,) + (None,) * 9
         # shared segment: the tiles' gradient rows fold in groups of tile
         # rows, summed in group order
@@ -479,9 +494,9 @@ class _Rasterize(torch.autograd.Function):
                 table, pair_particle, tile_start, rows(ray_d), rows(tmin),
                 rows(tmax), rows(feat), rows(depth), rows(t_final),
                 *(rows(u) for u in ups), ctx.cfg, rows(ray_o), shared=True)
-            g = repeat_fold(f, d_records.shape[0] // n_seg)
-            part = fold_pairs(d_records, g.perm, g.order, g.excl, g.counts,
-                              g.limit, table.shape[0])
+            part = fold_shared_segment(
+                d_records, d_records.shape[0] // n_seg, f.order, f.excl,
+                f.counts, f.limit, table.shape[0])
             d_table = part if d_table is None else d_table + part
         return (d_table,) + (None,) * 9
 

@@ -18,8 +18,9 @@ regimes, as in JAX:
 - brute force (capacity <= 8192, or ``accelerate=False``): every block
   walks the same segment of all slots in rank order, the shared-segment
   mode of kernels B and C (the TPU's kernel 7); its backward writes each
-  block's gradient rows apart and kernel D folds them
-  (``ops/cuda/raster.py:repeat_fold``);
+  block's gradient rows apart and kernel D sums each slot's rows over
+  the blocks, then folds the slots
+  (``ops/cuda/fold.py:fold_shared_segment``);
 - the uniform grid (``build_grid``, ``GridAccel``): each block keeps the
   ``max_cells`` nearest cells its rays cross, gathers up to ``cell_cap``
   particles of each plus the global list of large particles, sorts them
@@ -255,19 +256,20 @@ def _grid_candidates(accel: GridAccel, ro, rd, tmin, tmax, cap: int,
 def _particle_fold(pair_particle: torch.Tensor, cap: int) -> FoldMeta:
     """FoldMeta of pairs naming particles [0, cap] directly (cap: the dead
     row): rank r is particle r, owning its pairs in pair order (a stable
-    sort); the dead row's pairs, last, belong to no rank."""
+    sort); the dead row's pairs, last, belong to no rank. The sort's
+    indices are the inverse permutation (pre-sort slot -> pair), which
+    kernel D reads as they are."""
     n = pair_particle.shape[0]
     dev = pair_particle.device
     key = pair_particle.to(torch.int64)
     pre = torch.sort(key, stable=True).indices      # pre-sort slot -> pair
-    perm = torch.empty(n, dtype=torch.int32, device=dev)
-    perm[pre] = torch.arange(n, dtype=torch.int32, device=dev)
     counts = torch.bincount(key, minlength=cap + 1)
     counts[cap] = 0
     excl = torch.cumsum(counts, 0) - counts
-    return FoldMeta(perm, torch.arange(cap + 1, dtype=torch.int32,
+    return FoldMeta(None, torch.arange(cap + 1, dtype=torch.int32,
                                        device=dev),
-                    excl.to(torch.int32), counts.to(torch.int32), n)
+                    excl.to(torch.int32), counts.to(torch.int32), n,
+                    inv_perm=pre.to(torch.int32))
 
 
 def _segment_fold(order: torch.Tensor, n_active: int, n_seg: int,

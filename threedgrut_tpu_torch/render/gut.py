@@ -197,7 +197,8 @@ def render_gut(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
     b = v.binning
     feat, opacity, depth, hits, *normals = rasterize_tiles(
         v.table, b.pair_particle, b.tile_start, v.ray_d, v.tmin, v.tmax,
-        raster_cfg, FoldMeta(b.perm, b.order, b.excl, b.counts, b.limit),
+        raster_cfg, FoldMeta(b.perm, b.order, b.excl, b.counts, b.limit,
+                             n_valid=b.num_pairs),
         v.ray_o)
     out = {
         "pred_features": feat,

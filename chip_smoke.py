@@ -216,27 +216,32 @@ serving launch none of them:
    1e-5 of max and cosine >= 0.9999999 of the D route's; 20 steps launch
    B, C, F and F's set-up 20 times each and D never; host ms per step of
    both routes.
-39. kernel G vs plain - the interval expansion equal bit for bit at the
-   view's two shapes: the pair expansion (100k depth-ranked rows x 16 onto
-   the view's pair slots) and the tile expansion of aligned segments
-   (2,500 tile intervals x 3 onto the same length); ms beside a
-   searchsorted + index_select version.
-40. kernel H vs plain - forward_fill at 1M x 12 with 100k marks and
-   segmented_fill_rows of 100k rows (shared and dropped slots), equal bit
-   for bit; ms beside torch.cummax + a gather.
+39. kernel G vs plain - the interval expansion equal bit for bit to its
+   plain version and to searchsorted + index_select at the view's two
+   shapes (expand_inputs): the pair expansion (100k depth-ranked rows x 16
+   onto the view's pair slots) and the tile expansion of aligned segments
+   (2,500 tile intervals x 3 onto the same length); each by CUDA events
+   and device time, beside both, with its bound and its one launch.
+40. kernel H vs plain - forward_fill at 1M x 12 with 100k marks (also
+   equal to torch.cummax + a gather) and segmented_fill_rows of 100k rows
+   (shared and dropped slots), equal bit for bit (fill_inputs); each by
+   CUDA events and device time, with its bound and its one launch.
 
 Then a JSON line with each kernel's launches (A-D from phase 11, sorted
 B and C of each setting from phase 17, E from phase 18, the general
 kernels from phases 23-24, the NHT kernels from phase 29, kernel 7's B,
 C and D from phase 32, W 128 C from phase 33, normals B from phase 34,
 W 128 B from the playground frame of phase 36, F from the table route's
-3DGUT steps in phase 38, with its set-up's as setup_launches, G and H
-from the two calls of phases 39 and 40),
+3DGUT steps in phase 38, with its set-up's as setup_launches; G's pair
+and tile expansions (expand_rows, expand_rows_tiles) and H's
+forward_fill and segmented_fill_rows (fill, fill_segmented), each from
+its own call in phases 39 and 40),
 error and times (phases 3, 4, 8, 9, 13-15, 19-21, 26-27, 31-34, 37, 39,
-40), its bound (the larger
+40; G and H also by device time), its bound (the larger
 of the fp32 operations over 67 TFLOP/s and the bytes it must read and
 write over 3.35 TB/s, from this run's inputs: for G and H only the rows
-that a non-empty interval or a mark selects; for B, C and E the accept
+that a non-empty interval, a mark or a slot's last row selects, and
+segmented_fill_rows' slots; for B, C and E the accept
 test on every (pair, pixel) of the tiles and the response of each
 candidate the plain forward composited, for NHT also its features at
 each such candidate; for B and E in their RGB modes and trace's B and
@@ -245,8 +250,9 @@ cull at staging, the warps' pyramid tests (and trace's rays' sphere
 tests), the exact test of what the cull keeps, in the windows each ray
 walks before its kill, and the composited candidates' response) and, for
 kernels D and F, the time of index_add_,
-for G that of searchsorted + index_select, for H that of cummax + a
-gather; for C's NHT mode and F also the kernels' resources, C's sine
+for G that of searchsorted + index_select, for forward_fill that of
+cummax + a gather (none for segmented_fill_rows); for C's NHT mode and
+F also the kernels' resources, C's sine
 error, F's set-up and kernel times apart; for B and E in their RGB
 modes and trace's B and C (kernel 7 and windows of 128) the share of
 (pair, pixel) tests their cull removes (culled_share) and, as
@@ -433,10 +439,16 @@ KERNELS = {
     "scatter_rows": ("threedgrut_tpu_torch/csrc/scatter_rows.cu",
                      "threedgrut_tpu/ops/pallas/scatter.py:29"),
     # the interval expansion and the segmented fill, standalone ops
+    # (G: the pair and the tile expansion; H: forward_fill and
+    # segmented_fill_rows)
     "expand_rows": ("threedgrut_tpu_torch/csrc/expand_rows.cu",
                     "threedgrut_tpu/ops/pallas/expand.py:45"),
+    "expand_rows_tiles": ("threedgrut_tpu_torch/csrc/expand_rows.cu",
+                          "threedgrut_tpu/ops/pallas/expand.py:45"),
     "fill": ("threedgrut_tpu_torch/csrc/fill.cu",
              "threedgrut_tpu/ops/pallas/fill.py:31"),
+    "fill_segmented": ("threedgrut_tpu_torch/csrc/fill.cu",
+                       "threedgrut_tpu/ops/pallas/fill.py:31"),
 }
 
 
@@ -649,11 +661,12 @@ def cuda_ms(fn, reps):
 
 
 def _profiled_calls(fn, reps):
-    """[({kernel name: records}, device us) of one call of fn(), the same
-    of reps calls], from one torch.profiler session. The profiler drops
-    the records of a session's first milliseconds (on the H100: up to the
-    first 69 kernels, and a whole kernel's records of a short window): the
-    session opens with reps pad calls and a 20 ms wait, and a kernel is
+    """[({kernel name: records}, {kernel name: device us}) of one call of
+    fn(), the same of reps calls], from one torch.profiler session. The
+    profiler drops the records of a session's first milliseconds (on the
+    H100: up to the first 69 kernels, and a whole kernel's records of a
+    short window): the session opens with reps pad calls and a 20 ms
+    wait, and a kernel is
     counted in the span between marks set on the host's clock (which the
     profiler's device times share) in which it starts; each span begins a
     millisecond after the work before it has ended."""
@@ -683,7 +696,7 @@ def _profiled_calls(fn, reps):
              if e.name.startswith("device_ms_")}
     spans = [(marks["device_ms_one"], marks["device_ms_reps"]),
              (marks["device_ms_reps"], marks["device_ms_end"])]
-    out = [({}, 0.0), ({}, 0.0)]
+    out = [({}, {}), ({}, {})]
     for e in events:
         if (e.device_type != torch.autograd.DeviceType.CUDA
                 or e.name.startswith("device_ms_")):
@@ -692,7 +705,7 @@ def _profiled_calls(fn, reps):
             if t0 <= e.time_range.start < t1:
                 counts, us = out[k]
                 counts[e.name] = counts.get(e.name, 0) + 1
-                out[k] = (counts, us + e.time_range.elapsed_us())
+                us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
     return out
 
 
@@ -700,20 +713,23 @@ def _profiled_calls(fn, reps):
 DEVICE_MS_WINDOWS = 5
 
 
-def device_ms(fn, reps):
+def device_ms(fn, reps, by_kernel=False):
     """Device time per call of fn(): the device time of the kernels it
     launches over reps calls (torch.profiler), after one warm-up; unlike
     cuda_ms it leaves out the host's enqueueing. The kernels of one call,
     by name and launches, are read first; the reps calls count only if
     they hold each of them exactly reps times that and no other, else
     both are taken again, up to DEVICE_MS_WINDOWS times, and then it
-    raises (a reading short of a kernel's records is never returned)."""
+    raises (a reading short of a kernel's records is never returned).
+    With ``by_kernel``: (that time, {kernel name: its ms per call})."""
     fn()
     torch.cuda.synchronize()
     for _ in range(DEVICE_MS_WINDOWS):
-        (one, _), (counts, total) = _profiled_calls(fn, reps)
+        (one, _), (counts, us) = _profiled_calls(fn, reps)
         if one and counts == {k: c * reps for k, c in one.items()}:
-            return total / reps / 1e3
+            per = {k: u / reps / 1e3 for k, u in us.items()}
+            total = sum(per.values())
+            return (total, per) if by_kernel else total
         print(f"device_ms: windows disagree: one call {one}, {reps} calls "
               f"{counts}", flush=True)
     raise RuntimeError(f"device_ms: no window of {reps} calls held every "
@@ -2536,17 +2552,13 @@ def table_route_phase(dev, v, b_args, c_args, fwd):
     return launches
 
 
-def expand_phase(dev, v, s):
-    """Phase 39: kernel G equal to its plain version at the bench view's
-    two shapes of the JAX package: the pair expansion (each depth rank's
-    16-float row onto its pair slots, the view's slot count) and the tile
-    expansion of aligned segments (binning.py:_align_segments' 3 columns
-    onto each tile's 128-aligned interval, over the same length); ms
-    beside a searchsorted + index_select version; the two calls' launches.
-    Returns (the pair expansion's report entry, launches)."""
-    from threedgrut_tpu_torch.ops.cuda.expand import (
-        expand_sorted_rows, expand_sorted_rows_plain)
-
+def expand_inputs(v, s):
+    """Kernel G's arguments at the bench view's two shapes of the JAX
+    package (phase 39), {"pair": ..., "tile": ...}: the pair expansion
+    (each depth rank's 16-float row onto its pair slots, the view's slot
+    count) and the tile expansion of aligned segments
+    (binning.py:_align_segments' 3 columns onto each tile's 128-aligned
+    interval, over the same length)."""
     length = s.total
     with torch.no_grad():
         pair = (v.table.detach()[s.order.to(torch.int64)].contiguous(),
@@ -2562,61 +2574,14 @@ def expand_phase(dev, v, s):
                              torch.ones_like(vis)], 1).to(torch.float32),
                 astart[:-1].to(torch.int32), astart[1:].to(torch.int32),
                 length)
-        slot = torch.arange(length, dtype=torch.int32, device=dev)
-
-        def library(rows, starts, ends, n):
-            src = torch.searchsorted(starts, slot, right=True) - 1
-            ok = (src >= 0) & (slot < ends[src.clamp(min=0)])
-            padded = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
-            return padded.index_select(
-                0, torch.where(ok, src, rows.shape[0]))
-
-        msgs, entry = [], None
-        for label, args in (("pair", pair), ("tile", tile)):
-            got = expand_sorted_rows(*args)
-            ref = expand_sorted_rows_plain(*args)
-            torch.cuda.synchronize()
-            if not (torch.equal(got, ref) and torch.equal(got,
-                                                          library(*args))):
-                raise AssertionError(f"kernel G ({label} expansion) differs "
-                                     f"from plain at "
-                                     f"{int((got != ref).sum())} values")
-            ms = cuda_ms(lambda: expand_sorted_rows(*args), 20)
-            plain_ms = cuda_ms(lambda: expand_sorted_rows_plain(*args), 5)
-            lib_ms = cuda_ms(lambda: library(*args), 20)
-            # the bounds, the rows of non-empty intervals, the output
-            rows, starts, ends = args[:3]
-            b = bound(nbytes(starts, ends, got)
-                      + int((ends > starts).sum()) * rows.shape[1]
-                      * rows.element_size(), 0)
-            msgs.append(f"{label}s: {args[0].shape[0]} intervals x "
-                        f"{args[0].shape[1]} onto {length} slots equal to "
-                        f"plain; {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                        f"searchsorted + index_select {lib_ms:.4f} ms, "
-                        f"bound {b[0]:.4f} ms ({b[1]})")
-            if entry is None:
-                entry = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                             **bound_keys(b, library_ms=lib_ms))
-        expand_sorted_rows.launches = 0
-        expand_sorted_rows(*pair)
-        expand_sorted_rows(*tile)
-        torch.cuda.synchronize()
-        launches = expand_sorted_rows.launches
-    phase("kernel G", "; ".join(msgs) + f"; the two expansions launch "
-          f"{launches}")
-    return entry, launches
+    return {"pair": pair, "tile": tile}
 
 
-def fill_phase(dev):
-    """Phase 40: kernel H equal to its plain versions at fill.py's stated
-    size (FILL_SLOTS x FILL_WIDTH, FILL_MARKS marks): forward_fill, and
-    segmented_fill_rows with slots shared by several rows and slots out
-    of range; ms beside torch.cummax + a gather; the two calls' launches.
-    Returns (forward_fill's report entry, launches)."""
-    from threedgrut_tpu_torch.ops.cuda.fill import (
-        forward_fill, forward_fill_plain, segmented_fill_rows,
-        segmented_fill_rows_plain)
-
+def fill_inputs(dev):
+    """Kernel H's arguments (phase 40) at fill.py's stated size
+    (FILL_SLOTS x FILL_WIDTH, FILL_MARKS marks): forward_fill's (vals,
+    marked), and segmented_fill_rows's (row_vals, slots, length) with the
+    marks' slots, 1,000 of them shared by two rows and 100 out of range."""
     gen = torch.Generator(device=dev).manual_seed(40)
     n, d = FILL_SLOTS, FILL_WIDTH
     with torch.no_grad():
@@ -2628,8 +2593,88 @@ def fill_phase(dev):
         slots = pos.to(torch.int32)
         slots[:1000] = slots[1000:2000]          # shared slots
         slots[-100:] += n                        # dropped
-        ff = (vals, marked)
-        rows = (row_vals, slots, n)
+    return (vals, marked), (row_vals, slots, n)
+
+
+def expand_phase(dev, v, s):
+    """Phase 39: kernel G equal to its plain version and to a
+    searchsorted + index_select version at expand_inputs' two shapes; ms
+    by CUDA events and device time beside both. Returns ({report name:
+    entry}, {report name: launches}), the pair expansion under
+    expand_rows and the tile expansion under expand_rows_tiles, each
+    launching once in its own call."""
+    from threedgrut_tpu_torch.ops.cuda.expand import (
+        expand_sorted_rows, expand_sorted_rows_plain)
+
+    inputs = expand_inputs(v, s)
+    length = s.total
+    names = {"pair": "expand_rows", "tile": "expand_rows_tiles"}
+    with torch.no_grad():
+        slot = torch.arange(length, dtype=torch.int32, device=dev)
+
+        def library(rows, starts, ends, n):
+            src = torch.searchsorted(starts, slot, right=True) - 1
+            ok = (src >= 0) & (slot < ends[src.clamp(min=0)])
+            padded = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+            return padded.index_select(
+                0, torch.where(ok, src, rows.shape[0]))
+
+        msgs, entries, launches = [], {}, {}
+        for label, args in inputs.items():
+            expand_sorted_rows.launches = 0
+            got = expand_sorted_rows(*args)
+            torch.cuda.synchronize()
+            launches[names[label]] = expand_sorted_rows.launches
+            ref = expand_sorted_rows_plain(*args)
+            if not (torch.equal(got, ref) and torch.equal(got,
+                                                          library(*args))):
+                raise AssertionError(f"kernel G ({label} expansion) differs "
+                                     f"from plain at "
+                                     f"{int((got != ref).sum())} values")
+            ms = cuda_ms(lambda: expand_sorted_rows(*args), 20)
+            dev_ms = device_ms(lambda: expand_sorted_rows(*args), 20)
+            plain_ms = cuda_ms(lambda: expand_sorted_rows_plain(*args), 5)
+            lib_ms = cuda_ms(lambda: library(*args), 20)
+            # the bounds, the rows of non-empty intervals, the output
+            rows, starts, ends = args[:3]
+            b = bound(nbytes(starts, ends, got)
+                      + int((ends > starts).sum()) * rows.shape[1]
+                      * rows.element_size(), 0)
+            msgs.append(f"{label}s: {rows.shape[0]} intervals x "
+                        f"{rows.shape[1]} onto {length} slots equal to "
+                        f"plain; {ms:.4f} ms (device {dev_ms:.4f}), plain "
+                        f"{plain_ms:.4f} ms, searchsorted + index_select "
+                        f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+                        f"launches {launches[names[label]]}")
+            entries[names[label]] = dict(
+                max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                **bound_keys(b, library_ms=lib_ms))
+    phase("kernel G", "; ".join(msgs))
+    return entries, launches
+
+
+def fill_phase(dev):
+    """Phase 40: kernel H equal to its plain versions at fill_inputs'
+    size: forward_fill (also equal to torch.cummax + a gather), and
+    segmented_fill_rows with shared and dropped slots; ms by CUDA events
+    and device time. Returns ({report name: entry}, {report name:
+    launches}), forward_fill under fill and segmented_fill_rows under
+    fill_segmented, each launching once in its own call."""
+    from threedgrut_tpu_torch.ops.cuda.fill import (
+        forward_fill, forward_fill_plain, segmented_fill_rows,
+        segmented_fill_rows_plain)
+
+    ff, rows = fill_inputs(dev)
+    (vals, marked), (row_vals, slots, n) = ff, rows
+    d = vals.shape[1]
+    with torch.no_grad():
+        launches = {}
+        for name, fn, args in (("fill", forward_fill, ff),
+                               ("fill_segmented", segmented_fill_rows, rows)):
+            forward_fill.launches = 0
+            fn(*args)
+            torch.cuda.synchronize()
+            launches[name] = forward_fill.launches
         got, got_rows = forward_fill(*ff), segmented_fill_rows(*rows)
         torch.cuda.synchronize()
         if not (torch.equal(got, forward_fill_plain(*ff))
@@ -2646,27 +2691,35 @@ def fill_phase(dev):
         if not torch.equal(got, library()):
             raise AssertionError("kernel H differs from cummax + gather")
         ms = cuda_ms(lambda: forward_fill(*ff), 20)
+        dev_ms = device_ms(lambda: forward_fill(*ff), 20)
         plain_ms = cuda_ms(lambda: forward_fill_plain(*ff), 5)
         lib_ms = cuda_ms(library, 20)
         rows_ms = cuda_ms(lambda: segmented_fill_rows(*rows), 20)
+        rows_dev_ms = device_ms(lambda: segmented_fill_rows(*rows), 20)
         rows_plain_ms = cuda_ms(lambda: segmented_fill_rows_plain(*rows), 5)
         # the marks, each marked slot's row, the output
         b = bound(nbytes(marked, got)
                   + int(marked.sum()) * d * vals.element_size(), 0)
-        forward_fill.launches = 0
-        forward_fill(*ff)
-        segmented_fill_rows(*rows)
-        torch.cuda.synchronize()
-        launches = forward_fill.launches
+        # the slots, the row that wins each slot in range, the output
+        kept = int(torch.unique(slots[(slots >= 0) & (slots < n)]).numel())
+        b_rows = bound(nbytes(slots, got_rows)
+                       + kept * d * row_vals.element_size(), 0)
     phase("kernel H", f"forward_fill {n} x {d}, {FILL_MARKS} marks: equal "
-          f"to plain and to cummax + gather; {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, cummax + gather {lib_ms:.4f} ms, bound "
-          f"{b[0]:.4f} ms ({b[1]}); segmented_fill_rows of {FILL_MARKS} rows "
-          f"(1000 slots shared, 100 dropped): equal to plain, {rows_ms:.4f} "
-          f"ms, plain {rows_plain_ms:.4f} ms; the two calls launch "
-          f"{launches}")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                **bound_keys(b, library_ms=lib_ms)), launches
+          f"to plain and to cummax + gather; {ms:.4f} ms (device "
+          f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, cummax + gather "
+          f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), launches "
+          f"{launches['fill']}; segmented_fill_rows of {FILL_MARKS} rows "
+          f"(1000 slots shared, 100 dropped; {kept} slots kept): equal to "
+          f"plain, {rows_ms:.4f} ms (device {rows_dev_ms:.4f}), plain "
+          f"{rows_plain_ms:.4f} ms, bound {b_rows[0]:.4f} ms ({b_rows[1]}),"
+          f" launches {launches['fill_segmented']}")
+    return {"fill": dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms,
+                         **bound_keys(b, library_ms=lib_ms)),
+            "fill_segmented": dict(max_abs_err=0.0, ms=rows_ms,
+                                   device_ms=rows_dev_ms,
+                                   plain_ms=rows_plain_ms,
+                                   **bound_keys(b_rows))}, launches
 
 
 def main():
@@ -3027,8 +3080,9 @@ def main():
     report["scatter_rows"] = scatter_phase(dev, v, c_args)
     launches["scatter_rows"], report["scatter_rows"]["setup_launches"] = (
         table_route_phase(dev, v, b_args, c_args, fwd))
-    report["expand_rows"], launches["expand_rows"] = expand_phase(dev, v, s)
-    report["fill"], launches["fill"] = fill_phase(dev)
+    for entries, counts in (expand_phase(dev, v, s), fill_phase(dev)):
+        report.update(entries)
+        launches.update(counts)
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches.get(k, 0), **report[k])

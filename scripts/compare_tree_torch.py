@@ -2,7 +2,7 @@
 """Time this checkout's port beside another checkout's on one NVIDIA GPU.
 
     python scripts/compare_tree_torch.py --other <dir> [--rounds 2]
-        [--groups trace,playground,guard800]
+        [--groups trace,playground,guard800,layout]
 
 ``--other`` is another checkout of the repository, e.g. an earlier
 commit unpacked with ``git archive <commit> | tar -x -C build/other``.
@@ -66,7 +66,14 @@ touches saves the minutes of the slow ones, such as ``nht_step``):
   rolling 3DGUT view (phase 20), 64 wide on the NHT view (phase 27),
   kernel 7's 8.4M per-block rows (phase 32) and the grid trace's rows
   (phase 33): CUDA events, device time and a SHA-256 of each output, and
-  after the run each output's max |d| against the other tree's.
+  after the run each output's max |d| against the other tree's;
+- ``layout``: kernel G at both of chip_smoke.py phase 39's shapes (the
+  pair expansion, 100k rows x 16, and the tile expansion, 2,500 x 3, onto
+  the 800x800 bench view's 691,175 slots) and kernel H's two calls on
+  phase 40's inputs (``forward_fill`` at 2^20 x 12 with 100k marks, and
+  ``segmented_fill_rows`` of 100k rows): CUDA events, device time in all
+  and by kernel (which parts the negative-slot check's reduction and
+  read-back from the fill), and a SHA-256 of each output.
 
 ``rgb_c``, ``nht_b`` and ``binning_fold`` leave each tree's outputs in
 ``--out`` (default ``build/compare`` of this checkout) for the
@@ -93,7 +100,7 @@ NHT_CONFIGS = ("apps/nerf_synthetic_3dgut_mcmc_nht",
 # measurement groups, in the order a run takes them (GROUP_FNS below)
 GROUPS = ("trace", "playground", "guard800", "nht_c", "f", "nht_step",
           "table_route", "rgb_c", "nht_b", "gs_steps", "rgb_b",
-          "binning_fold")
+          "binning_fold", "layout")
 # kernel C's record field groups (a or p, M, density, rgb)
 FIELD_GROUPS = {"a": slice(0, 3), "M": slice(3, 12), "density": slice(12, 13),
                 "rgb": slice(13, 16)}
@@ -638,6 +645,40 @@ def binning_fold_group(cs, dev, res, out_dir):
             del outs
 
 
+def layout_inputs(cs, dev):
+    """{label: (wrapper, arguments)} of kernel G's and H's four calls on
+    chip_smoke.py phases 39 and 40's inputs."""
+    from threedgrut_tpu_torch.ops import binning
+    from threedgrut_tpu_torch.ops.cuda.expand import expand_sorted_rows
+    from threedgrut_tpu_torch.ops.cuda.fill import (forward_fill,
+                                                    segmented_fill_rows)
+    from threedgrut_tpu_torch.ops.ut import UTConfig
+
+    _, v, _ = bench_view(cs, dev)
+    with torch.no_grad():
+        s = binning.pair_slots(v.proj, (cs.SIDE // 16, cs.SIDE // 16),
+                               UTConfig().alpha_threshold)
+    g = cs.expand_inputs(v, s)
+    ff, rows = cs.fill_inputs(dev)
+    return {"g_pairs": (expand_sorted_rows, g["pair"]),
+            "g_tiles": (expand_sorted_rows, g["tile"]),
+            "h_forward": (forward_fill, ff),
+            "h_segmented": (segmented_fill_rows, rows)}
+
+
+def layout_group(cs, dev, res):
+    """Kernels G and H: times (in all and by kernel) and hashes."""
+    with torch.no_grad():
+        for label, (fn, args) in layout_inputs(cs, dev).items():
+            def call():
+                return fn(*args)
+
+            total, by_kernel = cs.device_ms(call, 20, by_kernel=True)
+            res[f"layout_{label}"] = dict(
+                sha256=sha256(call()), ms=cs.cuda_ms(call, 20),
+                device_ms=total, device_by_kernel=by_kernel)
+
+
 def cross_tree(runs, out_dir):
     """Per rgb_c mode, this tree's output against the other's: relative
     L2 per field group; per nht_b degree, the features' max |d|; per
@@ -671,7 +712,8 @@ GROUP_FNS = {"trace": trace_group, "playground": playground_group,
              "f": f_group, "nht_step": nht_step_group,
              "table_route": table_route_group, "rgb_c": rgb_c_group,
              "nht_b": nht_b_group, "gs_steps": gs_steps_group,
-             "rgb_b": rgb_b_group, "binning_fold": binning_fold_group}
+             "rgb_b": rgb_b_group, "binning_fold": binning_fold_group,
+             "layout": layout_group}
 # the groups that keep their outputs in --out
 OUT_GROUPS = ("rgb_c", "nht_b", "binning_fold")
 
@@ -687,7 +729,7 @@ def child(label, groups, out_dir):
     cs = smoke()
     dev = torch.device("cuda:0")
     build.load_all(["bin_decode", "raster_fwd", "raster_bwd", "fold",
-                    "scatter_rows", "wmax"])
+                    "scatter_rows", "wmax", "expand_rows", "fill"])
     res = {"tree": label}
     for g in groups:
         if g in OUT_GROUPS:
@@ -745,6 +787,13 @@ def summary(res):
                          + (f", index_add_ {r['index_add_ms']:.4f} ms "
                             f"(device {r['index_add_device_ms']:.4f})"
                             if "index_add_ms" in r else ""))
+    for k in sorted(res):
+        if k.startswith("layout_"):
+            r = res[k]
+            parts.append(f"{k} {r['ms']:.4f} ms (device {r['device_ms']:.4f}"
+                         f": " + ", ".join(f"{n[:40]} {t:.4f}" for n, t in
+                                           r["device_by_kernel"].items())
+                         + f") sha256 {r['sha256'][:16]}")
     for k in NHT_CONFIGS + ("table_route", "playground", "step_3dgut",
                             "step_3dgrt", "step_rolling_3dgut"):
         if k in res:

@@ -886,22 +886,63 @@ def _intervals(counts, length, device):
     return starts.to(device), ends.to(device)
 
 
+def _off_grid(t):
+    """t's values in a view 4 bytes (a bool's 1 byte) past an allocation's
+    start: off the 16-byte grid of float4 rows and the 4-byte grid of
+    packed marks."""
+    flat = torch.cat([t.new_zeros(1), t.flatten()])[1:]
+    return flat.view(t.shape)
+
+
+# kernel G's cases: (sources, width, hi), each interval randint(0, hi)
+# slots long; the buffer cuts 50 slots off the end unless the case sets
+# its length
+EXPAND_CASES = {
+    "pairs": (20_000, 16, 12),    # the pair expansion's shape
+    "tiles": (600, 3, 400),       # the tile intervals'
+    "width1": (5_000, 1, 12),
+    "width4": (5_000, 4, 12),
+    "width7": (5_000, 7, 12),
+    "width12": (5_000, 12, 12),
+    "long": (40, 16, 30),         # one interval spans several blocks
+    "empty_run": (8_000, 4, 12),  # 3,000 empty intervals at one slot
+    "no_sources": (0, 16, 1),
+    "one_slot": (300, 16, 12),    # length 1
+    "ragged": (2_000, 16, 12),    # 5 blocks and 7 slots
+    "misaligned": (5_000, 16, 12),  # rows not 16-byte aligned
+    "wide": (300, 257, 12),       # a row wider than the block
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", ["pairs", "tiles"])
+@pytest.mark.parametrize("shape", sorted(EXPAND_CASES))
 def test_expand_rows_matches_plain(cuda, shape):
     """Kernel G equal to its plain version: many short intervals (the pair
     expansion's shape, 16 wide, with ids up to 2^24 and a denormal) and
     few long ones (the tile intervals', 3 wide), the last cut by the
-    buffer."""
+    buffer; float4 and float rows (widths 1-16, 16-wide rows off the
+    16-byte grid, and 257 wide); an interval longer than a block; a run of empty
+    intervals at one slot, more than a block stages; no source; one
+    slot; a length off the block span."""
     g = torch.Generator().manual_seed(5)
-    k, d, hi = (20_000, 16, 12) if shape == "pairs" else (600, 3, 400)
+    k, d, hi = EXPAND_CASES[shape]
     counts = torch.randint(0, hi, (k,), generator=g)
-    length = int(counts.sum()) - 50
+    if shape == "long":
+        counts[7] = 5_000
+    if shape == "empty_run":
+        counts[1_000:4_000] = 0
+    length = max(int(counts.sum()) - 50, 1)
+    length = {"no_sources": 777, "one_slot": 1,
+              "ragged": 5 * 1024 + 7}.get(shape, length)
     rows = torch.randn((k, d), generator=g)
-    rows[:, 0] = torch.randint(0, 1 << 24, (k,), generator=g).float()
-    rows[0, 1] = 1e-40
+    if k:
+        rows[:, 0] = torch.randint(0, 1 << 24, (k,), generator=g).float()
+        rows[0, 1 % d] = 1e-40
     starts, ends = _intervals(counts, length, cuda)
     rows = rows.to(cuda)
+    if shape == "misaligned":
+        rows = _off_grid(rows)
+        assert rows.data_ptr() % 16
     before = expand_sorted_rows.launches
     got = expand_sorted_rows(rows, starts, ends, length)
     assert expand_sorted_rows.launches == before + 1
@@ -911,24 +952,72 @@ def test_expand_rows_matches_plain(cuda, shape):
     assert torch.equal(got, ref)
 
 
+# kernel H's cases beside "mixed": (length, width, marks)
+FILL_CASES = {
+    "width1": (300_001, 1, "sparse"),
+    "width12": (300_001, 12, "sparse"),
+    "width16": (300_001, 16, "sparse"),
+    "far_carry": (1_100 * 1024 + 3, 1, "first10"),  # 1,100 spans back
+    "first_only": (20_000, 7, "first"),
+    "no_marks": (20_000, 7, "none"),
+    "short": (300, 16, "sparse"),                    # under one block
+    "misaligned": (100_003, 12, "sparse"),           # marks and rows
+    "wide": (5_000, 257, "sparse"),                  # wider than the block
+}
+
+
+def _fill_case(case, g, cuda):
+    """(vals, marked, row_vals, row_slots, length) of a FILL_CASES case:
+    the segmented fill's rows sit at the marks (shuffled; where there are
+    30 or more, the last ten share a slot with the first ten and five lie
+    past the end)."""
+    length, d, marks = FILL_CASES[case]
+    vals = torch.randn((length, d), generator=g)
+    marked = torch.zeros(length, dtype=torch.bool)
+    if marks == "sparse":
+        marked = torch.rand(length, generator=g) < 0.01
+    elif marks == "first10":
+        marked[10] = True
+    elif marks == "first":
+        marked[0] = True
+    pos = torch.nonzero(marked).flatten()
+    pos = pos[torch.randperm(pos.numel(), generator=g)].to(torch.int32)
+    if pos.numel() >= 30:
+        pos[-10:] = pos[:10]
+        pos[10:15] += length
+    row_vals = torch.randn((pos.numel(), d), generator=g)
+    vals, marked, row_vals = (t.to(cuda) for t in (vals, marked, row_vals))
+    if case == "misaligned":
+        vals, marked, row_vals = map(_off_grid, (vals, marked, row_vals))
+        assert vals.data_ptr() % 16 and marked.data_ptr() % 4
+    return vals, marked, row_vals, pos.to(cuda), length
+
+
 @pytest.mark.gpu
-def test_fill_matches_plain(cuda):
+@pytest.mark.parametrize("case", ["mixed"] + sorted(FILL_CASES))
+def test_fill_matches_plain(cuda, case):
     """Kernel H equal to its plain versions: forward_fill over blocks whose
     carry spans several empty blocks, and segmented_fill_rows with slots
     shared by several rows (the last in input order wins) and slots past
-    the end; a negative slot raises."""
+    the end; a negative slot raises ("mixed"). The other cases: widths 1,
+    12, 16 and 257 (float and float4 rows), one mark whose carry reaches
+    1,100 spans on, only the first slot marked, no mark (and no row), a length
+    under one block, and marks and rows off the 4- and 16-byte grid."""
     g = torch.Generator().manual_seed(6)
-    length, d = 300_001, 7
-    vals = torch.randn((length, d), generator=g).to(cuda)
-    marked = torch.rand(length, generator=g) < 1e-4
-    marked[50_000:120_000] = False
-    marked = marked.to(cuda)
-    n = 5_000
-    slots = torch.randint(0, length + 10, (n,), generator=g,
-                          dtype=torch.int32)
-    slots[100:200] = 77            # one slot, many rows
-    row_vals = torch.randn((n, d), generator=g).to(cuda)
-    slots = slots.to(cuda)
+    if case == "mixed":
+        length, d = 300_001, 7
+        vals = torch.randn((length, d), generator=g).to(cuda)
+        marked = torch.rand(length, generator=g) < 1e-4
+        marked[50_000:120_000] = False
+        marked = marked.to(cuda)
+        n = 5_000
+        slots = torch.randint(0, length + 10, (n,), generator=g,
+                              dtype=torch.int32)
+        slots[100:200] = 77            # one slot, many rows
+        row_vals = torch.randn((n, d), generator=g).to(cuda)
+        slots = slots.to(cuda)
+    else:
+        vals, marked, row_vals, slots, length = _fill_case(case, g, cuda)
     before = forward_fill.launches
     got = forward_fill(vals, marked)
     got_rows = segmented_fill_rows(row_vals, slots, length)
@@ -938,10 +1027,30 @@ def test_fill_matches_plain(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert torch.equal(got_rows, ref_rows)
-    assert torch.equal(got_rows[77], row_vals[199])
-    slots[0] = -1
-    with pytest.raises(ValueError, match="negative slot"):
-        segmented_fill_rows(row_vals, slots, length)
+    if case == "mixed":
+        assert torch.equal(got_rows[77], row_vals[199])
+        slots[0] = -1
+        with pytest.raises(ValueError, match="negative slot"):
+            segmented_fill_rows(row_vals, slots, length)
+    elif case == "far_carry":
+        assert torch.equal(got[-1], vals[10])
+    elif case == "no_marks":
+        assert not got.any() and not got_rows.any()
+
+
+@pytest.mark.gpu
+def test_layout_ops_refuse_rows_past_int_range(cuda):
+    """Kernels G and H index a block's output in 32 bits: rows of 2^21
+    floats or more (1,024 slots x 2^21 reach 2^31) are refused, not
+    written past."""
+    rows = torch.zeros((1, 1 << 21), device=cuda)
+    bounds = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        expand_sorted_rows(rows, bounds, bounds + 1, 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        forward_fill(rows, torch.ones(1, dtype=torch.bool, device=cuda))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        segmented_fill_rows(rows, bounds, 1)
 
 
 # ---- kernel C's RGB modes and NHT kernel B on hand-built tiles ----

@@ -19,6 +19,9 @@ CPU, plain versions against the JAX functions in Pallas interpret mode:
     (2e-3 max-normalised, cosine >= 0.9999).
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,7 +40,8 @@ from threedgrut_tpu.ops.ut import UTConfig as JUTConfig
 from threedgrut_tpu.render.common import RasterConfig as JRasterConfig
 from threedgrut_tpu.render.gut import render_gut as j_render_gut
 from threedgrut_tpu_torch.ops.cuda.expand import expand_sorted_rows
-from threedgrut_tpu_torch.ops.cuda.fill import (forward_fill,
+from threedgrut_tpu_torch.ops.cuda.fill import (FILL_SPAN, fill_spans,
+                                                forward_fill,
                                                 segmented_fill_rows)
 from threedgrut_tpu_torch.ops.ut import UTConfig
 from threedgrut_tpu_torch.render.common import RasterConfig
@@ -184,6 +188,21 @@ def test_segmented_fill_rows_refuses_negative_slots(length):
     with pytest.raises(ValueError, match="negative slot -1"):
         segmented_fill_rows(torch.from_numpy(rows), torch.from_numpy(slots),
                             length)
+
+
+@pytest.mark.parametrize("length, spans", [(0, 0), (1, 1), (1024, 1),
+                                           (1025, 2), (1 << 20, 1024)])
+def test_fill_spans_match_the_kernel(length, spans):
+    """The wrapper sizes kernel H's aggregates one int a span of
+    csrc/fill.cu's kSpan (kThreads x kItems slots); the launch refuses a
+    smaller workspace."""
+    src = (Path(__file__).resolve().parents[1] / "threedgrut_tpu_torch"
+           / "csrc" / "fill.cu").read_text()
+    threads, items = (int(re.search(rf"constexpr int {k} = (\d+);",
+                                    src).group(1))
+                      for k in ("kThreads", "kItems"))
+    assert FILL_SPAN == threads * items
+    assert fill_spans(length) == spans
 
 
 def _loss(out):

@@ -4,7 +4,8 @@ Replaces threedgrut_tpu/ops/pallas/fill.py:_fill_kernel (through
 ``forward_fill`` and ``segmented_fill_rows``), as standalone ops: nothing
 in the port calls them, as nothing in the JAX package does. The CUDA
 kernel is ``csrc/fill.cu``; its header says how the carry crosses blocks
-(an explicit pass, never block order) and what bounds it. On CPU tensors
+(each block reads the aggregates of the spans before it, never waiting
+for another block) and what bounds it. On CPU tensors
 the wrappers run ``forward_fill_plain`` and ``segmented_fill_rows_plain``,
 which the kernel equals bit for bit.
 
@@ -22,6 +23,16 @@ import ctypes
 import torch
 
 from . import build
+
+# slots a span of csrc/fill.cu (its kSpan): the kernel's aggregates take
+# one int a span
+FILL_SPAN = 1024
+
+
+def fill_spans(length: int) -> int:
+    """The spans of a fill over ``length`` slots: the ints of its
+    aggregates' workspace (the launch refuses fewer)."""
+    return -(-length // FILL_SPAN)
 
 
 def forward_fill(vals: torch.Tensor, marked: torch.Tensor) -> torch.Tensor:
@@ -42,10 +53,10 @@ def forward_fill(vals: torch.Tensor, marked: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty((length, d), dtype=torch.float32, device=dev)
+    agg = torch.empty(fill_spans(length), dtype=torch.int32, device=dev)
     lib = _lib()
-    agg, carry = _workspace(lib, length, dev)
     err = lib.fill_launch(vals.data_ptr(), marked.data_ptr(), length, d,
-                          agg.data_ptr(), carry.data_ptr(), out.data_ptr(),
+                          agg.data_ptr(), agg.numel(), out.data_ptr(),
                           torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("fill", err, lib)
     forward_fill.launches += 1
@@ -67,52 +78,51 @@ def segmented_fill_rows(row_vals: torch.Tensor, row_slots: torch.Tensor,
 
     Raises ValueError for a negative slot: JAX wraps it modulo its
     buffer padded to 8192-slot slabs, a TPU layout the port does not
-    keep. On a card the check reads the least slot back to the host.
+    keep. On a card the kernel drops such rows and reports the least
+    negative slot, which the wrapper reads back (one int) after the
+    launch.
     """
     n, d = row_vals.shape
     dev = row_vals.device
     build.check_tensor("row_vals", row_vals, torch.float32, (n, d), dev)
     build.check_tensor("row_slots", row_slots, torch.int32, (n,), dev)
-    if n and int(row_slots.min()) < 0:
-        raise ValueError(f"row_slots holds negative slot "
-                         f"{int(row_slots.min())}: slots must be >= 0")
     if dev.type == "cpu":
+        _refuse_negative(int(row_slots.min()) if n else 0)
         return segmented_fill_rows_plain(row_vals, row_slots, length)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty((length, d), dtype=torch.float32, device=dev)
-    sel = torch.empty(length, dtype=torch.int32, device=dev)
+    # each slot's row, the aggregates, the negative-slot check
+    ws = torch.empty(length + fill_spans(length) + 1, dtype=torch.int32,
+                     device=dev)
     lib = _lib()
-    agg, carry = _workspace(lib, length, dev)
     err = lib.fill_rows_launch(
         row_vals.data_ptr(), row_slots.data_ptr(), n, length, d,
-        sel.data_ptr(), agg.data_ptr(), carry.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), ws.numel(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("fill", err, lib)
     forward_fill.launches += 1
+    _refuse_negative(-1 - int(ws[-1]))
     return out
+
+
+def _refuse_negative(least):
+    if least < 0:
+        raise ValueError(f"row_slots holds negative slot {least}: slots "
+                         f"must be >= 0")
 
 
 # kernel H launches, by either wrapper
 forward_fill.launches = 0
 
 
-def _workspace(lib, length, dev):
-    """The per-block aggregates and carries of a fill over ``length``."""
-    n_blocks = max(int(lib.fill_blocks(length)), 1)
-    return (torch.empty(n_blocks, dtype=torch.int32, device=dev),
-            torch.empty(n_blocks, dtype=torch.int32, device=dev))
-
-
 def _lib() -> ctypes.CDLL:
     lib = build.load("fill")
     if lib.fill_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fill_blocks.argtypes = [i]
-        lib.fill_blocks.restype = i
-        lib.fill_launch.argtypes = [p, p, i, i, p, p, p, p]
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.fill_launch.argtypes = [p, p, i, i, p, i, p, p]
         lib.fill_launch.restype = i
-        lib.fill_rows_launch.argtypes = [p, p, i, i, i, p, p, p, p, p]
+        lib.fill_rows_launch.argtypes = [p, p, i, i, i, p, i64, p, p]
         lib.fill_rows_launch.restype = i
     return lib
 

@@ -227,6 +227,20 @@ serving launch none of them:
    (shared and dropped slots), equal bit for bit (fill_inputs); each by
    CUDA events and device time, with its bound and its one launch.
 
+The evaluation path (the port's CLIs as a user runs them, each in its
+own process; kernels A and B, and C, D, E in training):
+
+41. evaluation path - scripts/gen_synthetic_scene_torch.py at 800x800
+   (the 60k teacher; 4 train, 2 val and 2 test views): exit 0, the pair
+   slots of every view printed, A and B launched once a view;
+   train_torch.py apps/nerf_synthetic_3dgut on it for 0 and for 200
+   steps: exit 0, A-D launched every step; render_torch.py on both
+   ckpt_last.npz: exit 0, metrics.json with every key of render.py's,
+   A and B launched once a test view, psnr finite and above the 0-step
+   checkpoint's; validate_torch.py --iterations 30: exit 0, three rows,
+   the NHT kernels launched; LPIPS with random_params(0) on the card
+   against the same call on the CPU (within 1e-4 relative, TF32 off).
+
 Then a JSON line with each kernel's launches (A-D from phase 11, sorted
 B and C of each setting from phase 17, E from phase 18, the general
 kernels from phases 23-24, the NHT kernels from phase 29, kernel 7's B,
@@ -257,8 +271,9 @@ error, F's set-up and kernel times apart; for B and E in their RGB
 modes and trace's B and C (kernel 7 and windows of 128) the share of
 (pair, pixel) tests their cull removes (culled_share) and, as
 bound_all_pairs_ms, the bound of the exact test on every (pair, pixel),
-which JAX's function does; B's registers in its RGB modes; the
-card's name and power limit, and the last line
+which JAX's function does; B's registers in its RGB modes;
+for the kernels phase 41's entry points launch, their launches by entry
+point (eval_launches); the card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX. Needs one card; there is no CPU fallback.
 """
@@ -2722,6 +2737,160 @@ def fill_phase(dev):
                                    **bound_keys(b_rows))}, launches
 
 
+# report name -> "<wrapper>.<counter>" of the kernels the
+# evaluation path's CLIs launch (their "launches:" line,
+# ops/cuda/__init__.py:launch_counts)
+EVAL_COUNTERS = {
+    "bin_decode": "expand_decode_pairs.launches",
+    "raster_fwd": "rasterize_tiles.launches",
+    "raster_bwd": "rasterize_tiles_backward.launches",
+    "fold": "fold_pairs.launches",
+    "fold_invert": "invert_permutation.launches",
+    "wmax": "pair_weight_max.launches",
+    "raster_fwd_nht": "rasterize_tiles.launches_nht",
+    "raster_bwd_nht": "rasterize_tiles_backward.launches_nht",
+    "fold_64": "fold_pairs.launches_wide",
+}
+EVAL_SIDE, EVAL_TRAIN, EVAL_VAL = 800, 4, 2
+EVAL_STEPS, EVAL_VALIDATE_STEPS = 200, 30
+# render.py's metrics.json keys (render.py:127-145)
+EVAL_KEYS = ("psnr", "ssim", "psnr_cc", "ssim_cc", "lpips", "best_frame",
+             "worst_frame", "per_frame")
+LPIPS_TOL = 1e-4
+
+
+def run_cli(label, args, timeout=600):
+    """One of the port's CLIs in its own process from the repository root:
+    its standard output and the launch counts of its last "launches:"
+    line; raises on a non-zero exit."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *args], cwd=REPO,
+                         capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError(f"{label}: exit {res.returncode}\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("launches:")]
+    if not lines:
+        raise AssertionError(f"{label}: no launches line\n"
+                             f"{res.stdout[-2000:]}")
+    got = json.loads(lines[-1].split(":", 1)[1])
+    counts = {k: got.get(c, 0) for k, c in EVAL_COUNTERS.items()}
+    return res.stdout, counts, time.perf_counter() - t0
+
+
+def eval_phase(dev):
+    """Phase 41: generate, train, evaluate and validate through the
+    port's CLIs on the card. Returns the launches by kernel and entry
+    point."""
+    import shutil
+
+    from threedgrut_tpu_torch.utils import lpips as lpips_mod
+
+    root = os.path.join(REPO, "build", "smoke_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "data")
+    launches, secs, msgs = {}, {}, []
+
+    def check(label, got, want):
+        bad = {k: (got[k], v) for k, v in want.items()
+               if not (got[k] >= v[0] if isinstance(v, tuple)
+                       else got[k] == v)}
+        if bad:
+            raise AssertionError(f"{label}: launches (got, wanted) {bad}")
+
+    n_views = EVAL_TRAIN + 2 * EVAL_VAL
+    out, launches["gen"], secs["gen"] = run_cli("generator", [
+        os.path.join("scripts", "gen_synthetic_scene_torch.py"), "--out",
+        data, "--side", str(EVAL_SIDE), "--n-train", str(EVAL_TRAIN),
+        "--n-val", str(EVAL_VAL)])
+    slots = [int(ln.split(": ", 1)[1].split()[0]) for ln in
+             out.splitlines() if "pair slots before the tile cull" in ln]
+    if len(slots) != n_views:
+        raise AssertionError(f"generator: {len(slots)} pair lines for "
+                             f"{n_views} views\n{out[-2000:]}")
+    check("generator", launches["gen"],
+          {"bin_decode": n_views, "raster_fwd": n_views})
+    msgs.append(f"{n_views} views {EVAL_SIDE}x{EVAL_SIDE} generated in "
+                f"{secs['gen']:.1f} s, pair slots per view {slots}")
+    metrics = {}
+    for steps in (0, EVAL_STEPS):
+        name = f"smoke{steps}"
+        _, launches[f"train{steps}"], secs[f"train{steps}"] = run_cli(
+            f"train_torch.py {steps} steps", [
+                "train_torch.py", "--config-name",
+                "apps/nerf_synthetic_3dgut", f"path={data}",
+                f"n_iterations={steps}", f"out_dir={root}",
+                f"experiment_name={name}"])
+        eval_dir = os.path.join(root, name, "eval")
+        _, launches[f"render{steps}"], secs[f"render{steps}"] = run_cli(
+            f"render_torch.py ({steps} steps)", [
+                "render_torch.py", "--checkpoint",
+                os.path.join(root, name, "ckpt_last.npz"), "--path", data,
+                "--out-dir", eval_dir])
+        check(f"render_torch.py ({steps} steps)", launches[f"render{steps}"],
+              {"bin_decode": EVAL_VAL, "raster_fwd": EVAL_VAL})
+        with open(os.path.join(eval_dir, "metrics.json")) as f:
+            metrics[steps] = json.load(f)
+        if tuple(metrics[steps]) != EVAL_KEYS or not all(
+                math.isfinite(metrics[steps][k])
+                for k in ("psnr", "ssim", "psnr_cc", "ssim_cc")):
+            raise AssertionError(f"render_torch.py: metrics.json "
+                                 f"{metrics[steps]}")
+    check("train_torch.py", launches[f"train{EVAL_STEPS}"],
+          {k: (EVAL_STEPS,) for k in ("bin_decode", "raster_fwd",
+                                       "raster_bwd", "fold",
+                                       "fold_invert")})
+    if not metrics[EVAL_STEPS]["psnr"] > metrics[0]["psnr"]:
+        raise AssertionError(f"test psnr after {EVAL_STEPS} steps "
+                             f"{metrics[EVAL_STEPS]['psnr']} not above the "
+                             f"0-step checkpoint's {metrics[0]['psnr']}")
+    msgs.append(
+        f"train_torch.py 0 and {EVAL_STEPS} steps exit 0 in "
+        f"{secs['train0']:.1f} and {secs[f'train{EVAL_STEPS}']:.1f} s; "
+        f"render_torch.py on {EVAL_VAL} test views in "
+        f"{secs['render0']:.1f} and {secs[f'render{EVAL_STEPS}']:.1f} s: "
+        + ", ".join(f"{k} {metrics[0][k]:.4f} -> "
+                    f"{metrics[EVAL_STEPS][k]:.4f}"
+                    for k in ("psnr", "ssim", "psnr_cc", "ssim_cc"))
+        + f", lpips {metrics[EVAL_STEPS]['lpips']!r}")
+    report = os.path.join(root, "report.md")
+    _, launches["validate"], secs["validate"] = run_cli("validate_torch.py", [
+        "validate_torch.py", "--iterations", str(EVAL_VALIDATE_STEPS),
+        "--out", report])
+    with open(report) as f:
+        rows = [ln for ln in f.read().splitlines() if ln.startswith("| 3D")]
+    if len(rows) != 3:
+        raise AssertionError(f"validate_torch.py: rows {rows}")
+    check("validate_torch.py", launches["validate"], {
+        "raster_fwd": (2 * EVAL_VALIDATE_STEPS,),
+        "raster_bwd": 2 * EVAL_VALIDATE_STEPS,
+        "raster_fwd_nht": (EVAL_VALIDATE_STEPS,),
+        "raster_bwd_nht": EVAL_VALIDATE_STEPS,
+        "fold_64": EVAL_VALIDATE_STEPS})
+    msgs.append(f"validate_torch.py --iterations {EVAL_VALIDATE_STEPS} in "
+                f"{secs['validate']:.1f} s: " + "; ".join(rows))
+    # LPIPS on the card against the same call on the CPU
+    rng = np.random.default_rng(0)
+    a, b = (torch.from_numpy(rng.uniform(0, 1, (1, 3, 128, 128)).astype(
+        np.float32)) for _ in range(2))
+    on_card = float(lpips_mod.lpips(lpips_mod.random_params(0, dev),
+                                    a.to(dev), b.to(dev)))
+    on_cpu = float(lpips_mod.lpips(lpips_mod.random_params(0), a, b))
+    rel = abs(on_card - on_cpu) / abs(on_cpu)
+    if not rel <= LPIPS_TOL:
+        raise AssertionError(f"LPIPS on the card {on_card} against the CPU "
+                             f"{on_cpu}: rel {rel:.3g}")
+    msgs.append(f"LPIPS random_params(0) 1x3x128x128: card {on_card:.7f}, "
+                f"CPU {on_cpu:.7f}, rel {rel:.3g}")
+    by_kernel = {k: {e: c[k] for e, c in launches.items() if c[k]}
+                 for k in EVAL_COUNTERS}
+    msgs.append(f"launches {by_kernel}")
+    phase("evaluation path", "; ".join(msgs))
+    shutil.rmtree(root, ignore_errors=True)
+    return by_kernel
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3083,6 +3252,10 @@ def main():
     for entries, counts in (expand_phase(dev, v, s), fill_phase(dev)):
         report.update(entries)
         launches.update(counts)
+
+    # 41. the evaluation path through the CLIs
+    for k, by_entry in eval_phase(dev).items():
+        report[k]["eval_launches"] = by_entry
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches.get(k, 0), **report[k])

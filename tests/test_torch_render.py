@@ -275,7 +275,7 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     """The port, its serving path and its trainer load without JAX, yaml
-    or PIL; and every module of the port loads without JAX and without
+    or PIL; its CLIs without JAX; and every module of the port loads without JAX and without
     any module of the JAX package (threedgrut_tpu). A subprocess: this
     process already imported jax through tests/conftest.py."""
     code = ("import sys, importlib; import threedgrut_tpu_torch.render.serve, "
@@ -291,7 +291,7 @@ def test_port_imports_no_jax():
             "bad = [m for m in ('jax', 'flax', 'yaml', 'PIL') "
             "if m in sys.modules]; print(bad); "
             f"[importlib.import_module(m) for m in {_port_modules()!r}]; "
-            "import train_torch; "
+            "import train_torch, render_torch, validate_torch; "
             "bad += [m for m in sys.modules if m in ('jax', 'flax') or "
             "m == 'threedgrut_tpu' or m.startswith('threedgrut_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -329,8 +329,8 @@ def _imports_of_jax_package(path):
 
 def test_port_sources_import_nothing_of_the_jax_package():
     """A static check of every .py under threedgrut_tpu_torch/, of
-    train_torch.py, playground_torch.py, chip_smoke.py and
-    scripts/*_torch.py: no import of threedgrut_tpu, lazy or not. The JAX
+    train_torch.py, playground_torch.py, render_torch.py,
+    validate_torch.py, chip_smoke.py and scripts/*_torch.py: no import of threedgrut_tpu, lazy or not. The JAX
     package stays the reference; the port keeps its own copies of what
     it needs."""
     paths = [os.path.join(root, f) for root, _, files in os.walk(
@@ -338,6 +338,8 @@ def test_port_sources_import_nothing_of_the_jax_package():
         if f.endswith(".py")]
     paths += [os.path.join(REPO, f) for f in ("train_torch.py",
                                               "playground_torch.py",
+                                              "render_torch.py",
+                                              "validate_torch.py",
                                               "chip_smoke.py")]
     scripts = os.path.join(REPO, "scripts")
     paths += [os.path.join(scripts, f) for f in sorted(os.listdir(scripts))
@@ -351,7 +353,10 @@ def test_port_sources_import_nothing_of_the_jax_package():
             os.path.join("threedgrut_tpu_torch", "playground", "engine.py"),
             os.path.join("threedgrut_tpu_torch", "ops", "cuda", "scatter.py"),
             os.path.join("threedgrut_tpu_torch", "ops", "cuda", "fill.py"),
-            "playground_torch.py"} <= rel
+            os.path.join("threedgrut_tpu_torch", "utils", "lpips.py"),
+            os.path.join("scripts", "gen_synthetic_scene_torch.py"),
+            "playground_torch.py", "render_torch.py",
+            "validate_torch.py"} <= rel
     bad = {os.path.relpath(p, REPO): _imports_of_jax_package(p)
            for p in paths}
     assert not {k: v for k, v in bad.items() if v}, bad

@@ -109,17 +109,19 @@ def _init_state():
         scale=jnp.asarray(scale)))
 
 
-def _trainers(views):
+def _trainers(views, post_processing=None):
     state = _init_state()
     j_conf = j_tr.TrainerConfig(
         raster=JRasterConfig(max_pairs=1 << 13, exact_kill=True),
         auto_max_pairs=False, init_n_features=0, max_n_features=2,
         increase_frequency=2,
-        background=j_bg.BackgroundConfig(color="white"))
+        background=j_bg.BackgroundConfig(color="white"),
+        post_processing=post_processing)
     j_conf.gs = j_conf.gs.replace(**GS_EVENTS)
     t_conf = t_tr.TrainerConfig(
         init_n_features=0, max_n_features=2, increase_frequency=2,
-        background=BackgroundConfig(color="white"))
+        background=BackgroundConfig(color="white"),
+        post_processing=post_processing)
     t_conf.gs = t_conf.gs.replace(**GS_EVENTS)
     return (j_tr.Trainer(j_conf, views, state),
             t_tr.Trainer(t_conf, views, model_from_state(state)))
@@ -154,6 +156,30 @@ def test_trainer_three_steps_match_jax(views):
         np.testing.assert_allclose(getattr(tt.model, k).detach().numpy(),
                                    np.asarray(getattr(jt.model.params, k)),
                                    atol=1e-4, rtol=0, err_msg=k)
+
+
+def test_linear_to_srgb_step_matches_jax(views):
+    """post_processing linear-to-srgb after the background, in the loss
+    (JAX trainer.py:483-485) and in validation (:1264-1266): one step and
+    one validated view against JAX's, at the three-step test's
+    tolerances."""
+    jt, tt = _trainers(views, post_processing="linear-to-srgb")
+    batch = views[0]
+    jm = jt.train_iteration(batch)
+    tm = tt.train_iteration(batch)
+    np.testing.assert_allclose(tm["total"], float(jm["total"]), rtol=1e-4)
+    np.testing.assert_allclose(tm["psnr"], float(jm["psnr"]), atol=1e-3)
+    for k in PARAM_NAMES:
+        np.testing.assert_allclose(getattr(tt.model, k).detach().numpy(),
+                                   np.asarray(getattr(jt.model.params, k)),
+                                   atol=1e-4, rtol=0, err_msg=k)
+    one = Views.__new__(Views)
+    one.batches = views.batches[1:2]
+    got, ref = tt.validate(one), jt.validate(one)
+    for k in ("psnr", "ssim"):
+        assert got[k] == pytest.approx(ref[k], abs=1e-3), k
+    plain = _trainers(views)[1].validate(one)
+    assert abs(plain["psnr"] - got["psnr"]) > 0.1   # the transfer applies
 
 
 def test_current_lrs_match_jax(views):
@@ -396,7 +422,7 @@ REFUSED = {
                                ["dataset.downsample_factor=2"],
                                "train.py:33-34"),
     "post_processing": ("apps/nerf_synthetic_3dgut",
-                        ["post_processing.method=linear-to-srgb"],
+                        ["post_processing.method=ppisp"],
                         "train.py:196-199"),
     "with_gui": ("apps/nerf_synthetic_3dgut", ["with_gui=true"],
                  "train.py:162-174"),

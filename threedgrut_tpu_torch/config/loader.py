@@ -1,6 +1,6 @@
 """Hydra-style YAML configuration loader (copied from
-threedgrut_tpu/config/loader.py:13-198: the YAML compose, the overrides
-and the resolvers; the mapping to the trainer's config is
+threedgrut_tpu/config/loader.py:13-198: the YAML compose, the overrides,
+the resolvers and ``config_from_dict``; the mapping to the trainer's config is
 train_torch.py:trainer_config).
 
 Composes the configs/ tree with ``defaults`` lists, group overrides like
@@ -168,6 +168,17 @@ def load_config(name: str, config_dir: Optional[str] = None,
         os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__)))), "configs")
     conf = _compose(config_dir, name)
+    _apply_overrides(conf, overrides)
+    conf = _resolve_tree(conf, conf)
+    return ConfigNode.wrap(conf)
+
+
+def config_from_dict(d: dict, overrides: Optional[List[str]] = None
+                     ) -> ConfigNode:
+    """Re-instantiate a resolved config dict (the one a checkpoint embeds
+    as ``config_json``) with optional dotted overrides: the
+    checkpoint-driven eval path of render.py (render.py:45-58)."""
+    conf = copy.deepcopy(dict(d))
     _apply_overrides(conf, overrides)
     conf = _resolve_tree(conf, conf)
     return ConfigNode.wrap(conf)

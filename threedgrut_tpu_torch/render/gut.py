@@ -33,7 +33,9 @@ without saving anything for a backward.
 Returned dict mirrors the JAX package: ``pred_features`` [H,W,3] (NHT:
 [H,W,2d]),
 ``pred_opacity`` [H,W,1], ``pred_dist`` [H,W,1], ``hits_count`` [H,W,1],
-``mog_visibility`` [C], ``num_pairs`` and ``pairs_overflow``; with
+``mog_visibility`` [C], ``num_pairs`` and ``pairs_overflow``, and
+``num_slots``, the pair slots before the tile cull (what JAX's
+``max_pairs`` caps); with
 ``raster_cfg.enable_normals`` also ``pred_normals`` [H,W,3], the blended
 hit normals (forward only; never for NHT, JAX render/gut.py:210, 318-319).
 """
@@ -209,6 +211,7 @@ def render_gut(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
         "mog_visibility": v.proj.valid,
         "num_pairs": v.binning.num_pairs,
         "pairs_overflow": v.binning.overflow,
+        "num_slots": v.binning.overflow + v.binning.limit,
     }
     if normals:
         out["pred_normals"] = normals[0]

@@ -303,6 +303,21 @@ def orbit_cameras(model: GaussianModel, n_views: int, kind: str = "pinhole",
     return cams
 
 
+def orbit_poses(n_views: int, seed: int = 0, split_offset: int = 1
+                ) -> List[np.ndarray]:
+    """The OpenGL camera-to-world poses (float64) of
+    gen_synthetic_scene.py's ``write_split``, drawn from
+    ``default_rng(seed + split_offset)`` in its order."""
+    r2 = np.random.default_rng(seed + split_offset)
+    poses = []
+    for i in range(n_views):
+        az = i / n_views * 2 * math.pi + r2.uniform(0, 0.05)
+        el = np.deg2rad(r2.uniform(15, 45))
+        radius = r2.uniform(3.6, 4.4)
+        poses.append(camera_pose(az, el, radius))
+    return poses
+
+
 def teacher_views(n_views: int, resolution, camera: str = "pinhole",
                   seed: int = 0, split_offset: int = 1) -> List[View]:
     """The empty views (poses and intrinsics, zero GT) of
@@ -311,14 +326,10 @@ def teacher_views(n_views: int, resolution, camera: str = "pinhole",
     CAMERA_KINDS at ``resolution`` (W, H)."""
     _, focal_frac, radial4, rolling = CAMERA_KINDS[camera]
     w, h = resolution
-    r2 = np.random.default_rng(seed + split_offset)
     focal = focal_frac * h
     views = []
-    for i in range(n_views):
-        az = i / n_views * 2 * math.pi + r2.uniform(0, 0.05)
-        el = np.deg2rad(r2.uniform(15, 45))
-        radius = r2.uniform(3.6, 4.4)
-        cv = camera_pose(az, el, radius)
+    for c2w in orbit_poses(n_views, seed, split_offset):
+        cv = c2w.copy()
         cv[:3, 1] *= -1          # OpenGL -> OpenCV (right-down-front)
         cv[:3, 2] *= -1
         view = View(cv.astype(np.float32), [focal, focal, w / 2, h / 2],

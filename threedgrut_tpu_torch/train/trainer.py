@@ -25,6 +25,9 @@ Contracts kept from the JAX trainer (reference threedgrut/trainer.py):
   training); validation decodes through the EMA shadow,
 - progressive SH degree every ``increase_frequency`` steps,
 - SelectiveAdam visibility masking (``optimizer.type: selective_adam``),
+- ``post_processing: linear-to-srgb`` after the background, in the loss
+  and in validation (trainer.py:483-485, 1264-1266); LPIPS in validation
+  where its weights are found (trainer.py:1232-1242),
 - checkpoints with the JAX trainer's npz keys (the decoder's as its
   flax key paths, params/nht_decoder//params/Dense_i/kernel), so either
   package loads the other's.
@@ -59,6 +62,8 @@ from ..render.gut import render_gut
 from ..strategy import base as strat_base
 from ..strategy import gs as gs_strategy
 from ..strategy import mcmc as mcmc_strategy
+from ..utils import lpips as lpips_mod
+from ..utils.misc import linear_to_srgb
 
 # the decoder's Adam groups, one per layer weight: "nht_decoder/<i>"
 DECODER = "nht_decoder"
@@ -132,6 +137,9 @@ class TrainerConfig:
     # nht_color_refine_steps steps, and the first nht_warmup_steps
     nht_color_refine_steps: int = 3000
     nht_warmup_steps: int = 0
+    # post_processing.method: None, or "linear-to-srgb" on the composited
+    # colour in the loss and in validation (PPISP is not ported)
+    post_processing: Optional[str] = None
 
 
 _SHUTTER_NAMES = {
@@ -195,6 +203,10 @@ class Trainer:
         if conf.strategy not in ("gs", "mcmc"):
             raise NotImplementedError(f"strategy {conf.strategy}: gs or "
                                       "mcmc")
+        if conf.post_processing not in (None, "linear-to-srgb"):
+            raise NotImplementedError(
+                f"post_processing {conf.post_processing}: the port has "
+                "linear-to-srgb only (PPISP is not ported)")
         self.conf = conf
         self.raw_conf = raw_conf
         self.dataset = dataset
@@ -320,13 +332,22 @@ class Trainer:
                             out["ray_d"].reshape(-1, 3),
                             use_ema=use_ema).reshape(h, w, 3)
 
+    def post_process(self, pred: torch.Tensor) -> torch.Tensor:
+        """The configured post-processing of a composited colour (JAX
+        trainer.py:483-485 and :1264-1266): linear-to-srgb on the clamped
+        colour, or none."""
+        if self.conf.post_processing == "linear-to-srgb":
+            return linear_to_srgb(torch.clamp(pred, 0.0, 1.0))
+        return pred
+
     def loss(self, out, rgb_gt):
         """(total, losses dict, pred) of one render against its GT."""
         conf = self.conf
         color = self.decode(out)
         bg = bg_mod.background_color(conf.background, self.generator,
                                      train=True, device=self.device)
-        pred = bg_mod.apply_background(color, out["pred_opacity"], bg)
+        pred = self.post_process(
+            bg_mod.apply_background(color, out["pred_opacity"], bg))
         losses = {}
         total = torch.zeros((), device=self.device)
         if conf.loss.use_l1:
@@ -536,11 +557,13 @@ class Trainer:
 
     @torch.no_grad()
     def validate(self, dataset=None) -> Dict[str, float]:
-        """PSNR and SSIM over a dataset's views, per-ray hit statistics and
-        the best and worst frame (no LPIPS); NHT decodes through the EMA
+        """PSNR and SSIM over a dataset's views, per-ray hit statistics,
+        the best and worst frame, and LPIPS where its weights are found
+        (``utils/lpips.py:load_weights``); NHT decodes through the EMA
         shadow."""
         ds = dataset or self.val_dataset or self.dataset
-        psnrs, ssims, hit_stats = [], [], []
+        psnrs, ssims, lpipss, hit_stats = [], [], [], []
+        lpips_params = lpips_mod.load_weights(device=self.device)
         bg = bg_mod.background_color(self.conf.background, train=False,
                                      device=self.device)
         for i in range(len(ds)):
@@ -552,21 +575,30 @@ class Trainer:
             hit_stats.append((float(hc.mean()), float(hc.std(correction=0)),
                               float(hc.min()), float(hc.max())))
             color = self.decode(out, use_ema=True)
-            pred = torch.clamp(bg_mod.apply_background(
-                color, out["pred_opacity"], bg), 0.0, 1.0)
+            pred = torch.clamp(self.post_process(bg_mod.apply_background(
+                color, out["pred_opacity"], bg)), 0.0, 1.0)
             gt = _as_image(batch.rgb_gt, self.device)
             psnrs.append(float(psnr(pred, gt)))
             ssims.append(float(ssim(pred.permute(2, 0, 1)[None],
                                     gt.permute(2, 0, 1)[None])))
+            if lpips_params is not None:
+                lpipss.append(float(lpips_mod.lpips(
+                    lpips_params, pred.permute(2, 0, 1)[None],
+                    gt.permute(2, 0, 1)[None])))
         hs = np.asarray(hit_stats)
         best, worst = int(np.argmax(psnrs)), int(np.argmin(psnrs))
-        return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)),
-                "n_views": len(psnrs), "psnr_best": psnrs[best],
-                "best_frame": best, "psnr_worst": psnrs[worst],
-                "worst_frame": worst, "hits_mean": float(np.mean(hs[:, 0])),
-                "hits_std": float(np.mean(hs[:, 1])),
-                "hits_min": float(np.min(hs[:, 2])),
-                "hits_max": float(np.max(hs[:, 3]))}
+        result = {"psnr": float(np.mean(psnrs)),
+                  "ssim": float(np.mean(ssims)),
+                  "n_views": len(psnrs), "psnr_best": psnrs[best],
+                  "best_frame": best, "psnr_worst": psnrs[worst],
+                  "worst_frame": worst,
+                  "hits_mean": float(np.mean(hs[:, 0])),
+                  "hits_std": float(np.mean(hs[:, 1])),
+                  "hits_min": float(np.min(hs[:, 2])),
+                  "hits_max": float(np.max(hs[:, 3]))}
+        if lpipss:
+            result["lpips"] = float(np.mean(lpipss))
+        return result
 
     # --- checkpoints (the JAX trainer's npz keys) -----------------------
 

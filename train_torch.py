@@ -29,9 +29,12 @@ says so, as it does for the TPU's segment layouts
 sizes its pair buffer per view
 (``max_pairs`` and ``auto_max_pairs`` are ignored). It overwrites
 ``ckpt_periodic.npz`` every ``checkpoint.frequency`` steps, as train.py
-does. Keys that train.py acts on and the port does not port yet stop it
+does; ``final_metrics.json`` records the card's name and power limit
+beside the device, and the run ends with the kernels' launch counts.
+Keys that train.py acts on and the port does not port yet stop it
 with their train.py line (``refuse_unported``): PLY import and export,
-the gsplat COLMAP options, post-processing and the live GUI.
+the gsplat COLMAP options, PPISP post-processing and the live GUI
+(``linear-to-srgb`` post-processing trains).
 """
 
 import argparse
@@ -80,9 +83,8 @@ UNPORTED = (
      and c.get("dataset", {}).get("downsample_factor", 1) > 1,
      "train.py:33-34 (data/colmap.py:181-190 reads other images)"),
     ("post_processing.method",
-     lambda c: c.get("post_processing", {}).get("method") is not None,
-     "train.py:196-199 and train/trainer.py:478-485 (PPISP, or "
-     "linear-to-srgb in the loss)"),
+     lambda c: c.get("post_processing", {}).get("method") == "ppisp",
+     "train.py:196-199 and train/trainer.py:478-482 (PPISP)"),
     ("with_gui", lambda c: bool(c.get("with_gui")),
      "train.py:162-174 (playground/live_gui.py)"),
 )
@@ -261,7 +263,8 @@ def trainer_config(conf):
         seed=conf.get("seed_initialization", 42),
         print_stats=model.get("print_stats", False),
         nht_color_refine_steps=dec.get("color_refine_steps", 3000),
-        nht_warmup_steps=dec.get("warmup_steps", 0))
+        nht_warmup_steps=dec.get("warmup_steps", 0),
+        post_processing=conf.get("post_processing", {}).get("method"))
 
 
 def make_dataset(conf, split):
@@ -336,6 +339,28 @@ def make_model(conf, dataset, device):
         seed=conf.seed_initialization, device=device)
 
 
+def device_record(device) -> dict:
+    """``device``, and on the card its name and the power limit that
+    ``nvidia-smi`` reads (None where it cannot be read), for
+    final_metrics.json."""
+    rec = {"device": str(device), "device_name": None, "power_limit": None}
+    if device.type != "cuda":
+        return rec
+    import subprocess
+
+    rec["device_name"] = torch.cuda.get_device_name(device)
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", "-i", str(device.index or 0),
+             "--query-gpu=power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+        if res.returncode == 0:
+            rec["power_limit"] = res.stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config-name", default="apps/nerf_synthetic_3dgut")
@@ -394,7 +419,10 @@ def main(argv=None):
                        "train_time_s": trainer.train_wall_time,
                        "n_iterations": trainer.global_step,
                        "n_gaussians": trainer.model.n_active,
-                       "device": str(device)}, f)
+                       **device_record(device)}, f)
+    from threedgrut_tpu_torch.ops.cuda import launch_counts
+
+    print("launches:", json.dumps(launch_counts()))
 
 
 if __name__ == "__main__":

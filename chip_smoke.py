@@ -241,6 +241,38 @@ own process; kernels A and B, and C, D, E in training):
    the NHT kernels launched; LPIPS with random_params(0) on the card
    against the same call on the CPU (within 1e-4 relative, TF32 off).
 
+The cuSFM path (apps/cusfm_3dgut_mcmc as published: MCMC capacity
+2,300,000, SH 3, white background, PPISP with the controller, from a
+1,000,000-point fused cloud of the 60k teacher's points on 1920x1080
+pinhole views; kernels A-D):
+
+42. ISP, controller and step - the ISP's forward and backward at
+   1920x1080 on the card against its float64 version on the CPU
+   (forward and the tables' gradients within 1e-5, the image gradient
+   within 1e-5 of its largest but on at most ISP_FLIP_CAP elements;
+   the CRF's toe and shoulder drawn at 2 or more, isp_inputs), their
+   times and kernels; the same at the CRF the trainer starts from and
+   at trained values under 2, held no worse than the fp32 chain on the
+   CPU (isp_fp32_check); the controller on the distillation's 480x270
+   input within 1e-5 of float64; the fused cloud written as a PLY
+   (synthetic.write_fused_cloud) and read back by train_torch.py's
+   make_model: 1,000,000 Gaussians, capacity 2,300,160; 20 timed steps of
+   the Trainer with PPISP on and off: A-D and D's inversion launch 20
+   times, E never; ms/step, and 5 traced steps' device busy, idle share
+   and device kernels a step.
+43. cuSFM CLI - a 12-view 1920x1080 COLMAP capture, each view's colours
+   scaled by an exposure offset in [-0.5, 0.5] stops; train_torch.py
+   --config-name apps/cusfm_3dgut_mcmc from the fused cloud, 200 steps,
+   a 300-step distillation whose loss falls, export_ply: exit 0, A-D
+   launched every step (A and B also per distillation render and
+   validated view), E never, the learned exposures' correlation with
+   the offsets at least CUSFM_EXPOSURE_CORR; 10 steps each from
+   initialization.method=checkpoint on its checkpoint and from
+   import_ply on its export; apps/colmap_3dgut with gsplat_normalize and
+   gsplat_image_downscale at factor 2, 30 steps (the images_2_png cache
+   built); render_torch.py on the PPISP checkpoint, A and B once a test
+   view.
+
 Then a JSON line with each kernel's launches (A-D from phase 11, sorted
 B and C of each setting from phase 17, E from phase 18, the general
 kernels from phases 23-24, the NHT kernels from phase 29, kernel 7's B,
@@ -249,7 +281,9 @@ W 128 B from the playground frame of phase 36, F from the table route's
 3DGUT steps in phase 38, with its set-up's as setup_launches; G's pair
 and tile expansions (expand_rows, expand_rows_tiles) and H's
 forward_fill and segmented_fill_rows (fill, fill_segmented), each from
-its own call in phases 39 and 40),
+its own call in phases 39 and 40; and, as cusfm_launches, the cuSFM
+path's kernels' launches by entry point: phase 42's steps with and
+without PPISP, phase 43's CLIs),
 error and times (phases 3, 4, 8, 9, 13-15, 19-21, 26-27, 31-34, 37, 39,
 40; G and H also by device time), its bound (the larger
 of the fp32 operations over 67 TFLOP/s and the bytes it must read and
@@ -2891,6 +2925,438 @@ def eval_phase(dev):
     return by_kernel
 
 
+# phases 42-43: the cuSFM path at the published width of
+# apps/cusfm_3dgut_mcmc (MCMC capacity 2,300,000, SH 3, white background,
+# PPISP with the controller) from a 1,000,000-point fused cloud on
+# 1920x1080 pinhole views
+CUSFM_CONFIG = "apps/cusfm_3dgut_mcmc"
+CUSFM_RES = (1920, 1080)
+CUSFM_POINTS = 1_000_000
+CUSFM_STEP_VIEWS = 4
+CUSFM_VIEWS = 12
+CUSFM_STEPS, CUSFM_DISTILL, CUSFM_SHORT = 200, 300, 10
+# the exposure offsets (stops) the CLI's capture is scaled by, and the
+# least Pearson correlation of the learned per-frame exposures with them
+# (written into PERF.md before the first run)
+CUSFM_OFFSETS = 0.5
+CUSFM_EXPOSURE_CORR = 0.8
+ISP_TOL = 1e-5
+# elements of the 1920x1080x3 image gradient allowed past ISP_TOL against
+# float64: a value within fp32 rounding of a clamp (0, 1) or of the CRF's
+# centre takes the other side in float64, where the slope jumps
+ISP_FLIP_CAP = 64
+# the CRFs the trainer starts from and trains into ("init", "trained";
+# isp_inputs) leave a few hundred image-gradient elements past ISP_TOL of
+# float64 in any fp32 version: there the card is held to be no worse
+# than the same chain in fp32 on the CPU. At each level, the card's
+# elements past it are at most ISP_FP32_SLACK times the CPU's plus
+# ISP_FLIP_CAP; its largest errors at most twice the CPU's (or within
+# ISP_TOL); and the CPU's own elements past ISP_TOL at most ISP_ILL_CAP
+ISP_FP32_LEVELS = (1e-5, 1e-4, 1e-3)
+ISP_FP32_SLACK = 1.25
+ISP_ILL_CAP = 2000
+# report name -> the counter of the wrappers the cuSFM path launches
+CUSFM_KERNELS = ("bin_decode", "raster_fwd", "raster_bwd", "fold",
+                 "fold_invert", "wmax")
+
+
+def isp_inputs(crf="steep", seed=42):
+    """The ISP check's inputs at 1920x1080: tables away from the identity
+    (exposures of -0.5, 0.5 and 0.25 stops, colour latents, vignetting,
+    responsivity) and an image up to 1.6, with the CRF
+    - "steep": toe and shoulder drawn at 2.07 or more, gamma at 1.34 or
+      more, where x^p near 0 and (1 - x)^p near 1 keep the relative
+      precision of x and 1 - x, and every fp32 version holds 1e-5 of
+      float64;
+    - "init": raw 0 (toe and shoulder 0.99, gamma 0.79), where the
+      trainer starts (init_ppisp_params);
+    - "trained": raw toe and shoulder in [-0.5, 1] (0.77-1.61), gamma in
+      [-0.5, 0.5], as training moves them.
+    Under "init" and "trained" an exponent under 1 sends a pre-CRF value
+    near 0 a gradient that grows as it shrinks, and a blue value near 0
+    is the homography's intensity less red and green: a few hundred
+    elements lose up to a few percent to fp32 rounding in any fp32
+    version, the CPU's too (isp_fp32_check)."""
+    rng = np.random.default_rng(seed)
+    w, h = CUSFM_RES
+    steep = np.concatenate([rng.uniform(1.6, 2.2, (1, 3, 2)),
+                            rng.uniform(0.6, 1.2, (1, 3, 1)),
+                            rng.normal(size=(1, 3, 1)) * 0.3], axis=-1)
+    params = {
+        "exposure": np.array([-0.5, 0.5, 0.25]),
+        "color_latents": rng.normal(size=(3, 8)) * 0.3,
+        "responsivity": np.array([0.1]),
+        "vig_center": rng.normal(size=(1, 3, 2)) * 0.05,
+        "vig_alpha": rng.normal(size=(1, 3, 3)) * 0.1 - 0.2}
+    rgb = rng.uniform(0.0, 1.6, (h, w, 3)).astype(np.float32)
+    weight = rng.normal(size=3).astype(np.float32)
+    params["crf"] = {"steep": steep, "init": np.zeros((1, 3, 4)),
+                     "trained": np.concatenate(
+                         [rng.uniform(-0.5, 1.0, (1, 3, 2)),
+                          rng.uniform(-0.5, 0.5, (1, 3, 1)),
+                          rng.normal(size=(1, 3, 1)) * 0.3], axis=-1)}[crf]
+    return {k: v.astype(np.float32) for k, v in params.items()}, rgb, weight
+
+
+def isp_fp32_check(dev, crf):
+    """The ISP's forward and backward at 1920x1080 with the CRF ``crf``
+    of isp_inputs on the card, held to the float64 chain on the CPU no
+    worse than the fp32 chain on the CPU is (ISP_FP32_LEVELS). Returns
+    the report's words."""
+    from threedgrut_tpu_torch.models.ppisp import apply_ppisp_full
+
+    params, rgb, weight = isp_inputs(crf)
+
+    def run(device, dtype):
+        p = {k: torch.tensor(v, dtype=dtype, device=device,
+                             requires_grad=True) for k, v in params.items()}
+        x = torch.tensor(rgb, dtype=dtype, device=device, requires_grad=True)
+        out = apply_ppisp_full(p, x, 0, 1)
+        (out * torch.tensor(weight, dtype=dtype, device=device)
+         ).sum().backward()
+        grads = {**{k: p[k].grad for k in params}, "image": x.grad}
+        if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+            raise AssertionError(f"ISP ({crf} CRF) on {device} {dtype}: "
+                                 "a gradient is not finite")
+        return {"forward": out.detach(), **grads}
+
+    ref = run("cpu", torch.float64)
+
+    def errors(got):
+        """forward |d|, each table's max-normalised |d|, and the image
+        gradient's max-normalised |d| by element."""
+        d = {k: (v.cpu().double() - ref[k]).abs() for k, v in got.items()}
+        d = {k: v if k == "forward" else v / ref[k].abs().max()
+             for k, v in d.items()}
+        return d
+
+    card, cpu = errors(run(dev, torch.float32)), errors(run("cpu",
+                                                            torch.float32))
+    bad = [k for k in card
+           if float(card[k].max()) > max(ISP_TOL, 2 * float(cpu[k].max()))]
+    counts = [(t, int((card["image"] > t).sum()),
+               int((cpu["image"] > t).sum())) for t in ISP_FP32_LEVELS]
+    bad += [f"image past {t}" for t, n, n_cpu in counts
+            if n > ISP_FP32_SLACK * n_cpu + ISP_FLIP_CAP]
+    if counts[0][2] > ISP_ILL_CAP:
+        bad.append(f"the CPU's fp32 image gradient past {ISP_TOL}")
+    def worst(d, keys):
+        return max(float(d[k].max()) for k in keys)
+
+    words = (f"{crf} CRF: forward |d| {worst(card, ['forward']):.3g} (CPU "
+             f"fp32 {worst(cpu, ['forward']):.3g}), tables' gradients up "
+             f"to {worst(card, params):.3g} (CPU fp32 "
+             f"{worst(cpu, params):.3g}), image gradient up to "
+             f"{worst(card, ['image']):.3g} (CPU fp32 "
+             f"{worst(cpu, ['image']):.3g}), elements past "
+             + ", ".join(f"{t}: {n} (CPU fp32 {n_cpu})"
+                         for t, n, n_cpu in counts))
+    if bad:
+        raise AssertionError(f"ISP vs float64 worse than fp32 on the CPU "
+                             f"in {bad}: {words}")
+    return words
+
+
+def isp_phase(dev):
+    """Phase 42a: the ISP at 1920x1080 on the card, forward and backward,
+    against its float64 version on the CPU; the controller on the
+    distillation's 480x270 input likewise; their times, and the ISP's
+    kernels a forward and backward."""
+    import copy
+
+    from threedgrut_tpu_torch.models.ppisp import (PPISPControllerCNN,
+                                                   apply_ppisp_full)
+
+    params, rgb, weight = isp_inputs()
+
+    def leaves(device, dtype, grad=True):
+        p = {k: torch.tensor(v, dtype=dtype, device=device,
+                             requires_grad=grad) for k, v in params.items()}
+        return p, torch.tensor(rgb, dtype=dtype, device=device,
+                               requires_grad=grad)
+
+    def forward_backward(p, x):
+        out = apply_ppisp_full(p, x, 0, 1)
+        (out * torch.tensor(weight, dtype=x.dtype, device=x.device)
+         ).sum().backward()
+        return out.detach()
+
+    p, x = leaves(dev, torch.float32)
+    out = forward_backward(p, x)
+    p64, x64 = leaves("cpu", torch.float64)
+    ref = forward_backward(p64, x64)
+    fwd_err = float((out.cpu().double() - ref).abs().max())
+    errs = {k: float((p[k].grad.cpu().double() - p64[k].grad).abs().max()
+                     / p64[k].grad.abs().max()) for k in params}
+    d_img = (x.grad.cpu().double() - x64.grad).abs()
+    scale = float(x64.grad.abs().max())
+    n_over = int((d_img > ISP_TOL * scale).sum())
+    img_err = float(d_img.max()) / scale
+    ok = (fwd_err <= ISP_TOL and max(errs.values()) <= ISP_TOL
+          and n_over <= ISP_FLIP_CAP and all(
+              bool(torch.isfinite(g).all())
+              for g in [x.grad] + [p[k].grad for k in params]))
+    if not ok:
+        raise AssertionError(
+            f"ISP vs float64: forward {fwd_err:.3g}, tables {errs}, image "
+            f"gradient {n_over} elements past {ISP_TOL} (max {img_err:.3g})")
+    pf, xf = leaves(dev, torch.float32, grad=False)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: apply_ppisp_full(pf, xf, 0, 1), 20)
+    pb, xb = leaves(dev, torch.float32)
+    fb_ms = cuda_ms(lambda: forward_backward(pb, xb), 10)
+    (counts, us), _ = _profiled_calls(lambda: forward_backward(pb, xb), 3)
+    launches, dev_ms = sum(counts.values()), sum(us.values()) / 1e3
+    conditioned = [isp_fp32_check(dev, crf) for crf in ("init", "trained")]
+
+    # the controller on the distillation's input: every 4th pixel
+    ctrl = PPISPControllerCNN(seed=42, device=dev)
+    ctrl64 = copy.deepcopy(ctrl).double().cpu()
+    img = rgb[::4, ::4]
+    with torch.no_grad():
+        e, c = ctrl.predict(torch.tensor(img, device=dev), 0.0)
+        e64, c64 = ctrl64.predict(torch.tensor(img, dtype=torch.float64),
+                                  0.0)
+        ctrl_ms = cuda_ms(lambda: ctrl.predict(
+            torch.tensor(img, device=dev), 0.0), 20)
+    c_err = max(abs(float(e) - float(e64)),
+                float((c.cpu().double() - c64).abs().max()))
+    if not c_err <= ISP_TOL:
+        raise AssertionError(f"controller vs float64: {c_err:.3g}")
+    w, h = CUSFM_RES
+    phase("ISP and controller", f"{w}x{h}, steep CRF: forward |d| "
+          f"{fwd_err:.3g} of "
+          f"float64, tables' gradients "
+          + ", ".join(f"{k} {v:.2g}" for k, v in errs.items())
+          + f" (max-normalised), image gradient {img_err:.3g} with "
+          f"{n_over} of {d_img.numel()} elements past {ISP_TOL}; forward "
+          f"{fwd_ms:.4f} ms, forward + backward {fb_ms:.4f} ms by events "
+          f"(device {dev_ms:.4f} ms, {launches} kernels); controller on "
+          f"{img.shape[1]}x{img.shape[0]} |d| {c_err:.3g} of float64, "
+          f"{ctrl_ms:.4f} ms; " + "; ".join(conditioned))
+
+
+def cusfm_counters():
+    """The wrappers the cuSFM path launches, by report name."""
+    from threedgrut_tpu_torch.ops.cuda.expand import expand_decode_pairs
+    from threedgrut_tpu_torch.ops.cuda.fold import (fold_pairs,
+                                                    invert_permutation)
+    from threedgrut_tpu_torch.ops.cuda.raster import (
+        rasterize_tiles, rasterize_tiles_backward)
+    from threedgrut_tpu_torch.ops.cuda.wmax import pair_weight_max
+
+    return dict(zip(CUSFM_KERNELS, (
+        expand_decode_pairs, rasterize_tiles, rasterize_tiles_backward,
+        fold_pairs, invert_permutation, pair_weight_max)))
+
+
+def cusfm_step_phase(dev, teacher, fused):
+    """Phase 42b: the full-width apps/cusfm_3dgut_mcmc step through
+    train_torch.py's make_model (the fused cloud read back from its PLY)
+    and the Trainer, 20 timed steps with PPISP on and off: A-D and D's
+    inversion launch once a step, E never; ms/step, device busy, idle
+    share and device kernels a step. Returns the launches by setting."""
+    import dataclasses
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from bench_train_torch import profile_steps, time_steps
+    from threedgrut_tpu_torch.config.loader import load_config
+    from threedgrut_tpu_torch.models.gaussians import default_capacity_for
+    from threedgrut_tpu_torch.synthetic import teacher_dataset
+    from threedgrut_tpu_torch.train.trainer import Trainer
+    from train_torch import make_model, trainer_config
+
+    ds = teacher_dataset(teacher, n_views=CUSFM_STEP_VIEWS,
+                         resolution=CUSFM_RES)
+    conf = load_config(CUSFM_CONFIG, overrides=[
+        "path=none", f"initialization.fused_point_cloud_path={fused}"])
+    t0 = time.perf_counter()
+    model = make_model(conf, ds, dev)
+    init_s = time.perf_counter() - t0
+    cap = default_capacity_for(conf.strategy.add.max_n_gaussians)
+    if (model.n_active, model.capacity) != (CUSFM_POINTS, cap):
+        raise AssertionError(f"cuSFM model: n_active {model.n_active}, "
+                             f"capacity {model.capacity}")
+    tconf = trainer_config(conf)
+    counters = cusfm_counters()
+    kernels, launches, msgs = {}, {}, []
+    for label, post in (("ppisp", "ppisp"), ("no_ppisp", None)):
+        trainer = Trainer(dataclasses.replace(tconf, post_processing=post),
+                          ds, model)
+        frames = iter(range(10 ** 6))
+
+        def step():
+            i = next(frames) % len(ds)
+            return trainer.train_iteration(ds[i], frame_idx=i)["total"]
+
+        time_steps(step, 3)                       # warm-up
+        for fn in counters.values():
+            fn.launches = 0
+        ms, losses = time_steps(step, TRAIN_STEPS)
+        got = {k: fn.launches for k, fn in counters.items()}
+        want = {k: 0 if k == "wmax" else TRAIN_STEPS for k in got}
+        if got != want or not all(np.isfinite(losses)):
+            raise AssertionError(f"cuSFM step ({label}): launches {got}, "
+                                 f"wanted {want}; losses {losses[:3]}")
+        wall_us, busy_us, n_dev = profile_steps(step, 5, top=10)
+        kernels[label] = n_dev
+        launches[label] = got
+        msgs.append(f"PPISP {'on' if post else 'off'}: {ms:.3f} ms/step "
+                    f"({1e3 / ms:.2f} it/s) host clock over {TRAIN_STEPS} "
+                    f"steps, loss {losses[0]:.5f} -> {losses[-1]:.5f}; 5 "
+                    f"traced: wall {wall_us:.1f} us/step, device busy "
+                    f"{busy_us:.1f} us/step, idle share "
+                    f"{1.0 - busy_us / wall_us:.3f}, {n_dev:.1f} device "
+                    f"kernels a step")
+    w, h = CUSFM_RES
+    phase("cuSFM step", f"{CUSFM_CONFIG} at {w}x{h}, {model.n_active} "
+          f"Gaussians from the fused cloud (capacity {model.capacity}; "
+          f"make_model {init_s:.1f} s), SH 3: " + "; ".join(msgs)
+          + f"; launches {launches['ppisp']} a {TRAIN_STEPS}-step window "
+          f"each way; the ISP adds "
+          f"{kernels['ppisp'] - kernels['no_ppisp']:.1f} device kernels a "
+          "step")
+    return launches
+
+
+def cusfm_cli_phase(dev, teacher, fused):
+    """Phase 43: train_torch.py --config-name apps/cusfm_3dgut_mcmc on a
+    generated 1920x1080 COLMAP capture of 12 views, each scaled by a known
+    exposure offset, from the fused cloud: 200 steps, the controller's
+    distillation (its loss falls), export_ply; the learned exposures
+    against the offsets; 10 steps each from the checkpoint
+    (initialization.method=checkpoint) and from the export (import_ply);
+    apps/colmap_3dgut with gsplat's normalisation and factor-2 cache, 30
+    steps; render_torch.py on the PPISP checkpoint. Returns the launches
+    by kernel and entry point."""
+    import re
+    import shutil
+
+    from threedgrut_tpu_torch.synthetic import (teacher_dataset,
+                                                write_colmap_scene)
+
+    root = os.path.join(REPO, "build", "smoke_cusfm_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    views = teacher_dataset(teacher, n_views=CUSFM_VIEWS,
+                            resolution=CUSFM_RES)
+    offsets = np.random.default_rng(43).permutation(
+        np.linspace(-CUSFM_OFFSETS, CUSFM_OFFSETS, CUSFM_VIEWS))
+    for view, e in zip(views.views, offsets):
+        view.rgb_gt = torch.clamp(view.rgb_gt * float(2.0 ** e), 0.0, 1.0)
+    write_colmap_scene(data, views, teacher, n_points=20000)
+    gen_s = time.perf_counter() - t0
+    launches, secs, msgs = {}, {}, []
+
+    def run(label, args, **want):
+        out, launches[label], secs[label] = run_cli(label, args, timeout=900)
+        got = {k: launches[label][k] for k in want}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, wanted {want}")
+        return out
+
+    ckpt = os.path.join(root, "cusfm", "ckpt_last.npz")
+    export = os.path.join(root, "cusfm", "export_last.ply")
+    common = [f"path={data}", f"out_dir={root}", "log_frequency=0.5"]
+    n_train = CUSFM_VIEWS - len(range(0, CUSFM_VIEWS, 8))
+    renders = CUSFM_STEPS + n_train + 2      # steps, distillation, 2 val
+    out = run("train", [
+        "train_torch.py", "--config-name", CUSFM_CONFIG, *common,
+        f"initialization.fused_point_cloud_path={fused}",
+        f"n_iterations={CUSFM_STEPS}",
+        f"post_processing.n_distillation_steps={CUSFM_DISTILL}",
+        "export_ply.enabled=true", "experiment_name=cusfm"],
+        bin_decode=renders, raster_fwd=renders, raster_bwd=CUSFM_STEPS,
+        fold=CUSFM_STEPS, fold_invert=CUSFM_STEPS, wmax=0)
+    found = re.search(r"controller distillation loss: (\S+) \(first step "
+                      r"(\S+); (\S+) s\)", out)
+    last, first, distill_s = (float(found.group(i)) for i in (1, 2, 3))
+    if not last < first:
+        raise AssertionError(f"distillation loss {first} -> {last}")
+    with np.load(ckpt) as f:
+        exposure = f["params/ppisp//exposure"]
+        n_active = int(f["n_active"])
+    train_idx = [i for i in range(CUSFM_VIEWS) if i % 8]
+    corr = float(np.corrcoef(exposure, offsets[train_idx])[0, 1])
+    if not corr >= CUSFM_EXPOSURE_CORR:
+        raise AssertionError(f"learned exposures {exposure} against the "
+                             f"offsets {offsets[train_idx]}: correlation "
+                             f"{corr:.4f} < {CUSFM_EXPOSURE_CORR}")
+    final = [ln for ln in out.splitlines() if ln.startswith("final:")]
+    msgs.append(f"{CUSFM_VIEWS} views written in {gen_s:.1f} s (exposure "
+                f"offsets {np.round(offsets, 3).tolist()}); train_torch.py "
+                f"{CUSFM_STEPS} steps and a {CUSFM_DISTILL}-step "
+                f"distillation in {secs['train']:.1f} s: distillation loss "
+                f"{first:.6g} -> {last:.6g} in {distill_s:.2f} s, learned "
+                f"exposures "
+                f"{np.round(exposure, 4).tolist()}, correlation with the "
+                f"offsets {corr:.4f} (>= {CUSFM_EXPOSURE_CORR}); "
+                f"n_active {n_active}; {final[-1] if final else ''}")
+    short = [f"n_iterations={CUSFM_SHORT}", "test_last=false",
+             f"post_processing.n_distillation_steps={CUSFM_SHORT}"]
+    each = CUSFM_SHORT + n_train
+    for label, init in (("from_checkpoint", [
+            "initialization.method=checkpoint",
+            f"initialization.path={ckpt}"]), ("import_ply", [
+            "import_ply.enabled=true", f"import_ply.path={export}"])):
+        run(label, ["train_torch.py", "--config-name", CUSFM_CONFIG,
+                    *common, *init, *short, f"experiment_name={label}"],
+            bin_decode=each, raster_fwd=each, raster_bwd=CUSFM_SHORT,
+            wmax=0)
+    msgs.append(f"{CUSFM_SHORT} steps from the checkpoint in "
+                f"{secs['from_checkpoint']:.1f} s and from the export in "
+                f"{secs['import_ply']:.1f} s")
+    run("gsplat", ["train_torch.py", "--config-name", "apps/colmap_3dgut",
+                   *common, "dataset.gsplat_normalize=true",
+                   "dataset.gsplat_image_downscale=true",
+                   "dataset.downsample_factor=2", "n_iterations=30",
+                   "test_last=false", "experiment_name=gsplat"],
+        raster_bwd=30, fold=30)
+    cache = sorted(os.listdir(os.path.join(data, "images_2_png")))
+    if len(cache) != CUSFM_VIEWS:
+        raise AssertionError(f"gsplat cache: {cache}")
+    msgs.append(f"apps/colmap_3dgut with gsplat_normalize and the factor-2 "
+                f"cache ({len(cache)} PNGs) 30 steps in "
+                f"{secs['gsplat']:.1f} s")
+    eval_dir = os.path.join(root, "eval")
+    run("render", ["render_torch.py", "--checkpoint", ckpt, "--path", data,
+                   "--out-dir", eval_dir], bin_decode=2, raster_fwd=2)
+    with open(os.path.join(eval_dir, "metrics.json")) as f:
+        metrics = json.load(f)
+    if not all(math.isfinite(metrics[k]) for k in ("psnr", "ssim")):
+        raise AssertionError(f"render_torch.py: {metrics}")
+    n_test = len(metrics["per_frame"])
+    msgs.append(f"render_torch.py on the PPISP checkpoint ({n_test} test "
+                f"views) in {secs['render']:.1f} s: psnr "
+                f"{metrics['psnr']:.4f}, ssim {metrics['ssim']:.4f}")
+    phase("cuSFM CLI", "; ".join(msgs))
+    shutil.rmtree(root, ignore_errors=True)
+    return {k: {e: c[k] for e, c in launches.items() if c[k]}
+            for k in CUSFM_KERNELS}
+
+
+def cusfm_phases(dev):
+    """Phases 42-43 on one teacher and one fused cloud. Returns the
+    launches of the full-width step by setting and of the CLIs by
+    kernel."""
+    import shutil
+
+    from threedgrut_tpu_torch.synthetic import build_teacher, write_fused_cloud
+
+    isp_phase(dev)
+    root = os.path.join(REPO, "build", "smoke_cusfm")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    teacher = build_teacher(60000, seed=0, device=dev)
+    fused = write_fused_cloud(os.path.join(root, "fused.ply"), teacher,
+                              CUSFM_POINTS)
+    step_launches = cusfm_step_phase(dev, teacher, fused)
+    cli = cusfm_cli_phase(dev, teacher, fused)
+    shutil.rmtree(root, ignore_errors=True)
+    return step_launches, cli
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3256,6 +3722,13 @@ def main():
     # 41. the evaluation path through the CLIs
     for k, by_entry in eval_phase(dev).items():
         report[k]["eval_launches"] = by_entry
+
+    # 42-43. the cuSFM path: the ISP, the full-width step, the CLIs
+    step_launches, cli = cusfm_phases(dev)
+    for k in CUSFM_KERNELS:
+        report[k]["cusfm_launches"] = {
+            "step": step_launches["ppisp"][k],
+            "step_no_ppisp": step_launches["no_ppisp"][k], **cli[k]}
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches.get(k, 0), **report[k])

@@ -19,17 +19,19 @@ without them lpips is null per frame and the mean is render.py's
 
 Without ``--config-name`` the config embedded in the checkpoint
 (``config_json``) drives the run, else ``apps/nerf_synthetic_3dgut``.
-The background, ``post_processing: linear-to-srgb`` where configured and
-the clamp to [0, 1] are applied as render.py applies them. The port's
+The background, the post-processing and the clamp to [0, 1] are applied
+as render.py applies them: a PPISP checkpoint's ISP through the loaded
+trainer's ``_apply_ppisp_eval`` (the checkpoint holds no controller, so
+its per-frame terms are neutral), else ``linear-to-srgb`` where
+configured (not on a .ply, as in render.py). The port's
 raster is render.py's default eval renderer: the exact kill and fp32
 records, with an uncapped pair buffer. It renders on the card; without
 one it stops, unless ``--device cpu`` asks for the CPU.
 
-Refused, each with its reason: NHT checkpoints (render.py composites
-their ray features, 24 channels at the shipped width, as if they were
-RGB, without the decoder, and fails on them; the port does not add what
-the JAX CLI lacks) and
-``post_processing: ppisp`` (PPISP is not ported).
+Refused, with the reason: NHT checkpoints (render.py composites their
+ray features, 24 channels at the shipped width, as if they were RGB,
+without the decoder, and fails on them; the port does not add what the
+JAX CLI lacks).
 """
 
 import argparse
@@ -64,11 +66,7 @@ def load_conf(args):
 
 def refuse(conf):
     """Stop, with the reason, where render.py cannot score the
-    checkpoint or the port lacks what it asks for."""
-    method = conf.get("post_processing", {}).get("method")
-    if method == "ppisp":
-        raise SystemExit("render_torch.py: post_processing ppisp is not "
-                         "ported (render.py:100-102 applies the trained ISP)")
+    checkpoint."""
     if conf.model.feature_type == "nht":
         raise SystemExit(
             "render_torch.py: NHT checkpoints are refused: render.py "
@@ -145,6 +143,7 @@ def main(argv=None):
     if dataset is None:
         raise SystemExit(f"render_torch.py: no test split under {args.path}")
 
+    trainer = None
     if args.checkpoint.endswith(".ply"):
         model = GaussianModel.from_ply(args.checkpoint, device=device)
         sh_degree = tconf.max_n_features
@@ -165,7 +164,10 @@ def main(argv=None):
             out = render_gut(cam, tconf.ut, tconf.raster, model, sh_degree)
             pred = bg_mod.apply_background(out["pred_features"],
                                            out["pred_opacity"], bg)
-            if tconf.post_processing == "linear-to-srgb":
+            # render.py:100-105
+            if trainer is not None and trainer.ppisp_params is not None:
+                pred = trainer._apply_ppisp_eval(pred)
+            elif tconf.post_processing == "linear-to-srgb":
                 pred = linear_to_srgb(torch.clamp(pred, 0.0, 1.0))
             pred = torch.clamp(pred, 0.0, 1.0)
             gt = torch.as_tensor(np.asarray(batch.rgb_gt, np.float32),

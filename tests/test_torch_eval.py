@@ -286,7 +286,10 @@ def test_render_cli_matches_jax(scene, case, f32_dots, monkeypatch):
 def test_render_cli_refuses_nht_where_jax_cannot_score(scene, monkeypatch):
     """render.py composites an NHT checkpoint's ray features without the
     decoder and fails; render_torch.py refuses it, naming why. It also
-    refuses PPISP and a missing card."""
+    refuses a missing card. PPISP is no longer refused: with
+    post_processing ppisp a checkpoint is scored through the ISP, as
+    render.py scores it (neutral per-frame terms when, as here, the
+    checkpoint holds no ISP tables)."""
     import render_torch
     import train_torch
     from threedgrut_tpu_torch.config.loader import load_config
@@ -309,10 +312,14 @@ def test_render_cli_refuses_nht_where_jax_cannot_score(scene, monkeypatch):
         _jax_render([*argv, "--out-dir", str(root / "nht_jax")], monkeypatch)
     print("render.py on an NHT checkpoint:", type(err.value).__name__,
           str(err.value)[:200])
-    with pytest.raises(SystemExit, match="ppisp"):
-        render_torch.main(["--checkpoint", ckpt, "--path", data,
-                           "--device", "cpu",
-                           "post_processing.method=ppisp"])
+    isp = render_torch.main(["--checkpoint", ckpt, "--path", data,
+                             "--device", "cpu", "--out-dir",
+                             str(root / "ppisp_port"),
+                             "post_processing.method=ppisp"])
+    plain = render_torch.main(["--checkpoint", ckpt, "--path", data,
+                               "--device", "cpu", "--out-dir",
+                               str(root / "plain_port")])
+    assert np.isfinite(isp["psnr"]) and isp["psnr"] != plain["psnr"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         render_torch.main(["--checkpoint", ckpt, "--path", data])

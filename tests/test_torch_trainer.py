@@ -409,23 +409,26 @@ def test_train_cli_runs_five_steps(tmp_path):
     assert torch.tensor(0.0).device.type == "cpu"
 
 
-# keys train.py acts on that train_torch.py refuses while they ask for an
-# action: (config, overrides, the key and train.py line it must name)
-REFUSED = {
-    "import_ply": ("apps/nerf_synthetic_3dgut",
-                   ["import_ply.enabled=true"], "train.py:95-97"),
-    "export_ply": ("apps/nerf_synthetic_3dgut",
-                   ["export_ply.enabled=true"], "train.py:205-208"),
+# keys train.py acts on that train_torch.py once refused while they asked
+# for an action: (config, overrides). It acts on each now but with_gui,
+# which waits for the live GUI and is still refused naming its line
+ACTED_ON = {
+    "import_ply": ("apps/nerf_synthetic_3dgut", [
+        "import_ply.enabled=true",
+        "import_ply.path=" + os.path.join(REPO, "tests", "fixtures",
+                                          "parity_cloud.ply")]),
+    "export_ply": ("apps/nerf_synthetic_3dgut", [
+        "export_ply.enabled=true", "n_iterations=1",
+        "initialization.num_gaussians=200", "test_last=false",
+        "val_frequency=0", "experiment_name=e"]),
     "gsplat_normalize": ("apps/colmap_3dgut",
-                         ["dataset.gsplat_normalize=true"], "train.py:32"),
+                         ["dataset.gsplat_normalize=true"]),
     "gsplat_image_downscale": ("apps/colmap_3dgut_mcmc_nht",
-                               ["dataset.downsample_factor=2"],
-                               "train.py:33-34"),
+                               ["dataset.downsample_factor=2"]),
     "post_processing": ("apps/nerf_synthetic_3dgut",
-                        ["post_processing.method=ppisp"],
-                        "train.py:196-199"),
-    "with_gui": ("apps/nerf_synthetic_3dgut", ["with_gui=true"],
-                 "train.py:162-174"),
+                        ["post_processing.method=ppisp",
+                         "initialization.num_gaussians=200"]),
+    "with_gui": ("apps/nerf_synthetic_3dgut", ["with_gui=true"]),
 }
 # the configs the port trains (gsplat_image_downscale is set without a
 # downsample in colmap_3dgut_mcmc_nht: JAX then reads the same images)
@@ -433,17 +436,37 @@ TRAINED = ("apps/nerf_synthetic_3dgut", "apps/nerf_synthetic_3dgrt",
            "paper/3dgut/sorted_nerf_synthetic", "apps/nerf_synthetic_3dgut_mcmc",
            "apps/nerf_synthetic_3dgut_mcmc_nht",
            "apps/nerf_synthetic_3dgrt_mcmc_nht", "apps/colmap_3dgut",
-           "apps/colmap_3dgut_mcmc_nht", "apps/scannetpp_3dgut")
+           "apps/colmap_3dgut_mcmc_nht", "apps/scannetpp_3dgut",
+           "apps/cusfm_3dgut", "apps/cusfm_3dgut_mcmc")
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED) + ["trained_configs_load"])
-def test_train_cli_refuses_unported_keys(case):
-    """train_torch.py stops on each key train.py acts on and the port
-    does not, naming it and the train.py line; the configs it trains
-    still load."""
+def _colmap_capture(path):
+    """A 6-view 40x30 pinhole COLMAP capture of a small teacher."""
+    from threedgrut_tpu_torch.synthetic import (build_teacher,
+                                                teacher_dataset,
+                                                write_colmap_scene)
+
+    teacher = build_teacher(1000, seed=0)
+    write_colmap_scene(path, teacher_dataset(teacher, n_views=6,
+                                             resolution=(40, 30)),
+                       teacher, n_points=200)
+    return path
+
+
+@pytest.mark.parametrize("case", sorted(ACTED_ON) + ["trained_configs_load"])
+def test_train_cli_refuses_unported_keys(case, tmp_path):
+    """Each key train.py acts on that train_torch.py used to refuse is
+    acted on now: the PLY is read (import_ply) or written (export_ply),
+    the poses move (gsplat_normalize), the bicubic cache is built
+    (gsplat_image_downscale with a downsample), the PPISP parameters
+    exist (post_processing.method ppisp). with_gui is still refused,
+    naming the key and its train.py line; the configs the port trains,
+    the cuSFM apps among them, load."""
     sys.path.insert(0, REPO)
     import train_torch
     from threedgrut_tpu_torch.config.loader import load_config
+    from threedgrut_tpu_torch.export.ply import import_ply
+    from threedgrut_tpu_torch.train.trainer import Trainer
 
     if case == "trained_configs_load":
         for name in TRAINED:
@@ -451,14 +474,55 @@ def test_train_cli_refuses_unported_keys(case):
             train_torch.refuse_unported(conf)
             train_torch.trainer_config(conf)
         return
-    name, overrides, line = REFUSED[case]
+    name, overrides = ACTED_ON[case]
     train_torch.refuse_unported(load_config(name))   # the default is fine
-    with pytest.raises(SystemExit) as err:
+    if case == "with_gui":
+        with pytest.raises(SystemExit) as err:
+            train_torch.main(["--config-name", name, "--device", "cpu",
+                              *overrides])
+        assert "with_gui" in str(err.value)
+        assert "train.py:162-174" in str(err.value)
+        return
+    if "colmap" in name:
+        data = _colmap_capture(str(tmp_path / "capture"))
+    else:
+        data = str(tmp_path / "nerf")
+        _write_nerf_dataset(data, side=32)
+    conf = load_config(name, overrides=[f"path={data}", *overrides])
+    train_torch.refuse_unported(conf)
+    if case == "export_ply":
+        out = str(tmp_path / "out")
         train_torch.main(["--config-name", name, "--device", "cpu",
-                          *overrides])
-    key = overrides[0].split("=")[0] if case != "gsplat_image_downscale" \
-        else "dataset.gsplat_image_downscale"
-    assert key in str(err.value) and line in str(err.value)
+                          f"path={data}", f"out_dir={out}", *overrides])
+        ply = import_ply(os.path.join(out, "e", "export_last.ply"))
+        with np.load(os.path.join(out, "e", "ckpt_last.npz")) as f:
+            n = int(f["n_active"])
+            np.testing.assert_array_equal(ply["positions"],
+                                          f["params/positions"][:n])
+        return
+    ds = train_torch.make_dataset(conf, "train")
+    if case == "import_ply":
+        model = train_torch.make_model(conf, ds, "cpu")
+        ply = import_ply(overrides[1].split("=", 1)[1])
+        assert model.n_active == len(ply["positions"]) == 512
+        np.testing.assert_array_equal(
+            model.positions.detach().numpy()[:512], ply["positions"])
+    elif case == "gsplat_normalize":
+        plain = train_torch.make_dataset(
+            load_config(name, overrides=[f"path={data}"]), "train")
+        assert not np.allclose(ds.get_poses(), plain.get_poses())
+        assert ds.get_scene_extent() != plain.get_scene_extent()
+    elif case == "gsplat_image_downscale":
+        assert sorted(os.listdir(os.path.join(data, "images_2_png"))) == [
+            f"frame_{i:04d}.png" for i in range(6)]
+        assert ds[0].rgb_gt.shape == (15, 20, 3)
+    else:
+        tr = Trainer(train_torch.trainer_config(conf), ds,
+                     train_torch.make_model(conf, ds, "cpu"))
+        assert tr.ppisp_params["exposure"].shape == (len(ds),)
+        assert {k for k in tr.params() if k.startswith("ppisp/")} == {
+            "ppisp/exposure", "ppisp/color_latents", "ppisp/responsivity",
+            "ppisp/vig_center", "ppisp/vig_alpha", "ppisp/crf"}
 
 
 def test_train_cli_writes_periodic_checkpoint(tmp_path):

@@ -5,8 +5,10 @@ object with the same ``params`` / ``n_active`` / ``n_active_features`` /
 ``config`` fields) into a ``GaussianModel``, so both packages compute on
 the same weights. ``decoder_from_jax`` does the same for the NHT
 decoder (its weights and EMA shadow), and ``decoder_to_flax`` gives the
-port's decoder back as the JAX decoder's flax pytrees. Each array goes
-through ``numpy.asarray``; nothing of JAX is imported.
+port's decoder back as the JAX decoder's flax pytrees.
+``controller_from_flax`` and ``controller_to_flax`` carry the PPISP
+controller's weights across, through the reference's export layout. Each
+array goes through ``numpy.asarray``; nothing of JAX is imported.
 
 A flax Dense kernel is [in, out]; the port's ``Linear.weight`` is its
 transpose [out, in].
@@ -22,6 +24,9 @@ import torch
 from .models.gaussians import GaussianModel, GaussianModelConfig, param_names
 from .models import nht_decoder
 from .models.nht_decoder import FeatureDecoder
+from .models.ppisp import (CONTROLLER_LAYERS, PPISPControllerCNN,
+                           flatten_controller_weights,
+                           unflatten_controller_weights)
 
 
 def model_from_state(state, device="cpu") -> GaussianModel:
@@ -110,3 +115,32 @@ def decoder_state_dict(decoder: FeatureDecoder) -> Dict[str, np.ndarray]:
         for name, leaf in tree["params"].items():
             out[f"{prefix}['params']/['{name}']/['kernel']"] = leaf["kernel"]
     return out
+
+
+def controller_from_flax(tree, device="cpu") -> PPISPControllerCNN:
+    """The port's PPISP controller with the weights of a JAX controller's
+    flax pytree ({"params": {name: {"kernel" [in, out], "bias"}}}), read
+    in the reference's export layout."""
+    layers = tree["params"]
+    flat = np.concatenate([
+        np.concatenate([np.asarray(layers[name]["kernel"], np.float32)
+                        .T.reshape(-1),
+                        np.asarray(layers[name]["bias"], np.float32)
+                        .reshape(-1)])
+        for name, _, _ in CONTROLLER_LAYERS])
+    return unflatten_controller_weights(
+        PPISPControllerCNN(device=device), flat)
+
+
+def controller_to_flax(ctrl) -> Dict[str, Dict[str, Dict[str, np.ndarray]]]:
+    """The inverse of ``controller_from_flax``: the flax pytree of numpy
+    arrays of a port controller, through the export layout."""
+    flat = flatten_controller_weights(ctrl)
+    out, at = {}, 0
+    for name, fan_in, fan_out in CONTROLLER_LAYERS:
+        w = flat[at:at + fan_out * fan_in].reshape(fan_out, fan_in)
+        at += fan_out * fan_in
+        out[name] = {"kernel": w.T.copy(), "bias": flat[at:at + fan_out]
+                     .copy()}
+        at += fan_out
+    return {"params": out}

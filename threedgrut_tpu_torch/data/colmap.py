@@ -1,8 +1,8 @@
 """COLMAP and ScanNet++ datasets (copied from
-threedgrut_tpu/data/colmap.py without the gsplat normalisation options,
-decoding with PIL and casting fisheye rays with the port's
-``ops/cameras.py:fisheye_camera_rays``), and writers of the binary
-COLMAP model that ``synthetic.py:write_colmap_scene`` uses.
+threedgrut_tpu/data/colmap.py, decoding with PIL and casting fisheye
+rays with the port's ``ops/cameras.py:fisheye_camera_rays``), and
+writers of the binary COLMAP model that
+``synthetic.py:write_colmap_scene`` uses.
 
 Behavioral contract from threedgrut/datasets/dataset_colmap.py:114-822:
 - parses sparse/0/{cameras,images,points3D}.bin (or colmap/sparse/0),
@@ -10,7 +10,13 @@ Behavioral contract from threedgrut/datasets/dataset_colmap.py:114-822:
 - images sorted by name; test split = every 8th frame (llffhold-style),
 - optional downsampling via images_N directories or on-the-fly resize,
 - poses camera-to-world in the right-down-front convention (COLMAP
-  native), scene extent from the camera spread.
+  native), scene extent from the camera spread,
+- gsplat's protocol (``data/colmap_gsplat.py``): ``gsplat_normalize``
+  moves the poses, the sparse points and the extent into the normalised
+  world of the split's own cameras; ``gsplat_image_downscale`` with a
+  downsample reads a bicubic ``images_{f}_png`` cache, built once inside
+  the capture, and corrects the intrinsics by the rounded size over the
+  floor-divided one.
 """
 
 from __future__ import annotations
@@ -160,10 +166,15 @@ class ColmapDataset:
     """Loads a COLMAP capture directory (images/ + sparse/0/)."""
 
     def __init__(self, path: str, split: str = "train", downsample: int = 1,
-                 test_split_interval: int = 8):
+                 test_split_interval: int = 8, gsplat_normalize: bool = False,
+                 gsplat_image_downscale: bool = False):
         self.path = path
         self.split = split
         self.downsample = max(int(downsample), 1)
+        self.gsplat_normalize = gsplat_normalize
+        self.gsplat_image_downscale = gsplat_image_downscale
+        self.world_transform = np.eye(4, dtype=np.float32)
+        self._gsplat_extent = None
         sparse = os.path.join(path, "sparse", "0")
         if not os.path.isdir(sparse):
             sparse = os.path.join(path, "colmap", "sparse", "0")
@@ -192,7 +203,33 @@ class ColmapDataset:
             c2w[:3, 3] = -r.T @ it["tvec"]
             poses.append(c2w)
         self._poses = np.stack(poses) if poses else np.zeros((0, 4, 4))
+        if gsplat_normalize and len(self._poses) \
+                and os.path.exists(self._points_path):
+            # JAX data/colmap.py:166-177: the split's own cameras set the
+            # normalisation
+            from .colmap_gsplat import normalize_world_space, scene_scale
+
+            pts = read_points3d_bin(self._points_path)[0]
+            if len(pts):
+                cams, _, transform = normalize_world_space(
+                    self._poses.astype(np.float64), pts.astype(np.float64))
+                self._poses = cams.astype(np.float32)
+                self.world_transform = transform.astype(np.float32)
+                self._gsplat_extent = scene_scale(self._poses) * 1.1
         self._image_dir = self._find_image_dir()
+        self._name_map = None
+        if gsplat_image_downscale:
+            # JAX data/colmap.py:181-193
+            from .colmap_gsplat import (build_downscale_cache,
+                                        sorted_name_mapping)
+
+            colmap_dir = os.path.join(self.path, "images")
+            if self.downsample > 1 and self._image_dir == colmap_dir:
+                self._image_dir = build_downscale_cache(
+                    colmap_dir, os.path.join(
+                        self.path, f"images_{self.downsample}_png"),
+                    self.downsample)
+            self._name_map = sorted_name_mapping(colmap_dir, self._image_dir)
         self._image_cache = {}
         self._rays_cache = {}
 
@@ -213,6 +250,8 @@ class ColmapDataset:
         return self._poses[:, :3, 3]
 
     def get_scene_extent(self) -> float:
+        if self._gsplat_extent is not None:
+            return self._gsplat_extent
         return compute_scene_extent(self._poses[:, :3, 3])
 
     def get_camera_idx(self, frame_idx: int) -> int:
@@ -220,7 +259,13 @@ class ColmapDataset:
         return ids.index(self.items[frame_idx]["camera_id"])
 
     def load_points3d(self):
-        return read_points3d_bin(self._points_path)
+        pts, rgb, err = read_points3d_bin(self._points_path)
+        if self.gsplat_normalize and len(pts):
+            from .colmap_gsplat import transform_points
+
+            pts = transform_points(self.world_transform.astype(np.float64),
+                                   pts.astype(np.float64)).astype(np.float32)
+        return pts, rgb, err
 
     def intrinsics_for(self, camera_id: int) -> dict:
         """Intrinsics dict scaled by the downsample factor
@@ -255,6 +300,16 @@ class ColmapDataset:
                        max_angle=np.pi / 2, kind="fisheye")
         else:
             raise NotImplementedError(f"COLMAP camera model {model}")
+        if self.gsplat_image_downscale and self.downsample > 1:
+            # JAX data/colmap.py:256-262: the cache's rounded size over
+            # the floor-divided one
+            sx = w / (cam["width"] // self.downsample)
+            sy = h / (cam["height"] // self.downsample)
+            if sx != 1.0 or sy != 1.0:
+                out["fx"] *= sx
+                out["cx"] *= sx
+                out["fy"] *= sy
+                out["cy"] *= sy
         return out
 
     def _load_image(self, index: int) -> np.ndarray:
@@ -263,8 +318,11 @@ class ColmapDataset:
             cam = self.cameras[it["camera_id"]]
             size = (int(round(cam["width"] / self.downsample)),
                     int(round(cam["height"] / self.downsample)))
+            name = it["name"]
+            if self._name_map is not None:
+                name = self._name_map.get(name, name)
             self._image_cache[index] = load_rgb(
-                os.path.join(self._image_dir, it["name"]), size)[..., :3]
+                os.path.join(self._image_dir, name), size)[..., :3]
         return self._image_cache[index]
 
     def camera_rays(self, intr: dict):

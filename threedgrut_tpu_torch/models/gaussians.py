@@ -232,10 +232,12 @@ class GaussianModel(nn.Module):
     def from_ply(cls, path: str, capacity: Optional[int] = None,
                  config=None, device=None):
         """From a 3DGS ``.ply`` (raw parameters), padded to capacity the
-        way the JAX package's ``export/ply.import_model`` pads.
-        ``device`` defaults to the card (``loader_device``)."""
+        way the JAX package's ``export/ply.import_model`` pads (default
+        ``default_capacity_for(n)``, no headroom); ``n_active_features``
+        is the file's SH degree. ``device`` defaults to the card
+        (``loader_device``)."""
         device = loader_device(device)
-        from .ply import import_ply
+        from ..export.ply import import_ply
 
         raw = import_ply(path)
         n = raw["positions"].shape[0]

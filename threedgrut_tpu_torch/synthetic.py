@@ -15,7 +15,8 @@ quantises them as that script's PNG files are, into an in-memory
 dataset the trainer reads: pinhole views, or the two other cameras of
 ``CAMERA_KINDS`` (a ScanNet++-like fisheye, an NCore-like rolling
 shutter). ``write_colmap_scene`` writes such views as a COLMAP /
-ScanNet++ capture folder for the training CLI.
+ScanNet++ capture folder for the training CLI; ``write_fused_cloud``
+writes a cuSFM-like fused point cloud PLY of the teacher's points.
 """
 
 from __future__ import annotations
@@ -429,3 +430,34 @@ def write_colmap_scene(path: str, dataset: ViewDataset,
     pick = rng.choice(len(pos), size=min(n_points, len(pos)), replace=False)
     write_points3d_bin(os.path.join(sparse, "points3D.bin"), pos[pick],
                        np.clip(np.round(rgb[pick] * 255.0), 0, 255))
+
+
+def write_fused_cloud(path: str, teacher: GaussianModel, n_points: int,
+                      seed: int = 0, jitter: float = 0.005) -> str:
+    """Write a cuSFM-like fused point cloud: ``n_points`` of the teacher's
+    live positions drawn with replacement and moved by N(0, ``jitter``),
+    with their albedo colours, as a binary PLY of float x, y, z and uchar
+    red, green, blue (what ``export/ply.py:read_point_cloud_ply``
+    reads)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        pos = teacher.positions[:teacher.n_active].cpu().numpy()
+        rgb = (teacher.features_albedo[:teacher.n_active].cpu().numpy()
+               * SH_C0 + 0.5)
+    pick = rng.integers(0, len(pos), n_points)
+    arr = np.zeros(n_points, [("x", "f4"), ("y", "f4"), ("z", "f4"),
+                              ("red", "u1"), ("green", "u1"),
+                              ("blue", "u1")])
+    xyz = pos[pick] + rng.normal(0.0, jitter, (n_points, 3))
+    arr["x"], arr["y"], arr["z"] = xyz.T.astype(np.float32)
+    cols = np.clip(np.round(rgb[pick] * 255.0), 0, 255).astype(np.uint8)
+    arr["red"], arr["green"], arr["blue"] = cols.T
+    header = ["ply", "format binary_little_endian 1.0",
+              f"element vertex {n_points}",
+              "property float x", "property float y", "property float z",
+              "property uchar red", "property uchar green",
+              "property uchar blue", "end_header"]
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        f.write(arr.tobytes())
+    return path

@@ -28,13 +28,24 @@ Contracts kept from the JAX trainer (reference threedgrut/trainer.py):
 - ``post_processing: linear-to-srgb`` after the background, in the loss
   and in validation (trainer.py:483-485, 1264-1266); LPIPS in validation
   where its weights are found (trainer.py:1232-1242),
+- ``post_processing: ppisp`` (trainer.py:244-252, 478-482, 898-970): the
+  ISP's parameters (one camera, a row per dataset frame) are Adam groups
+  ``ppisp/<name>`` at ``PPISP_LR`` that no row mask reaches unless a
+  table has the capacity's length, so every frame's row moves on every
+  step by its moments, as in JAX; the ISP runs on the composited colour
+  in the loss, unclamped, with the step's frame. After training,
+  ``distill_ppisp_controller`` fits the controller CNN to the learned
+  per-frame terms on up to 32 training renders without the background
+  (JAX's choice), and validation feeds the controller the composited
+  image, or uses neutral per-frame terms without a controller,
 - checkpoints with the JAX trainer's npz keys (the decoder's as its
-  flax key paths, params/nht_decoder//params/Dense_i/kernel), so either
+  flax key paths, params/nht_decoder//params/Dense_i/kernel; the ISP's
+  as params/ppisp//<name>; no controller, as JAX saves none), so either
   package loads the other's.
 
 Not ported (the JAX trainer's TPU-side machinery and other model kinds):
-fused multi-step groups, the device GT cache, the pair-budget
-calibration (the port sizes pairs per view) and PPISP.
+fused multi-step groups, the device GT cache and the pair-budget
+calibration (the port sizes pairs per view).
 """
 
 from __future__ import annotations
@@ -52,6 +63,8 @@ from ..convert import flax_layer_names
 from ..models import background as bg_mod
 from ..models.gaussians import GaussianModel
 from ..models.nht_decoder import FeatureDecoder
+from ..models.ppisp import (PPISPControllerCNN, apply_ppisp_full,
+                            init_ppisp_params)
 from ..ops.cameras import (CameraModel, make_fisheye, make_ftheta,
                            make_pinhole, world_to_camera_pose)
 from ..ops.ssim import psnr, ssim
@@ -70,6 +83,10 @@ DECODER = "nht_decoder"
 # the decoder's learning rate, cosine-decayed to a tenth over
 # features_max_steps (configs/base.yaml nht_decoder; trainer.py:345-348)
 DECODER_LR = 0.00068
+# the ISP's Adam groups, "ppisp/<name>", and their fixed learning rate
+# (JAX TrainerConfig.ppisp_lr, which no config sets; trainer.py:349-350)
+PPISP = "ppisp"
+PPISP_LR = 1e-3
 
 
 @dataclasses.dataclass
@@ -137,9 +154,11 @@ class TrainerConfig:
     # nht_color_refine_steps steps, and the first nht_warmup_steps
     nht_color_refine_steps: int = 3000
     nht_warmup_steps: int = 0
-    # post_processing.method: None, or "linear-to-srgb" on the composited
-    # colour in the loss and in validation (PPISP is not ported)
+    # post_processing.method: None, "linear-to-srgb" or "ppisp" on the
+    # composited colour in the loss and in validation
     post_processing: Optional[str] = None
+    ppisp_use_controller: bool = True
+    ppisp_n_distillation_steps: int = 5000
 
 
 _SHUTTER_NAMES = {
@@ -203,10 +222,9 @@ class Trainer:
         if conf.strategy not in ("gs", "mcmc"):
             raise NotImplementedError(f"strategy {conf.strategy}: gs or "
                                       "mcmc")
-        if conf.post_processing not in (None, "linear-to-srgb"):
-            raise NotImplementedError(
-                f"post_processing {conf.post_processing}: the port has "
-                "linear-to-srgb only (PPISP is not ported)")
+        if conf.post_processing not in (None, "linear-to-srgb", "ppisp"):
+            raise ValueError(
+                f"unknown post_processing method {conf.post_processing}")
         self.conf = conf
         self.raw_conf = raw_conf
         self.dataset = dataset
@@ -224,6 +242,15 @@ class Trainer:
         if model.config.feature_type == "nht":
             self.decoder = FeatureDecoder(model.features.shape[1] // 2,
                                           seed=conf.seed, device=self.device)
+        # the learned ISP: one camera, a row per dataset frame
+        # (trainer.py:249-252)
+        self.ppisp_params = None
+        self.ppisp_controller = None
+        self.ppisp_distill_first_loss = None
+        if conf.post_processing == "ppisp":
+            self.ppisp_params = {
+                k: torch.nn.Parameter(v) for k, v in init_ppisp_params(
+                    1, len(dataset), device=self.device).items()}
         self.opt_state = adam_mod.init_adam_state(self.params())
         self.gs_buffers = None
         if conf.strategy == "gs":
@@ -250,12 +277,16 @@ class Trainer:
         self._gt_cache: Dict[int, torch.Tensor] = {}
 
     def params(self) -> Dict[str, torch.nn.Parameter]:
-        """The optimizer's groups: the model's raw parameters and, for NHT,
-        the decoder's weights as ``nht_decoder/<i>``."""
+        """The optimizer's groups: the model's raw parameters, for NHT the
+        decoder's weights as ``nht_decoder/<i>``, and for PPISP the ISP's
+        tables as ``ppisp/<name>``."""
         out = dict(self.model.params())
         if self.decoder is not None:
             out.update({f"{DECODER}/{i}": w
                         for i, w in enumerate(self.decoder.weights())})
+        if self.ppisp_params is not None:
+            out.update({f"{PPISP}/{k}": v
+                        for k, v in self.ppisp_params.items()})
         return out
 
     def current_lrs(self, step: Optional[int] = None) -> Dict[str, float]:
@@ -283,6 +314,8 @@ class Trainer:
             lrs["features_specular"] = oc.lr_features_specular * tail
         if self.decoder is not None:
             lrs[DECODER] = self._decoder_lr(step)
+        if self.ppisp_params is not None:
+            lrs[PPISP] = PPISP_LR
         # the NHT warmup and color-refine phases freeze the geometry only
         # (the reference's _color_refine_frozen_param_names)
         if self._in_color_refine(step):
@@ -299,11 +332,14 @@ class Trainer:
                            - self.conf.nht_color_refine_steps, 0)
 
     def _group_lrs(self) -> Dict[str, float]:
-        """current_lrs by optimizer group (each decoder weight its own)."""
+        """current_lrs by optimizer group (each decoder weight and ISP
+        table its own)."""
         lrs = self.current_lrs()
-        dec = lrs.pop(DECODER, None)
-        if dec is not None:
-            lrs.update({k: dec for k in self.params() if k.startswith(DECODER)})
+        for prefix in (DECODER, PPISP):
+            lr = lrs.pop(prefix, None)
+            if lr is not None:
+                lrs.update({k: lr for k in self.params()
+                            if k.startswith(prefix + "/")})
         return lrs
 
     def sh_degree(self) -> int:
@@ -332,22 +368,27 @@ class Trainer:
                             out["ray_d"].reshape(-1, 3),
                             use_ema=use_ema).reshape(h, w, 3)
 
-    def post_process(self, pred: torch.Tensor) -> torch.Tensor:
-        """The configured post-processing of a composited colour (JAX
-        trainer.py:483-485 and :1264-1266): linear-to-srgb on the clamped
-        colour, or none."""
+    def post_process(self, pred: torch.Tensor, frame_idx: int = 0
+                     ) -> torch.Tensor:
+        """The configured post-processing of a composited colour in the
+        loss (JAX trainer.py:478-485): the ISP of frame ``frame_idx``
+        unclamped, linear-to-srgb on the clamped colour, or none."""
+        if self.ppisp_params is not None:
+            return apply_ppisp_full(self.ppisp_params, pred, 0, frame_idx)
         if self.conf.post_processing == "linear-to-srgb":
             return linear_to_srgb(torch.clamp(pred, 0.0, 1.0))
         return pred
 
-    def loss(self, out, rgb_gt):
-        """(total, losses dict, pred) of one render against its GT."""
+    def loss(self, out, rgb_gt, frame_idx: int = 0):
+        """(total, losses dict, pred) of one render of dataset frame
+        ``frame_idx`` against its GT."""
         conf = self.conf
         color = self.decode(out)
         bg = bg_mod.background_color(conf.background, self.generator,
                                      train=True, device=self.device)
         pred = self.post_process(
-            bg_mod.apply_background(color, out["pred_opacity"], bg))
+            bg_mod.apply_background(color, out["pred_opacity"], bg),
+            frame_idx)
         losses = {}
         total = torch.zeros((), device=self.device)
         if conf.loss.use_l1:
@@ -382,7 +423,7 @@ class Trainer:
             p.grad = None
         out = render_gut(cam, self.conf.ut, self.conf.raster, self.model,
                          self.sh_degree())
-        total, losses, pred = self.loss(out, rgb_gt)
+        total, losses, pred = self.loss(out, rgb_gt, frame_idx or 0)
         total.backward()
         grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
                  for k, p in params.items()}
@@ -555,6 +596,66 @@ class Trainer:
         self.train_wall_time += time.time() - t0
         return history
 
+    # --- PPISP controller distillation (trainer.py:898-970) --------------
+
+    def distill_ppisp_controller(self, steps: Optional[int] = None,
+                                 max_frames: int = 32,
+                                 downsample: int = 4) -> Optional[float]:
+        """Fit the controller CNN to the learned per-frame (exposure,
+        colour latents) on renders of the first ``max_frames`` training
+        views with the frozen model, every ``downsample``-th pixel of
+        ``pred_features`` without the background; Adam at 1e-3 on the
+        loss (e - te)^2 + mean((c - tl)^2), averaged over the frames.
+        Returns the last step's loss (None when PPISP or its controller
+        is off)."""
+        if self.ppisp_params is None or not self.conf.ppisp_use_controller:
+            return None
+        steps = steps or self.conf.ppisp_n_distillation_steps
+        n_frames = min(len(self.dataset), max_frames)
+        with torch.no_grad():
+            imgs = []
+            for i in range(n_frames):
+                cam = camera_from_batch(self.dataset[i], self.device)
+                out = render_gut(cam, self.conf.ut, self.conf.raster,
+                                 self.model, self.sh_degree())
+                imgs.append(out["pred_features"][::downsample,
+                                                 ::downsample, :3])
+            imgs = torch.stack(imgs)                      # [F, h, w, 3]
+            t_exp = self.ppisp_params["exposure"][:n_frames].detach().clone()
+            t_lat = self.ppisp_params["color_latents"][:n_frames] \
+                .detach().clone()
+        ctrl = PPISPControllerCNN(seed=self.conf.seed, device=self.device)
+        opt = torch.optim.Adam(ctrl.parameters(), lr=1e-3)
+        prior = torch.zeros(n_frames, device=self.device)
+        loss = None
+        for i in range(steps):
+            opt.zero_grad(set_to_none=True)
+            e, c = ctrl(imgs, prior)
+            loss = torch.mean((e - t_exp) ** 2
+                              + torch.mean((c - t_lat) ** 2, dim=-1))
+            loss.backward()
+            opt.step()
+            if i == 0:
+                self.ppisp_distill_first_loss = float(loss.detach())
+        self.ppisp_controller = ctrl
+        self._ppisp_distill_downsample = downsample
+        return float(loss.detach()) if loss is not None else None
+
+    def _apply_ppisp_eval(self, pred: torch.Tensor) -> torch.Tensor:
+        """The validation-time ISP: the controller's prediction on the
+        composited image through the trained per-camera transform; without
+        a controller, neutral per-frame terms."""
+        p = self.ppisp_params
+        if self.ppisp_controller is not None:
+            ds = self._ppisp_distill_downsample
+            exposure, latents = self.ppisp_controller.predict(
+                pred[::ds, ::ds, :3], 0.0)
+            return apply_ppisp_full(p, pred, 0, 0, exposure=exposure,
+                                    color_latents=latents)
+        return apply_ppisp_full(
+            p, pred, 0, 0, exposure=torch.zeros((), device=pred.device),
+            color_latents=torch.zeros(8, device=pred.device))
+
     @torch.no_grad()
     def validate(self, dataset=None) -> Dict[str, float]:
         """PSNR and SSIM over a dataset's views, per-ray hit statistics,
@@ -574,9 +675,12 @@ class Trainer:
             hc = out["hits_count"]
             hit_stats.append((float(hc.mean()), float(hc.std(correction=0)),
                               float(hc.min()), float(hc.max())))
-            color = self.decode(out, use_ema=True)
-            pred = torch.clamp(self.post_process(bg_mod.apply_background(
-                color, out["pred_opacity"], bg)), 0.0, 1.0)
+            pred = bg_mod.apply_background(self.decode(out, use_ema=True),
+                                           out["pred_opacity"], bg)
+            # trainer.py:1262-1266
+            pred = torch.clamp(self._apply_ppisp_eval(pred)
+                               if self.ppisp_params is not None
+                               else self.post_process(pred), 0.0, 1.0)
             gt = _as_image(batch.rgb_gt, self.device)
             psnrs.append(float(psnr(pred, gt)))
             ssims.append(float(ssim(pred.permute(2, 0, 1)[None],
@@ -604,13 +708,17 @@ class Trainer:
 
     def _checkpoint_keys(self) -> Dict[str, str]:
         """optimizer group -> its name in the JAX checkpoints: the
-        parameter's own, or the decoder's flax key path, whose kernels
-        are stored [in, out] (``transposed`` groups)."""
+        parameter's own, the decoder's flax key path, whose kernels are
+        stored [in, out], or the ISP table's ``ppisp//<name>`` (JAX's
+        '/'-joined key path of its dict group, trainer.py:1345-1356)."""
         keys = {k: k for k in self.model.params()}
         if self.decoder is not None:
             layers = flax_layer_names(len(self.decoder.weights()))
             keys.update({f"{DECODER}/{i}": f"{DECODER}//params/{n}/kernel"
                          for i, n in enumerate(layers)})
+        if self.ppisp_params is not None:
+            keys.update({f"{PPISP}/{k}": f"{PPISP}//{k}"
+                         for k in self.ppisp_params})
         return keys
 
     def save_checkpoint(self, path: str):
@@ -655,19 +763,32 @@ class Trainer:
             keys = self._checkpoint_keys()
             with torch.no_grad():
                 for name, p in self.params().items():
-                    p.copy_(get(name, f"params/{keys[name]}"))
+                    key = f"params/{keys[name]}"
+                    if not name.startswith(PPISP + "/"):
+                        p.copy_(get(name, key))
+                    elif key in data.files:
+                        # the ISP's tables as the file has them (JAX
+                        # replaces its dict, trainer.py:314-316): a row per
+                        # frame of the run that wrote it
+                        self.ppisp_params[name.split("/", 1)[1]] = \
+                            torch.nn.Parameter(get(name, key).clone())
                 if self.decoder is not None:
                     for i, t in enumerate(self.decoder.ema_shadow):
                         key = f"ema/{keys[f'{DECODER}/{i}']}"
                         if key in data.files:
                             t.copy_(get(DECODER, key))
             self.model.n_active = int(data["n_active"])
+            params = self.params()
+            # an ISP table the file lacks starts its moments at zero
+            moments = [{k: (get(k, f"opt/{which}/{v}").clone()
+                            if f"opt/{which}/{v}" in data.files
+                            or not k.startswith(PPISP + "/")
+                            else torch.zeros_like(params[k]))
+                        for k, v in keys.items()}
+                       for which in ("m", "v")]
             self.opt_state = adam_mod.AdamState(
-                step=int(data["opt/step"]),
-                exp_avg={k: get(k, f"opt/m/{v}").clone()
-                         for k, v in keys.items()},
-                exp_avg_sq={k: get(k, f"opt/v/{v}").clone()
-                            for k, v in keys.items()})
+                step=int(data["opt/step"]), exp_avg=moments[0],
+                exp_avg_sq=moments[1])
             self.global_step = int(data["global_step"])
             self.n_active_features = int(data["n_active_features"])
             if self.gs_buffers is not None and \

@@ -10,13 +10,20 @@ renderer (``apps/nerf_synthetic_3dgut``, ``apps/colmap_3dgut``,
 or the sorted 3DGUT of the paper (``paper/3dgut/sorted_nerf_synthetic``),
 under the GS or the MCMC strategy (``apps/nerf_synthetic_3dgut_mcmc``),
 with SH or NHT features (``apps/nerf_synthetic_3dgut_mcmc_nht``,
-``apps/nerf_synthetic_3dgrt_mcmc_nht``). It trains on the card; without
+``apps/nerf_synthetic_3dgrt_mcmc_nht``), and the cuSFM apps
+(``apps/cusfm_3dgut``, ``apps/cusfm_3dgut_mcmc`` with PPISP
+post-processing: the ISP trains with the scene, and its controller is
+distilled before the last checkpoint). It trains on the card; without
 one it stops, unless ``--device cpu`` asks for the CPU.
 It composes the YAML configs with the port's ``config/loader.py`` and
 reads NeRF-synthetic, COLMAP and ScanNet++ (OpenCV fisheye) captures
-with its ``data/`` modules, decoding images with PIL; a COLMAP capture
-can initialise the cloud from its sparse points
-(``initialization.method: colmap``). NCore sequences need the NCore SDK,
+with its ``data/`` modules, decoding images with PIL (gsplat's
+``dataset.gsplat_normalize`` and ``gsplat_image_downscale`` on COLMAP).
+``make_model`` initialises as train.py does, in its order: a 3DGS PLY
+(``import_ply``), the capture's sparse points (``colmap``), a fused
+point cloud PLY (``fused_point_cloud``), a checkpoint's parameters
+(``checkpoint``), else random; ``export_ply`` writes the final cloud.
+NCore sequences need the NCore SDK,
 which is not in the repository: ``dataset.type: ncore`` raises. The
 port always renders with the reference's
 exact kill: where the YAML sets ``exact_kill: false`` (the TPU package's
@@ -31,16 +38,15 @@ sizes its pair buffer per view
 ``ckpt_periodic.npz`` every ``checkpoint.frequency`` steps, as train.py
 does; ``final_metrics.json`` records the card's name and power limit
 beside the device, and the run ends with the kernels' launch counts.
-Keys that train.py acts on and the port does not port yet stop it
-with their train.py line (``refuse_unported``): PLY import and export,
-the gsplat COLMAP options, PPISP post-processing and the live GUI
-(``linear-to-srgb`` post-processing trains).
+A key that train.py acts on and the port does not port yet stops it
+with its train.py line (``refuse_unported``): the live GUI.
 """
 
 import argparse
 import json
 import os
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -69,22 +75,6 @@ def nht_features(conf):
 # keys train.py acts on that the port does not yet: (key, whether the
 # value asks for an action, what in train.py acts on it)
 UNPORTED = (
-    ("import_ply.enabled",
-     lambda c: bool(c.get("import_ply", {}).get("enabled")),
-     "train.py:95-97 (export/ply.import_model)"),
-    ("export_ply.enabled",
-     lambda c: bool(c.get("export_ply", {}).get("enabled")),
-     "train.py:205-208 (export/ply.export_model)"),
-    ("dataset.gsplat_normalize",
-     lambda c: bool(c.get("dataset", {}).get("gsplat_normalize")),
-     "train.py:32 (data/colmap.py:166-178)"),
-    ("dataset.gsplat_image_downscale",
-     lambda c: bool(c.get("dataset", {}).get("gsplat_image_downscale"))
-     and c.get("dataset", {}).get("downsample_factor", 1) > 1,
-     "train.py:33-34 (data/colmap.py:181-190 reads other images)"),
-    ("post_processing.method",
-     lambda c: c.get("post_processing", {}).get("method") == "ppisp",
-     "train.py:196-199 and train/trainer.py:478-482 (PPISP)"),
     ("with_gui", lambda c: bool(c.get("with_gui")),
      "train.py:162-174 (playground/live_gui.py)"),
 )
@@ -149,6 +139,10 @@ def trainer_config(conf):
         print(f"render.{' and render.'.join(layouts)}: TPU layouts of the "
               "same image; the port composites each tile's pairs in one "
               "block and trains as before", file=sys.stderr)
+    if "normalize_world_space" in conf.get("dataset", {}):
+        print("dataset.normalize_world_space: no code reads this key, in "
+              "train.py or here (dataset.gsplat_normalize normalises)",
+              file=sys.stderr)
     d, p, r = (strat.get(k, {}) for k in ("densify", "prune",
                                            "reset_density"))
     decay, pscale, pweight = (strat.get(k, {}) for k in (
@@ -264,7 +258,12 @@ def trainer_config(conf):
         print_stats=model.get("print_stats", False),
         nht_color_refine_steps=dec.get("color_refine_steps", 3000),
         nht_warmup_steps=dec.get("warmup_steps", 0),
-        post_processing=conf.get("post_processing", {}).get("method"))
+        # config/loader.py:386-390
+        post_processing=conf.get("post_processing", {}).get("method"),
+        ppisp_use_controller=conf.get("post_processing", {}).get(
+            "use_controller", True),
+        ppisp_n_distillation_steps=conf.get("post_processing", {}).get(
+            "n_distillation_steps", 5000))
 
 
 def make_dataset(conf, split):
@@ -284,11 +283,17 @@ def make_dataset(conf, split):
         from threedgrut_tpu_torch.data.colmap import (ColmapDataset,
                                                       ScannetppDataset)
 
-        cls = ScannetppDataset if kind == "scannetpp" else ColmapDataset
-        ds = cls(conf.path, split="train" if split == "train" else "test",
-                 downsample=down,
-                 test_split_interval=conf.dataset.get("test_split_interval",
-                                                      8))
+        kw = dict(split="train" if split == "train" else "test",
+                  downsample=down, test_split_interval=conf.dataset.get(
+                      "test_split_interval", 8))
+        if kind == "scannetpp":
+            ds = ScannetppDataset(conf.path, **kw)
+        else:   # train.py:29-34
+            ds = ColmapDataset(
+                conf.path, gsplat_normalize=conf.dataset.get(
+                    "gsplat_normalize", False),
+                gsplat_image_downscale=conf.dataset.get(
+                    "gsplat_image_downscale", False), **kw)
         return ds if len(ds) else None
     if kind == "ncore":
         raise NotImplementedError(
@@ -299,9 +304,18 @@ def make_dataset(conf, split):
 
 
 def make_model(conf, dataset, device):
+    """The initial model, dispatched as train.py:make_model dispatches
+    (train.py:95-129): a PLY import first; then the initialisation
+    method where the dataset can serve it (``colmap`` needs
+    ``load_points3d``, ``lidar`` and ``point_cloud`` need
+    ``load_lidar_init``, which no port dataset has yet),
+    ``fused_point_cloud`` or ``checkpoint``; else random. A PLY import
+    pads to ``default_capacity_for(n)`` and a checkpoint keeps its own
+    capacity, as in JAX: neither leaves the strategy's headroom."""
+    from threedgrut_tpu_torch.export.ply import read_point_cloud_ply
     from threedgrut_tpu_torch.models.gaussians import (
-        GaussianModelConfig, default_capacity_for, initialize_from_points,
-        random_initialization)
+        GaussianModel, GaussianModelConfig, default_capacity_for,
+        initialize_from_points, random_initialization)
 
     mc = GaussianModelConfig(
         density_activation=conf.model.density_activation,
@@ -313,7 +327,7 @@ def make_model(conf, dataset, device):
         default_density=conf.model.default_density,
         default_scale_factor=conf.model.default_scale_factor)
     init = conf.get("initialization", {})
-    method = init.get("method", "random")
+    method = init.get("method", "colmap")
     strat = conf.get("strategy", {})
     if "MCMC" in str(strat.get("method", "")):
         # train.py:87-89: MCMC grows to a hard cap
@@ -324,19 +338,37 @@ def make_model(conf, dataset, device):
         def capacity(n0):   # GS grows the cloud by densifying
             return default_capacity_for(
                 n0, init.get("capacity_headroom", 4.0))
-    if method == "colmap":
-        # train.py:98-102: the capture's sparse points and their colours
+    seed = conf.seed_initialization
+    if conf.get("import_ply", {}).get("enabled"):
+        return GaussianModel.from_ply(conf.import_ply.path, config=mc,
+                                      device=device)
+    if method == "colmap" and hasattr(dataset, "load_points3d"):
+        # the capture's sparse points and their colours
         pts, rgb, _ = dataset.load_points3d()
         return initialize_from_points(
             mc, pts, rgb.astype(np.float32), capacity=capacity(len(pts)),
-            seed=conf.seed_initialization, device=device)
-    if method != "random":
-        raise NotImplementedError(f"initialization {method} is not wired "
-                                  "to the port's CLI")
+            seed=seed, device=device)
+    if method in ("lidar", "point_cloud") and hasattr(dataset,
+                                                      "load_lidar_init"):
+        # observer-distance scales when use_observation_points
+        pts, rgb, dists = dataset.load_lidar_init(
+            num_points=init.get("num_points"))
+        obs = (dists * init.get("observation_scale_factor", 0.01)
+               if init.get("use_observation_points", True) else None)
+        return initialize_from_points(
+            mc, pts, rgb.astype(np.float32), observer_scale=obs,
+            capacity=capacity(len(pts)), seed=seed, device=device)
+    if method == "fused_point_cloud":
+        pts, rgb = read_point_cloud_ply(init["fused_point_cloud_path"])
+        return initialize_from_points(mc, pts, rgb,
+                                      capacity=capacity(len(pts)),
+                                      seed=seed, device=device)
+    if method == "checkpoint":
+        return GaussianModel.from_checkpoint(init["path"], mc, device)
     n = init.get("num_gaussians", 100000)
     return random_initialization(
         mc, n, extent=dataset.get_scene_extent(), capacity=capacity(n),
-        seed=conf.seed_initialization, device=device)
+        seed=seed, device=device)
 
 
 def device_record(device) -> dict:
@@ -394,23 +426,39 @@ def main(argv=None):
     chunk = max(conf.log_frequency * 100, 1)
     ckpt_iters = set(conf.checkpoint.iterations)
     freq = conf.checkpoint.get("frequency", 0)
-    while trainer.global_step < tconf.n_iterations:
-        before = trainer.global_step
-        trainer.run_training(min(before + chunk, tconf.n_iterations),
-                             log_every=chunk)
-        if any(before < c <= trainer.global_step for c in ckpt_iters):
-            trainer.save_checkpoint(os.path.join(
-                out_dir, f"ckpt_{trainer.global_step}.npz"))
-        if freq and before // freq != trainer.global_step // freq:
-            # train.py:187-193: overwrite one rolling checkpoint, so a
-            # kill loses at most about ``freq`` steps
-            trainer.save_checkpoint(os.path.join(out_dir,
-                                                 "ckpt_periodic.npz"))
-        if (tconf.val_frequency and val_dataset is not None
-                and before // tconf.val_frequency
-                != trainer.global_step // tconf.val_frequency):
-            print("val:", trainer.validate())
+    try:
+        while trainer.global_step < tconf.n_iterations:
+            before = trainer.global_step
+            trainer.run_training(min(before + chunk, tconf.n_iterations),
+                                 log_every=chunk)
+            if any(before < c <= trainer.global_step for c in ckpt_iters):
+                trainer.save_checkpoint(os.path.join(
+                    out_dir, f"ckpt_{trainer.global_step}.npz"))
+            if freq and before // freq != trainer.global_step // freq:
+                # train.py:187-193: overwrite one rolling checkpoint, so a
+                # kill loses at most about ``freq`` steps
+                trainer.save_checkpoint(os.path.join(out_dir,
+                                                     "ckpt_periodic.npz"))
+            if (tconf.val_frequency and val_dataset is not None
+                    and before // tconf.val_frequency
+                    != trainer.global_step // tconf.val_frequency):
+                print("val:", trainer.validate())
+    except KeyboardInterrupt:
+        print("interrupted; saving last checkpoint")
+    if trainer.ppisp_params is not None and tconf.ppisp_use_controller:
+        # train.py:200-203
+        print("distilling PPISP controller...")
+        t0 = time.perf_counter()
+        loss = trainer.distill_ppisp_controller()
+        print(f"controller distillation loss: {loss} (first step "
+              f"{trainer.ppisp_distill_first_loss}; "
+              f"{time.perf_counter() - t0:.2f} s)")
     trainer.save_checkpoint(os.path.join(out_dir, "ckpt_last.npz"))
+    if conf.get("export_ply", {}).get("enabled"):
+        from threedgrut_tpu_torch.export.ply import export_model
+
+        export_model(trainer.model, conf.export_ply.path
+                     or os.path.join(out_dir, "export_last.ply"))
     if conf.test_last and val_dataset is not None:
         final = trainer.validate()
         print("final:", final)

@@ -272,6 +272,23 @@ pinhole views; kernels A-D):
    gsplat_image_downscale at factor 2, 30 steps (the images_2_png cache
    built); render_torch.py on the PPISP checkpoint, A and B once a test
    view.
+44. export - on phase 43's capture and PPISP checkpoint (about 1M
+   Gaussians of 2,300,160 rows): export/sh_bake.py:bake_ppisp in this
+   process over EXPORT_VIEWS views, a 2- and a 14-step bake (A and B once
+   a target render and a step, C, D and D's inversion once a step, E
+   never; ms a step on the host clock and device busy by torch.profiler,
+   each from the two bakes' difference); then the port's CLIs:
+   export_usd_torch.py through the capture's normalising transform (the
+   USDZ read back against the same transform and SH rotation in this
+   process, within 1e-6 relative) and transcode_torch.py to two USDZ
+   partitions and to a PLY, in background processes beside the card's
+   work; filter_visibility_torch.py (A and B once a training view);
+   bake_modes_benchmark_torch.py --modes simple fit-training
+   fit-trajectory (the launches its bakes and validation imply; each fit
+   mode's mean loss of its last round of views below its first; each
+   mode's PSNR); sh_bake_validation_torch.py on the export prints OK;
+   NuRec written and read back where msgpack imports, else
+   export_nurec_usdz raises. Seconds of each, beside the card's name.
 
 Then a JSON line with each kernel's launches (A-D from phase 11, sorted
 B and C of each setting from phase 17, E from phase 18, the general
@@ -283,7 +300,8 @@ and tile expansions (expand_rows, expand_rows_tiles) and H's
 forward_fill and segmented_fill_rows (fill, fill_segmented), each from
 its own call in phases 39 and 40; and, as cusfm_launches, the cuSFM
 path's kernels' launches by entry point: phase 42's steps with and
-without PPISP, phase 43's CLIs),
+without PPISP, phase 43's CLIs), and as export_launches those of phase
+44's bake, visibility filter and bake tool,
 error and times (phases 3, 4, 8, 9, 13-15, 19-21, 26-27, 31-34, 37, 39,
 40; G and H also by device time), its bound (the larger
 of the fp32 operations over 67 TFLOP/s and the bytes it must read and
@@ -3228,7 +3246,8 @@ def cusfm_cli_phase(dev, teacher, fused):
     (initialization.method=checkpoint) and from the export (import_ply);
     apps/colmap_3dgut with gsplat's normalisation and factor-2 cache, 30
     steps; render_torch.py on the PPISP checkpoint. Returns the launches
-    by kernel and entry point."""
+    by kernel and entry point, and the phase's directory, which phase 44
+    reads and cusfm_phases removes."""
     import re
     import shutil
 
@@ -3331,15 +3350,315 @@ def cusfm_cli_phase(dev, teacher, fused):
                 f"views) in {secs['render']:.1f} s: psnr "
                 f"{metrics['psnr']:.4f}, ssim {metrics['ssim']:.4f}")
     phase("cuSFM CLI", "; ".join(msgs))
-    shutil.rmtree(root, ignore_errors=True)
+    return {k: {e: c[k] for e, c in launches.items() if c[k]}
+            for k in CUSFM_KERNELS}, root
+
+
+EXPORT_VIEWS = 6        # views each fit mode of the bake fits
+EXPORT_ITERS = 24       # the bake tool's steps a fit mode: 4 rounds of them
+# the steps of the two in-process bakes whose difference times one step
+EXPORT_TIMED = (2, 14)
+# transcode's partition cap: the 1M-particle checkpoint in two partitions
+EXPORT_PARTITION = 600_000
+
+
+class Background:
+    """A port CLI in its own process from the repository root, started
+    now and waited for by a thread, which notes when it exits."""
+
+    def __init__(self, label, args):
+        import threading
+
+        self.label = label
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, *args], cwd=REPO,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        self.result = None
+        self.thread = threading.Thread(target=self._wait, daemon=True)
+        self.thread.start()
+
+    def _wait(self):
+        out, err = self.proc.communicate()
+        self.result = (out, err, time.perf_counter() - self.t0)
+
+    def join(self, timeout=900):
+        """(standard output, seconds from start to exit); raises on a
+        non-zero exit or past ``timeout``."""
+        self.thread.join(timeout)
+        if self.result is None:
+            self.proc.kill()
+            raise AssertionError(f"{self.label}: no exit in {timeout} s")
+        out, err, secs = self.result
+        if self.proc.returncode != 0:
+            raise AssertionError(f"{self.label}: exit {self.proc.returncode}"
+                                 f"\n{out[-3000:]}\n{err[-3000:]}")
+        return out, secs
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def export_phase(dev, root):
+    """Phase 44: the export path on phase 43's capture and PPISP
+    checkpoint (``root``). In this process: bake_ppisp at the
+    checkpoint's size, EXPORT_TIMED steps (host clock, and device busy by
+    torch.profiler; one step is the difference), its launches; then, as
+    the port's CLIs: export_usd_torch.py to a USDZ through the capture's
+    normalising transform (read back), transcode_torch.py to a
+    partitioned USDZ and to a PLY, both beside the card's work;
+    filter_visibility_torch.py (A and B once a training view) and
+    bake_modes_benchmark_torch.py's three modes (A-D and the inversion
+    as its bakes and validation imply; the fit modes' loss falls);
+    sh_bake_validation_torch.py on the exported USDZ; NuRec where msgpack
+    imports. Returns the launches by kernel and entry point."""
+    import zipfile
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from bench_train_torch import profile_steps
+    from threedgrut_tpu_torch.config.loader import config_from_dict
+    from threedgrut_tpu_torch.export import nurec, transcode, usd
+    from threedgrut_tpu_torch.export.sh_bake import bake_ppisp
+    from threedgrut_tpu_torch.export.sh_rotation import (
+        rotate_sh_coefficients)
+    from threedgrut_tpu_torch.export.transforms import (
+        apply_transform_to_gaussians, estimate_normalizing_transform)
+    from threedgrut_tpu_torch.train.trainer import Trainer
+    from train_torch import make_dataset, make_model, trainer_config
+
+    data = os.path.join(root, "data")
+    ckpt = os.path.join(root, "cusfm", "ckpt_last.npz")
+    out = os.path.join(root, "export")
+    os.makedirs(out, exist_ok=True)
+    from_ckpt = ["initialization.method=checkpoint",
+                 f"initialization.path={ckpt}"]
+    with np.load(ckpt) as f:
+        conf = config_from_dict(json.loads(str(f["config_json"])),
+                                overrides=[f"path={data}", *from_ckpt])
+        isp_tables = {k.split("//")[1]: f[k] for k in f.files
+                      if k.startswith("params/ppisp//")}
+    tconf = trainer_config(conf)
+    train_ds = make_dataset(conf, "train")
+    n_train, n_val = len(train_ds), len(make_dataset(conf, "val"))
+    trainer = Trainer(tconf, train_ds, make_model(conf, train_ds, dev))
+    trainer.load_checkpoint(ckpt)
+    model, sh_degree = trainer.model, trainer.sh_degree()
+    counters = cusfm_counters()
+    msgs, launches, procs = [], {}, []
+
+    def bake(iters):
+        return bake_ppisp(model, trainer.ppisp_params, train_ds, tconf.ut,
+                          tconf.raster, sh_degree, iters=iters,
+                          n_views=EXPORT_VIEWS)
+
+    def want(fwd, bwd):
+        return {"bin_decode": fwd, "raster_fwd": fwd, "raster_bwd": bwd,
+                "fold": bwd, "fold_invert": bwd, "wmax": 0}
+
+    t_phase = time.perf_counter()
+    try:
+        bake(1)                                   # warm-up
+        wall, traced, busy, n_dev, hist = {}, {}, {}, {}, {}
+        for it in EXPORT_TIMED:
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist[it] = bake(it)["loss_history"]
+            torch.cuda.synchronize()
+            wall[it] = (time.perf_counter() - t0) * 1e3
+            got = {k: fn.launches for k, fn in counters.items()}
+            if got != want(EXPORT_VIEWS + it, it):
+                raise AssertionError(f"bake of {it} steps: launches {got}, "
+                                     f"wanted {want(EXPORT_VIEWS + it, it)}")
+            traced[it], busy[it], n_dev[it] = profile_steps(
+                lambda: bake(it), 1, top=0)
+        launches["bake"] = got
+        a, b = EXPORT_TIMED
+        w, h = train_ds[0].resolution
+        step_ms = (wall[b] - wall[a]) / (b - a)
+        # the traced bakes' own wall: tracing slows the host
+        traced_ms = (traced[b] - traced[a]) / (b - a) / 1e3
+        busy_ms = (busy[b] - busy[a]) / (b - a) / 1e3
+        kernels = (n_dev[b] - n_dev[a]) / (b - a)
+        first = float(np.mean(hist[b][:EXPORT_VIEWS]))
+        last = float(np.mean(hist[b][-EXPORT_VIEWS:]))
+        if not np.all(np.isfinite(hist[b])):
+            raise AssertionError(f"in-process bake loss {hist[b]}")
+        msgs.append(
+            f"bake_ppisp on the checkpoint ({model.n_active} Gaussians, "
+            f"capacity {model.capacity}, SH {sh_degree}, {EXPORT_VIEWS} "
+            f"views at {w}x{h}): {step_ms:.3f} ms a "
+            f"step host clock; traced: wall {traced_ms:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms a step (idle share "
+            f"{1.0 - busy_ms / traced_ms:.3f}), {kernels:.1f} device kernels "
+            f"a step; each from the {a}- and {b}-step bakes' difference "
+            f"({wall[a]:.1f} / {wall[b]:.1f} ms); round loss "
+            f"{first:.6g} -> {last:.6g}; launches {got} in the {b}-step one")
+
+        # the numpy CLIs, beside the card's work
+        tf = os.path.join(out, "normalize.npy")
+        np.save(tf, estimate_normalizing_transform(train_ds.get_poses()))
+        usdz = os.path.join(out, "model.usdz")
+        parts = os.path.join(out, "parts.usdz")
+        ply = os.path.join(out, "model.ply")
+        procs = [Background("export_usd", ["scripts/export_usd_torch.py",
+                                           ckpt, usdz, "--transform", tf]),
+                 Background("transcode partitions", [
+                     "scripts/transcode_torch.py", ckpt, parts,
+                     "--max-particles", str(EXPORT_PARTITION)]),
+                 Background("transcode ply", ["scripts/transcode_torch.py",
+                                              ckpt, ply])]
+
+        secs = {}
+        vis = os.path.join(out, "visible.ply")
+        res, launches["filter_visibility"], secs["filter"] = run_cli(
+            "filter_visibility", [
+                "scripts/filter_visibility_torch.py", "--checkpoint", ckpt,
+                "--config-name", CUSFM_CONFIG, "--out", vis, f"path={data}",
+                *from_ckpt])
+        if {k: launches["filter_visibility"][k] for k in CUSFM_KERNELS} \
+                != want(n_train, 0):
+            raise AssertionError(f"filter_visibility: launches "
+                                 f"{launches['filter_visibility']}")
+        n_vis = res.split("visible: ")[1].split("\n")[0]
+        res, launches["bake_modes"], secs["bake_modes"] = run_cli(
+            "bake_modes", [
+                "tools/ppisp_export/bake_modes_benchmark_torch.py",
+                "--checkpoint", ckpt, "--path", data, "--modes", "simple",
+                "fit-training", "fit-trajectory", "--iters",
+                str(EXPORT_ITERS), "--n-views", str(EXPORT_VIEWS),
+                "--out-dir", os.path.join(out, "bake_modes"), *from_ckpt])
+        fits = 2 * (EXPORT_VIEWS + EXPORT_ITERS)
+        wanted = want(fits + 3 * 2 * n_val, 2 * EXPORT_ITERS)
+        if {k: launches["bake_modes"][k] for k in CUSFM_KERNELS} != wanted:
+            raise AssertionError(f"bake_modes: launches "
+                                 f"{launches['bake_modes']}, wanted {wanted}")
+        rows = [json.loads(ln) for ln in res.splitlines()
+                if ln.startswith("{")]
+        if [r["mode"] for r in rows] != ["simple", "fit-training",
+                                         "fit-trajectory"]:
+            raise AssertionError(f"bake_modes rows: {rows}")
+        for r in rows[1:]:
+            if not r["loss_last"] < r["loss_first"]:
+                raise AssertionError(f"{r['mode']}: round loss "
+                                     f"{r['loss_first']} -> {r['loss_last']}")
+        msgs.append(
+            f"filter_visibility_torch.py in {secs['filter']:.1f} s: visible "
+            f"{n_vis}; bake_modes_benchmark_torch.py ({EXPORT_ITERS} steps a "
+            f"fit, {EXPORT_VIEWS} views, {n_val} held-out views) in "
+            f"{secs['bake_modes']:.1f} s: " + "; ".join(
+                f"{r['mode']} psnr {r['psnr_mean']:.4f} (min "
+                f"{r['psnr_min']:.4f}), bake {r['bake_only_s']:.2f} s"
+                + (f", round loss {r['loss_first']:.6g} -> "
+                   f"{r['loss_last']:.6g}" if "loss_first" in r else "")
+                for r in rows))
+
+        # the exports: read back
+        (usd_out, usd_s), (parts_out, parts_s), (_, ply_s) = [
+            q.join() for q in procs]
+        attrs = transcode.load_checkpoint_attrs(ckpt)
+        n = attrs["positions"].shape[0]
+        sidecar = os.path.join(out, "ppisp.usda")
+        usd.export_ppisp_usda(sidecar, isp_tables)
+        check = Background("sh_bake_validation", [
+            "scripts/sh_bake_validation_torch.py", usdz, sidecar])
+        procs.append(check)
+        t0 = time.perf_counter()
+        got = usd.import_usdz(usdz)
+        read_s = time.perf_counter() - t0
+        tfm = np.load(tf)
+        raw = apply_transform_to_gaussians(transcode.activated_to_raw(attrs),
+                                           tfm)
+        rs = tfm[:3, :3]
+        sh = rotate_sh_coefficients(attrs["sh_coefficients"],
+                                    rs / np.cbrt(abs(np.linalg.det(rs))),
+                                    attrs["sh_degree"])
+        raw.update(features_albedo=sh[:, 0],
+                   features_specular=sh[:, 1:].reshape(n, -1))
+        ref = transcode.raw_to_activated(raw)
+        errs = {k: float(np.max(np.abs(got[k] - ref[k])
+                                / np.maximum(np.abs(ref[k]), 1e-30)))
+                for k in ("positions", "orientations", "scales", "opacities",
+                          "sh_coefficients")}
+        if got["positions"].shape != (n, 3) or max(errs.values()) > 1e-6:
+            raise AssertionError(f"model.usdz read back: {n} particles "
+                                 f"wanted, relative errors {errs}")
+        with open(os.path.join(out, "parts_partitions.json")) as f:
+            manifest = json.load(f)
+        sizes = [q["num_gaussians"] for q in manifest["partitions"]]
+        for q in manifest["partitions"]:
+            with zipfile.ZipFile(os.path.join(out, q["file"])) as z:
+                layer = z.read(z.namelist()[0])
+            head = layer[:layer.index(b"point3f[]")].decode()
+            if f"int numParticles = {q['num_gaussians']}" not in head:
+                raise AssertionError(f"{q['file']}: {head[:400]}")
+        if sum(sizes) != n or max(sizes) > EXPORT_PARTITION:
+            raise AssertionError(f"partitions {sizes} of {n}")
+        val_out, val_s = check.join()
+        if val_out.strip().splitlines()[-1] != "OK":
+            raise AssertionError(f"sh_bake_validation: {val_out}")
+        mb = {k: os.path.getsize(p) / 2 ** 20
+              for k, p in (("usdz", usdz), ("ply", ply))}
+        msgs.append(
+            f"export_usd_torch.py (normalising transform, SH rotated) "
+            f"{n} particles in {usd_s:.1f} s ({mb['usdz']:.0f} MiB), read "
+            f"back in {read_s:.1f} s (largest relative error "
+            f"{max(errs.values()):.2g}); transcode_torch.py to "
+            f"{len(sizes)} partitions {sizes} in {parts_s:.1f} s, to a PLY "
+            f"in {ply_s:.1f} s ({mb['ply']:.0f} MiB), beside the card's "
+            f"work; sh_bake_validation_torch.py OK in {val_s:.1f} s ("
+            + val_out.strip().splitlines()[1] + ")")
+
+        # NuRec, where msgpack imports
+        try:
+            import msgpack
+            has_msgpack = f"msgpack {msgpack.version} imports"
+        except ImportError:
+            has_msgpack = None
+        with np.load(ckpt) as f:
+            pre = {name: f[f"params/{key}"][:n] for name, key in (
+                ("positions", "positions"), ("rotations", "rotation"),
+                ("scales", "scale"), ("densities", "density"),
+                ("features_albedo", "features_albedo"),
+                ("features_specular", "features_specular"))}
+        nurec_path = os.path.join(out, "model_nurec.usdz")
+        if has_msgpack:
+            t0 = time.perf_counter()
+            nurec.export_nurec_usdz(nurec_path, pre, sh_degree)
+            back = nurec.import_nurec_usdz(nurec_path)
+            nurec_s = time.perf_counter() - t0
+            bad = [k for k, v in pre.items() if not np.array_equal(
+                back[k], v.astype(np.float16).astype(np.float32))]
+            if bad or back["n_active_features"] != sh_degree:
+                raise AssertionError(f"NuRec read back: {bad}")
+            msgs.append(f"NuRec: {has_msgpack}; written and read back "
+                        f"(fp16 attributes equal) in {nurec_s:.1f} s, "
+                        f"{os.path.getsize(nurec_path) / 2 ** 20:.0f} MiB")
+        else:
+            try:
+                nurec.export_nurec_usdz(nurec_path, pre, sh_degree)
+            except ImportError:
+                msgs.append("NuRec: msgpack does not import here; "
+                            "export_nurec_usdz raises ImportError")
+            else:
+                raise AssertionError("export_nurec_usdz wrote a file "
+                                     "without msgpack")
+    finally:
+        for q in procs:
+            q.stop()
+    phase_s = time.perf_counter() - t_phase
+    phase("export", "; ".join(msgs) + f"; the phase {phase_s:.1f} s")
     return {k: {e: c[k] for e, c in launches.items() if c[k]}
             for k in CUSFM_KERNELS}
 
 
 def cusfm_phases(dev):
-    """Phases 42-43 on one teacher and one fused cloud. Returns the
-    launches of the full-width step by setting and of the CLIs by
-    kernel."""
+    """Phases 42-44 on one teacher and one fused cloud. Returns the
+    launches of the full-width step by setting, of the CLIs by kernel,
+    and of the export path by kernel."""
     import shutil
 
     from threedgrut_tpu_torch.synthetic import build_teacher, write_fused_cloud
@@ -3352,9 +3671,13 @@ def cusfm_phases(dev):
     fused = write_fused_cloud(os.path.join(root, "fused.ply"), teacher,
                               CUSFM_POINTS)
     step_launches = cusfm_step_phase(dev, teacher, fused)
-    cli = cusfm_cli_phase(dev, teacher, fused)
-    shutil.rmtree(root, ignore_errors=True)
-    return step_launches, cli
+    cli, cli_root = cusfm_cli_phase(dev, teacher, fused)
+    try:
+        export = export_phase(dev, cli_root)
+    finally:
+        shutil.rmtree(cli_root, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+    return step_launches, cli, export
 
 
 def main():
@@ -3723,12 +4046,15 @@ def main():
     for k, by_entry in eval_phase(dev).items():
         report[k]["eval_launches"] = by_entry
 
-    # 42-43. the cuSFM path: the ISP, the full-width step, the CLIs
-    step_launches, cli = cusfm_phases(dev)
+    # 42-44. the cuSFM path: the ISP, the full-width step, the CLIs, and
+    # the export path on the CLI's checkpoint
+    step_launches, cli, export = cusfm_phases(dev)
     for k in CUSFM_KERNELS:
         report[k]["cusfm_launches"] = {
             "step": step_launches["ppisp"][k],
             "step_no_ppisp": step_launches["no_ppisp"][k], **cli[k]}
+        if export[k]:
+            report[k]["export_launches"] = export[k]
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches.get(k, 0), **report[k])

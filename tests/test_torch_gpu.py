@@ -1640,3 +1640,67 @@ def test_fold_meta_paths_match_old_composition(cuda):
                            meta.limit, cap + 1)
     torch.testing.assert_close(got, ref, rtol=0,
                                atol=1e-5 * float(ref.abs().max()))
+
+
+BAKE_ITERS = 8
+BAKE_VIEWS = 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampling", ["training", "trajectory"])
+def test_bake_ppisp_steps_on_card_match_cpu(cuda, sampling):
+    """export/sh_bake.py:bake_ppisp on the card against the same bake on
+    the CPU (the plain versions): the targets within the forward's 1e-4,
+    each step's loss within 1e-3 relative, and a render of the baked SH
+    within 1e-3 (Adam moves an SH row whose gradient is ~0 by ~lr either
+    way, so rows are not compared one by one). On the card each step
+    launches A-D and D's inversion once, each target render A and B."""
+    from threedgrut_tpu_torch.export.sh_bake import bake_ppisp
+    from threedgrut_tpu_torch.models.gaussians import GaussianModel
+    from threedgrut_tpu_torch.models.ppisp import init_ppisp_params
+    from threedgrut_tpu_torch.synthetic import (ViewDataset, build_teacher,
+                                                teacher_views)
+    from threedgrut_tpu_torch.train.trainer import camera_from_batch
+
+    views = ViewDataset(teacher_views(BAKE_VIEWS, (96, 64)))
+    rng = np.random.default_rng(5)
+    tables = init_ppisp_params(1, BAKE_VIEWS)
+    tables["exposure"] = torch.tensor(rng.normal(size=BAKE_VIEWS) * 0.3,
+                                      dtype=torch.float32)
+    tables["color_latents"] = torch.tensor(
+        rng.normal(size=(BAKE_VIEWS, 8)) * 0.2, dtype=torch.float32)
+    tables["crf"] = torch.tensor(rng.normal(size=(1, 3, 4)) * 0.2,
+                                 dtype=torch.float32)
+    teacher = build_teacher(2000, seed=0)
+    counters = (expand_decode_pairs, rasterize_tiles,
+                rasterize_tiles_backward, fold_pairs, invert_permutation)
+    outs, renders = {}, {}
+    for dev in (torch.device("cpu"), cuda):
+        arrays = {k: v.detach().to(dev) for k, v in teacher.params().items()}
+        model = GaussianModel(arrays, teacher.n_active, 3, teacher.config)
+        for fn in counters:
+            fn.launches = 0
+        outs[dev.type] = bake_ppisp(
+            model, {k: v.to(dev) for k, v in tables.items()}, views,
+            UTConfig(), RC, 3, iters=BAKE_ITERS, view_sampling=sampling,
+            n_views=BAKE_VIEWS)
+        launches = [fn.launches for fn in counters]
+        out = outs[dev.type]
+        baked = GaussianModel({**arrays,
+                               "features_albedo": out["features_albedo"],
+                               "features_specular": out["features_specular"]},
+                              teacher.n_active, 3, teacher.config)
+        with torch.no_grad():
+            renders[dev.type] = render_gut(
+                camera_from_batch(views[0], dev), UTConfig(), RC, baked,
+                3)["pred_features"].cpu()
+    calls = BAKE_VIEWS + BAKE_ITERS
+    assert launches == [calls, calls, BAKE_ITERS, BAKE_ITERS, BAKE_ITERS]
+    cpu, card = outs["cpu"], outs["cuda"]
+    for got, ref in zip(card["targets"], cpu["targets"]):
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(card["loss_history"], cpu["loss_history"],
+                               rtol=1e-3)
+    assert card["features_albedo"].device.type == "cuda"
+    torch.testing.assert_close(renders["cuda"], renders["cpu"], rtol=0,
+                               atol=1e-3)

@@ -292,7 +292,7 @@ def test_port_imports_no_jax():
             "if m in sys.modules]; print(bad); "
             f"[importlib.import_module(m) for m in {_port_modules()!r}]; "
             "import train_torch, render_torch, validate_torch; "
-            "bad += [m for m in sys.modules if m in ('jax', 'flax') or "
+            "bad += [m for m in sys.modules if m in ('jax', 'flax', 'optax') or "
             "m == 'threedgrut_tpu' or m.startswith('threedgrut_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -303,13 +303,20 @@ def test_port_imports_no_jax():
             "threedgrut_tpu_torch.models.nht_decoder",
             "threedgrut_tpu_torch.models.features",
             "threedgrut_tpu_torch.ops.cuda.scatter",
-            "threedgrut_tpu_torch.ops.cuda.fill"} <= set(_port_modules())
+            "threedgrut_tpu_torch.ops.cuda.fill",
+            "threedgrut_tpu_torch.export.sh_bake",
+            "threedgrut_tpu_torch.export.nurec"} <= set(_port_modules())
+
+
+# JAX and the libraries built on it, which the port's files never import
+JAX_FAMILY = ("jax", "jaxlib", "flax", "optax")
 
 
 def _imports_of_jax_package(path):
     """(line, module) of every import of threedgrut_tpu or a submodule
-    of it in the file at ``path``, at any depth (lazy imports inside
-    functions included); threedgrut_tpu_torch does not count."""
+    of it, or of JAX or a library of JAX_FAMILY, in the file at ``path``,
+    at any depth (lazy imports inside functions included);
+    threedgrut_tpu_torch does not count."""
     import ast
 
     with open(path) as f:
@@ -323,16 +330,17 @@ def _imports_of_jax_package(path):
         else:
             continue
         found += [(node.lineno, m) for m in mods
-                  if m == "threedgrut_tpu" or m.startswith("threedgrut_tpu.")]
+                  if m.split(".")[0] in ("threedgrut_tpu",) + JAX_FAMILY]
     return found
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
     """A static check of every .py under threedgrut_tpu_torch/, of
     train_torch.py, playground_torch.py, render_torch.py,
-    validate_torch.py, chip_smoke.py and scripts/*_torch.py: no import of threedgrut_tpu, lazy or not. The JAX
-    package stays the reference; the port keeps its own copies of what
-    it needs."""
+    validate_torch.py, chip_smoke.py, scripts/*_torch.py and
+    tools/ppisp_export/*_torch.py: no import of threedgrut_tpu, JAX,
+    flax or optax, lazy or not. The JAX package stays the reference; the
+    port keeps its own copies of what it needs."""
     paths = [os.path.join(root, f) for root, _, files in os.walk(
         os.path.join(REPO, "threedgrut_tpu_torch")) for f in files
         if f.endswith(".py")]
@@ -343,6 +351,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
                                               "chip_smoke.py")]
     scripts = os.path.join(REPO, "scripts")
     paths += [os.path.join(scripts, f) for f in sorted(os.listdir(scripts))
+              if f.endswith("_torch.py")]
+    tools = os.path.join(REPO, "tools", "ppisp_export")
+    paths += [os.path.join(tools, f) for f in sorted(os.listdir(tools))
               if f.endswith("_torch.py")]
     assert len(paths) > 30
     rel = {os.path.relpath(p, REPO) for p in paths}
@@ -357,6 +368,15 @@ def test_port_sources_import_nothing_of_the_jax_package():
             os.path.join("scripts", "gen_synthetic_scene_torch.py"),
             "playground_torch.py", "render_torch.py",
             "validate_torch.py"} <= rel
+    export = ("crate", "nurec", "partition", "sh_bake", "sh_rotation",
+              "transcode", "transforms", "usd", "view_interpolation")
+    assert {os.path.join("threedgrut_tpu_torch", "export", f"{m}.py")
+            for m in export} <= rel
+    assert {os.path.join("scripts", f"{s}_torch.py") for s in (
+        "export_usd", "transcode", "ply_to_usd", "add_mesh_to_usdz",
+        "sh_bake_validation", "filter_visibility")} <= rel
+    assert os.path.join("tools", "ppisp_export",
+                        "bake_modes_benchmark_torch.py") in rel
     bad = {os.path.relpath(p, REPO): _imports_of_jax_package(p)
            for p in paths}
     assert not {k: v for k, v in bad.items() if v}, bad
@@ -364,6 +384,10 @@ def test_port_sources_import_nothing_of_the_jax_package():
     # ``from threedgrut_tpu.export.ply import import_model``)
     assert any(m == "threedgrut_tpu.export.ply" for _, m in
                _imports_of_jax_package(os.path.join(REPO, "train.py")))
+    # and JAX's own family (the JAX bake's lazy ``import optax``)
+    found = {m for _, m in _imports_of_jax_package(os.path.join(
+        REPO, "threedgrut_tpu", "export", "sh_bake.py"))}
+    assert {"jax", "jax.numpy", "optax"} <= found
 
 
 if __name__ == "__main__":

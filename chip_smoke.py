@@ -290,6 +290,38 @@ pinhole views; kernels A-D):
    NuRec written and read back where msgpack imports, else
    export_nurec_usdz raises. Seconds of each, beside the card's name.
 
+The NCore apps, the denoisers, video and the live GUI (phases 45-48):
+
+45. NCore 3DGUT - the stub NCore SDK (synthetic.py:ncore_stub_modules)
+   registered and synthetic.py:write_ncore_sequence's sequence written:
+   a rolling-shutter pinhole and a 120-degree OpenCV fisheye at
+   1920x1280, 8 JPEG frames each, a hood mask, 4 lidar sweeps of 300,000
+   points (~5% dynamic); train_torch.py --config-name apps/ncore_3dgut in
+   this process for 0 and NCORE_STEPS steps (lidar initialisation at
+   num_points 1,000,000; capacity 4,000,000), test_last on the 2
+   validation frames: the val PSNR above the 0-step run's; ms/step over
+   20 steps on the host clock (the JPEG decode and batch included),
+   device busy, idle share and kernels a step over 5 traced steps, ms a
+   decode and a batch; A and B a step and a validation view, C, D and
+   D's inversion a step, B and C in both modes (general on the rolling
+   shutter), no other kernel.
+46. NCore 3DGRT + MCMC - the same for apps/ncore_3dgrt_mcmc (kNN scales;
+   B and C in the sorted mode, W 16, degree 4: kW 16 general on the
+   rolling shutter, shared-origin on the fisheye).
+47. denoisers and video - phase 36's 512x512 playground frame with
+   EngineConfig(denoise=True) under each denoiser (cnn, atrous): W 128 B
+   3 times a frame, the denoised frame within DENOISE_TOL of the same
+   denoiser on the CPU on the same undenoised frame (and the engine's
+   own denoised frame equal to the card's where the render repeats),
+   each denoiser's ms by events; a 24-frame interpolate_poses
+   fly-through of the engine through write_video (imageio, or PNG
+   frames where it does not encode).
+48. live GUI - TrainingGUI on port 0 over a Trainer from 100k random
+   Gaussians on 8 teacher views at 800x800, 150 steps: the page, a pause
+   that holds the step, one 512x512 frame in each mode (rgb, depth,
+   opacity, hits, points), a two-key fly-through exported, stop(); A-D
+   once a step, A and B once a frame; each mode's render ms.
+
 Then a JSON line with each kernel's launches (A-D from phase 11, sorted
 B and C of each setting from phase 17, E from phase 18, the general
 kernels from phases 23-24, the NHT kernels from phase 29, kernel 7's B,
@@ -301,7 +333,9 @@ forward_fill and segmented_fill_rows (fill, fill_segmented), each from
 its own call in phases 39 and 40; and, as cusfm_launches, the cuSFM
 path's kernels' launches by entry point: phase 42's steps with and
 without PPISP, phase 43's CLIs), and as export_launches those of phase
-44's bake, visibility filter and bake tool,
+44's bake, visibility filter and bake tool, as ncore_launches those of
+phases 45-46 by app, and as playground_denoise_launches W 128 B's in
+phase 47's denoised frames by denoiser,
 error and times (phases 3, 4, 8, 9, 13-15, 19-21, 26-27, 31-34, 37, 39,
 40; G and H also by device time), its bound (the larger
 of the fp32 operations over 67 TFLOP/s and the bytes it must read and
@@ -3680,6 +3714,476 @@ def cusfm_phases(dev):
     return step_launches, cli, export
 
 
+# phases 45-46: the NCore apps through train_torch.py in this process on
+# synthetic.py's NCore sequence at NCore's published camera size (a
+# rolling-shutter pinhole and a 120-degree fisheye, 1920x1280, 8 frames
+# each: 7 train and 1 validation frame a camera) with lidar
+# initialisation from 4 sweeps of 300,000 points (~5% dynamic), which
+# configs/initialization/lidar.yaml's num_points subsamples to 1,000,000
+NCORE_POINTS = 1_000_000
+NCORE_TEACHER = 60000
+NCORE_FRAMES = 8
+NCORE_SWEEPS, NCORE_SWEEP_POINTS = 4, 300_000
+# steps of a run: NCORE_WARM untimed, TRAIN_STEPS timed, one untimed,
+# NCORE_TRACED traced, the rest untimed
+NCORE_STEPS = 60
+NCORE_WARM, NCORE_TRACED = 3, 5
+# each app's kernels: launch counter -> the kernels line's entry (the
+# shared-origin modes run the fisheye views, the general ones the rolling
+# shutter's)
+NCORE_APPS = {
+    "ncore_3dgut": ("apps/ncore_3dgut", {
+        "expand_decode_pairs.launches": "bin_decode",
+        "rasterize_tiles.launches": "raster_fwd",
+        "rasterize_tiles.launches_general": "raster_fwd_general",
+        "rasterize_tiles_backward.launches": "raster_bwd",
+        "rasterize_tiles_backward.launches_general": "raster_bwd_general",
+        "fold_pairs.launches": "fold",
+        "invert_permutation.launches": "fold_invert"}),
+    "ncore_3dgrt_mcmc": ("apps/ncore_3dgrt_mcmc", {
+        "expand_decode_pairs.launches": "bin_decode",
+        "rasterize_tiles.launches": "raster_fwd_sorted",
+        "rasterize_tiles.launches_general": "raster_fwd_general_grt",
+        "rasterize_tiles_backward.launches": "raster_bwd_sorted",
+        "rasterize_tiles_backward.launches_general":
+            "raster_bwd_general_grt",
+        "fold_pairs.launches": "fold",
+        "invert_permutation.launches": "fold_invert"}),
+}
+
+
+class NCoreClock:
+    """While in a ``with``: the host clock at each entry of
+    ``Trainer.train_iteration`` (the device synchronised first); a
+    torch.profiler session from entry ``traced`` to entry ``traced +
+    n_traced`` (started before and stopped after those entries' clocks);
+    and the host ms of each JPEG decode (``NCoreDataset._decode_image``)
+    and each batch (``get_gpu_batch_with_intrinsics``)."""
+
+    def __init__(self, traced, n_traced):
+        self.traced, self.n_traced = traced, n_traced
+        self.entries, self.decode_ms, self.batch_ms = [], [], []
+        self.prof = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        from threedgrut_tpu_torch.data.ncore import NCoreDataset
+        from threedgrut_tpu_torch.train.trainer import Trainer
+
+        self._saved = (Trainer.train_iteration, NCoreDataset._decode_image,
+                       NCoreDataset.get_gpu_batch_with_intrinsics)
+        step, decode, batch = self._saved
+        clock = self
+
+        def train_iteration(tr, b, frame_idx=None):
+            k = len(clock.entries)
+            if k == clock.traced:
+                clock.prof = profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+                clock.prof.__enter__()
+            torch.cuda.synchronize()
+            clock.entries.append(time.perf_counter())
+            if k == clock.traced + clock.n_traced:
+                clock.prof.__exit__(None, None, None)
+            return step(tr, b, frame_idx)
+
+        def timed(fn, into):
+            def call(*a):
+                t0 = time.perf_counter()
+                out = fn(*a)
+                into.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return call
+
+        Trainer.train_iteration = train_iteration
+        NCoreDataset._decode_image = timed(decode, self.decode_ms)
+        NCoreDataset.get_gpu_batch_with_intrinsics = timed(batch,
+                                                           self.batch_ms)
+        return self
+
+    def __exit__(self, *exc):
+        from threedgrut_tpu_torch.data.ncore import NCoreDataset
+        from threedgrut_tpu_torch.train.trainer import Trainer
+
+        (Trainer.train_iteration, NCoreDataset._decode_image,
+         NCoreDataset.get_gpu_batch_with_intrinsics) = self._saved
+
+    def traced_window(self):
+        """(wall us/step, device busy us/step, device kernels/step) of
+        the traced steps."""
+        k0, k1 = self.traced, self.traced + self.n_traced
+        wall = (self.entries[k1] - self.entries[k0]) * 1e6 / self.n_traced
+        events = [e for e in self.prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in events) / self.n_traced
+        return wall, busy, sum(e.count for e in events) / self.n_traced
+
+
+def ncore_sequence(dev, root):
+    """The NCore stub SDK registered, and the synthetic sequence written
+    under ``root``. Returns its path and the seconds it took."""
+    from threedgrut_tpu_torch.synthetic import (NCORE_RES, build_teacher,
+                                                ncore_stub_modules,
+                                                write_ncore_sequence)
+
+    if "threedgrut_tpu_torch.data.ncore" in sys.modules:
+        raise AssertionError("data/ncore.py imported before the stub SDK")
+    sys.modules.update(ncore_stub_modules())
+    import threedgrut_tpu_torch.data.ncore as ncore_mod
+
+    if not ncore_mod._HAVE_NCORE:
+        raise AssertionError("the stub ncore.data.v4 does not import")
+    t0 = time.perf_counter()
+    seq = write_ncore_sequence(
+        os.path.join(root, "seq"),
+        build_teacher(NCORE_TEACHER, seed=0, device=dev), n_frames=NCORE_FRAMES,
+        resolution=NCORE_RES, n_sweeps=NCORE_SWEEPS,
+        sweep_points=NCORE_SWEEP_POINTS)
+    return seq, time.perf_counter() - t0
+
+
+def ncore_phase(dev, seq, root, label):
+    """Phase 45 (ncore_3dgut) or 46 (ncore_3dgrt_mcmc): train_torch.main
+    in this process on the synthetic sequence, for 0 steps (its final
+    val PSNR is the 0-step checkpoint's) and NCORE_STEPS steps, test_last
+    on the 2 validation frames; ms/step over TRAIN_STEPS steps on the
+    host clock (JPEG decode and batch assembly included), device busy,
+    idle share and kernels a step over NCORE_TRACED traced steps, ms a
+    decode and a batch, and each kernel's launches (the general modes on
+    the rolling shutter apart). Returns the launches by kernels-line
+    entry."""
+    import train_torch
+    from threedgrut_tpu_torch.config.loader import load_config
+    from threedgrut_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    from threedgrut_tpu_torch.synthetic import NCORE_RES
+
+    config, names = NCORE_APPS[label]
+    common = ["--config-name", config, f"path={seq}", f"out_dir={root}"]
+    rc = train_torch.trainer_config(load_config(config, overrides=[
+        f"path={seq}"])).raster
+    want_sorted = label.startswith("ncore_3dgrt")
+    if rc.sorted_compositing != want_sorted or (
+            want_sorted and rc.sort_window != 16):
+        raise AssertionError(f"{label}: raster config {rc}")
+    metrics, secs = {}, {}
+    t0 = time.perf_counter()
+    train_torch.main([*common, "n_iterations=0", f"experiment_name={label}_0"])
+    secs[0] = time.perf_counter() - t0
+    reset_launch_counts()
+    traced = NCORE_WARM + TRAIN_STEPS + 1
+    with NCoreClock(traced, NCORE_TRACED) as clock:
+        t0 = time.perf_counter()
+        train_torch.main([*common, f"n_iterations={NCORE_STEPS}",
+                          f"experiment_name={label}"])
+        secs[NCORE_STEPS] = time.perf_counter() - t0
+    counts = launch_counts()
+    for steps, name in ((0, f"{label}_0"), (NCORE_STEPS, label)):
+        with open(os.path.join(root, name, "final_metrics.json")) as f:
+            metrics[steps] = json.load(f)
+    e = clock.entries
+    ms = (e[NCORE_WARM + TRAIN_STEPS] - e[NCORE_WARM]) * 1e3 / TRAIN_STEPS
+    wall_us, busy_us, n_dev = clock.traced_window()
+    got = {names[k]: counts.get(k, 0) for k in names}
+    n_val = metrics[NCORE_STEPS]["n_views"]
+    fwd, bwd = [v for k, v in names.items() if "rasterize_tiles." in k], [
+        v for k, v in names.items() if "backward" in k]
+    checks = {
+        "steps": len(e) == NCORE_STEPS,
+        "lidar init": metrics[NCORE_STEPS]["n_gaussians"] == NCORE_POINTS,
+        "val psnr above the 0-step checkpoint's":
+            metrics[NCORE_STEPS]["psnr"] > metrics[0]["psnr"],
+        "A a step and a val view": got["bin_decode"] == NCORE_STEPS + n_val,
+        "B a step and a val view":
+            sum(got[k] for k in fwd) == NCORE_STEPS + n_val,
+        "C, D, inversion a step": (
+            sum(got[k] for k in bwd) == got["fold"] == got["fold_invert"]
+            == NCORE_STEPS),
+        "both modes of B and C": all(got[k] > 0 for k in fwd + bwd),
+        "no other kernel": set(counts) <= set(names),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    decode = float(np.mean(clock.decode_ms))
+    batch = float(np.mean(clock.batch_ms))
+    summary = (
+        f"{config} at {NCORE_RES[0]}x{NCORE_RES[1]}, 2 sensors, lidar init "
+        f"{metrics[NCORE_STEPS]['n_gaussians']} points (render W "
+        f"{rc.sort_window if rc.sorted_compositing else 0}, degree "
+        f"{rc.kernel_degree}): {ms:.3f} ms/step ({1e3 / ms:.2f} it/s) host "
+        f"clock over {TRAIN_STEPS} steps, decode and batch included; "
+        f"{NCORE_TRACED} traced: wall {wall_us:.1f} us/step, device busy "
+        f"{busy_us:.1f} us/step, idle share {1.0 - busy_us / wall_us:.3f},"
+        f" {n_dev:.1f} device kernels a step; JPEG decode {decode:.2f} ms a"
+        f" view, batch {batch:.2f} ms ({len(clock.decode_ms)} decodes); "
+        f"val psnr {metrics[0]['psnr']:.4f} (0 steps) -> "
+        f"{metrics[NCORE_STEPS]['psnr']:.4f} ({NCORE_STEPS} steps, {n_val} "
+        f"views); train_torch.py {secs[0]:.1f} s and "
+        f"{secs[NCORE_STEPS]:.1f} s; launches {got}")
+    if failed:
+        raise AssertionError(f"NCore {label}: {failed} ({summary}; all "
+                             f"counters {counts})")
+    phase(f"NCore {label}", summary)
+    return got
+
+
+def ncore_phases(dev):
+    """Phases 45-46 on one synthetic sequence. Returns the launches by
+    app and kernels-line entry."""
+    import shutil
+
+    from threedgrut_tpu_torch.synthetic import NCORE_RES
+
+    root = os.path.join(REPO, "build", "smoke_ncore")
+    shutil.rmtree(root, ignore_errors=True)
+    seq, secs = ncore_sequence(dev, root)
+    phase("NCore sequence", f"{NCORE_FRAMES} frames of each of 2 cameras at "
+          f"{NCORE_RES[0]}x{NCORE_RES[1]} and {NCORE_SWEEPS} lidar sweeps of "
+          f"{NCORE_SWEEP_POINTS} points written in {secs:.1f} s")
+    try:
+        return {label: ncore_phase(dev, seq, os.path.join(root, "runs"),
+                                   label) for label in NCORE_APPS}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 47: the denoisers (learned CNN, à-trous) on phase 36's frame,
+# each held against the CPU's on the same undenoised frame (fp32 3x3
+# convolutions, cuDNN against oneDNN; exp and sums in other orders)
+DENOISE_TOL = 1e-5
+VIDEO_FRAMES = 24
+DENOISE_GAUSSIANS = 100_000
+
+
+def denoise_video_phase(dev):
+    """Phase 47: phase 36's playground frame (100k, the demo primitives,
+    512x512, 3 bounces) rendered with ``EngineConfig(denoise=True)``
+    under each denoiser: W 128 B's launches, each denoised frame against
+    the denoiser on the CPU on the same undenoised frame, each
+    denoiser's device ms; then a VIDEO_FRAMES-frame
+    ``interpolate_poses`` fly-through of the engine through
+    ``write_video``. Returns the denoised frames' B launches by
+    denoiser."""
+    import dataclasses
+    import shutil
+
+    from playground_torch import build_engine
+    from threedgrut_tpu_torch.ops.cameras import (make_pinhole, orbit_camera,
+                                                  world_to_camera_pose)
+    from threedgrut_tpu_torch.ops.cuda import reset_launch_counts
+    from threedgrut_tpu_torch.ops.cuda.raster import rasterize_tiles
+    from threedgrut_tpu_torch.ops.quaternion import quat_to_rotmat
+    from threedgrut_tpu_torch.playground.denoise import atrous_denoise
+    from threedgrut_tpu_torch.playground.denoise_cnn import denoise_frame
+    from threedgrut_tpu_torch.playground.video import (interpolate_poses,
+                                                       write_video)
+    from threedgrut_tpu_torch.synthetic import bench_cloud, orbit_geometry
+
+    model = bench_cloud(DENOISE_GAUSSIANS, seed=0, device=dev)
+    engine, center = build_engine(model, demo_primitives=True)
+    _, dist = orbit_geometry(model)
+    res = (TRACE_SIDE, TRACE_SIDE)
+    cam = orbit_camera(0.0, 0.35, dist, center=center, resolution=res,
+                       device=dev)
+    base = engine.config
+    plain = engine.render(cam)
+    repeatable = bool(np.array_equal(plain, engine.render(cam)))
+    on_card = torch.tensor(plain, device=dev)
+    launches, msgs = {}, []
+    for name, fn in (("cnn", denoise_frame), ("atrous", atrous_denoise)):
+        engine.config = dataclasses.replace(base, denoise=True,
+                                            denoiser=name)
+        reset_launch_counts()
+        frame = engine.render(cam)
+        launches[name] = rasterize_tiles.launches_window128
+        card = torch.clamp(fn(on_card), 0.0, 1.0).cpu().numpy()
+        cpu = torch.clamp(fn(torch.tensor(plain)), 0.0, 1.0).numpy()
+        err = float(np.abs(card - cpu).max())
+        engine_err = float(np.abs(frame - card).max())
+        ms = cuda_ms(lambda: fn(on_card), 10)
+        moved = float(np.abs(card - plain).mean())
+        if not (err <= DENOISE_TOL and launches[name] == base.max_bounces
+                and moved > 1e-4 and frame.shape == (*res, 3)
+                and (engine_err <= DENOISE_TOL or not repeatable)):
+            raise AssertionError(
+                f"denoiser {name}: card against CPU {err:.3g}, engine "
+                f"frame against the card's denoise {engine_err:.3g} "
+                f"(render repeatable {repeatable}), W 128 B launches "
+                f"{launches[name]}, mean change {moved:.3g}")
+        msgs.append(f"{name}: {ms:.4f} ms on the card (events), card "
+                    f"against CPU max |d| {err:.3g}, the engine's denoised "
+                    f"frame against it {engine_err:.3g}, mean change "
+                    f"{moved:.4f}, W 128 B {launches[name]} a frame")
+    engine.config = base
+    keys = []
+    for az in (0.0, 1.6, 3.2, 4.8):
+        c = orbit_camera(az, 0.35, dist, center=center, resolution=res)
+        r = quat_to_rotmat(c.q_start).double().numpy()
+        c2w = np.eye(4)
+        c2w[:3, :3] = r.T
+        c2w[:3, 3] = -r.T @ c.t_start.double().numpy()
+        keys.append(c2w)
+    t0 = time.perf_counter()
+    frames = []
+    for c2w in interpolate_poses(np.stack(keys), VIDEO_FRAMES):
+        t, q = world_to_camera_pose(c2w)
+        c = make_pinhole(res, (0.9 * res[0], 0.9 * res[0]),
+                         (res[0] / 2, res[1] / 2), t=t, q=q, device=dev)
+        frames.append((engine.render(c) * 255).astype(np.uint8))
+    render_s = time.perf_counter() - t0
+    out = os.path.join(REPO, "build", "smoke_video")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = write_video(frames, os.path.join(out, "flythrough.mp4"), fps=24)
+    write_s = time.perf_counter() - t0
+    if os.path.isdir(path):
+        how = f"PNG frames ({len(os.listdir(path))} files; imageio did not"
+        how += " encode)"
+        ok = len(os.listdir(path)) == VIDEO_FRAMES
+    else:
+        how = f"imageio encoded {os.path.getsize(path)} bytes"
+        ok = os.path.getsize(path) > 1000
+    shutil.rmtree(out, ignore_errors=True)
+    if not ok:
+        raise AssertionError(f"fly-through: {how}")
+    phase("denoisers and video", f"{res[0]}x{res[1]} playground frame, "
+          f"render repeatable {repeatable}; " + "; ".join(msgs)
+          + f"; fly-through of {VIDEO_FRAMES} interpolate_poses frames "
+          f"rendered in {render_s:.1f} s, written in {write_s:.2f} s: {how}")
+    return launches
+
+
+# phase 48: the live GUI over a phase-12-style trainer
+GUI_STEPS = 150
+GUI_MODES = ("rgb", "depth", "opacity", "hits", "points")
+GUI_RES = (512, 512)
+GUI_GAUSSIANS = 100_000
+
+
+def live_gui_phase(dev):
+    """Phase 48: TrainingGUI on port 0 over a Trainer from 100k random
+    Gaussians on 8 teacher views at 800x800 (white background), GUI_STEPS
+    steps: a thread loads the page, pauses (the step holds below
+    GUI_STEPS), resumes, renders one GUI_RES frame in each mode, records
+    two keys and exports the fly-through, then stops the GUI once the
+    steps are done; the steps advance, A-D launch once a step and A and
+    B once a frame. Each mode's render ms on the host clock after the
+    run."""
+    import io
+    import shutil
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from threedgrut_tpu_torch.models.background import BackgroundConfig
+    from threedgrut_tpu_torch.models.gaussians import (
+        GaussianModelConfig, default_capacity_for, random_initialization)
+    from threedgrut_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from threedgrut_tpu_torch.playground.live_gui import TrainingGUI
+    from threedgrut_tpu_torch.synthetic import (build_teacher,
+                                                orbit_geometry,
+                                                teacher_dataset)
+    from threedgrut_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    teacher = build_teacher(60000, seed=0, device=dev)
+    ds = teacher_dataset(teacher, n_views=8, side=SIDE)
+    center, dist = orbit_geometry(teacher)
+    model = random_initialization(
+        GaussianModelConfig(), GUI_GAUSSIANS, extent=ds.get_scene_extent(),
+        seed=42, capacity=default_capacity_for(GUI_GAUSSIANS, headroom=4.0),
+        device=dev)
+    trainer = Trainer(TrainerConfig(n_iterations=GUI_STEPS,
+                                    background=BackgroundConfig(
+                                        color="white")), ds, model)
+    out = os.path.join(REPO, "build", "smoke_gui")
+    shutil.rmtree(out, ignore_errors=True)
+    gui = TrainingGUI(trainer, center=tuple(float(c) for c in center),
+                      resolution=GUI_RES, port=0, out_dir=out,
+                      host="127.0.0.1")
+    gui.export_frames_per_key = 6
+    base = gui.start()
+    seen, errors = {}, []
+    q = f"&dist={dist:.3f}"
+
+    def get(path, timeout=300):
+        with urllib.request.urlopen(base + path, timeout=timeout) as r:
+            return r.status, r.read()
+
+    def browser():
+        try:
+            seen["page"] = get("")
+            get("cmd?op=toggle_pause")
+            time.sleep(0.3)
+            a = json.loads(get("state")[1])
+            time.sleep(0.5)
+            seen["paused"] = (a, json.loads(get("state")[1]))
+            get("cmd?op=toggle_pause")
+            for mode in GUI_MODES:
+                status, body = get(f"frame.jpg?az=0.4&el=0.3{q}&mode={mode}")
+                img = Image.open(io.BytesIO(body))
+                seen[mode] = (status, img.format, img.size)
+            get(f"cmd?op=addkey&az=0&el=0.2{q}")
+            get(f"cmd?op=addkey&az=1.5&el=0.4{q}")
+            get("cmd?op=export")
+            for _ in range(1200):
+                st = json.loads(get("state")[1])
+                if st.get("video") and st["step"] >= GUI_STEPS:
+                    status, body = get("video.mp4")
+                    seen["video"] = (status, len(body), body[:2] == b"PK")
+                    break
+                time.sleep(0.1)
+            seen["final"] = json.loads(get("state")[1])
+        except Exception as err:    # reported on the main thread
+            errors.append(repr(err))
+        finally:
+            gui.stop()
+
+    reset_launch_counts()
+    thread = threading.Thread(target=browser)
+    t0 = time.perf_counter()
+    thread.start()
+    gui.run(max_steps=GUI_STEPS)
+    thread.join(timeout=600)
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    render_ms = {m: host_ms(lambda m=m: gui._render(0.4, 0.3, dist, m), 3)
+                 for m in GUI_MODES}
+    shutil.rmtree(out, ignore_errors=True)
+    a, b = seen.get("paused", ({}, {}))
+    # a render a mode but the points', and the export's frames
+    n_frames = len(GUI_MODES) - 1 + 2 * gui.export_frames_per_key
+    checks = {
+        "no browser error": not errors,
+        "page": seen.get("page", (0, b""))[0] == 200
+        and b"threedgrut_tpu_torch live" in seen["page"][1],
+        "steps advance": seen.get("final", {}).get("step") == GUI_STEPS
+        and trainer.global_step == GUI_STEPS,
+        "every mode a JPEG": all(
+            seen.get(m) == (200, "JPEG", GUI_RES) for m in GUI_MODES),
+        "pause holds the step": a.get("paused") and b.get("paused")
+        and a.get("step") == b.get("step") < GUI_STEPS,
+        "fly-through exported": seen.get("video", (0,))[0] == 200,
+        "A-D a step, A and B a frame": (
+            counts.get("rasterize_tiles_backward.launches") == GUI_STEPS
+            and counts.get("fold_pairs.launches") == GUI_STEPS
+            and counts.get("rasterize_tiles.launches")
+            == counts.get("expand_decode_pairs.launches")
+            == GUI_STEPS + n_frames),
+    }
+    summary = (f"port {gui.port}, {GUI_STEPS} steps on 8 views at "
+               f"{SIDE}x{SIDE} from {GUI_GAUSSIANS} in {run_s:.1f} s with "
+               f"the browser thread; render ms (host clock, "
+               f"{GUI_RES[0]}x{GUI_RES[1]}): "
+               + ", ".join(f"{m} {v:.2f}" for m, v in render_ms.items())
+               + f"; paused at step {a.get('step')}; video "
+               f"{seen.get('video')}; launches {counts}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"live GUI: {failed} ({summary}; {errors})")
+    phase("live GUI", summary)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -4055,6 +4559,14 @@ def main():
             "step_no_ppisp": step_launches["no_ppisp"][k], **cli[k]}
         if export[k]:
             report[k]["export_launches"] = export[k]
+
+    # 45-46. the NCore apps; 47. the denoisers and video; 48. the live GUI
+    for app, got in ncore_phases(dev).items():
+        for k, n in got.items():
+            report[k].setdefault("ncore_launches", {})[app] = n
+    report["raster_fwd_window128"]["playground_denoise_launches"] = (
+        denoise_video_phase(dev))
+    live_gui_phase(dev)
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches.get(k, 0), **report[k])

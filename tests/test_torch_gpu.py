@@ -1704,3 +1704,40 @@ def test_bake_ppisp_steps_on_card_match_cpu(cuda, sampling):
     assert card["features_albedo"].device.type == "cuda"
     torch.testing.assert_close(renders["cuda"], renders["cpu"], rtol=0,
                                atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("denoiser", ["cnn", "atrous"])
+def test_denoiser_on_card_matches_cpu(cuda, denoiser):
+    """The playground's denoisers (fp32 cuDNN convolutions; the a-trous
+    filter's exp-weighted taps) on the card within 1e-5 of the CPU, with
+    and without the guides."""
+    from threedgrut_tpu_torch.playground.denoise import atrous_denoise
+    from threedgrut_tpu_torch.playground.denoise_cnn import (apply_cnn,
+                                                             init_params,
+                                                             load_params)
+
+    rng = np.random.default_rng(0)
+    rgb = torch.tensor(rng.uniform(0, 1, (96, 128, 3)), dtype=torch.float32)
+    nrm = torch.nn.functional.normalize(torch.tensor(
+        rng.normal(size=(96, 128, 3)), dtype=torch.float32), dim=-1)
+    dep = torch.tensor(rng.uniform(1, 9, (96, 128)), dtype=torch.float32)
+    if denoiser == "cnn":
+        guided = init_params(torch.Generator().manual_seed(0), guides=True)
+        guided["conv_out"]["w"] = 0.05 * torch.randn(
+            guided["conv_out"]["w"].shape,
+            generator=torch.Generator().manual_seed(1))
+        nets = (load_params(), guided)
+
+        def run(x, n, d, dev):
+            return [apply_cnn({k: {m: t.to(dev) for m, t in v.items()}
+                               for k, v in p.items()}, x, n, d)
+                    for p in nets]
+    else:
+        def run(x, n, d, dev):
+            return [atrous_denoise(x), atrous_denoise(x, n, d)]
+    ref = run(rgb, nrm, dep, "cpu")
+    got = run(rgb.to(cuda), nrm.to(cuda), dep.to(cuda), cuda)
+    for g, r in zip(got, ref):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), r, atol=1e-5, rtol=0)

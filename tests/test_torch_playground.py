@@ -240,8 +240,9 @@ def test_render_rays_matches_jax():
 
 
 def test_frames_and_refusals():
-    """render (SPP and depth of field), the fisheye frame, and what the
-    port refuses: the denoisers (ROADMAP item 20b)."""
+    """render (SPP and depth of field), the fisheye frame, and render
+    with each denoiser (which the port once refused): a frame in [0, 1]
+    of the same shape (tests/test_torch_denoise.py holds the values)."""
     _, state = make_test_scene(n=32, seed=0)
     eng = t_engine.Engine3DGRUT(
         model_from_state(state),
@@ -257,8 +258,12 @@ def test_frames_and_refusals():
     assert np.isfinite(frames[-1]).all() and frames[-1].max() <= 1.0
     fish = eng.render_fisheye(np.eye(4), np.pi, 12, 12)
     assert fish.shape == (12, 12, 3) and fish[0, 0].sum() == 0.0
-    with pytest.raises(NotImplementedError, match="20b"):
-        t_engine.EngineConfig(denoise=True)
+    for denoiser in ("cnn", "atrous"):
+        eng.config = t_engine.EngineConfig(max_bounces=2, denoise=True,
+                                           denoiser=denoiser)
+        img = eng.render(cam)
+        assert img.shape == (12, 16, 3) and np.isfinite(img).all()
+        assert img.min() >= 0.0 and img.max() <= 1.0
 
 
 def test_viewer_serves_frames():

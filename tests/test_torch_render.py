@@ -305,7 +305,12 @@ def test_port_imports_no_jax():
             "threedgrut_tpu_torch.ops.cuda.scatter",
             "threedgrut_tpu_torch.ops.cuda.fill",
             "threedgrut_tpu_torch.export.sh_bake",
-            "threedgrut_tpu_torch.export.nurec"} <= set(_port_modules())
+            "threedgrut_tpu_torch.export.nurec",
+            "threedgrut_tpu_torch.data.ncore",
+            "threedgrut_tpu_torch.playground.denoise",
+            "threedgrut_tpu_torch.playground.denoise_cnn",
+            "threedgrut_tpu_torch.playground.video",
+            "threedgrut_tpu_torch.playground.live_gui"} <= set(_port_modules())
 
 
 # JAX and the libraries built on it, which the port's files never import
@@ -372,6 +377,11 @@ def test_port_sources_import_nothing_of_the_jax_package():
               "transcode", "transforms", "usd", "view_interpolation")
     assert {os.path.join("threedgrut_tpu_torch", "export", f"{m}.py")
             for m in export} <= rel
+    assert {os.path.join("threedgrut_tpu_torch", *m.split("/")) + ".py"
+            for m in ("data/ncore", "playground/denoise",
+                      "playground/denoise_cnn", "playground/video",
+                      "playground/live_gui")} <= rel
+    assert "chip_smoke.py" in rel
     assert {os.path.join("scripts", f"{s}_torch.py") for s in (
         "export_usd", "transcode", "ply_to_usd", "add_mesh_to_usdz",
         "sh_bake_validation", "filter_visibility")} <= rel

@@ -22,6 +22,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -410,8 +411,7 @@ def test_train_cli_runs_five_steps(tmp_path):
 
 
 # keys train.py acts on that train_torch.py once refused while they asked
-# for an action: (config, overrides). It acts on each now but with_gui,
-# which waits for the live GUI and is still refused naming its line
+# for an action: (config, overrides). It acts on each now
 ACTED_ON = {
     "import_ply": ("apps/nerf_synthetic_3dgut", [
         "import_ply.enabled=true",
@@ -428,7 +428,9 @@ ACTED_ON = {
     "post_processing": ("apps/nerf_synthetic_3dgut",
                         ["post_processing.method=ppisp",
                          "initialization.num_gaussians=200"]),
-    "with_gui": ("apps/nerf_synthetic_3dgut", ["with_gui=true"]),
+    "with_gui": ("apps/nerf_synthetic_3dgut", [
+        "with_gui=true", "n_iterations=3", "initialization.num_gaussians=200",
+        "experiment_name=g"]),
 }
 # the configs the port trains (gsplat_image_downscale is set without a
 # downsample in colmap_3dgut_mcmc_nht: JAX then reads the same images)
@@ -437,7 +439,9 @@ TRAINED = ("apps/nerf_synthetic_3dgut", "apps/nerf_synthetic_3dgrt",
            "apps/nerf_synthetic_3dgut_mcmc_nht",
            "apps/nerf_synthetic_3dgrt_mcmc_nht", "apps/colmap_3dgut",
            "apps/colmap_3dgut_mcmc_nht", "apps/scannetpp_3dgut",
-           "apps/cusfm_3dgut", "apps/cusfm_3dgut_mcmc")
+           "apps/cusfm_3dgut", "apps/cusfm_3dgut_mcmc", "apps/ncore_3dgut",
+           "apps/ncore_3dgrt", "apps/ncore_3dgut_mcmc",
+           "apps/ncore_3dgrt_mcmc")
 
 
 def _colmap_capture(path):
@@ -453,15 +457,67 @@ def _colmap_capture(path):
     return path
 
 
+def _train_cli_under_gui(train_torch, name, overrides, tmp_path,
+                         monkeypatch):
+    """train_torch.main with with_gui=true on port 0: a thread waits for
+    the last step, reads the page while main still serves, checks that
+    no checkpoint is written yet, and calls the GUI's stop()."""
+    import threading
+    import urllib.request
+
+    from threedgrut_tpu_torch.playground import live_gui
+
+    data = str(tmp_path / "nerf")
+    _write_nerf_dataset(data, side=32)
+    out = str(tmp_path / "out")
+    guis = []
+    start = live_gui.TrainingGUI.start
+
+    def recorded_start(self, port=None):
+        guis.append(self)
+        return start(self, port)
+
+    monkeypatch.setattr(live_gui.TrainingGUI, "start", recorded_start)
+    seen = {}
+
+    def operator():
+        for _ in range(3000):
+            if guis and guis[0].trainer.global_step >= 3:
+                break
+            time.sleep(0.02)
+        gui = guis[0]
+        time.sleep(0.2)
+        with urllib.request.urlopen(f"http://localhost:{gui.port}/state",
+                                    timeout=30) as r:
+            seen["state"] = json.loads(r.read())
+        seen["ckpt_early"] = os.path.exists(os.path.join(out, "g",
+                                                         "ckpt_last.npz"))
+        gui.stop()
+
+    t = threading.Thread(target=operator)
+    t.start()
+    train_torch.main(["--config-name", name, "--device", "cpu",
+                      "--gui-port", "0", f"path={data}", f"out_dir={out}",
+                      *overrides])
+    t.join(timeout=60)
+    assert guis[0].port > 0 and guis[0].stopped
+    assert seen["state"]["step"] == 3 and not seen["ckpt_early"]
+    with np.load(os.path.join(out, "g", "ckpt_last.npz")) as f:
+        assert int(f["global_step"]) == 3
+    assert not os.path.exists(os.path.join(out, "g", "final_metrics.json"))
+
+
 @pytest.mark.parametrize("case", sorted(ACTED_ON) + ["trained_configs_load"])
-def test_train_cli_refuses_unported_keys(case, tmp_path):
+def test_train_cli_acts_on_every_key(case, tmp_path, monkeypatch):
     """Each key train.py acts on that train_torch.py used to refuse is
     acted on now: the PLY is read (import_ply) or written (export_ply),
     the poses move (gsplat_normalize), the bicubic cache is built
     (gsplat_image_downscale with a downsample), the PPISP parameters
-    exist (post_processing.method ppisp). with_gui is still refused,
-    naming the key and its train.py line; the configs the port trains,
-    the cuSFM apps among them, load."""
+    exist (post_processing.method ppisp), and with_gui trains under the
+    live GUI, serves after the last step until stop() comes from another
+    thread, and only then writes ckpt_last.npz and returns (without
+    final metrics, as train.py). The configs the port trains, the cuSFM
+    and NCore apps among them, load."""
     sys.path.insert(0, REPO)
     import train_torch
     from threedgrut_tpu_torch.config.loader import load_config
@@ -470,18 +526,12 @@ def test_train_cli_refuses_unported_keys(case, tmp_path):
 
     if case == "trained_configs_load":
         for name in TRAINED:
-            conf = load_config(name)
-            train_torch.refuse_unported(conf)
-            train_torch.trainer_config(conf)
+            train_torch.trainer_config(load_config(name))
         return
     name, overrides = ACTED_ON[case]
-    train_torch.refuse_unported(load_config(name))   # the default is fine
     if case == "with_gui":
-        with pytest.raises(SystemExit) as err:
-            train_torch.main(["--config-name", name, "--device", "cpu",
-                              *overrides])
-        assert "with_gui" in str(err.value)
-        assert "train.py:162-174" in str(err.value)
+        _train_cli_under_gui(train_torch, name, overrides, tmp_path,
+                             monkeypatch)
         return
     if "colmap" in name:
         data = _colmap_capture(str(tmp_path / "capture"))
@@ -489,7 +539,6 @@ def test_train_cli_refuses_unported_keys(case, tmp_path):
         data = str(tmp_path / "nerf")
         _write_nerf_dataset(data, side=32)
     conf = load_config(name, overrides=[f"path={data}", *overrides])
-    train_torch.refuse_unported(conf)
     if case == "export_ply":
         out = str(tmp_path / "out")
         train_torch.main(["--config-name", name, "--device", "cpu",

@@ -8,9 +8,9 @@ the hit, traced by ``render/grt.py:trace`` (the raster kernels' trace
 modes on the card); environment maps shade misses; SPP jitter and a
 thin-lens aperture accumulate progressively. A fixed loop of
 ``max_bounces`` with masked state updates, as in JAX.
-
-The denoisers (``EngineConfig(denoise=True)``) are not ported yet:
-ROADMAP.md queue 1 item 20b.
+``EngineConfig(denoise=True)`` denoises the finished frame on the
+model's device with the learned CNN (``denoise_cnn.py``) or the
+à-trous filter (``denoise.py``), as ``denoiser`` names.
 """
 
 from __future__ import annotations
@@ -55,16 +55,12 @@ class EngineConfig:
     aperture: float = 0.0          # depth of field (0 = pinhole)
     focus_distance: float = 3.0
     gaussian_sh_degree: int = 3
-    # the denoisers (and JAX's ``denoiser`` choice between them) are not
-    # ported: ROADMAP.md item 20b
-    denoise: bool = False
-
-    def __post_init__(self):
-        if self.denoise:
-            raise NotImplementedError(
-                "EngineConfig(denoise=True): the playground's denoisers "
-                "(denoise.py, denoise_cnn.py) are not ported yet "
-                "(ROADMAP.md queue 1 item 20b)")
+    denoise: bool = False          # denoiser pass on the finished frame
+    # "cnn" = the learned residual CNN (denoise_cnn.py, the analogue of
+    # the reference's OptiX AI denoiser pass, hybridTracer.cpp:503),
+    # falling through to the à-trous filter without its weights file;
+    # "atrous" = the edge-avoiding à-trous filter (denoise.py)
+    denoiser: str = "cnn"
 
 
 class EnvironmentMap:
@@ -345,11 +341,20 @@ class Engine3DGRUT:
                               1.0).cpu().numpy()
 
     def render(self, cam) -> np.ndarray:
-        """A full camera frame [H, W, 3] in [0, 1] with SPP accumulation
-        and depth of field."""
+        """A full camera frame [H, W, 3] in [0, 1] with SPP accumulation,
+        depth of field and the optional denoiser pass."""
         img = None
         for img in self.render_progressive(cam):
             pass
+        if self.config.denoise:
+            img = torch.as_tensor(img, device=self.device)
+            if self.config.denoiser == "cnn":
+                from .denoise_cnn import denoise_frame
+                img = denoise_frame(img)
+            else:
+                from .denoise import atrous_denoise
+                img = atrous_denoise(img)
+            img = torch.clamp(img, 0.0, 1.0).cpu().numpy()
         return img
 
     def render_fisheye(self, c2w: np.ndarray, fov: float, width: int,

@@ -16,12 +16,18 @@ dataset the trainer reads: pinhole views, or the two other cameras of
 ``CAMERA_KINDS`` (a ScanNet++-like fisheye, an NCore-like rolling
 shutter). ``write_colmap_scene`` writes such views as a COLMAP /
 ScanNet++ capture folder for the training CLI; ``write_fused_cloud``
-writes a cuSFM-like fused point cloud PLY of the teacher's points.
+writes a cuSFM-like fused point cloud PLY of the teacher's points;
+``write_ncore_sequence`` a synthetic NCore sequence (a rolling-shutter
+pinhole and a 120-degree fisheye at 1920x1280, JPEG frames, a hood mask,
+lidar sweeps) that ``SyntheticNCoreSequence`` reads through the NCore
+SDK's adapter surface, served as ``ncore.data.v4`` by
+``ncore_stub_modules``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
 from typing import List, Optional
@@ -358,25 +364,42 @@ def teacher_dataset(teacher: GaussianModel, n_views: int = 8,
     pinhole). RGB and opacity are cut to uint8 as the PNG path writes
     them, then composited on ``background`` as the NeRF loader reads
     them."""
+    resolution = resolution or CAMERA_KINDS[camera][0] or (side, side)
+    views = teacher_views(n_views, resolution, camera, seed, split_offset)
+    for view in views:
+        view.rgb_gt = _render_gt(teacher, view, background, ut_cfg,
+                                 raster_cfg)
+    return ViewDataset(views)
+
+
+def _render_gt(teacher: GaussianModel, view: View, background: float,
+               ut_cfg=None, raster_cfg=None) -> torch.Tensor:
+    """``view`` of ``teacher`` through the port's ``render_gut``: RGB and
+    opacity cut to uint8 as gen_synthetic_scene.py's PNG files are, then
+    composited on ``background``."""
     from .ops.ut import UTConfig
     from .render.common import RasterConfig
     from .render.gut import render_gut
     from .train.trainer import camera_from_batch
 
-    ut_cfg = ut_cfg or UTConfig()
-    raster_cfg = raster_cfg or RasterConfig()
-    resolution = resolution or CAMERA_KINDS[camera][0] or (side, side)
-    views = teacher_views(n_views, resolution, camera, seed, split_offset)
-    for view in views:
-        cam = camera_from_batch(view, teacher.device)
-        with torch.no_grad():
-            out = render_gut(cam, ut_cfg, raster_cfg, teacher, 3)
-            rgb = torch.floor(torch.clamp(out["pred_features"], 0, 1)
-                              * 255.0) / 255.0
-            op = torch.floor(torch.clamp(out["pred_opacity"], 0, 1)
-                             * 255.0) / 255.0
-            view.rgb_gt = rgb * op + background * (1.0 - op)
-    return ViewDataset(views)
+    cam = camera_from_batch(view, teacher.device)
+    with torch.no_grad():
+        out = render_gut(cam, ut_cfg or UTConfig(),
+                         raster_cfg or RasterConfig(), teacher, 3)
+        rgb = torch.floor(torch.clamp(out["pred_features"], 0, 1)
+                          * 255.0) / 255.0
+        op = torch.floor(torch.clamp(out["pred_opacity"], 0, 1)
+                         * 255.0) / 255.0
+        return rgb * op + background * (1.0 - op)
+
+
+def _teacher_points(teacher: GaussianModel):
+    """(positions, albedo colours in [0, 1]) of the teacher's live rows."""
+    with torch.no_grad():
+        pos = teacher.positions[:teacher.n_active].cpu().numpy()
+        rgb = (teacher.features_albedo[:teacher.n_active].cpu().numpy()
+               * SH_C0 + 0.5)
+    return pos, rgb
 
 
 def write_colmap_scene(path: str, dataset: ViewDataset,
@@ -423,10 +446,7 @@ def write_colmap_scene(path: str, dataset: ViewDataset,
                              tvec=-r_wc @ c2w[:3, 3], camera_id=1, name=name)
     write_images_bin(os.path.join(sparse, "images.bin"), images)
     rng = np.random.default_rng(seed)
-    with torch.no_grad():
-        pos = teacher.positions[:teacher.n_active].cpu().numpy()
-        rgb = (teacher.features_albedo[:teacher.n_active].cpu().numpy()
-               * SH_C0 + 0.5)
+    pos, rgb = _teacher_points(teacher)
     pick = rng.choice(len(pos), size=min(n_points, len(pos)), replace=False)
     write_points3d_bin(os.path.join(sparse, "points3D.bin"), pos[pick],
                        np.clip(np.round(rgb[pick] * 255.0), 0, 255))
@@ -440,10 +460,7 @@ def write_fused_cloud(path: str, teacher: GaussianModel, n_points: int,
     red, green, blue (what ``export/ply.py:read_point_cloud_ply``
     reads)."""
     rng = np.random.default_rng(seed)
-    with torch.no_grad():
-        pos = teacher.positions[:teacher.n_active].cpu().numpy()
-        rgb = (teacher.features_albedo[:teacher.n_active].cpu().numpy()
-               * SH_C0 + 0.5)
+    pos, rgb = _teacher_points(teacher)
     pick = rng.integers(0, len(pos), n_points)
     arr = np.zeros(n_points, [("x", "f4"), ("y", "f4"), ("z", "f4"),
                               ("red", "u1"), ("green", "u1"),
@@ -461,3 +478,225 @@ def write_fused_cloud(path: str, teacher: GaussianModel, n_points: int,
         f.write(("\n".join(header) + "\n").encode("ascii"))
         f.write(arr.tobytes())
     return path
+
+
+# A synthetic NCore v4 sequence at NCore's published camera size
+# (configs/dataset/ncore.yaml: 1920x1280): a rolling-shutter pinhole (the
+# "rolling" kind of CAMERA_KINDS) and a 120-degree OpenCV-fisheye global
+# shutter, 10 Hz each, on teacher_views' orbit (split offsets 1 and 2);
+# a mask whose bottom NCORE_HOOD share of rows (the ego vehicle's hood)
+# is invalid; 5 Hz lidar sweeps from the rolling camera's centre of the
+# teacher's live points, NCORE_DYNAMIC of them flagged dynamic (flag 1)
+# and moved off the scene by NCORE_DYNAMIC_SHIFT.
+NCORE_RES = (1920, 1280)
+NCORE_CAMERAS = {"camera_front_rolling": "rolling",
+                 "camera_fisheye_120fov": "fisheye"}
+NCORE_LIDAR = "lidar_top_360fov"
+NCORE_FISHEYE_FOV = 120.0
+NCORE_HOOD = 0.1
+NCORE_DYNAMIC = 0.05
+NCORE_DYNAMIC_SHIFT = 0.3
+NCORE_T0_US = 1_000_000
+
+
+def _fisheye_focal(width: int, fov_deg: float, radial4) -> float:
+    """The focal length at which the OpenCV fisheye model maps half of
+    ``fov_deg`` to the image's left and right edges."""
+    th = math.radians(fov_deg) / 2.0
+    t2 = th * th
+    k = radial4
+    r = th * (1.0 + t2 * (k[0] + t2 * (k[1] + t2 * (k[2] + t2 * k[3]))))
+    return (width / 2.0) / r
+
+
+def _ncore_intrinsics(kind: str, resolution) -> dict:
+    w, h = resolution
+    if kind == "fisheye":
+        radial = list(CAMERA_KINDS["fisheye"][2])
+        f = _fisheye_focal(w, NCORE_FISHEYE_FOV, radial)
+        return dict(model="opencv_fisheye", fx=f, fy=f, cx=w / 2,
+                    cy=h / 2, radial=radial, max_angle=math.pi / 2)
+    f = CAMERA_KINDS["rolling"][1] * h
+    return dict(model="pinhole", fx=f, fy=f, cx=w / 2, cy=h / 2)
+
+
+def write_ncore_sequence(path: str, teacher: GaussianModel,
+                         n_frames: int = 8, resolution=NCORE_RES,
+                         n_sweeps: int = 4, sweep_points: int = 300_000,
+                         seed: int = 0, jpeg_quality: int = 95,
+                         ut_cfg=None, raster_cfg=None) -> str:
+    """Write the synthetic NCore sequence of ``teacher`` to the directory
+    ``path``: ``meta.json`` (sensors, intrinsics, shutters, fields of
+    view, timestamps), ``poses.npz`` (each camera's shutter start and end
+    camera-to-world poses), ``frames/<camera>/<i>.jpg`` (the teacher
+    rendered through each camera by ``render_gut`` on black, as the
+    ``ncore`` configs' background is), ``masks/<camera>.png`` and
+    ``lidar/<i>.npz`` (points, origin, flags, uint8 colours). Sensor
+    data comes from ``np.random.default_rng(seed)``; the sequence is
+    read by ``SyntheticNCoreSequence``."""
+    from PIL import Image
+
+    w, h = resolution
+    rng = np.random.default_rng(seed)
+    meta = {"cameras": {}, "lidars": {}, "resolution": [w, h]}
+    poses = {}
+    for offset, (cam_id, kind) in enumerate(NCORE_CAMERAS.items(), 1):
+        intr = _ncore_intrinsics(kind, resolution)
+        os.makedirs(os.path.join(path, "frames", cam_id), exist_ok=True)
+        starts, ends = [], []
+        for i, c2w in enumerate(orbit_poses(n_frames, seed, offset)):
+            cv = c2w.copy()
+            cv[:3, 1] *= -1          # OpenGL -> OpenCV (right-down-front)
+            cv[:3, 2] *= -1
+            cv = cv.astype(np.float32)
+            view = View(cv, [intr["fx"], intr["fy"], intr["cx"],
+                             intr["cy"]], torch.zeros((h, w, 3)))
+            if kind == "fisheye":
+                view.intrinsics_OpenCVFisheyeCameraModelParameters = dict(
+                    intr, radial=np.asarray(intr["radial"]))
+            else:
+                view.T_to_world_end = _rolling_end_pose(cv)
+                view.shutter_type = "rolling_top_to_bottom"
+            starts.append(cv)
+            ends.append(view.T_to_world if view.T_to_world_end is None
+                        else view.T_to_world_end)
+            rgb = _render_gt(teacher, view, 0.0, ut_cfg, raster_cfg)
+            img = np.clip(np.round(rgb.cpu().numpy() * 255.0), 0, 255)
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(path, "frames", cam_id, f"{i:04d}.jpg"),
+                quality=jpeg_quality)
+        poses[f"{cam_id}/start"] = np.stack(starts)
+        poses[f"{cam_id}/end"] = np.stack(ends)
+        mask = np.full((h, w), 255, np.uint8)
+        mask[h - int(round(NCORE_HOOD * h)):] = 0
+        os.makedirs(os.path.join(path, "masks"), exist_ok=True)
+        Image.fromarray(mask).save(os.path.join(path, "masks",
+                                                f"{cam_id}.png"))
+        meta["cameras"][cam_id] = dict(
+            intrinsics=intr,
+            shutter_type=("rolling_top_to_bottom" if kind == "rolling"
+                          else "global"),
+            fov_deg=(NCORE_FISHEYE_FOV if kind == "fisheye" else
+                     math.degrees(2 * math.atan(w / 2 / intr["fx"]))),
+            timestamps_us=[NCORE_T0_US + 33_000 * (offset - 1)
+                           + 100_000 * i for i in range(n_frames)])
+    pos, albedo = _teacher_points(teacher)
+    os.makedirs(os.path.join(path, "lidar"), exist_ok=True)
+    rolling = poses[f"{next(iter(NCORE_CAMERAS))}/start"]
+    for s in range(n_sweeps):
+        pick = rng.integers(0, len(pos), sweep_points)
+        pts = (pos[pick] + rng.normal(0.0, 0.005, (sweep_points, 3))
+               ).astype(np.float32)
+        flags = (rng.random(sweep_points) < NCORE_DYNAMIC).astype(np.uint8)
+        pts[flags == 1, 0] += NCORE_DYNAMIC_SHIFT
+        cols = np.clip(np.round(albedo[pick] * 255.0), 0, 255)
+        origin = rolling[(2 * s) % len(rolling), :3, 3]
+        np.savez(os.path.join(path, "lidar", f"{s:04d}.npz"), points=pts,
+                 origin=origin.astype(np.float32), flags=flags,
+                 colors=cols.astype(np.uint8))
+    meta["lidars"][NCORE_LIDAR] = dict(timestamps_us=[
+        NCORE_T0_US + 200_000 * s for s in range(n_sweeps)])
+    np.savez(os.path.join(path, "poses.npz"), **poses)
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+    return path
+
+
+class SyntheticNCoreSequence:
+    """The NCore SDK's sequence adapter surface
+    (``data/ncore.py``'s docstring) over a directory of
+    ``write_ncore_sequence``; ``ncore_stub_modules`` serves it as
+    ``ncore.data.v4.open_sequence``."""
+
+    point_cloud_source_ids = [NCORE_LIDAR]
+
+    def __init__(self, path: str):
+        self.path = path
+        with open(os.path.join(path, "meta.json")) as f:
+            self.meta = json.load(f)
+        with np.load(os.path.join(path, "poses.npz")) as f:
+            self._poses = {k: f[k] for k in f.files}
+        self.camera_ids = list(self.meta["cameras"])
+        self.lidar_ids = list(self.meta["lidars"])
+
+    def _sensor(self, sensor_id):
+        return (self.meta["cameras"].get(sensor_id)
+                or self.meta["lidars"][sensor_id])
+
+    def num_frames(self, sensor_id):
+        return len(self._sensor(sensor_id)["timestamps_us"])
+
+    def frame_timestamps_us(self, sensor_id):
+        return np.asarray(self._sensor(sensor_id)["timestamps_us"],
+                          np.int64)
+
+    def camera_fov_deg(self, cam_id):
+        return self.meta["cameras"][cam_id]["fov_deg"]
+
+    def shutter_type(self, cam_id):
+        return self.meta["cameras"][cam_id]["shutter_type"]
+
+    def camera_intrinsics(self, cam_id):
+        return dict(self.meta["cameras"][cam_id]["intrinsics"])
+
+    def camera_pose(self, cam_id, fidx):
+        return self._poses[f"{cam_id}/start"][fidx]
+
+    def camera_pose_shutter_end(self, cam_id, fidx):
+        return self._poses[f"{cam_id}/end"][fidx]
+
+    def _frame_path(self, cam_id, fidx):
+        return os.path.join(self.path, "frames", cam_id, f"{fidx:04d}.jpg")
+
+    def camera_frame_encoded(self, cam_id, fidx):
+        with open(self._frame_path(cam_id, fidx), "rb") as f:
+            return f.read()
+
+    def camera_image(self, cam_id, fidx):
+        from PIL import Image
+
+        with Image.open(self._frame_path(cam_id, fidx)) as img:
+            return np.asarray(img.convert("RGB"))
+
+    def camera_mask(self, cam_id):
+        from PIL import Image
+
+        with Image.open(os.path.join(self.path, "masks",
+                                     f"{cam_id}.png")) as img:
+            return np.asarray(img) > 0
+
+    def _sweep(self, lid, fidx):
+        with np.load(os.path.join(self.path, "lidar",
+                                  f"{fidx:04d}.npz")) as f:
+            return {k: f[k] for k in f.files}
+
+    def lidar_points_world(self, lid, fidx):
+        return self._sweep(lid, fidx)["points"]
+
+    def lidar_origin_world(self, lid, fidx):
+        return self._sweep(lid, fidx)["origin"]
+
+    def lidar_point_flags(self, lid, fidx):
+        return self._sweep(lid, fidx)["flags"]
+
+    def lidar_point_colors(self, lid, fidx, name):
+        if name != "rgb":
+            return None
+        return self._sweep(lid, fidx)["colors"].astype(np.float32)
+
+
+def ncore_stub_modules() -> dict:
+    """``{"ncore": ..., "ncore.data": ..., "ncore.data.v4": ...}``: module
+    objects standing in for the NCore SDK, whose ``open_sequence(path)``
+    is ``SyntheticNCoreSequence``. A caller registers them in
+    ``sys.modules`` before ``data/ncore.py`` is first imported (the tests
+    and chip_smoke.py do; train_torch.py never does)."""
+    import types
+
+    root = types.ModuleType("ncore")
+    data = types.ModuleType("ncore.data")
+    v4 = types.ModuleType("ncore.data.v4")
+    v4.open_sequence = SyntheticNCoreSequence
+    root.data = data
+    data.v4 = v4
+    return {"ncore": root, "ncore.data": data, "ncore.data.v4": v4}

@@ -1,8 +1,22 @@
-"""The sRGB transfer of threedgrut_tpu/utils/misc.py:21-32, on tensors."""
+"""The jet map and the sRGB transfer of threedgrut_tpu/utils/misc.py:11-32,
+on tensors."""
 
 from __future__ import annotations
 
 import torch
+
+
+def jet_map(values: torch.Tensor, max_val: float) -> torch.Tensor:
+    """1-channel map [..., 1] -> jet-colormapped RGB [..., 3]
+    (threedgrut/utils/misc.py:138)."""
+    vs = torch.clamp(values / max_val, 0.0, 1.0)
+    r = (torch.clamp(4.0 * (vs - 0.375), 0, 1)
+         * torch.clamp(-4.0 * (vs - 1.125), 0, 1))
+    g = (torch.clamp(4.0 * (vs - 0.125), 0, 1)
+         * torch.clamp(-4.0 * (vs - 0.875), 0, 1))
+    b = (torch.clamp(4.0 * vs + 0.5, 0, 1)
+         * torch.clamp(-4.0 * (vs - 0.625), 0, 1))
+    return torch.cat([r, g, b], dim=-1)
 
 
 def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:

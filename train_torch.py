@@ -2,7 +2,7 @@
 """Training CLI of the PyTorch/CUDA port:
 
     python train_torch.py --config-name apps/nerf_synthetic_3dgut \\
-        path=/data/lego [key=value ...] [--device cpu]
+        path=/data/lego [key=value ...] [--device cpu] [--gui-port N]
 
 The counterpart of train.py for the port's trainer, with the 3DGUT
 renderer (``apps/nerf_synthetic_3dgut``, ``apps/colmap_3dgut``,
@@ -10,21 +10,32 @@ renderer (``apps/nerf_synthetic_3dgut``, ``apps/colmap_3dgut``,
 or the sorted 3DGUT of the paper (``paper/3dgut/sorted_nerf_synthetic``),
 under the GS or the MCMC strategy (``apps/nerf_synthetic_3dgut_mcmc``),
 with SH or NHT features (``apps/nerf_synthetic_3dgut_mcmc_nht``,
-``apps/nerf_synthetic_3dgrt_mcmc_nht``), and the cuSFM apps
+``apps/nerf_synthetic_3dgrt_mcmc_nht``), the cuSFM apps
 (``apps/cusfm_3dgut``, ``apps/cusfm_3dgut_mcmc`` with PPISP
 post-processing: the ISP trains with the scene, and its controller is
-distilled before the last checkpoint). It trains on the card; without
+distilled before the last checkpoint), and the NCore apps
+(``apps/ncore_3dgut``, ``ncore_3dgrt``, ``ncore_3dgut_mcmc``,
+``ncore_3dgrt_mcmc``: rolling-shutter and fisheye sensors, lidar
+initialisation). It trains on the card; without
 one it stops, unless ``--device cpu`` asks for the CPU.
 It composes the YAML configs with the port's ``config/loader.py`` and
 reads NeRF-synthetic, COLMAP and ScanNet++ (OpenCV fisheye) captures
 with its ``data/`` modules, decoding images with PIL (gsplat's
 ``dataset.gsplat_normalize`` and ``gsplat_image_downscale`` on COLMAP).
+NCore sequences (``dataset.type: ncore``, ``data/ncore.py``) need the
+NCore SDK's ``ncore.data.v4``, which is not in the repository: without
+it they raise ImportError (``synthetic.py:ncore_stub_modules`` serves a
+generated sequence in its place, for the tests and the card).
 ``make_model`` initialises as train.py does, in its order: a 3DGS PLY
-(``import_ply``), the capture's sparse points (``colmap``), a fused
+(``import_ply``), the capture's sparse points (``colmap``), the NCore
+lidar sweeps (``lidar``, ``point_cloud``), a fused
 point cloud PLY (``fused_point_cloud``), a checkpoint's parameters
 (``checkpoint``), else random; ``export_ply`` writes the final cloud.
-NCore sequences need the NCore SDK,
-which is not in the repository: ``dataset.type: ncore`` raises. The
+``with_gui=true`` trains under the live web GUI
+(``playground/live_gui.py``, on ``--gui-port``, 8091 as train.py's),
+which keeps serving after the last step until it is stopped; then
+``ckpt_last.npz`` is written and the CLI returns, without the PLY export
+or the final metrics, as train.py does. The
 port always renders with the reference's
 exact kill: where the YAML sets ``exact_kill: false`` (the TPU package's
 relaxed kill, configs/render/3dgrt.yaml and 3dgut.yaml), trainer_config
@@ -38,8 +49,6 @@ sizes its pair buffer per view
 ``ckpt_periodic.npz`` every ``checkpoint.frequency`` steps, as train.py
 does; ``final_metrics.json`` records the card's name and power limit
 beside the device, and the run ends with the kernels' launch counts.
-A key that train.py acts on and the port does not port yet stops it
-with its train.py line (``refuse_unported``): the live GUI.
 """
 
 import argparse
@@ -70,24 +79,6 @@ def nht_features(conf):
             f"{feats.num_frequencies} frequencies: the renderer composites "
             "sin and cos of one frequency only")
     return feats
-
-
-# keys train.py acts on that the port does not yet: (key, whether the
-# value asks for an action, what in train.py acts on it)
-UNPORTED = (
-    ("with_gui", lambda c: bool(c.get("with_gui")),
-     "train.py:162-174 (playground/live_gui.py)"),
-)
-
-
-def refuse_unported(conf):
-    """Stop (exit non-zero) where the config asks train.py for an action
-    the port does not take yet, naming each key and its train.py line."""
-    asked = [f"{key} ({where})" for key, asks, where in UNPORTED
-             if asks(conf)]
-    if asked:
-        raise SystemExit("train_torch.py: not ported yet, so not silently "
-                         "ignored: " + "; ".join(asked))
 
 
 def trainer_config(conf):
@@ -295,12 +286,30 @@ def make_dataset(conf, split):
                 gsplat_image_downscale=conf.dataset.get(
                     "gsplat_image_downscale", False), **kw)
         return ds if len(ds) else None
-    if kind == "ncore":
-        raise NotImplementedError(
-            "dataset.type ncore: the NCore loader needs the NCore SDK, which "
-            "is not in the repository (threedgrut_tpu/data/ncore.py)")
+    if kind == "ncore":   # train.py:37-58; "test" holds the val frames
+        from threedgrut_tpu_torch.data.ncore import NCoreDataset
+
+        ds, tr = conf.dataset, conf.dataset.get("train", {})
+        ncore = NCoreDataset(
+            conf.path, split="train" if split == "train" else "test",
+            camera_ids=ds.get("camera_ids"), lidar_ids=ds.get("lidar_ids"),
+            downsample=float(ds.get("downsample", 1.0)),
+            seek_offset_sec=tr.get("seek_offset_sec", 0.0),
+            duration_sec=tr.get("duration_sec", -1),
+            sample_full_image=tr.get("sample_full_image", True),
+            window_size=tr.get("window_size", 256),
+            n_samples_per_epoch=tr.get("n_samples_per_epoch", 1000),
+            n_train_sample_camera_rays=tr.get(
+                "n_train_sample_camera_rays", 4096),
+            n_val_image_subsample=ds.get("n_val_image_subsample", 1),
+            val_frame_interval=ds.get("val_frame_interval", 8),
+            jpeg_backend_cpu=("native" if ds.get(
+                "jpeg_backend_cpu", "native") != "PIL" else "PIL"),
+            lidar_color_generic_data_name=ds.get(
+                "lidar_color_generic_data_name", "rgb"))
+        return ncore if len(ncore) else None
     raise NotImplementedError(f"dataset type {kind}: the port reads nerf, "
-                              "colmap and scannetpp")
+                              "colmap, scannetpp and ncore")
 
 
 def make_model(conf, dataset, device):
@@ -308,7 +317,7 @@ def make_model(conf, dataset, device):
     (train.py:95-129): a PLY import first; then the initialisation
     method where the dataset can serve it (``colmap`` needs
     ``load_points3d``, ``lidar`` and ``point_cloud`` need
-    ``load_lidar_init``, which no port dataset has yet),
+    ``load_lidar_init``, which the NCore dataset has),
     ``fused_point_cloud`` or ``checkpoint``; else random. A PLY import
     pads to ``default_capacity_for(n)`` and a checkpoint keeps its own
     capacity, as in JAX: neither leaves the strategy's headroom."""
@@ -399,6 +408,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu trains on the "
                     "CPU, slowly)")
+    ap.add_argument("--gui-port", type=int, default=8091,
+                    help="port of the live GUI under with_gui=true (0: one "
+                    "the system picks; the GUI prints its address)")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
@@ -410,7 +422,6 @@ def main(argv=None):
     from threedgrut_tpu_torch.train.trainer import Trainer
 
     conf = load_config(args.config_name, overrides=args.overrides)
-    refuse_unported(conf)
     if conf.path == "???":
         raise SystemExit("set the dataset path: train_torch.py ... "
                          "path=/data/...")
@@ -418,11 +429,28 @@ def main(argv=None):
     val_dataset = make_dataset(conf, "val")
     tconf = trainer_config(conf)
     out_dir = os.path.join(conf.out_dir, conf.experiment_name or "run")
-    trainer = Trainer(tconf, dataset, make_model(conf, dataset, device),
-                      val_dataset=val_dataset, raw_conf=conf)
+    model = make_model(conf, dataset, device)
+    trainer = Trainer(tconf, dataset, model, val_dataset=val_dataset,
+                      raw_conf=conf)
     if conf.resume:
         trainer.load_checkpoint(conf.resume)
     os.makedirs(out_dir, exist_ok=True)
+    if conf.get("with_gui"):
+        # train.py:162-174: the live GUI drives the training loop and
+        # serves until stopped; then the last checkpoint, and no PLY
+        # export or final metrics
+        from threedgrut_tpu_torch.playground.live_gui import TrainingGUI
+
+        n = model.n_active
+        center = (model.positions.detach()[:n].mean(dim=0).cpu().numpy()
+                  if n else np.zeros(3))
+        gui = TrainingGUI(trainer, center=tuple(float(c) for c in center),
+                          port=args.gui_port, out_dir=out_dir)
+        gui.start()
+        gui.run(max_steps=tconf.n_iterations)
+        gui.stop()
+        trainer.save_checkpoint(os.path.join(out_dir, "ckpt_last.npz"))
+        return
     chunk = max(conf.log_frequency * 100, 1)
     ckpt_iters = set(conf.checkpoint.iterations)
     freq = conf.checkpoint.get("frequency", 0)

@@ -227,8 +227,11 @@ serving launch none of them:
    (shared and dropped slots), equal bit for bit (fill_inputs); each by
    CUDA events and device time, with its bound and its one launch.
 
-The evaluation path (the port's CLIs as a user runs them, each in its
-own process; kernels A and B, and C, D, E in training):
+Each phase line carries its seconds since the previous line.
+
+The evaluation path (the port's CLIs through their ``main(argv)``, in
+this process: a process of its own would pay ~8 s to reach the card;
+kernels A and B, and C, D, E in training):
 
 41. evaluation path - scripts/gen_synthetic_scene_torch.py at 800x800
    (the 60k teacher; 4 train, 2 val and 2 test views): exit 0, the pair
@@ -263,7 +266,7 @@ pinhole views; kernels A-D):
 43. cuSFM CLI - a 12-view 1920x1080 COLMAP capture, each view's colours
    scaled by an exposure offset in [-0.5, 0.5] stops; train_torch.py
    --config-name apps/cusfm_3dgut_mcmc from the fused cloud, 200 steps,
-   a 300-step distillation whose loss falls, export_ply: exit 0, A-D
+   a 100-step distillation whose loss falls, export_ply: exit 0, A-D
    launched every step (A and B also per distillation render and
    validated view), E never, the learned exposures' correlation with
    the offsets at least CUSFM_EXPOSURE_CORR; 10 steps each from
@@ -322,6 +325,36 @@ The NCore apps, the denoisers, video and the live GUI (phases 45-48):
    opacity, hits, points), a two-key fly-through exported, stop(); A-D
    once a step, A and B once a frame; each mode's render ms.
 
+Multi-GPU training (threedgrut_tpu_torch/parallel) and the trainer's
+writer (phases 49-51; parallel/dryrun.py:full_width_inputs: the 100k
+bench cloud at 800x800, SH 3, the apps/nerf_synthetic_3dgut loss, a
+seeded GT; each case held against render_gut + the same loss +
+adam_step: a step's loss within rtol 2e-3 and its parameters within
+2e-5 on all but 1% of the entries, the sliced render's images within
+atol 5e-4 and rtol 1e-3, distance 2e-3; A-D and D's inversion once a
+step, A and B once a render):
+
+49. multi-GPU, one rank - NCCL at world size 1 in this process: the dp
+   step, the sliced render, the sliced step and dp x mp 1 x 1 (L1); ms
+   a step by CUDA events over MULTI_STEPS steps, and the gradient
+   all-reduce's ms alone.
+50. multi-GPU, two ranks on one card - two NCCL ranks on cuda:0 (what
+   NCCL answers, printed; run_ranks refuses them without
+   backend="gloo"); then launch.run_ranks over gloo, both ranks on
+   cuda:0: the collectives gloo takes on CUDA tensors (all must be
+   direct), the dp step (two 400-row bands), the sliced render and step
+   (and the step without the kill, min_transmittance 0: the sliced
+   gradients' departure from the serial ones is the kill's; they are
+   held by their cosine with it, by 2e-3 of each leaf's max without),
+   3DGRT sorted (W 16, degree 4) and NHT (48 features, L1) under dp;
+   rank 0's results against the single device, each rank's ms.
+51. trainer writer - Trainer(enable_writer=True, out_dir=...) from 100k
+   random Gaussians on 8 teacher views at 800x800, 20 steps, validate
+   on 2 views and log_validation_images: whether tensorboardX imports;
+   where it does, the event file read back holds the train and val tags
+   and the five image panels; where it does not, the writer has no
+   backend and wrote nothing; A once a step and a render, C once a step.
+
 Then a JSON line with each kernel's launches (A-D from phase 11, sorted
 B and C of each setting from phase 17, E from phase 18, the general
 kernels from phases 23-24, the NHT kernels from phase 29, kernel 7's B,
@@ -334,8 +367,9 @@ its own call in phases 39 and 40; and, as cusfm_launches, the cuSFM
 path's kernels' launches by entry point: phase 42's steps with and
 without PPISP, phase 43's CLIs), and as export_launches those of phase
 44's bake, visibility filter and bake tool, as ncore_launches those of
-phases 45-46 by app, and as playground_denoise_launches W 128 B's in
-phase 47's denoised frames by denoiser,
+phases 45-46 by app, as playground_denoise_launches W 128 B's in
+phase 47's denoised frames by denoiser, and as multigpu_launches those of
+phases 49-50 by phase and case (rank 0's, one step or render),
 error and times (phases 3, 4, 8, 9, 13-15, 19-21, 26-27, 31-34, 37, 39,
 40; G and H also by device time), its bound (the larger
 of the fp32 operations over 67 TFLOP/s and the bytes it must read and
@@ -639,8 +673,15 @@ def composited(fwd):
     return float(fwd[3].double().sum())
 
 
+_PHASE_CLOCK = [time.perf_counter()]
+
+
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    """A phase's line: its name, its seconds since the previous line,
+    what it found."""
+    now = time.perf_counter()
+    secs, _PHASE_CLOCK[0] = now - _PHASE_CLOCK[0], now
+    print(f"[{name}] ({secs:.1f} s) {msg}", flush=True)
 
 
 def resources(res):
@@ -2845,24 +2886,51 @@ EVAL_KEYS = ("psnr", "ssim", "psnr_cc", "ssim_cc", "lpips", "best_frame",
 LPIPS_TOL = 1e-4
 
 
-def run_cli(label, args, timeout=600):
-    """One of the port's CLIs in its own process from the repository root:
-    its standard output and the launch counts of its last "launches:"
-    line; raises on a non-zero exit."""
+def _cli_module(script):
+    """The module of one of the port's CLI scripts (a path from the
+    repository root), imported once by its path."""
+    import importlib.util
+
+    name = os.path.splitext(os.path.basename(script))[0]
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(REPO, script))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+def run_cli(label, args):
+    """One of the port's CLIs, ``args`` = [script, *argv], through its
+    ``main(argv)`` in this process (its own process would pay ~8 s to
+    reach the card each time): its standard output, the launch counts of
+    its last "launches:" line (the counters are set to 0 first) and its
+    seconds; raises on a non-zero exit."""
+    import contextlib
+    import io
+
+    from threedgrut_tpu_torch.ops.cuda import reset_launch_counts
+
+    main = _cli_module(args[0]).main
+    reset_launch_counts()
+    buf = io.StringIO()
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, *args], cwd=REPO,
-                         capture_output=True, text=True, timeout=timeout)
-    if res.returncode != 0:
-        raise AssertionError(f"{label}: exit {res.returncode}\n"
-                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
-    lines = [ln for ln in res.stdout.splitlines()
-             if ln.startswith("launches:")]
+    rc = 0        # the scripts exit through SystemExit only
+    with contextlib.redirect_stdout(buf), contextlib.chdir(REPO):
+        try:
+            main(list(args[1:]))
+        except SystemExit as e:
+            rc = e.code
+    out = buf.getvalue()
+    if rc not in (None, 0):
+        raise AssertionError(f"{label}: exit {rc}\n{out[-3000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("launches:")]
     if not lines:
-        raise AssertionError(f"{label}: no launches line\n"
-                             f"{res.stdout[-2000:]}")
+        raise AssertionError(f"{label}: no launches line\n{out[-2000:]}")
     got = json.loads(lines[-1].split(":", 1)[1])
     counts = {k: got.get(c, 0) for k, c in EVAL_COUNTERS.items()}
-    return res.stdout, counts, time.perf_counter() - t0
+    return out, counts, time.perf_counter() - t0
 
 
 def eval_phase(dev):
@@ -2986,7 +3054,7 @@ CUSFM_RES = (1920, 1080)
 CUSFM_POINTS = 1_000_000
 CUSFM_STEP_VIEWS = 4
 CUSFM_VIEWS = 12
-CUSFM_STEPS, CUSFM_DISTILL, CUSFM_SHORT = 200, 300, 10
+CUSFM_STEPS, CUSFM_DISTILL, CUSFM_SHORT = 200, 100, 10
 # the exposure offsets (stops) the CLI's capture is scaled by, and the
 # least Pearson correlation of the learned per-frame exposures with them
 # (written into PERF.md before the first run)
@@ -3303,7 +3371,7 @@ def cusfm_cli_phase(dev, teacher, fused):
     launches, secs, msgs = {}, {}, []
 
     def run(label, args, **want):
-        out, launches[label], secs[label] = run_cli(label, args, timeout=900)
+        out, launches[label], secs[label] = run_cli(label, args)
         got = {k: launches[label][k] for k in want}
         if got != want:
             raise AssertionError(f"{label}: launches {got}, wanted {want}")
@@ -4184,6 +4252,378 @@ def live_gui_phase(dev):
     phase("live GUI", summary)
 
 
+# phases 49-50: multi-GPU training (threedgrut_tpu_torch/parallel) at
+# full width, held against render_gut + the same loss + adam_step
+MULTI_STEPS = 5
+ONE_RANK_CASES = ("dp", "sliced_render", "sliced_step", "dp_x_mp")
+TWO_RANK_CASES = ("dp", "sliced_render", "sliced_step", "sliced_step_exact",
+                  "grt", "nht")
+# the counters of each case's kernels, by kernels-line entry
+MULTI_COUNTERS = {
+    "rgb": {"bin_decode": "expand_decode_pairs.launches",
+            "raster_fwd": "rasterize_tiles.launches",
+            "raster_bwd": "rasterize_tiles_backward.launches",
+            "fold": "fold_pairs.launches",
+            "fold_invert": "invert_permutation.launches"},
+    "grt": {"bin_decode": "expand_decode_pairs.launches",
+            "raster_fwd_sorted": "rasterize_tiles.launches",
+            "raster_bwd_sorted": "rasterize_tiles_backward.launches",
+            "fold": "fold_pairs.launches",
+            "fold_invert": "invert_permutation.launches"},
+    "nht": {"bin_decode": "expand_decode_pairs.launches",
+            "raster_fwd_nht": "rasterize_tiles.launches_nht",
+            "raster_bwd_nht": "rasterize_tiles_backward.launches_nht",
+            "fold_64": "fold_pairs.launches_wide",
+            "fold_invert": "invert_permutation.launches"},
+}
+# the dp bounds (tests/test_parallel.py): the loss within rtol 2e-3, more
+# than 99% of the parameters within 2e-5 after one Adam step
+LOSS_RTOL, PARAM_TOL, PARAM_SHARE = 2e-3, 2e-5, 0.01
+
+
+def full_width_reference(kind, dev):
+    """The single-device port on a full-width case's inputs
+    (parallel/dryrun.py:full_width_inputs): render_gut's (features,
+    opacity, distance) for "sliced_render"; else (the parameters after
+    render_gut, the case's loss, its backward and one masked adam_step,
+    the gradients, the loss)."""
+    from threedgrut_tpu_torch.ops.ssim import ssim
+    from threedgrut_tpu_torch.ops.ut import UTConfig
+    from threedgrut_tpu_torch.optimizers.adam import (adam_step,
+                                                      init_adam_state)
+    from threedgrut_tpu_torch.parallel.dryrun import full_width_inputs
+    from threedgrut_tpu_torch.render.gut import render_gut
+
+    model, cam, gt, rc, sh, loss_kw = full_width_inputs(kind, dev)
+    if kind == "sliced_render":
+        with torch.no_grad():
+            out = render_gut(cam, UTConfig(), rc, model, sh)
+        return tuple(out[k].cpu().numpy() for k in (
+            "pred_features", "pred_opacity", "pred_dist"))
+    pred = render_gut(cam, UTConfig(), rc, model, sh)["pred_features"]
+    l1 = torch.mean(torch.abs(pred - gt))
+    if "lambda_l1" in loss_kw:
+        total = loss_kw["lambda_l1"] * l1
+    elif loss_kw.get("loss_lambda_ssim", 0.2) == 0.0:
+        total = 0.8 * l1
+    else:
+        total = 0.8 * l1 + 0.2 * (1.0 - ssim(pred.permute(2, 0, 1)[None],
+                                              gt.permute(2, 0, 1)[None]))
+    total.backward()
+    params = model.params()
+    grads = {k: p.grad.cpu().numpy() for k, p in params.items()}
+    adam_step(params, {k: p.grad for k, p in params.items()},
+              init_adam_state(params), {k: 1e-3 for k in params},
+              update_mask=model.active_mask())
+    return ({k: p.detach().cpu().numpy() for k, p in params.items()},
+            grads, float(total.detach()))
+
+
+def leaf_grad_agreement(got, ref):
+    """{leaf: (max |d| over max |ref|, cosine)} of two gradient dicts."""
+    out = {}
+    for k, r in ref.items():
+        g = got[k].astype(np.float64).ravel()
+        r = r.astype(np.float64).ravel()
+        cos = float(g @ r / max(np.linalg.norm(g) * np.linalg.norm(r),
+                                1e-300))
+        out[k] = (float(np.abs(g - r).max() / max(np.abs(r).max(), 1e-30)),
+                  cos)
+    return out
+
+
+def multigpu_agreement(kind, got, dev):
+    """(ok, a summary) of a full-width case's rank-0 outputs against the
+    single-device port: the sliced render's images within atol 5e-4 and
+    rtol 1e-3 (distance 2e-3); a step's loss within rtol 2e-3 and its
+    parameters within PARAM_TOL on all but PARAM_SHARE of the entries;
+    the sliced step's loss and its gradients' cosine 0.9999 a leaf, and
+    without the kill within 2e-3 of each leaf's max too."""
+    ref = full_width_reference(kind, dev)
+    if kind == "sliced_render":
+        errs = [np.abs(g - r) - rtol * np.abs(r) for g, r, rtol in
+                zip(got, ref, (1e-3, 1e-3, 1e-3))]
+        worst = [float(e.max()) for e in errs]
+        ok = worst[0] <= 5e-4 and worst[1] <= 5e-4 and worst[2] <= 2e-3
+        return ok, (f"features, opacity, distance past rtol 1e-3 by "
+                    f"{worst[0]:.3g}, {worst[1]:.3g}, {worst[2]:.3g}")
+    ref_params, ref_grads, ref_loss = ref
+    loss = got["metrics"]["total"]
+    msg = f"loss {loss:.6f} (one device {ref_loss:.6f})"
+    if kind.startswith("sliced_step"):
+        # past the kill threshold a back slab composites what the serial
+        # render skips (weights < min_transmittance): small gradients on
+        # particles the single device never reaches, which Adam's first
+        # step turns into +-lr moves. So the gradients are held: with the
+        # kill, JAX's loss bound and cosine 0.9999 a leaf (the
+        # max-normalised error printed); without it ("_exact"), also the
+        # port's gradient bound, 2e-3 of each leaf's max (phase 10)
+        errs = leaf_grad_agreement(got["grads"], ref_grads)
+        exact = kind.endswith("_exact")
+        ok = (abs(loss - ref_loss) <= LOSS_RTOL * abs(ref_loss)
+              and all((e <= 2e-3 or not exact) and c >= 0.9999
+                      for e, c in errs.values()))
+        return ok, msg + ", gradients (max-normalised error, cosine) " + \
+            ", ".join(f"{k} {e:.2g}/{c:.7f}" for k, (e, c) in errs.items())
+    off = sum(int((np.abs(got["params"][k] - v) > PARAM_TOL).sum())
+              for k, v in ref_params.items())
+    n = sum(v.size for v in ref_params.values())
+    worst = max(float(np.abs(got["params"][k] - v).max())
+                for k, v in ref_params.items())
+    ok = (abs(loss - ref_loss) <= LOSS_RTOL * abs(ref_loss)
+          and off / n < PARAM_SHARE)
+    return ok, msg + (f", {off}/{n} entries past {PARAM_TOL} (max |d| "
+                      f"{worst:.3g})")
+
+
+def case_launches(kind, counts):
+    """A case's launches by kernels-line entry."""
+    group = kind if kind in ("grt", "nht") else "rgb"
+    return {k: counts.get(c, 0) for k, c in MULTI_COUNTERS[group].items()}
+
+
+def multigpu_check(label, results, dev):
+    """Each case's agreement and launches (A and B once a render; A-D
+    and D's inversion once a step, on every rank); the phase's summary
+    parts and the launches by kernel and case."""
+    msgs, by_kernel, failed = [], {}, []
+    for kind, res in results.items():
+        ok, what = multigpu_agreement(kind, res[0]["outputs"], dev)
+        counts = [case_launches(kind, r["launches"]) for r in res]
+        for c in counts:
+            for k, n in c.items():
+                backward = "bwd" in k or k.startswith("fold")
+                ok = ok and n == (0 if kind == "sliced_render" and backward
+                                  else 1)
+        for k, n in counts[0].items():
+            if n:
+                by_kernel.setdefault(k, {})[f"{label}_{kind}"] = n
+        ms = ", ".join(f"{r['ms']:.3f}" for r in res)
+        comm_ms = ", ".join(f"{r['comm_ms']:.3f}" for r in res
+                            if "comm_ms" in r)
+        msgs.append(f"{kind}: {what}; ms a "
+                    f"{'render' if kind == 'sliced_render' else 'step'} by "
+                    f"rank {ms}" + (f" (gradient all-reduce {comm_ms})"
+                                    if comm_ms else "")
+                    + f"; launches {counts[0]}")
+        if not ok:
+            failed.append(kind)
+    if failed:
+        raise AssertionError(f"{label}: {failed} failed: {msgs}")
+    return msgs, by_kernel
+
+
+def multigpu_one_rank_phase(dev):
+    """Phase 49: NCCL at world size 1 in this process: the dp step, the
+    sliced render and step and dp x mp 1 x 1 at full width (800x800,
+    100k, SH 3, the apps/nerf_synthetic_3dgut loss; dp x mp L1), each
+    against the single-device port; A-D once a step."""
+    import torch.distributed as dist
+
+    from threedgrut_tpu_torch.parallel.dryrun import full_width_case
+    from threedgrut_tpu_torch.parallel.particle import mesh_groups
+
+    store = os.path.join(REPO, "build", "smoke_dist_store")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", init_method="file://" + store, rank=0,
+                            world_size=1)
+    try:
+        results = {kind: [full_width_case(
+            kind, dev, mesh_groups((1, 1)) if kind == "dp_x_mp" else None,
+            MULTI_STEPS)] for kind in ONE_RANK_CASES}
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    msgs, by_kernel = multigpu_check("one_rank", results, dev)
+    phase("multi-GPU, one rank", f"{backend} at world size 1, 800x800, "
+          f"100k Gaussians, SH 3, {MULTI_STEPS} timed steps by CUDA "
+          "events: " + "; ".join(msgs))
+    return by_kernel
+
+
+def _nccl_duplicate_rank(rank, store, out):
+    """One of two NCCL ranks on cuda:0: what its first collective says
+    (the probe of phase 50)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + store,
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        x = torch.ones(4, device="cuda:0")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        msg = "accepted"
+    except Exception as e:    # the probe's finding, printed
+        msg = f"{type(e).__name__}: {e}"
+    with open(f"{out}.{rank}", "w") as f:
+        f.write(msg)
+
+
+def nccl_duplicate_probe(timeout=180):
+    """What NCCL does with two ranks on the one card: each rank's
+    message; every rank killed past ``timeout`` seconds."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    d = tempfile.mkdtemp(prefix="smoke_nccl_")
+    try:
+        ctx = mp.start_processes(
+            _nccl_duplicate_rank, args=(os.path.join(d, "store"),
+                                        os.path.join(d, "out")),
+            nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                break
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        msgs = []
+        for r in range(2):
+            path = os.path.join(d, f"out.{r}")
+            msgs.append(open(path).read() if os.path.exists(path)
+                        else "no answer")
+        return msgs
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def multigpu_two_ranks_phase(dev):
+    """Phase 50: two ranks on the one card. NCCL's answer to two ranks on
+    one device, and run_ranks' refusal without backend="gloo"; then
+    run_ranks over gloo, both ranks' tensors on cuda:0: the collectives
+    gloo takes on CUDA tensors, the dp step (two 400-row bands), the
+    sliced render and step, 3DGRT sorted (W 16) and NHT under dp, each
+    rank 0's against the single-device port; A-D once a step on each
+    rank."""
+    from threedgrut_tpu_torch.parallel.dryrun import full_width_rank
+    from threedgrut_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    nccl = nccl_duplicate_probe()
+    nccl_s = time.perf_counter() - t0
+    refused = None
+    if torch.cuda.device_count() == 1:
+        try:
+            run_ranks(full_width_rank, 2, device="cuda",
+                      args=(("dp",), 1))
+        except ValueError as e:    # run_ranks' refusal, expected
+            refused = str(e)
+        if refused is None or "gloo" not in refused:
+            raise AssertionError("run_ranks did not refuse two NCCL ranks "
+                                 "on one card")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = run_ranks(full_width_rank, 2, device="cuda", backend="gloo",
+                    args=(TWO_RANK_CASES, MULTI_STEPS))
+    ranks_s = time.perf_counter() - t0
+    probe = res[0]["probe"]
+    if any(v != "direct" for v in probe.values()):
+        raise AssertionError(f"gloo on CUDA tensors: {probe}")
+    results = {kind: [r[kind] for r in res] for kind in TWO_RANK_CASES}
+    msgs, by_kernel = multigpu_check("two_ranks", results, dev)
+    phase("multi-GPU, two ranks on one card",
+          f"NCCL with two ranks on cuda:0 ({nccl_s:.1f} s): "
+          f"{' | '.join(m.splitlines()[-1] for m in nccl)}; run_ranks "
+          f"refuses them: {refused!r}; {res[0]['backend']} with both "
+          f"ranks on cuda:0 (run_ranks {ranks_s:.1f} s): collectives on "
+          f"CUDA tensors {probe}, no host staging (comm.py branches on no "
+          f"backend); " + "; ".join(msgs))
+    return by_kernel
+
+
+def writer_phase(dev):
+    """Phase 51: Trainer(enable_writer=True, out_dir=...) from 100k
+    random Gaussians on 8 teacher views at 800x800, 20 steps, then
+    validate on 2 views and log_validation_images. Where tensorboardX
+    imports, the event file read back holds the JAX trainer's tags;
+    where it does not, the writer has no backend and wrote nothing."""
+    import importlib.util
+    import shutil
+
+    from threedgrut_tpu_torch.models.background import BackgroundConfig
+    from threedgrut_tpu_torch.models.gaussians import (
+        GaussianModelConfig, default_capacity_for, random_initialization)
+    from threedgrut_tpu_torch.ops.cuda import (launch_counts,
+                                               reset_launch_counts)
+    from threedgrut_tpu_torch.synthetic import (ViewDataset, build_teacher,
+                                                teacher_dataset)
+    from threedgrut_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    has_tbx = importlib.util.find_spec("tensorboardX") is not None
+    has_tb = importlib.util.find_spec("tensorboard") is not None
+    ds = teacher_dataset(build_teacher(60000, seed=0, device=dev),
+                         n_views=8, side=SIDE)
+    model = random_initialization(
+        GaussianModelConfig(), 100_000, extent=ds.get_scene_extent(),
+        seed=42, capacity=default_capacity_for(100_000, headroom=4.0),
+        device=dev)
+    out_dir = os.path.join(REPO, "build", "smoke_writer")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    trainer = Trainer(TrainerConfig(background=BackgroundConfig(
+        color="white")), ds, model, out_dir=out_dir, enable_writer=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = trainer.run_training(20)
+    val = trainer.validate(ViewDataset(ds.views[:2]))
+    images = trainer.log_validation_images(ds[0])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    a = counts.get("expand_decode_pairs.launches", 0)
+    c = counts.get("rasterize_tiles_backward.launches", 0)
+    panels = {k: tuple(v.shape) for k, v in images.items()}
+    checks = {
+        "A once a step and a render": a == 20 + 2 + 1,
+        "C once a step": c == 20,
+        "five panels": panels == {k: (SIDE, SIDE, 3) for k in (
+            "pred", "depth", "opacity", "hits", "gt")},
+        "panels in [0, 1]": all(bool(((v >= 0) & (v <= 1)).all())
+                                for v in images.values()),
+        "finite": all(np.isfinite(h["total"]) for h in hist),
+    }
+    tags = None
+    if has_tbx:
+        from tensorboard.backend.event_processing.event_accumulator import (
+            EventAccumulator)
+
+        for w in trainer.writer.writers:
+            w.close()
+        acc = EventAccumulator(out_dir, size_guidance={"images": 0})
+        acc.Reload()
+        tags = acc.Tags()
+        checks["train and val tags"] = {
+            "train/total", "train/psnr", "train/n_gaussians", "val/psnr",
+            "val/ssim", "val/hits_mean", "val/hits_max"} <= set(
+                tags["scalars"])
+        checks["image tags"] = set(tags["images"]) == {
+            f"val/{k}" for k in panels}
+        wrote = f"read back: {len(tags['scalars'])} scalar tags, images " \
+                f"{sorted(tags['images'])}"
+    else:
+        checks["no backend"] = trainer.writer.writers == []
+        checks["nothing written"] = not os.path.exists(out_dir) or not \
+            os.listdir(out_dir)
+        wrote = "the writer has no backend and wrote nothing"
+    failed = [k for k, ok in checks.items() if not ok]
+    summary = (f"tensorboardX imports: {'yes' if has_tbx else 'no'} "
+               f"(tensorboard {'imports' if has_tb else 'does not'}); "
+               f"{wrote}; 20 steps, validate (2 views: psnr "
+               f"{val['psnr']:.4f}), log_validation_images in {secs:.1f} s;"
+               f" panels {panels}; launches A {a}, C {c}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"trainer writer: {failed} ({summary})")
+    phase("trainer writer", summary)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -4567,6 +5007,13 @@ def main():
     report["raster_fwd_window128"]["playground_denoise_launches"] = (
         denoise_video_phase(dev))
     live_gui_phase(dev)
+
+    # 49-50. multi-GPU training at full width; 51. the trainer's writer
+    for by_kernel in (multigpu_one_rank_phase(dev),
+                      multigpu_two_ranks_phase(dev)):
+        for k, by_case in by_kernel.items():
+            report[k].setdefault("multigpu_launches", {}).update(by_case)
+    writer_phase(dev)
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches.get(k, 0), **report[k])

@@ -310,7 +310,53 @@ def test_port_imports_no_jax():
             "threedgrut_tpu_torch.playground.denoise",
             "threedgrut_tpu_torch.playground.denoise_cnn",
             "threedgrut_tpu_torch.playground.video",
-            "threedgrut_tpu_torch.playground.live_gui"} <= set(_port_modules())
+            "threedgrut_tpu_torch.playground.live_gui",
+            "threedgrut_tpu_torch.parallel.comm",
+            "threedgrut_tpu_torch.parallel.dp",
+            "threedgrut_tpu_torch.parallel.particle",
+            "threedgrut_tpu_torch.parallel.launch",
+            "threedgrut_tpu_torch.parallel.dryrun",
+            "threedgrut_tpu_torch.utils.timer",
+            "threedgrut_tpu_torch.utils.exif",
+            "threedgrut_tpu_torch.utils.logger",
+            "threedgrut_tpu_torch.models.geometry"} <= set(_port_modules())
+
+
+# JAX modules with no counterpart in the port, each with its reason
+NOT_PORTED = {
+    # the port decodes with PIL: the card's machine has no libjpeg.so.62
+    # for native/libdataio.so (ROADMAP.md, known JAX faults)
+    "data/native_loader.py": "PIL decodes",
+    # the Pallas kernels: served by ops/cuda/ and the CUDA sources in
+    # csrc/ (PERF.md, the table of TPU kernels)
+    "ops/pallas/*": "ops/cuda/ and csrc/",
+}
+
+
+def _package_files(pkg):
+    root = os.path.join(REPO, pkg)
+    return {os.path.relpath(os.path.join(d, f), root).replace(os.sep, "/")
+            for d, _, files in os.walk(root) for f in files
+            if f.endswith(".py")}
+
+
+def test_port_covers_every_jax_module():
+    """Every module of threedgrut_tpu has its counterpart at the same
+    path in threedgrut_tpu_torch, but for NOT_PORTED's two entries."""
+    import fnmatch
+
+    jax_files = _package_files("threedgrut_tpu")
+    port_files = _package_files("threedgrut_tpu_torch")
+    missing = jax_files - port_files
+    allowed = {f for f in missing
+               if any(fnmatch.fnmatch(f, pat) for pat in NOT_PORTED)}
+    assert missing == allowed, sorted(missing - allowed)
+    # the allow-list holds nothing the port has covered since
+    for pat in NOT_PORTED:
+        assert any(fnmatch.fnmatch(f, pat) for f in missing), pat
+    assert {"parallel/dp.py", "parallel/particle.py", "utils/timer.py",
+            "utils/exif.py", "utils/logger.py",
+            "models/geometry.py"} <= port_files
 
 
 # JAX and the libraries built on it, which the port's files never import
@@ -380,7 +426,10 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert {os.path.join("threedgrut_tpu_torch", *m.split("/")) + ".py"
             for m in ("data/ncore", "playground/denoise",
                       "playground/denoise_cnn", "playground/video",
-                      "playground/live_gui")} <= rel
+                      "playground/live_gui", "parallel/comm",
+                      "parallel/dp", "parallel/particle", "parallel/launch",
+                      "parallel/dryrun", "utils/timer", "utils/exif",
+                      "utils/logger", "models/geometry")} <= rel
     assert "chip_smoke.py" in rel
     assert {os.path.join("scripts", f"{s}_torch.py") for s in (
         "export_usd", "transcode", "ply_to_usd", "add_mesh_to_usdz",

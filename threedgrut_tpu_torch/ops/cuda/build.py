@@ -49,6 +49,11 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Dict[str, float] = {}
 
 
+def kernel_names() -> List[str]:
+    """Every kernel library in ``csrc/`` (its ``.cu`` sources' stems)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def nvcc_path() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     path = Path(home) / "bin" / "nvcc"

@@ -150,6 +150,18 @@ def unscented_projection(cam: CameraModel, cfg: UTConfig,
         view_dir=view_dir)
 
 
+def sort_depth(cam: CameraModel, cfg: UTConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    """[N] the depth ``unscented_projection`` sorts valid particles by,
+    from the same expressions: the start pose's camera z in global-Z
+    order, else the distance to the sensor (the depth-slab key of
+    parallel/particle.py)."""
+    if cfg.global_z_order:
+        return positions @ quat_to_rotmat(cam.q_start)[2] + cam.t_start[2]
+    ray = positions - sensor_position(cam)
+    return torch.sqrt(torch.sum(ray * ray, dim=-1))
+
+
 def sensor_position(cam: CameraModel) -> torch.Tensor:
     """World-space camera center from the world->camera start pose."""
     return -(quat_to_rotmat(cam.q_start).T @ cam.t_start)

@@ -38,6 +38,12 @@ Contracts kept from the JAX trainer (reference threedgrut/trainer.py):
   per-frame terms on up to 32 training renders without the background
   (JAX's choice), and validation feeds the controller the composited
   image, or uses neutral per-frame terms without a controller,
+- ``Trainer(enable_writer=True, out_dir=...)`` (trainer.py:216-231):
+  the step's scalars and ``train/n_gaussians`` every step, the val
+  scalars in ``validate`` and the panels of ``log_validation_images``
+  through ``utils/misc.py:create_summary_writer``, which does nothing
+  where tensorboardX does not import; ``train_torch.py`` turns it on
+  nowhere, as ``train.py`` does not,
 - checkpoints with the JAX trainer's npz keys (the decoder's as its
   flax key paths, params/nht_decoder//params/Dense_i/kernel; the ISP's
   as params/ppisp//<name>; no controller, as JAX saves none), so either
@@ -76,7 +82,7 @@ from ..strategy import base as strat_base
 from ..strategy import gs as gs_strategy
 from ..strategy import mcmc as mcmc_strategy
 from ..utils import lpips as lpips_mod
-from ..utils.misc import linear_to_srgb
+from ..utils.misc import create_summary_writer, jet_map, linear_to_srgb
 
 # the decoder's Adam groups, one per layer weight: "nht_decoder/<i>"
 DECODER = "nht_decoder"
@@ -218,7 +224,9 @@ class Trainer:
     features."""
 
     def __init__(self, conf: TrainerConfig, dataset, model: GaussianModel,
-                 val_dataset=None, raw_conf: Optional[dict] = None):
+                 val_dataset=None, out_dir: Optional[str] = None,
+                 enable_writer: bool = False,
+                 raw_conf: Optional[dict] = None):
         if conf.strategy not in ("gs", "mcmc"):
             raise NotImplementedError(f"strategy {conf.strategy}: gs or "
                                       "mcmc")
@@ -231,6 +239,13 @@ class Trainer:
         self.val_dataset = val_dataset
         self.model = model
         self.device = model.device
+        # the summary writer (trainer.py:225-228): train and val scalars,
+        # validation images; a MultiWriter that does nothing where no
+        # backend imports
+        self.out_dir = out_dir
+        self.writer = None
+        if enable_writer and out_dir:
+            self.writer = create_summary_writer(out_dir)
         self.scene_extent = float(dataset.get_scene_extent())
         self.global_step = 0
         # random backgrounds, split, MCMC samples and perturb noise
@@ -447,6 +462,12 @@ class Trainer:
         self._post_backward(grads, cam)
         self._post_optimizer_step()
         self._progressive_features()
+        if self.writer is not None:   # trainer.py:718-724
+            for k, v in metrics.items():
+                self.writer.add_scalar(f"train/{k}", float(v),
+                                       self.global_step)
+            self.writer.add_scalar("train/n_gaussians", self.model.n_active,
+                                   self.global_step)
         return metrics
 
     def _post_backward(self, grads, cam):
@@ -702,7 +723,41 @@ class Trainer:
                   "hits_max": float(np.max(hs[:, 3]))}
         if lpipss:
             result["lpips"] = float(np.mean(lpipss))
+        if self.writer is not None:   # trainer.py:1298-1304
+            for k in ("psnr", "ssim", "hits_mean", "hits_max"):
+                self.writer.add_scalar(f"val/{k}", result[k],
+                                       self.global_step)
+            if "lpips" in result:
+                self.writer.add_scalar("val/lpips", result["lpips"],
+                                       self.global_step)
         return result
+
+    @torch.no_grad()
+    def log_validation_images(self, batch, max_hits: float = 128.0):
+        """Render one view and log its gt, pred, depth, opacity and hit
+        count panels, the last three as jet maps (trainer.py:1307-1342);
+        NHT decodes through the EMA shadow. Returns the [H, W, 3] images
+        by name."""
+        cam = camera_from_batch(batch, self.device)
+        out = render_gut(cam, self.conf.ut, self.conf.raster, self.model,
+                         self.sh_degree())
+        bg = bg_mod.background_color(self.conf.background, train=False,
+                                     device=self.device)
+        pred = torch.clamp(bg_mod.apply_background(
+            self.decode(out, use_ema=True), out["pred_opacity"], bg), 0, 1)
+        images = {
+            "pred": pred,
+            "depth": jet_map(out["pred_dist"], 100.0),
+            "opacity": jet_map(out["pred_opacity"], 1.0),
+            "hits": jet_map(out["hits_count"], max_hits),
+        }
+        if batch.rgb_gt is not None:
+            images["gt"] = torch.clamp(_as_image(batch.rgb_gt, self.device),
+                                       0, 1)
+        if self.writer is not None:
+            for name, img in images.items():
+                self.writer.add_image(f"val/{name}", img, self.global_step)
+        return images
 
     # --- checkpoints (the JAX trainer's npz keys) -----------------------
 

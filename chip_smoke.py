@@ -23,8 +23,12 @@ without printing the final result line:
 6. serving slice - make_serving_renderer on the 100k cloud, 8 orbit
    views at 800x800, SH degree 3: both kernels' launch counters equal
    the number of views; outputs finite with real coverage; ms/frame.
-7. oracle probe - 200x200, the first 60k particles, the port's oracle
-   against render_gut: bulk >= 80 dB and flip_frac <= 0.01.
+7. oracle probe - tools/parity_probe_torch.py at its defaults in this
+   process (200x200, bench_cloud(60_000), render_gut against the port's
+   oracle, exact_kill and nokill_eps): exact_kill's bulk >= 80 dB and
+   flip_frac <= 0.01 by oracle.py:parity_db (pixels off by half a
+   min-alpha step), and by the probe's own columns (pixels whose hit
+   counts differ) its bulk >= 80 dB and flips <= 0.01.
 8. kernel C vs plain - raster_bwd on the phase-4 view with seeded random
    upstream gradients: per record field group (a, M, density, rgb)
    cosine >= 0.9999 and relative L2 <= 1e-3 against the float64
@@ -183,7 +187,8 @@ brute force; windows of 128 for both regimes; the normals mode of B):
    and D once each and D's inversion never; ms per trace call.
 34. normals - B's normals mode in the brute-force trace against plain
    (normals within 2e-3), and render_gut's normals against the port's
-   oracle on phase 7's probe; one trace with normals launches it once.
+   oracle on bench.py's probe view (200x200, the 100k cloud's first 60k);
+   one trace with normals launches it once.
 35. grid vs brute force at 100k in rank order (_sorted=False): with
    every cell of the grid, 8 blocks composite the brute force's sequence
    (within 1e-5); the full frame with the defaults reports
@@ -355,7 +360,27 @@ step, A and B once a render):
    and the five image panels; where it does not, the writer has no
    backend and wrote nothing; A once a step and a render, C once a step.
 
-Then a JSON line with each kernel's launches (A-D from phase 11, sorted
+The repository's last entry points (phase 52; the parity probe is
+phase 7):
+
+52. denoiser training - scripts/train_denoiser_torch.py in this process:
+   4 procedural playground scenes (220 Gaussians, capacity 256, 1-2
+   mirror, glass or PBR icospheres over a box) rendered at 96x96, 1 spp
+   against 24 spp through 3 bounces, then 200 Adam steps of the CNN on
+   64x64 crops, TF32 off: ms a pair and a step by CUDA events, the
+   full-set gain above 0 dB, kernel B's shared-segment mode (trace's
+   brute force, the TPU's kernel 7) launched once a bounce of every
+   sample and no other kernel launched; the card-trained weights'
+   apply_cnn on one frame within DENOISE_TOL of the CPU's, and
+   denoise_frame(path=) on the card serving them. Then kernel B against
+   its plain version at this path's shapes: the first pair's scene (256
+   slots, degree 0) and its 1-spp render's rays, each of the 3 bounces
+   the engine hands trace() (96x96 lens rays, then rays from mesh hits,
+   each with its own origin, 36 blocks of 256), at phase 31's
+   tolerances with its cull check.
+
+Then a line "done" with the seconds since the script started, a JSON
+line with each kernel's launches (A-D from phase 11, sorted
 B and C of each setting from phase 17, E from phase 18, the general
 kernels from phases 23-24, the NHT kernels from phase 29, kernel 7's B,
 C and D from phase 32, W 128 C from phase 33, normals B from phase 34,
@@ -369,7 +394,9 @@ without PPISP, phase 43's CLIs), and as export_launches those of phase
 44's bake, visibility filter and bake tool, as ncore_launches those of
 phases 45-46 by app, as playground_denoise_launches W 128 B's in
 phase 47's denoised frames by denoiser, and as multigpu_launches those of
-phases 49-50 by phase and case (rank 0's, one step or render),
+phases 49-50 by phase and case (rank 0's, one step or render), as
+denoiser_training_launches kernel 7 B's in phase 52 (in all and a pair)
+and as denoiser_training_max_abs_err its error at that path's shapes,
 error and times (phases 3, 4, 8, 9, 13-15, 19-21, 26-27, 31-34, 37, 39,
 40; G and H also by device time), its bound (the larger
 of the fp32 operations over 67 TFLOP/s and the bytes it must read and
@@ -674,6 +701,7 @@ def composited(fwd):
 
 
 _PHASE_CLOCK = [time.perf_counter()]
+_START = _PHASE_CLOCK[0]
 
 
 def phase(name, msg):
@@ -2359,7 +2387,7 @@ def trace_phases(dev, ut_cfg):
           f"{grid_ms:.3f} ms per forward trace call (host clock)")
 
     # 34. normals: B's normals mode in trace (brute force) against plain,
-    # and render_gut's against the port's oracle (phase 7's probe)
+    # and render_gut's against the port's oracle (bench.py's probe view)
     ro, rd = trace_rays(small)
     nrc = RasterConfig(enable_normals=True)
     with torch.no_grad():
@@ -4624,6 +4652,192 @@ def writer_phase(dev):
     phase("trainer writer", summary)
 
 
+# phase 52: the denoiser's training (scripts/train_denoiser_torch.py) at
+# the JAX script's scene and render sizes, cut to 4 scenes and 200 steps
+DENOISER_SCENES = 4
+DENOISER_SIDE = 96
+DENOISER_SPP_REF = 24
+DENOISER_STEPS = 200
+DENOISER_BOUNCES = 3       # the script's EngineConfig(max_bounces=3)
+
+
+def denoiser_training_phase(dev):
+    """Phase 52: train_denoiser_torch.py in this process on
+    DENOISER_SCENES scenes at DENOISER_SIDE x DENOISER_SIDE, 1 spp
+    against DENOISER_SPP_REF spp, DENOISER_STEPS steps, its pair cache and
+    weights under build/: ms a pair and a step (CUDA events), the
+    full-set gain (> 0 dB), kernel B's shared-segment launches (one a
+    bounce of every sample, and no other kernel); the card-trained
+    weights' apply_cnn on one frame against the CPU's within DENOISE_TOL,
+    and denoise_frame(path=) on the card serving them; B against its
+    plain version on this path's own inputs (denoiser_b_check). Returns
+    B's launches (total and a pair) and its max |d| there."""
+    import shutil
+
+    from threedgrut_tpu_torch.ops.cuda import (launch_counts,
+                                               reset_launch_counts)
+    from threedgrut_tpu_torch.playground import denoise_cnn
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import train_denoiser_torch
+
+    root = os.path.join(REPO, "build", "smoke_denoiser")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    data, out = os.path.join(root, "pairs.npz"), os.path.join(root, "w.npz")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = train_denoiser_torch.main(
+            ["--scenes", str(DENOISER_SCENES), "--side", str(DENOISER_SIDE),
+             "--spp-ref", str(DENOISER_SPP_REF), "--steps",
+             str(DENOISER_STEPS), "--data", data, "--out", out])
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        with np.load(data) as blob:
+            frame = blob["noisy"][0]
+        card = denoise_cnn.apply_cnn(denoise_cnn.load_params(out, dev),
+                                     torch.tensor(frame, device=dev))
+        served = denoise_cnn.denoise_frame(torch.tensor(frame, device=dev),
+                                           path=out)
+        cpu = denoise_cnn.apply_cnn(denoise_cnn.load_params(out, "cpu"),
+                                    torch.tensor(frame))
+        err = float((card.cpu() - cpu).abs().max())
+        same = bool(torch.equal(served, card))
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        shutil.rmtree(root, ignore_errors=True)
+    shared = counts.get("rasterize_tiles.launches_shared_segment", 0)
+    want = DENOISER_SCENES * DENOISER_BOUNCES * (1 + DENOISER_SPP_REF)
+    pair_ms, step_ms = got["pair_ms"], got["step_ms"]
+    if not (got["gain_db"] > 0.0 and shared == want
+            and set(counts) == {"rasterize_tiles.launches_shared_segment"}
+            and err <= DENOISE_TOL and same
+            and len(pair_ms) == DENOISER_SCENES
+            and len(step_ms) == DENOISER_STEPS):
+        raise AssertionError(
+            f"denoiser training: gain {got['gain_db']:.3f} dB, launches "
+            f"{counts} (B shared segment expected {want}), card against CPU "
+            f"{err:.3g}, denoise_frame serves the weights {same}")
+    per_pair = shared // DENOISER_SCENES
+    b_err, b_msg = denoiser_b_check(dev, train_denoiser_torch)
+    phase("denoiser training", f"{DENOISER_SCENES} scenes at "
+          f"{DENOISER_SIDE}x{DENOISER_SIDE}, 1 against {DENOISER_SPP_REF} "
+          f"spp, {DENOISER_STEPS} steps in {secs:.1f} s on {nvidia_smi_line()}:"
+          f" ms a pair (CUDA events) {', '.join(f'{m:.1f}' for m in pair_ms)}"
+          f" (median {float(np.median(pair_ms)):.1f}); ms a training step "
+          f"median {float(np.median(step_ms)):.3f} (first "
+          f"{step_ms[0]:.2f}, min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}); full-set MSE {got['base_mse']:.6f} -> "
+          f"{got['out_mse']:.6f}, gain {got['gain_db']:.3f} dB; B shared "
+          f"segment {per_pair} launches a pair ({shared} in all, no other "
+          f"kernel); card-trained weights on one frame against the CPU "
+          f"{err:.3g}, denoise_frame(path=) serves them; B against plain "
+          f"on the first pair's 1-spp bounces: {b_msg}")
+    return {"total": shared, "per_pair": per_pair}, b_err
+
+
+def denoiser_b_check(dev, script):
+    """Kernel B (shared segment) against its plain version on phase 52's
+    own inputs: the first pair's scene (``script.random_scene`` from the
+    script's stream, 256 slots, degree 0) and camera, rendered at 1 spp
+    with the rays, t-ranges and degree that the engine hands trace() on
+    each bounce recorded (lens rays of the aperture, then rays leaving
+    mesh hits, each from its own origin; dead rays 1e7 past a miss):
+    phase 31's tolerances (forward_agreement) and its cull check on each.
+    Returns (max |d|, a message)."""
+    from threedgrut_tpu_torch.ops.cuda.raster import (rasterize_tiles_forward,
+                                                      rasterize_tiles_plain)
+    from threedgrut_tpu_torch.playground import engine as engine_mod
+    from threedgrut_tpu_torch.render.grt import prepare_trace, trace
+
+    rng = np.random.default_rng(7)       # the script's stream
+    eng = script.random_scene(rng, dev)
+    cam = script.pair_camera(rng, DENOISER_SIDE, dev)
+    calls = []
+
+    def recorded(model, o, d, **kw):
+        calls.append((o, d, kw))
+        return trace(model, o, d, **kw)
+
+    engine_mod.trace = recorded
+    try:
+        eng.render(cam, seed=int(rng.integers(0, 2 ** 31 - 1)))
+    finally:
+        engine_mod.trace = trace
+    if len(calls) != DENOISER_BOUNCES:
+        raise AssertionError(f"denoiser B check: {len(calls)} trace calls "
+                             f"in a 1-spp render, not {DENOISER_BOUNCES}")
+    top, msgs = 0.0, []
+    with torch.no_grad():
+        for b, (o, d, kw) in enumerate(calls):
+            inp = prepare_trace(eng.model, o, d, **kw)
+            n_seg = int(inp.tile_start[1])
+            if not (inp.shared and n_seg == 256):
+                raise AssertionError(f"denoiser bounce {b}: not the brute "
+                                     f"force over 256 slots ({n_seg})")
+            args = inp.args()
+            got = rasterize_tiles_forward(*args)
+            ref, plain_ms = timed_once(lambda: rasterize_tiles_plain(*args))
+            err, msg = forward_agreement(got, ref, inp.cfg,
+                                         f"denoiser bounce {b} B")
+            b_ms = cuda_ms(lambda: rasterize_tiles_forward(*args), 5)
+            share, _, _ = cull_check(args, f"denoiser bounce {b}")
+            # rays leaving the lens or a mesh hit, and their origins'
+            # median distance from their mean
+            near = o.norm(dim=-1) < 1e3
+            spread = float((o[near] - o[near].mean(0)).norm(dim=-1).median())
+            top = max(top, err)
+            msgs.append(
+                f"bounce {b} ({-(-inp.n_rays // 256)} blocks, degree "
+                f"{kw['sh_degree']}, {int(near.sum())} rays from the lens or "
+                f"a hit, median origin spread {spread:.3g}, the rest from "
+                f"1e7 past a miss; {composited(ref):.0f} composited): "
+                f"{msg}; cull {share:.6f}, none accepted culled; kernel "
+                f"{b_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return top, "; ".join(msgs)
+
+
+# phase 7's alarm: the bulk PSNR and the share of flipped pixels
+ORACLE_BULK_DB = 80.0
+ORACLE_FLIPS = 0.01
+
+
+def oracle_phase():
+    """Phase 7: the port's parity probe (tools/parity_probe_torch.py) at
+    its defaults in this process: 200x200 over bench_cloud(60_000),
+    render_gut against render_oracle on the card. exact_kill's pair must
+    hold ORACLE_BULK_DB and ORACLE_FLIPS both by parity_db's split
+    (pixels off by half a min-alpha step) and by the probe's (pixels whose
+    hit counts differ)."""
+    import importlib.util
+
+    from threedgrut_tpu_torch.render.oracle import parity_db
+
+    spec = importlib.util.spec_from_file_location(
+        "parity_probe_torch", os.path.join(REPO, "tools",
+                                           "parity_probe_torch.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    runs = probe.run(device=torch.device("cuda:0"))
+    row, got, ref = runs["exact_kill"]
+    bulk, raw, flip = parity_db(got["pred_features"].cpu().numpy(),
+                                ref["pred_features"].cpu().numpy())
+    msg = (f"200x200, 60k particles, exact_kill: bulk {bulk:.1f} dB, raw "
+           f"{raw:.1f} dB, flip_frac {flip:.5f}; the probe's columns: " +
+           "; ".join(f"{k} psnr {r['psnr']:.1f} dB, bulk {r['bulk']:.1f} "
+                     f"dB, max |e| {r['max_err']:.2e}, flips {r['flips']:.5f}"
+                     for k, (r, _, _) in runs.items()))
+    if not (bulk >= ORACLE_BULK_DB and flip <= ORACLE_FLIPS
+            and row["bulk"] >= ORACLE_BULK_DB
+            and row["flips"] <= ORACLE_FLIPS):
+        raise AssertionError(f"oracle probe: {msg}")
+    phase("oracle", msg)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -4652,7 +4866,6 @@ def main():
     from threedgrut_tpu_torch.render.common import RasterConfig
     from threedgrut_tpu_torch.render.grt import grt_raster_config
     from threedgrut_tpu_torch.render.gut import render_gut
-    from threedgrut_tpu_torch.render.oracle import oracle_parity_db
     from threedgrut_tpu_torch.render.serve import make_serving_renderer
     from threedgrut_tpu_torch.synthetic import bench_cloud, orbit_geometry
 
@@ -4804,14 +5017,7 @@ def main():
           f"launches {launches}; coverage min {min(coverage):.3f}")
 
     # 7. oracle probe
-    side, n = 200, 60_000
-    bulk, raw, flip = oracle_parity_db(
-        bench_cloud(100_000, seed=0, device=dev), ut_cfg, rc, side, n)
-    if not (bulk >= 80.0 and flip <= 0.01):
-        raise AssertionError(f"oracle probe: bulk {bulk:.1f} dB, "
-                             f"flip_frac {flip:.5f}")
-    phase("oracle", f"{side}x{side}, {n} particles: bulk {bulk:.1f} dB, "
-          f"raw {raw:.1f} dB, flip_frac {flip:.5f}")
+    oracle_phase()
 
     # 8. kernel C vs plain: seeded upstream gradients on the same view, and
     # bitwise repeatability
@@ -5015,6 +5221,13 @@ def main():
             report[k].setdefault("multigpu_launches", {}).update(by_case)
     writer_phase(dev)
 
+    # 52. the denoiser's training
+    (report["raster_fwd_shared_segment"]["denoiser_training_launches"],
+     report["raster_fwd_shared_segment"]["denoiser_training_max_abs_err"]) = (
+        denoiser_training_phase(dev))
+
+    phase("done", f"every phase passed, {time.perf_counter() - _START:.1f} s "
+          f"since the script started")
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches.get(k, 0), **report[k])
                for k, (src, rep) in KERNELS.items()]

@@ -23,6 +23,16 @@ for the rolling shutter).
 ``--profile`` traces one more batch with torch.profiler and prints the
 device time by kernel and the device's busy and idle shares of the
 batch's wall time. Needs a CUDA device; it does not fall back to the CPU.
+
+``--save-frame PATH`` writes the first view of the last served batch as
+an npz (scripts/eval_fps.py:177-181): ``frame`` (float32 [H, W, 3]) and
+``mode``, the render mode of the metric's name (``3dgut``, ``3dgrt``,
+``3dgut_sorted``, with ``_rolling`` or ``_fisheye`` for those cameras).
+``tools/compare_frames.py a.npz b.npz`` prints the PSNR between two such
+files.
+
+Runs on the card; ``--device cpu`` serves on the CPU (slowly, and
+without the card's name in the record).
 """
 
 import argparse
@@ -38,7 +48,7 @@ import numpy as np
 import torch
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--checkpoint", help="trainer .npz or 3DGS .ply")
@@ -55,13 +65,25 @@ def main():
                     help="take the render settings of this YAML config")
     ap.add_argument("--camera", default="pinhole",
                     choices=("pinhole", "fisheye", "rolling"))
-    args = ap.parse_args()
+    ap.add_argument("--save-frame", default="",
+                    help="save the first view of the last served batch "
+                    "to this .npz (tools/compare_frames.py reads it)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu serves on the "
+                    "CPU)")
+    args = ap.parse_args(argv)
     if (args.width is None) != (args.height is None):
         raise SystemExit("give both --width and --height, or neither")
 
-    if not torch.cuda.is_available():
-        raise SystemExit("eval_fps_torch.py needs a CUDA device")
-    dev = torch.device("cuda:0")
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("eval_fps_torch.py needs a CUDA device; pass "
+                             "--device cpu to serve on the CPU")
+        dev = torch.device("cuda", dev.index or 0)
+    elif args.profile:
+        raise SystemExit("--profile traces the card: it needs --device cuda")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     from threedgrut_tpu_torch.models.gaussians import GaussianModel
     from threedgrut_tpu_torch.render.common import RasterConfig
@@ -88,29 +110,36 @@ def main():
         RasterConfig()
     serve = make_serving_renderer(model, rc, args.sh_degree)
     t0 = time.perf_counter()
-    serve(cams)                      # first batch: kernel build + warm-up
-    torch.cuda.synchronize()
+    imgs = serve(cams)               # first batch: kernel build + warm-up
+    sync()
     first_s = time.perf_counter() - t0
     per_batch = []                   # ms/frame of each timed batch
     for _ in range(args.reps):
         t0 = time.perf_counter()
         imgs = serve(cams)
-        torch.cuda.synchronize()
+        sync()
         per_batch.append((time.perf_counter() - t0) * 1e3 / args.batch)
     ms = float(np.median(per_batch))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    mode = (render_tag(rc) if args.camera == "pinhole"
+            else f"{render_tag(rc)}_{args.camera}")
+    if args.save_frame:
+        np.savez_compressed(args.save_frame,
+                            frame=imgs[0].float().cpu().numpy(), mode=mode)
+        print(f"saved the first served frame -> {args.save_frame}")
+    if dev.type == "cuda":
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        name = torch.cuda.get_device_name(dev)
+    else:
+        smi = name = "cpu"
     print(f"{source}: n={model.n_active}, {res[0]}x{res[1]}, batch "
           f"{args.batch}: median {ms:.3f} ms/frame = {1e3 / ms:.1f} FPS "
           f"over {args.reps} batches (min {min(per_batch):.3f}, max "
           f"{max(per_batch):.3f}; first batch {first_s:.2f} s) on {smi}")
     print(json.dumps({
-        "metric": (f"{render_tag(rc)}_serve_ms_per_frame_{res[0]}x{res[1]}"
-                   if args.camera == "pinhole" else
-                   f"{render_tag(rc)}_{args.camera}_serve_ms_per_frame_"
-                   f"{res[0]}x{res[1]}"),
+        "metric": f"{mode}_serve_ms_per_frame_{res[0]}x{res[1]}",
         "camera": args.camera,
         "config": args.config_name or "render/3dgut defaults",
         "value": ms, "unit": "ms/frame (median over batches)",
@@ -118,7 +147,7 @@ def main():
         "n_particles": model.n_active,
         "batch": args.batch, "reps": args.reps,
         "finite": bool(torch.isfinite(imgs).all()),
-        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}))
+        "device": name, "nvidia_smi": smi}))
     if args.profile:
         profile_batch(serve, cams)
     return 0

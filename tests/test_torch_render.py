@@ -15,6 +15,7 @@ The kernels against their plain versions on the card:
 tests/test_torch_gpu.py.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -359,19 +360,103 @@ def test_port_covers_every_jax_module():
             "models/geometry.py"} <= port_files
 
 
+# entry points of the JAX system with no _torch counterpart, each with its
+# reason
+ENTRY_POINTS_NOT_PORTED = {
+    # numpy only, and tested on the port's outputs
+    # (tests/test_torch_entry_points.py)
+    "scripts/conv_table.py": "numpy only: parses the port's training log",
+    "tools/compare_frames.py": "numpy only: compares eval_fps_torch.py "
+                               "--save-frame files",
+    "tools/convert_ckpt_nht.py": "numpy only: converts the port's "
+                                 "checkpoints",
+    # censuses of the TPU's layout (lanes, sublanes, MXU terms)
+    "tools/measure_lanes.py": "a TPU-layout census",
+    "tools/term_analysis.py": "a TPU-layout census",
+    # the JAX benchmark: the port gets a benchmark of its own
+    "bench.py": "the JAX benchmark; the port's own comes apart",
+    # the TPU entry points (a single-chip forward, the multi-chip dry run,
+    # whose cases parallel/dryrun.py runs on the port)
+    "__graft_entry__.py": "TPU entry points; parallel/dryrun.py ports "
+                          "the dry run",
+}
+# the port's own entry points, which stand for no JAX file
+PORT_ONLY = {"chip_smoke.py"}
+
+
+def entry_points(repo=REPO):
+    """The repository's entry points, relative to ``repo``: every .py at
+    the root, in scripts/ (not scripts/benchmark/) and in tools/ (with
+    tools/ppisp_export/), and every notebooks/*.ipynb."""
+    found = set()
+    for sub, ext in (("", ".py"), ("scripts", ".py"), ("tools", ".py"),
+                     (os.path.join("tools", "ppisp_export"), ".py"),
+                     ("notebooks", ".ipynb")):
+        d = os.path.join(repo, sub)
+        if os.path.isdir(d):
+            found |= {os.path.join(sub, f).replace(os.sep, "/")
+                      for f in os.listdir(d) if f.endswith(ext)
+                      and os.path.isfile(os.path.join(d, f))}
+    return found
+
+
+def counterpart(path):
+    stem, ext = os.path.splitext(path)
+    return f"{stem}_torch{ext}"
+
+
+def entry_points_without_counterpart(files):
+    """The JAX system's entry points among ``files`` that have neither a
+    ``_torch`` counterpart in ``files`` nor a place in
+    ENTRY_POINTS_NOT_PORTED."""
+    jax_side = {f for f in files if not os.path.splitext(f)[0].endswith(
+        "_torch") and f not in PORT_ONLY}
+    return {f for f in jax_side if counterpart(f) not in files
+            and f not in ENTRY_POINTS_NOT_PORTED}
+
+
+def test_port_covers_every_entry_point():
+    """Every entry point of the JAX system (the root's, scripts/'s,
+    tools/'s and the notebooks) has a ``_torch`` counterpart beside it,
+    but for ENTRY_POINTS_NOT_PORTED, each with its reason; the allow-list
+    holds nothing the port has covered since, nor a file that is gone.
+    Removing a counterpart makes the check fail."""
+    files = entry_points()
+    assert not entry_points_without_counterpart(files), sorted(
+        entry_points_without_counterpart(files))
+    for f in ENTRY_POINTS_NOT_PORTED:
+        assert f in files and counterpart(f) not in files, f
+    assert {"scripts/train_denoiser_torch.py",
+            "scripts/gen_parity_fixture_torch.py",
+            "tools/parity_probe_torch.py",
+            "notebooks/playground_headless_torch.ipynb",
+            "train_torch.py", "scripts/eval_fps_torch.py",
+            "tools/ppisp_export/bake_modes_benchmark_torch.py"} <= files
+    assert "scripts/benchmark/profile_dataloader.py" not in files
+    for gone in ("tools/parity_probe_torch.py",
+                 "notebooks/playground_headless_torch.ipynb",
+                 "render_torch.py"):
+        assert entry_points_without_counterpart(files - {gone}) == {
+            gone.replace("_torch", "")}, gone
+
+
 # JAX and the libraries built on it, which the port's files never import
 JAX_FAMILY = ("jax", "jaxlib", "flax", "optax")
 
 
 def _imports_of_jax_package(path):
     """(line, module) of every import of threedgrut_tpu or a submodule
-    of it, or of JAX or a library of JAX_FAMILY, in the file at ``path``,
-    at any depth (lazy imports inside functions included);
-    threedgrut_tpu_torch does not count."""
+    of it, or of JAX or a library of JAX_FAMILY, in the file at ``path``
+    (a notebook's code cells, joined), at any depth (lazy imports inside
+    functions included); threedgrut_tpu_torch does not count."""
     import ast
 
     with open(path) as f:
-        tree = ast.parse(f.read(), path)
+        text = f.read()
+    if path.endswith(".ipynb"):
+        text = "\n".join("".join(c["source"]) for c in json.loads(text)[
+            "cells"] if c["cell_type"] == "code")
+    tree = ast.parse(text, path)
     found = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -403,9 +488,13 @@ def test_port_sources_import_nothing_of_the_jax_package():
     scripts = os.path.join(REPO, "scripts")
     paths += [os.path.join(scripts, f) for f in sorted(os.listdir(scripts))
               if f.endswith("_torch.py")]
-    tools = os.path.join(REPO, "tools", "ppisp_export")
-    paths += [os.path.join(tools, f) for f in sorted(os.listdir(tools))
-              if f.endswith("_torch.py")]
+    for sub in ("tools", os.path.join("tools", "ppisp_export")):
+        tools = os.path.join(REPO, sub)
+        paths += [os.path.join(tools, f) for f in sorted(os.listdir(tools))
+                  if f.endswith("_torch.py")]
+    notebooks = os.path.join(REPO, "notebooks")
+    paths += [os.path.join(notebooks, f) for f in sorted(os.listdir(
+        notebooks)) if f.endswith("_torch.ipynb")]
     assert len(paths) > 30
     rel = {os.path.relpath(p, REPO) for p in paths}
     assert {os.path.join("threedgrut_tpu_torch", "strategy", "mcmc.py"),
@@ -436,6 +525,11 @@ def test_port_sources_import_nothing_of_the_jax_package():
         "sh_bake_validation", "filter_visibility")} <= rel
     assert os.path.join("tools", "ppisp_export",
                         "bake_modes_benchmark_torch.py") in rel
+    assert {os.path.join("tools", "parity_probe_torch.py"),
+            os.path.join("scripts", "train_denoiser_torch.py"),
+            os.path.join("scripts", "gen_parity_fixture_torch.py"),
+            os.path.join("notebooks",
+                         "playground_headless_torch.ipynb")} <= rel
     bad = {os.path.relpath(p, REPO): _imports_of_jax_package(p)
            for p in paths}
     assert not {k: v for k, v in bad.items() if v}, bad
@@ -447,6 +541,10 @@ def test_port_sources_import_nothing_of_the_jax_package():
     found = {m for _, m in _imports_of_jax_package(os.path.join(
         REPO, "threedgrut_tpu", "export", "sh_bake.py"))}
     assert {"jax", "jax.numpy", "optax"} <= found
+    # and a notebook's code cells (the JAX notebook imports the package)
+    assert any(m.startswith("threedgrut_tpu.playground") for _, m in
+               _imports_of_jax_package(os.path.join(
+                   REPO, "notebooks", "playground_headless.ipynb")))
 
 
 if __name__ == "__main__":

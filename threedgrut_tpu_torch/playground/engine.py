@@ -298,20 +298,24 @@ class Engine3DGRUT:
         # paths still alive: shade with the environment
         return radiance + masked(alive, throughput * self.envmap.sample(d))
 
-    def render_progressive(self, cam):
+    def render_progressive(self, cam, seed: int = 0):
         """Generator of progressively accumulated frames (the reference's
         has_more_to_accumulate loop, engine.py:1005): the running [H, W,
         3] average, clipped to [0, 1], after every SPP batch; jitter from
-        the SPP mode, the aperture from the depth-of-field sampler."""
+        the SPP mode, the aperture from the depth-of-field sampler, both
+        drawn from generators seeded with ``seed`` (where JAX takes a
+        ``key``). Reads ``self.config`` on every call."""
         from ..render.common import camera_rays_world
 
         cfg = self.config
         ro, rd = camera_rays_world(cam)
         ro, rd = ro.to(self.device), rd.to(self.device)
         h, w = ro.shape[:2]
-        spp = SPP(mode=cfg.spp_mode, spp=cfg.spp, device=self.device)
+        spp = SPP(mode=cfg.spp_mode, spp=cfg.spp, seed=seed,
+                  device=self.device)
         dof = (DepthOfField(spp=cfg.spp, aperture_size=cfg.aperture,
-                            focus_z=cfg.focus_distance, device=self.device)
+                            focus_z=cfg.focus_distance, seed=seed,
+                            device=self.device)
                if cfg.aperture > 0.0 else None)
         # pixel-space basis of the jitter: d(ray) / d(pixel)
         dx = rd[:, 1:, :] - rd[:, :-1, :]
@@ -340,11 +344,12 @@ class Engine3DGRUT:
             yield torch.clamp((acc / n).reshape(h, w, 3), 0.0,
                               1.0).cpu().numpy()
 
-    def render(self, cam) -> np.ndarray:
+    def render(self, cam, seed: int = 0) -> np.ndarray:
         """A full camera frame [H, W, 3] in [0, 1] with SPP accumulation,
-        depth of field and the optional denoiser pass."""
+        depth of field (random draws seeded with ``seed``) and the
+        optional denoiser pass."""
         img = None
-        for img in self.render_progressive(cam):
+        for img in self.render_progressive(cam, seed=seed):
             pass
         if self.config.denoise:
             img = torch.as_tensor(img, device=self.device)

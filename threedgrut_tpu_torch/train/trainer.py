@@ -613,7 +613,10 @@ class Trainer:
                       f"loss={metrics['total']:.4f} "
                       f"psnr={metrics['psnr']:.2f} "
                       f"n={self.model.n_active} "
-                      f"({len(history) / dt:.1f} it/s)")
+                      # JAX's figure (trainer.py:1219): the global step
+                      # over this call's time, which scripts/conv_table.py
+                      # turns back into the window's rate
+                      f"({self.global_step / dt:.1f} it/s)")
         self.train_wall_time += time.time() - t0
         return history
 

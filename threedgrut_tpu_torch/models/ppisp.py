@@ -31,6 +31,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..utils.timer import upload
+
 # fixed 2x2 whitening of the colour latents (ppisp_usd_spg.cu:72-79):
 # constants of the format
 _LATENT_WHITEN = np.asarray([
@@ -64,12 +66,18 @@ def _clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
     """``jnp.clip`` / ``jnp.maximum`` / ``jnp.minimum`` with their
     gradient: half of it through a value that sits on a bound."""
     if lo is not None:
-        x = torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype,
-                                             device=x.device))
+        x = torch.maximum(x, _bound(lo, x))
     if hi is not None:
-        x = torch.minimum(x, torch.as_tensor(hi, dtype=x.dtype,
-                                             device=x.device))
+        x = torch.minimum(x, _bound(hi, x))
     return x
+
+
+def _bound(v, x: torch.Tensor) -> torch.Tensor:
+    """``v`` as a tensor of ``x``'s dtype on its device; a number is
+    filled in place there, where an upload would wait for the device."""
+    if torch.is_tensor(v):
+        return v.to(dtype=x.dtype, device=x.device)
+    return x.new_full((), v)
 
 
 def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -82,7 +90,7 @@ def compute_homography(latents: torch.Tensor) -> torch.Tensor:
     (ppisp_usd_spg.cu:69 computeHomography). latents [..., 8] as (blue,
     red, green, neutral) xy pairs; returns [..., 3, 3]."""
     lat = latents.reshape(latents.shape[:-1] + (4, 2))
-    wh = torch.as_tensor(_LATENT_WHITEN, device=latents.device)
+    wh = upload(_LATENT_WHITEN, latents.device)
     d = (wh * lat[..., :, None, :]).sum(dim=-1)          # whitened deltas
     bd, rd, gd, nd = (d[..., k, :] for k in range(4))
     one = torch.ones_like(bd[..., 0])
@@ -108,8 +116,8 @@ def compute_homography(latents: torch.Tensor) -> torch.Tensor:
     n02 = (c02 * c02).sum(dim=-1, keepdim=True)
     lam = torch.where(n01 >= 1e-20, c01, torch.where(n02 >= 1e-20, c02, c12))
     h = t * lam[..., None, :]                            # t @ diag(lam)
-    sinv = torch.tensor([[-1.0, -1.0, 1.0], [1.0, 0.0, 0.0],
-                         [0.0, 1.0, 0.0]], device=latents.device)
+    sinv = upload([[-1.0, -1.0, 1.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]],
+                  latents.device)
     h = _matmul3(h, sinv.expand(h.shape))
     s = h[..., 2:3, 2:3]
     big = s.abs() > 1e-20

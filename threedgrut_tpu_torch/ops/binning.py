@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.timer import host_read, timed
 from .cuda.expand import expand_decode_pairs
 from .ut import TILE_X, TILE_Y, Projection
 
@@ -82,7 +83,8 @@ def pair_slots(proj: Projection, tile_grid,
     order = torch.argsort(depth_key, stable=True)
     counts_sorted = counts[order]
     offsets = torch.cumsum(counts_sorted, dim=0, dtype=torch.int64)
-    total = int(offsets[-1]) if offsets.numel() else 0   # host read
+    total = (int(host_read("pair_total", offsets[-1])) if offsets.numel()
+             else 0)
     excl = (offsets - counts_sorted).to(torch.int32)
 
     max_power = torch.log(torch.clamp(proj.opacity.detach(), min=1e-30)
@@ -108,6 +110,7 @@ def sort_pairs(pair_tile: torch.Tensor, pair_particle: torch.Tensor,
     return pair_tile, pair_particle, tile_start, perm.to(torch.int32)
 
 
+@timed("grut.binning")
 def bin_particles(proj: Projection, tile_grid, max_pairs: Optional[int] = None,
                   tile_culling: bool = True,
                   alpha_threshold: float = 1.0 / 255.0) -> Binning:
@@ -124,7 +127,7 @@ def bin_particles(proj: Projection, tile_grid, max_pairs: Optional[int] = None,
     return Binning(
         pair_particle=pair_particle, pair_tile=pair_tile,
         tile_start=tile_start, num_pairs=tile_start[-1].clone(),
-        overflow=torch.tensor(slots.total - limit, dtype=torch.int32,
-                              device=tile_start.device),
+        overflow=torch.full((), slots.total - limit, dtype=torch.int32,
+                            device=tile_start.device),
         perm=perm, order=slots.order, excl=slots.excl, counts=slots.counts,
         limit=limit)

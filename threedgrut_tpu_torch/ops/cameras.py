@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.timer import upload
 from .quaternion import quat_slerp, quat_to_rotmat
 
 FTHETA_POLY_DEGREE = 6
@@ -90,7 +91,7 @@ def _camera(resolution, model_type, shutter_type, device, t, q, t_end,
         if v is None:
             return torch.full((n,), default, dtype=torch.float32,
                               device=device)
-        return torch.tensor(np.asarray(v, np.float32), device=device)
+        return upload(np.asarray(v, np.float32), device)
 
     qid = [1.0, 0.0, 0.0, 0.0]
     t_s = vec(t, 3)
@@ -162,11 +163,12 @@ def make_ftheta(resolution, principal, angle_to_pixeldist, pixeldist_to_angle,
 # ---------------------------------------------------------------------------
 
 def _within_resolution(res_wh, tolerance, p):
-    tol = torch.tensor(res_wh, dtype=torch.float32, device=p.device) \
-        * tolerance
-    return ((p[..., 0] > -tol[0]) & (p[..., 1] > -tol[1])
-            & (p[..., 0] < res_wh[0] + tol[0])
-            & (p[..., 1] < res_wh[1] + tol[1]))
+    # the bounds in fp32 on the host: an upload would wait for the device
+    res = np.asarray(res_wh, np.float32)
+    tol = res * np.float32(tolerance)
+    hi = res + tol
+    return ((p[..., 0] > float(-tol[0])) & (p[..., 1] > float(-tol[1]))
+            & (p[..., 0] < float(hi[0])) & (p[..., 1] < float(hi[1])))
 
 
 def _horner(coeffs: torch.Tensor, n: int, x: torch.Tensor) -> torch.Tensor:

@@ -92,6 +92,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ...utils.timer import ScopedTimer
 from ..hit import _GG_SCALE, nht_hit_features, particle_response
 from ..ut import TILE_PIXELS, TILE_X, TILE_Y
 from . import build
@@ -270,8 +271,9 @@ def rasterize_tiles(table: torch.Tensor, pair_particle: torch.Tensor,
     if fold is None and torch.is_grad_enabled() and table.requires_grad:
         raise ValueError("table requires grad: pass the binning's "
                          "FoldMeta, which the backward needs")
-    return _rasterize(table, pair_particle, tile_start, ray_d, tmin, tmax,
-                      cfg, fold, ray_o, shared)
+    with ScopedTimer("grut.raster"):
+        return _rasterize(table, pair_particle, tile_start, ray_d, tmin,
+                          tmax, cfg, fold, ray_o, shared)
 
 
 def _rasterize(table, pair_particle, tile_start, ray_d, tmin, tmax, cfg,

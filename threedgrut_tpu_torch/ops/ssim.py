@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.timer import upload
+
 C1 = 0.01 ** 2
 C2 = 0.03 ** 2
 
@@ -26,8 +28,7 @@ def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
 def _blur(img: torch.Tensor, size: int) -> torch.Tensor:
     """Separable valid-padding Gaussian blur of [B, C, H, W]."""
     c = img.shape[1]
-    g = torch.tensor(_gaussian_window(size), dtype=img.dtype,
-                     device=img.device)
+    g = upload(_gaussian_window(size), img.device, img.dtype)
     out = F.conv2d(img, g.view(1, 1, size, 1).expand(c, 1, size, 1),
                    groups=c)
     return F.conv2d(out, g.view(1, 1, 1, size).expand(c, 1, 1, size),

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.timer import timed, upload
 from .cameras import CameraModel, project_point_with_shutter
 from .quaternion import quat_normalize, quat_to_rotmat
 
@@ -57,6 +58,7 @@ class Projection(NamedTuple):
     view_dir: torch.Tensor   # [N, 3] unit direction sensor -> particle
 
 
+@timed("grut.ut")
 def unscented_projection(cam: CameraModel, cfg: UTConfig,
                          positions: torch.Tensor, quats: torch.Tensor,
                          scales: torch.Tensor, opacities: torch.Tensor,
@@ -88,8 +90,7 @@ def unscented_projection(cam: CameraModel, cfg: UTConfig,
 
     center = w0 * proj[:, 0, :] + wi * torch.sum(proj[:, 1:, :], dim=1)
     centered = proj - center[:, None, :]
-    weights = torch.tensor([w0_cov] + [wi] * (2 * n_sigma_d),
-                           dtype=torch.float32, device=positions.device)
+    weights = upload([w0_cov] + [wi] * (2 * n_sigma_d), positions.device)
     cov_xx = torch.sum(weights * centered[..., 0] * centered[..., 0], dim=1)
     cov_xy = torch.sum(weights * centered[..., 0] * centered[..., 1], dim=1)
     cov_yy = torch.sum(weights * centered[..., 1] * centered[..., 1], dim=1)

@@ -21,6 +21,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..utils.timer import timed
+
 
 @dataclasses.dataclass
 class AdamState:
@@ -37,6 +39,7 @@ def init_adam_state(params: Dict[str, torch.Tensor]) -> AdamState:
 
 
 @torch.no_grad()
+@timed("grut.adam")
 def adam_step(params: Dict[str, torch.Tensor],
               grads: Dict[str, torch.Tensor], state: AdamState,
               lrs: Dict[str, float], *, betas=(0.9, 0.999), eps=1e-15,

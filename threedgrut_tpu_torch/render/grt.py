@@ -45,6 +45,7 @@ from ..ops.cameras import CameraModel
 from ..ops.cuda.raster import FoldMeta, rasterize_tiles
 from ..ops.sh import eval_sh_radiance
 from ..ops.ut import TILE_PIXELS, TILE_X, UTConfig
+from ..utils.timer import ScopedTimer
 from .common import RasterConfig
 from .gut import particle_table, render_gut
 
@@ -351,18 +352,21 @@ def prepare_trace(model: GaussianModel, rays_o: torch.Tensor,
         accelerate = accel is not None or cap > 8192
 
     # per-particle SH radiance from the mean-origin direction, clamped
-    view_dir = model.positions - center
-    view_dir = view_dir / torch.clamp(
-        torch.linalg.norm(view_dir, dim=1, keepdim=True), min=1e-12)
-    feats = torch.clamp(eval_sh_radiance(model.sh_coeffs(), view_dir,
-                                         sh_degree), min=0.0)
-    table = particle_table(model, None, feats)
-    table = torch.cat([table[:, :12], table[:, 12:13] * active[:, None],
-                       table[:, 13:]], dim=1)
-    # the dead row: identity geometry at the origin, zero density
-    dead = torch.zeros((1, table.shape[1]), dtype=torch.float32, device=dev)
-    dead[0, [3, 7, 11]] = 1.0
-    table = torch.cat([table, dead]).contiguous()
+    with ScopedTimer("grut.sh"):
+        view_dir = model.positions - center
+        view_dir = view_dir / torch.clamp(
+            torch.linalg.norm(view_dir, dim=1, keepdim=True), min=1e-12)
+        feats = torch.clamp(eval_sh_radiance(model.sh_coeffs(), view_dir,
+                                             sh_degree), min=0.0)
+    with ScopedTimer("grut.table"):
+        table = particle_table(model, None, feats)
+        table = torch.cat([table[:, :12], table[:, 12:13] * active[:, None],
+                           table[:, 13:]], dim=1)
+        # the dead row: identity geometry at the origin, zero density
+        dead = torch.zeros((1, table.shape[1]), dtype=torch.float32,
+                           device=dev)
+        dead[0, [3, 7, 11]] = 1.0
+        table = torch.cat([table, dead]).contiguous()
     needs_grad = torch.is_grad_enabled() and table.requires_grad
 
     def image(x):   # tile b of the [16 n_blocks, 16] image is block b

@@ -55,6 +55,7 @@ from ..ops.cuda.wmax import pair_weight_max, particle_weight_max
 from ..ops.quaternion import quat_normalize, quat_to_rotmat
 from ..ops.sh import eval_sh_radiance
 from ..ops.ut import TILE_X, TILE_Y, UTConfig
+from ..utils.timer import ScopedTimer
 from .common import RasterConfig, camera_rays_world
 
 
@@ -137,27 +138,29 @@ def prepare_view(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
         cam, ut_cfg, model.positions, model.rotation, model.get_scale(),
         model.get_density()[:, 0], model.active_mask())
     nht = is_nht(model)
-    if nht:
-        feats = torch.cat([model.features, model.features.new_zeros(
-            (model.capacity, 3))], dim=1)
-    else:
-        # per-particle radiance from the sensor->particle direction,
-        # clamped at 0 like the renderer's max(features, 0) fetch
-        feats = torch.clamp(eval_sh_radiance(
-            model.sh_coeffs(), proj.view_dir, sh_degree), min=0.0)
+    with ScopedTimer("grut.sh"):
+        if nht:
+            feats = torch.cat([model.features, model.features.new_zeros(
+                (model.capacity, 3))], dim=1)
+        else:
+            # per-particle radiance from the sensor->particle direction,
+            # clamped at 0 like the renderer's max(features, 0) fetch
+            feats = torch.clamp(eval_sh_radiance(
+                model.sh_coeffs(), proj.view_dir, sh_degree), min=0.0)
     b = binning_ops.bin_particles(
         proj, grid, raster_cfg.max_pairs,
         tile_culling=raster_cfg.tile_culling,
         alpha_threshold=ut_cfg.alpha_threshold)
     # NHT needs the canonical hit point: the general mode
     shared = shared_origin(cam, rays) and not nht
-    table = particle_table(
-        model, ut_ops.sensor_position(cam) if shared else None, feats)
-    ray_o, ray_d = camera_rays_world(cam) if rays is None else rays
-    with torch.no_grad():   # rays and t-ranges carry no gradient
-        ray_o = ray_o.detach().to(torch.float32)
-        ray_d = ray_d.detach().to(torch.float32)
-        tmin, tmax = _ray_aabb(ray_o, ray_d, *_scene_aabb(model))
+    with ScopedTimer("grut.table"):
+        table = particle_table(
+            model, ut_ops.sensor_position(cam) if shared else None, feats)
+        ray_o, ray_d = camera_rays_world(cam) if rays is None else rays
+        with torch.no_grad():   # rays and t-ranges carry no gradient
+            ray_o = ray_o.detach().to(torch.float32)
+            ray_d = ray_d.detach().to(torch.float32)
+            tmin, tmax = _ray_aabb(ray_o, ray_d, *_scene_aabb(model))
     return ViewInputs(proj, b, table, ray_d.contiguous(), tmin.contiguous(),
                       tmax.contiguous(),
                       None if shared else ray_o.contiguous())

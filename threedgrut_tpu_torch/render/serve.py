@@ -17,6 +17,7 @@ from ..models.background import apply_background
 from ..models.gaussians import GaussianModel
 from ..ops.cameras import CameraModel
 from ..ops.ut import UTConfig
+from ..utils.timer import ScopedTimer
 from .common import RasterConfig
 from .gut import render_gut
 
@@ -47,9 +48,11 @@ def make_serving_renderer(model: GaussianModel, raster_cfg: RasterConfig,
         with torch.inference_mode():
             imgs = []
             for cam in cams:
-                out = render_gut(cam, ut_cfg, raster_cfg, model, sh_degree)
-                imgs.append(apply_background(out["pred_features"],
-                                             out["pred_opacity"], bg))
+                with ScopedTimer("grut.frame", unit=True):
+                    out = render_gut(cam, ut_cfg, raster_cfg, model,
+                                     sh_degree)
+                    imgs.append(apply_background(out["pred_features"],
+                                                 out["pred_opacity"], bg))
             return torch.stack(imgs)
 
     return render

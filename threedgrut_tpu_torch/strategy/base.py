@@ -11,10 +11,13 @@ model's parameters and the moments in place.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..models.gaussians import GaussianModel
 from ..optimizers.adam import AdamState
+from ..utils.timer import host_read
 
 
 def _rows_of(model: GaussianModel, opt: AdamState):
@@ -43,25 +46,32 @@ def compact(model: GaussianModel, opt: AdamState, keep: torch.Tensor
     return order
 
 
+def mask_rows(mask: torch.Tensor, n: int) -> torch.Tensor:
+    """The rows of ``mask``'s ``n`` True entries, in order, without
+    reading the mask on the host."""
+    return torch.nonzero_static(mask, size=n).flatten()
+
+
 @torch.no_grad()
 def append_rows(model: GaussianModel, opt: AdamState, new_rows: dict,
-                add_mask: torch.Tensor) -> int:
+                add_mask: torch.Tensor, n_add: Optional[int] = None) -> int:
     """Append row i of ``new_rows[name]`` (default: the model's own row i)
     for every i with ``add_mask[i]``, at the end of the live region; the
-    moments of appended rows are zeroed. Returns the rows dropped because
-    the capacity is full."""
+    moments of appended rows are zeroed. ``n_add``: the mask's count,
+    where the caller knows it (else one host read). Returns the rows
+    dropped because the capacity is full."""
     cap = model.capacity
     n = model.n_active
-    src = torch.nonzero(add_mask).flatten()
-    n_add = int(src.numel())
+    if n_add is None:
+        n_add = int(host_read("strategy.append", add_mask.sum()))
     n_fit = min(n_add, cap - n)
-    src = src[:n_fit]
+    src = mask_rows(add_mask, n_add)[:n_fit]
     dest = torch.arange(n, n + n_fit, device=add_mask.device)
     for name, p in model.params().items():
         p.data[dest] = new_rows.get(name, p.data)[src]
         for mom in (opt.exp_avg, opt.exp_avg_sq):
             if name in mom:
-                mom[name][dest] = 0.0
+                mom[name].index_fill_(0, dest, 0.0)
     model.n_active = n + n_fit
     return n_add - n_fit
 

@@ -31,6 +31,7 @@ import torch
 from ..models.gaussians import INVERSE_ACTIVATIONS, GaussianModel
 from ..ops.quaternion import quat_normalize, quat_to_rotmat
 from ..optimizers.adam import AdamState
+from ..utils.timer import host_read, upload
 from . import base
 
 
@@ -57,9 +58,8 @@ class MCMCStrategyConfig:
 
 def _binom_table(n_max: int, device) -> torch.Tensor:
     """[n, k] = C(n, k) for n, k < n_max (0 above the diagonal), f32."""
-    return torch.tensor([[math.comb(n, k) if k <= n else 0
-                          for k in range(n_max)] for n in range(n_max)],
-                        dtype=torch.float32, device=device)
+    return upload([[math.comb(n, k) if k <= n else 0
+                    for k in range(n_max)] for n in range(n_max)], device)
 
 
 def compute_relocation(opacities: torch.Tensor, scales: torch.Tensor,
@@ -90,7 +90,7 @@ def _sample_targets(generator: torch.Generator, probs: torch.Tensor,
     """[n_samples] rows drawn with replacement in proportion to ``probs``
     (mcmc.py:_sample_targets); row 0 each time when every probability is
     zero, as JAX's categorical over all -inf logits gives."""
-    if not bool((probs > 0.0).any()):
+    if not host_read("mcmc.any_live", (probs > 0.0).any()):
         return torch.zeros(n_samples, dtype=torch.int64, device=probs.device)
     return torch.multinomial(probs, n_samples, replacement=True,
                              generator=generator)
@@ -116,14 +116,16 @@ def _relocation_updates(model: GaussianModel, sampled: torch.Tensor,
     return raw_op[:, None], raw_scale
 
 
-def _rescale_targets(model: GaussianModel, sampled, move_mask, n_max):
+def _rescale_targets(model: GaussianModel, sampled, move_mask, move_rows,
+                     n_max):
     """Write the rescaled density and scale onto the targets of the
-    moving slots; returns those targets."""
+    moving slots (``move_mask``; ``move_rows`` its rows in order); returns
+    those targets."""
     raw_op, raw_scale = _relocation_updates(model, sampled, move_mask, n_max)
-    targets = sampled[move_mask]
+    targets = sampled[move_rows]
     # slots that share a target carry the same values: the writes agree
-    model.density.data[targets] = raw_op[move_mask]
-    model.scale.data[targets] = raw_scale[move_mask]
+    model.density.data[targets] = raw_op[move_rows]
+    model.scale.data[targets] = raw_scale[move_rows]
     return targets
 
 
@@ -138,16 +140,18 @@ def relocate(model: GaussianModel, opt: AdamState, generator: torch.Generator,
     dens = model.get_density()[:, 0]
     dead = active & (dens <= opacity_threshold)
     alive = active & (dens > opacity_threshold)
+    n_dead = int(host_read("mcmc.relocated", dead.sum()))
     sampled = _sample_targets(generator, torch.where(
         alive, dens, torch.zeros_like(dens)), cap)
-    targets = _rescale_targets(model, sampled, dead, n_max)
+    dead_rows = base.mask_rows(dead, n_dead)
+    targets = _rescale_targets(model, sampled, dead, dead_rows, n_max)
     # targets are alive, so the copies read no row they write
     for p in model.params().values():
-        p.data[dead] = p.data[targets]
+        p.data[dead_rows] = p.data[targets]
     touched = dead.clone()
-    touched[targets] = True
+    touched.index_fill_(0, targets, True)
     base.reset_moments_rows(opt, touched)
-    return int(dead.sum())
+    return n_dead
 
 
 @torch.no_grad()
@@ -165,14 +169,15 @@ def add_gaussians(model: GaussianModel, opt: AdamState,
     dens = model.get_density()[:, 0]
     sampled = _sample_targets(generator, torch.where(
         active, dens, torch.zeros_like(dens)), cap)
+    add_rows = torch.arange(n_add, device=sampled.device)
     add_mask = torch.arange(cap, device=sampled.device) < n_add
-    targets = _rescale_targets(model, sampled, add_mask, n_max)
+    targets = _rescale_targets(model, sampled, add_mask, add_rows, n_max)
     # the new rows copy the (rescaled) targets
     new_rows = {k: p.data[targets] for k, p in model.params().items()}
     touched = torch.zeros(cap, dtype=torch.bool, device=sampled.device)
-    touched[targets] = True
+    touched.index_fill_(0, targets, True)
     base.reset_moments_rows(opt, touched)
-    base.append_rows(model, opt, new_rows, add_mask)
+    base.append_rows(model, opt, new_rows, add_mask, n_add)
     return n_add
 
 

@@ -83,6 +83,7 @@ from ..strategy import gs as gs_strategy
 from ..strategy import mcmc as mcmc_strategy
 from ..utils import lpips as lpips_mod
 from ..utils.misc import create_summary_writer, jet_map, linear_to_srgb
+from ..utils.timer import ScopedTimer, host_read, timed
 
 # the decoder's Adam groups, one per layer weight: "nht_decoder/<i>"
 DECODER = "nht_decoder"
@@ -389,11 +390,14 @@ class Trainer:
         loss (JAX trainer.py:478-485): the ISP of frame ``frame_idx``
         unclamped, linear-to-srgb on the clamped colour, or none."""
         if self.ppisp_params is not None:
-            return apply_ppisp_full(self.ppisp_params, pred, 0, frame_idx)
+            with ScopedTimer("grut.isp"):
+                return apply_ppisp_full(self.ppisp_params, pred, 0,
+                                        frame_idx)
         if self.conf.post_processing == "linear-to-srgb":
             return linear_to_srgb(torch.clamp(pred, 0.0, 1.0))
         return pred
 
+    @timed("grut.loss")
     def loss(self, out, rgb_gt, frame_idx: int = 0):
         """(total, losses dict, pred) of one render of dataset frame
         ``frame_idx`` against its GT."""
@@ -426,6 +430,7 @@ class Trainer:
         losses["total"] = total
         return total, losses, pred
 
+    @timed("grut.step", unit=True)
     def train_iteration(self, batch, frame_idx: Optional[int] = None
                         ) -> Dict[str, float]:
         """One step on one view; ``frame_idx`` is the view's index in the
@@ -439,7 +444,8 @@ class Trainer:
         out = render_gut(cam, self.conf.ut, self.conf.raster, self.model,
                          self.sh_degree())
         total, losses, pred = self.loss(out, rgb_gt, frame_idx or 0)
-        total.backward()
+        with ScopedTimer("grut.backward"):
+            total.backward()
         grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
                  for k, p in params.items()}
         visibility = (out["mog_visibility"]
@@ -450,11 +456,13 @@ class Trainer:
             eps=self.conf.optimizer.eps, visibility=visibility,
             update_mask=self.model.active_mask())
         with torch.no_grad():
-            metrics = {k: float(v) for k, v in losses.items()}
-            metrics["psnr"] = float(psnr(torch.clamp(pred, 0.0, 1.0),
-                                         rgb_gt))
-        metrics["pairs"] = int(out["num_pairs"])
-        metrics["overflow"] = int(out["pairs_overflow"])
+            metrics = {k: float(host_read("loss", v))
+                       for k, v in losses.items()}
+            metrics["psnr"] = float(host_read("psnr", psnr(
+                torch.clamp(pred, 0.0, 1.0), rgb_gt)))
+        metrics["pairs"] = int(host_read("pairs", out["num_pairs"]))
+        metrics["overflow"] = int(host_read("overflow",
+                                            out["pairs_overflow"]))
         self._last_cam = cam
         self.global_step += 1
         if self.decoder is not None:
@@ -548,6 +556,7 @@ class Trainer:
             self._event(step, "weight-pruned", dict(n_pruned=n_pruned,
                                                     n=model.n_active))
 
+    @timed("grut.mcmc")
     def _mcmc_events(self):
         """relocate, add, then perturb with the position lr of the new
         step (trainer.py:858-885)."""
@@ -557,23 +566,27 @@ class Trainer:
                                            c.relocate_end,
                                            c.relocate_frequency):
             n_active = model.n_active
-            n_rel = mcmc_strategy.relocate(
-                model, opt, self.generator,
-                opacity_threshold=c.opacity_threshold, n_max=c.binom_n_max)
+            with ScopedTimer("grut.mcmc.relocate"):
+                n_rel = mcmc_strategy.relocate(
+                    model, opt, self.generator,
+                    opacity_threshold=c.opacity_threshold,
+                    n_max=c.binom_n_max)
             self._event(step, "relocate", dict(n_relocated=n_rel,
                                                n_active=n_active))
         if strat_base.check_step_condition(step, c.add_start, c.add_end,
                                            c.add_frequency):
-            n_added = mcmc_strategy.add_gaussians(
-                model, opt, self.generator, max_n=c.max_n_gaussians,
-                n_max=c.binom_n_max)
+            with ScopedTimer("grut.mcmc.add"):
+                n_added = mcmc_strategy.add_gaussians(
+                    model, opt, self.generator, max_n=c.max_n_gaussians,
+                    n_max=c.binom_n_max)
             self._event(step, "add", dict(n_added=n_added,
                                           n=model.n_active))
         if strat_base.check_step_condition(step, c.perturb_start,
                                            c.perturb_end,
                                            c.perturb_frequency):
-            mcmc_strategy.perturb(model, self.generator,
-                                  self._positions_lr(step), c.noise_lr)
+            with ScopedTimer("grut.mcmc.perturb"):
+                mcmc_strategy.perturb(model, self.generator,
+                                      self._positions_lr(step), c.noise_lr)
 
     def _event(self, step, kind, stats):
         self.event_stats.append((step, kind, stats))

@@ -312,7 +312,7 @@ The NCore apps, the denoisers, video and the live GUI (phases 45-48):
    device busy, idle share and kernels a step over 5 traced steps, ms a
    decode and a batch; A and B a step and a validation view, C, D and
    D's inversion a step, B and C in both modes (general on the rolling
-   shutter), no other kernel.
+   shutter), P a validation view, no other kernel.
 46. NCore 3DGRT + MCMC - the same for apps/ncore_3dgrt_mcmc (kNN scales;
    B and C in the sorted mode, W 16, degree 4: kW 16 general on the
    rolling shutter, shared-origin on the fisheye).
@@ -378,6 +378,14 @@ phase 7):
    the engine hands trace() (96x96 lens rays, then rays from mesh hits,
    each with its own origin, 36 blocks of 256), at phase 31's
    tolerances with its cull check.
+53. kernel P - ops/cuda/project.py:project_view (csrc/project.cu) at
+   2,300,160 rows of the bench cloud on a 1920x1080 pinhole view against
+   its plain version in fp32 and float64
+   (tests/torch_port_utils.py:projection_check: the AABB bitwise, every
+   other output within rounding, validity flipped only near a decision);
+   its ms by events and device time beside its bound and the plain
+   version's; the six instantiations' registers; 1 launch a served frame
+   and 0 a training render.
 
 Then a line "done" with the seconds since the script started, a JSON
 line with each kernel's launches (A-D from phase 11, sorted
@@ -397,6 +405,7 @@ phase 47's denoised frames by denoiser, and as multigpu_launches those of
 phases 49-50 by phase and case (rank 0's, one step or render), as
 denoiser_training_launches kernel 7 B's in phase 52 (in all and a pair)
 and as denoiser_training_max_abs_err its error at that path's shapes,
+P's launches a served frame from phase 53,
 error and times (phases 3, 4, 8, 9, 13-15, 19-21, 26-27, 31-34, 37, 39,
 40; G and H also by device time), its bound (the larger
 of the fp32 operations over 67 TFLOP/s and the bytes it must read and
@@ -443,7 +452,7 @@ PARAM_NAMES = ("positions", "rotation", "scale", "density",
                "features_albedo", "features_specular")
 # kernel libraries built from csrc/
 LIBS = ("bin_decode", "raster_fwd", "raster_bwd", "fold", "wmax",
-        "scatter_rows", "expand_rows", "fill")
+        "scatter_rows", "expand_rows", "fill", "project")
 # the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor
 # cores, and HBM3
 PEAK_FP32 = 67e12
@@ -611,6 +620,10 @@ KERNELS = {
              "threedgrut_tpu/ops/pallas/fill.py:31"),
     "fill_segmented": ("threedgrut_tpu_torch/csrc/fill.cu",
                        "threedgrut_tpu/ops/pallas/fill.py:31"),
+    # kernel P: the projection, SH and table of every row where no
+    # gradient flows; it replaces no TPU kernel (JAX's projection is plain
+    # XLA: ops/ut.py, ops/sh.py, render/gut.py)
+    "project": ("threedgrut_tpu_torch/csrc/project.cu", None),
 }
 
 
@@ -868,8 +881,9 @@ def _profiled_calls(fn, reps):
              (marks["device_ms_reps"], marks["device_ms_end"])]
     out = [({}, {}), ({}, {})]
     for e in events:
+        # the port's spans (utils/timer.py) show on the device too
         if (e.device_type != torch.autograd.DeviceType.CUDA
-                or e.name.startswith("device_ms_")):
+                or e.name.startswith(("device_ms_", "grut."))):
             continue
         for k, (t0, t1) in enumerate(spans):
             if t0 <= e.time_range.start < t1:
@@ -3848,6 +3862,11 @@ NCORE_APPS = {
 }
 
 
+# kernel P's counters: it renders the validation views, which take no
+# gradient, and never a training step
+PROJECT_COUNTERS = ("project_view.launches", "project_view.launches_general")
+
+
 class NCoreClock:
     """While in a ``with``: the host clock at each entry of
     ``Trainer.train_iteration`` (the device synchronised first); a
@@ -3997,7 +4016,9 @@ def ncore_phase(dev, seq, root, label):
             sum(got[k] for k in bwd) == got["fold"] == got["fold_invert"]
             == NCORE_STEPS),
         "both modes of B and C": all(got[k] > 0 for k in fwd + bwd),
-        "no other kernel": set(counts) <= set(names),
+        "P a val view, never a step": sum(
+            counts.get(k, 0) for k in PROJECT_COUNTERS) == n_val,
+        "no other kernel": set(counts) <= set(names) | set(PROJECT_COUNTERS),
     }
     failed = [k for k, ok in checks.items() if not ok]
     decode = float(np.mean(clock.decode_ms))
@@ -4838,6 +4859,89 @@ def oracle_phase():
     phase("oracle", msg)
 
 
+# kernel P's full-size check: the serving cell's rows and image
+PROJECT_ROWS = 2_300_160
+PROJECT_RES = (1920, 1080)
+# fp32 operations of one row of kernel P on a pinhole global-shutter view
+# at SH degree 3 (csrc/project.cu): activations 8; the quaternion's norm
+# and rotation 40; the 6 sigma points 54; each of the 7 through the pose
+# 18 and the distorted pinhole 41 (413); the center and covariance 58; the
+# validity, conic, opacity and extent 45; the direction 14; the degree-3
+# basis 44 and the radiance 99; the record 36 (a = M (o - p) 18, M 9 and
+# 1/s 3, the rest 6); the AABB 10
+PROJECT_FLOPS = 811
+
+
+def project_phase(dev):
+    """Phase 53: kernel P (ops/cuda/project.py) at the serving cell's size,
+    PROJECT_ROWS rows of the bench cloud on a PROJECT_RES pinhole view,
+    against its plain version in fp32 and in float64 (both on the card):
+    tests/torch_port_utils.py:projection_check, as tests/test_torch_gpu.py
+    holds it (the AABB bitwise, the rest within rounding); P's ms by
+    events and device time beside its bound (every input and output byte
+    once) and the plain version's ms; the six instantiations' registers;
+    a served frame's launches of P (1) and a training render's (0).
+    Returns P's report entry and its launches a served frame."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_port_utils import projection_check
+
+    from threedgrut_tpu_torch.ops.cameras import make_pinhole
+    from threedgrut_tpu_torch.ops.cuda.project import (kernel_attributes,
+                                                       project_view,
+                                                       project_view_plain)
+    from threedgrut_tpu_torch.ops.ut import UTConfig
+    from threedgrut_tpu_torch.render.common import RasterConfig
+    from threedgrut_tpu_torch.render.gut import render_gut
+    from threedgrut_tpu_torch.render.serve import make_serving_renderer
+    from threedgrut_tpu_torch.synthetic import bench_cloud
+
+    w, h = PROJECT_RES
+    model = bench_cloud(PROJECT_ROWS, seed=0, device=dev)
+    cam = make_pinhole(PROJECT_RES, (1100.0, 1100.0), (w / 2, h / 2),
+                       device=dev)
+    cfg = UTConfig()
+    res = kernel_attributes()
+    errs = projection_check(cam, cfg, model, 3, True)
+    fields = {k: v for k, v in errs.items() if isinstance(v, dict)}
+    with torch.no_grad():
+        fn = lambda: project_view(cam, cfg, model, 3, True)  # noqa: E731
+        got = fn()
+        ms = cuda_ms(fn, 20)
+        dev_ms, by_kernel = device_ms(fn, 20, by_kernel=True)
+        plain_ms = cuda_ms(
+            lambda: project_view_plain(cam, cfg, model, 3, True), 5)
+    outs = (*got.proj[:6], got.table, got.aabb_lo, got.aabb_hi)
+    b = bound(nbytes(*(getattr(model, k) for k in PARAM_NAMES), *outs),
+              PROJECT_FLOPS * PROJECT_ROWS)
+
+    def p_launches():
+        return project_view.launches + project_view.launches_general
+
+    before = p_launches()
+    make_serving_renderer(model, RasterConfig(), 3, cfg)([cam])
+    served = p_launches() - before
+    render_gut(cam, cfg, RasterConfig(), model, 3)[
+        "pred_features"].mean().backward()
+    trained = p_launches() - before - served
+    phase("kernel P", (
+        f"{PROJECT_ROWS} rows, {w}x{h} pinhole, SH 3, against plain: flips "
+        f"{errs['flips']}, {errs['near']} rows near a decision, "
+        + ", ".join(f"{k} max ratio {v['max_ratio']:.3g}"
+                    for k, v in fields.items())
+        + f", AABB bitwise; P {ms:.4f} ms (device {dev_ms:.4f}: "
+        f"{by_kernel}), bound {b[0]:.4f} ms ({b[1]}), plain "
+        f"{plain_ms:.4f} ms; launches a served frame {served}, a training "
+        f"render {trained}; registers "
+        + ", ".join(f"{k} {v['registers']} ({v['local_bytes']} local, "
+                    f"{v['shared_bytes']} shared)" for k, v in res.items())))
+    if (served, trained) != (1, 0):
+        raise AssertionError(f"kernel P: {served} launches a served frame, "
+                             f"{trained} a training render")
+    return dict(max_err_ratio=max(v["max_ratio"] for v in fields.values()),
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                **bound_keys(b)), served
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -4856,6 +4960,7 @@ def main():
     from threedgrut_tpu_torch.ops.cuda.fold import (
         fold_pairs, fold_pairs_plain, invert_permutation,
         invert_permutation_plain)
+    from threedgrut_tpu_torch.ops.cuda.project import project_view
     from threedgrut_tpu_torch.ops.cuda.raster import (
         rasterize_tiles, rasterize_tiles_backward,
         rasterize_tiles_backward_plain, rasterize_tiles_forward,
@@ -4987,12 +5092,14 @@ def main():
     torch.cuda.synchronize()
     expand_decode_pairs.launches = 0
     rasterize_tiles.launches = 0
+    project_view.launches = 0
     t0 = time.perf_counter()
     imgs = serve(cams)
     torch.cuda.synchronize()
     per_batch = [(time.perf_counter() - t0) * 1e3 / N_VIEWS]
     launches = {"bin_decode": expand_decode_pairs.launches,
-                "raster_fwd": rasterize_tiles.launches}
+                "raster_fwd": rasterize_tiles.launches,
+                "project": project_view.launches}
     # more batches for the time only: the host clock varies per batch
     for _ in range(4):
         t0 = time.perf_counter()
@@ -5000,7 +5107,8 @@ def main():
         torch.cuda.synchronize()
         per_batch.append((time.perf_counter() - t0) * 1e3 / N_VIEWS)
     ms_frame = float(np.median(per_batch))
-    if launches != {"bin_decode": N_VIEWS, "raster_fwd": N_VIEWS}:
+    if launches != {"bin_decode": N_VIEWS, "raster_fwd": N_VIEWS,
+                    "project": N_VIEWS}:
         raise AssertionError(f"serving launches {launches}, "
                              f"expected {N_VIEWS} each")
     if tuple(imgs.shape) != (N_VIEWS, SIDE, SIDE, 3):
@@ -5225,6 +5333,9 @@ def main():
     (report["raster_fwd_shared_segment"]["denoiser_training_launches"],
      report["raster_fwd_shared_segment"]["denoiser_training_max_abs_err"]) = (
         denoiser_training_phase(dev))
+
+    # 53. kernel P at the serving cell's size
+    report["project"], launches["project"] = project_phase(dev)
 
     phase("done", f"every phase passed, {time.perf_counter() - _START:.1f} s "
           f"since the script started")

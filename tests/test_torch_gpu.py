@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from threedgrut_tpu_torch.models.gaussians import GaussianModelConfig
 from threedgrut_tpu_torch.ops import binning as t_bin
 from threedgrut_tpu_torch.ops.cameras import make_pinhole
 from threedgrut_tpu_torch.ops.cuda.expand import (
@@ -23,6 +24,7 @@ from threedgrut_tpu_torch.ops.cuda.fold import (fold_pairs, fold_pairs_plain,
                                                 fold_shared_segment,
                                                 invert_permutation,
                                                 invert_permutation_plain)
+from threedgrut_tpu_torch.ops.cuda.project import project_view
 from threedgrut_tpu_torch.ops.cuda.raster import (
     NHT_TRIG_FAST_MAX, FoldMeta, cull_plain, nht_fwd_kernel_attributes,
     nht_kernel_attributes, nht_sincos, rasterize_tiles,
@@ -39,8 +41,10 @@ from threedgrut_tpu_torch.render.grt import grt_raster_config, render_grt
 from threedgrut_tpu_torch.render.gut import prepare_view, render_gut
 from threedgrut_tpu_torch.ops.ut import UTConfig
 from threedgrut_tpu_torch.synthetic import bench_cloud
-from torch_port_utils import (ADVERSARIAL_IDS, adversarial_ids, column_rays,
-                              faint_column, far_rays, incoherent_rays)
+from torch_port_utils import (ADVERSARIAL_IDS, PROJECTION_CAMERAS,
+                              adversarial_ids, column_rays, faint_column,
+                              far_rays, incoherent_rays, projection_camera,
+                              projection_check, projection_cloud)
 
 RC = RasterConfig()
 # the sorted settings of apps/nerf_synthetic_3dgrt and of
@@ -1741,3 +1745,85 @@ def test_denoiser_on_card_matches_cpu(cuda, denoiser):
     for g, r in zip(got, ref):
         assert g.device.type == "cuda"
         torch.testing.assert_close(g.cpu(), r, atol=1e-5, rtol=0)
+
+
+# kernel P's cases against its plain version: every camera of
+# torch_port_utils.PROJECTION_CAMERAS (three models, the global shutter
+# and the four rolling ones), the active SH degrees 0-2 below the model's
+# 3, the UT's other branches (no dilation, so the scale-0 rows' covariance
+# is degenerate; no rect or tight bound, no mip scaling, distance depth,
+# every sigma point required, 3 shutter iterations), and the other
+# activations
+PROJECT_BRANCHES = UTConfig(
+    covariance_dilation=0.0, rect_bounding=False,
+    tight_opacity_bounding=False, mip_splatting_scaling=False,
+    global_z_order=False, require_all_sigma_points=True,
+    n_rolling_shutter_iterations=3)
+PROJECT_CASES = {
+    **{k: (k, UTConfig(), 3, None) for k in PROJECTION_CAMERAS},
+    **{f"pinhole_degree{d}": ("pinhole", UTConfig(), d, None)
+       for d in (0, 1, 2)},
+    "pinhole_branches": ("pinhole", PROJECT_BRANCHES, 3, None),
+    "pinhole_rolling_branches": ("pinhole_rolling", PROJECT_BRANCHES, 3,
+                                 None),
+    "fisheye_activations": ("fisheye", UTConfig(), 3, GaussianModelConfig(
+        scale_activation="none", density_activation="exp")),
+}
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(PROJECT_CASES))
+def test_project_matches_plain(cuda, case):
+    """Kernel P against its plain version on 20,224 rows with every edge
+    row of projection_cloud (dead rows past n_active, rows behind the
+    camera and under min_sensor_z, faint rows, scale-0 rows, wide rows),
+    in the shared-origin and the general records (a rolling shutter: the
+    general only). Tolerances (projection_check): 1e-5 relative (fp32
+    rounding through a few dozen operations), widened by the plain
+    version's own distance from float64 and by what 2 ulps of the sigma
+    points' pixels move (the covariance of sub-pixel splats cancels);
+    validity may flip only within rounding of a decision; the AABB's min
+    and max are exact."""
+    kind, cfg, degree, config = PROJECT_CASES[case]
+    model = projection_cloud(20000, device=cuda, config=config)
+    cam = projection_camera(kind, cuda)
+    for shared in ([True, False] if "rolling" not in kind else [False]):
+        projection_check(cam, cfg, model, degree, shared)
+
+
+@pytest.mark.gpu
+def test_project_full_size_matches_plain(cuda):
+    """Kernel P at the serving cell's size, 2,300,160 rows on a 1920x1080
+    pinhole view, against its plain version (as test_project_matches_plain
+    holds it)."""
+    model = bench_cloud(2_300_160, seed=0, device=cuda)
+    cam = make_pinhole((1920, 1080), (1100.0, 1100.0), (960.0, 540.0),
+                       device=cuda)
+    errs = projection_check(cam, UTConfig(), model, 3, True)
+    assert errs["rows"] == 2_300_160
+
+
+@pytest.mark.gpu
+def test_project_launches_once_a_served_frame_never_a_training_step(cuda):
+    """A served frame launches kernel P once (the shared-origin records
+    for a global shutter, the general ones for a rolling one); a training
+    step, whose render takes a gradient, never does."""
+    from threedgrut_tpu_torch.models.background import BackgroundConfig
+    from threedgrut_tpu_torch.render.serve import make_serving_renderer
+    from threedgrut_tpu_torch.synthetic import build_teacher, teacher_dataset
+    from threedgrut_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    def counts():
+        return (project_view.launches, project_view.launches_general)
+
+    model = projection_cloud(3000, device=cuda)
+    for kind, want in (("pinhole", (1, 0)), ("pinhole_rolling", (0, 1))):
+        before = counts()
+        make_serving_renderer(model, RC, 3)([projection_camera(kind, cuda)])
+        assert tuple(a - b for a, b in zip(counts(), before)) == want
+    ds = teacher_dataset(build_teacher(2000, seed=0, device=cuda), n_views=2,
+                         side=64)
+    trainer = Trainer(TrainerConfig(background=BackgroundConfig(
+        color="white")), ds, bench_cloud(1000, seed=1, device=cuda))
+    before = counts()
+    for i in range(3):
+        trainer.train_iteration(ds[i % 2], i % 2)
+    assert counts() == before

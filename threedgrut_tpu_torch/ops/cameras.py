@@ -162,13 +162,20 @@ def make_ftheta(resolution, principal, angle_to_pixeldist, pixeldist_to_angle,
 # projection of camera-space points
 # ---------------------------------------------------------------------------
 
-def _within_resolution(res_wh, tolerance, p):
-    # the bounds in fp32 on the host: an upload would wait for the device
+def margin_bounds(res_wh, tolerance):
+    """(lo_x, lo_y, hi_x, hi_y): the open pixel bounds of a projection
+    that is valid within ``tolerance`` of the image's size, in fp32 on the
+    host (an upload would wait for the device)."""
     res = np.asarray(res_wh, np.float32)
     tol = res * np.float32(tolerance)
     hi = res + tol
-    return ((p[..., 0] > float(-tol[0])) & (p[..., 1] > float(-tol[1]))
-            & (p[..., 0] < float(hi[0])) & (p[..., 1] < float(hi[1])))
+    return float(-tol[0]), float(-tol[1]), float(hi[0]), float(hi[1])
+
+
+def _within_resolution(res_wh, tolerance, p):
+    lo_x, lo_y, hi_x, hi_y = margin_bounds(res_wh, tolerance)
+    return ((p[..., 0] > lo_x) & (p[..., 1] > lo_y)
+            & (p[..., 0] < hi_x) & (p[..., 1] < hi_y))
 
 
 def _horner(coeffs: torch.Tensor, n: int, x: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,7 @@ def _wrappers():
     from .expand import expand_decode_pairs, expand_sorted_rows
     from .fill import forward_fill
     from .fold import fold_pairs, fold_shared_segment, invert_permutation
+    from .project import project_view
     from .raster import rasterize_tiles, rasterize_tiles_backward
     from .scatter import id_runs, scatter_runs
     from .wmax import pair_weight_max
@@ -17,7 +18,7 @@ def _wrappers():
     return (expand_decode_pairs, rasterize_tiles, rasterize_tiles_backward,
             fold_pairs, invert_permutation, fold_shared_segment,
             pair_weight_max, id_runs, scatter_runs, expand_sorted_rows,
-            forward_fill)
+            forward_fill, project_view)
 
 
 def launch_counts() -> dict:

@@ -33,10 +33,13 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # version's too, instead of flipping one ~1/255 contribution on tens of
 # pixels per view. raster_bwd shares raster_fwd's hit math
 # (common.cuh:eval_hit) and must take the same decisions, as must wmax;
-# fold only adds. The kernels not named here (scatter_rows, expand_rows,
-# fill) only add, copy or count and take no extra flags.
+# fold only adds. project takes the plain projection's roundings, one
+# product or sum at a time, so its validity tests match where they can.
+# The kernels not named here (scatter_rows, expand_rows, fill) only add,
+# copy or count and take no extra flags.
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "bin_decode": ["-fmad=false"],
+    "project": ["-fmad=false"],
     "raster_fwd": ["-fmad=false"],
     "raster_bwd": ["-fmad=false"],
     "fold": ["-fmad=false"],

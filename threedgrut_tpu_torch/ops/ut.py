@@ -4,14 +4,15 @@ Projects each Gaussian through the camera (any model, global or rolling
 shutter) with 7 sigma points, giving a
 2D mean and covariance, the conic, the (mip-scaled) opacity, the screen
 extent and the sort depth (reference gutProjector.cuh:32-322). Plain
-elementwise PyTorch over particles; no kernel is needed here.
+elementwise PyTorch over particles, the autograd path; a forward that
+needs no gradient runs kernel P (ops/cuda/project.py) instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -55,7 +56,9 @@ class Projection(NamedTuple):
     opacity: torch.Tensor    # [N] (mip-scaled) opacity
     extent: torch.Tensor     # [N, 2] screen half extent (pixels), 0 if invalid
     depth: torch.Tensor      # [N] sort depth, inf if invalid
-    view_dir: torch.Tensor   # [N, 3] unit direction sensor -> particle
+    # [N, 3] unit direction sensor -> particle; None from kernel P
+    # (ops/cuda/project.py), which evaluates the SH itself
+    view_dir: Optional[torch.Tensor] = None
 
 
 @timed("grut.ut")

@@ -27,8 +27,10 @@ Differentiable in the model parameters: the table and the SH features
 are built with autograd, and the raster's backward (kernels C and D)
 returns the table's gradient. The projection enters the binning only
 structurally (detached), as in JAX; rays and t-ranges get no gradient.
-Under ``torch.no_grad()`` (the serving path) the same kernels run
-without saving anything for a backward.
+Under ``torch.no_grad()`` (the serving path) the raster kernels run
+without saving anything for a backward, and kernel P
+(``ops/cuda/project.py``) makes the projection, SH and table of every
+particle in one launch.
 
 Returned dict mirrors the JAX package: ``pred_features`` [H,W,3] (NHT:
 [H,W,2d]),
@@ -50,10 +52,10 @@ from ..models.gaussians import GaussianModel
 from ..ops import binning as binning_ops
 from ..ops import ut as ut_ops
 from ..ops.cameras import CameraModel, ShutterType
+from ..ops.cuda.project import needs_grad, project_view, project_view_plain
 from ..ops.cuda.raster import FoldMeta, rasterize_tiles
 from ..ops.cuda.wmax import pair_weight_max, particle_weight_max
 from ..ops.quaternion import quat_normalize, quat_to_rotmat
-from ..ops.sh import eval_sh_radiance
 from ..ops.ut import TILE_X, TILE_Y, UTConfig
 from ..utils.timer import ScopedTimer
 from .common import RasterConfig, camera_rays_world
@@ -128,41 +130,37 @@ def prepare_view(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
                  model: GaussianModel, sh_degree: int,
                  rays=None) -> ViewInputs:
     """UT projection, SH features (NHT: the raw control features and 3
-    slots of padding), binning, the particle table and the rays
-    (``rays`` = (ray_o, ray_d) [H, W, 3] world-space, or the camera's)
-    with their scene-AABB t-ranges. In the general mode (always for NHT)
-    the table holds positions and ``ray_o`` the per-pixel origins."""
+    slots of padding), the particle table, binning and the rays (``rays`` =
+    (ray_o, ray_d) [H, W, 3] world-space, or the camera's) with their
+    scene-AABB t-ranges. In the general mode (always for NHT) the table
+    holds positions and ``ray_o`` the per-pixel origins.
+
+    The work over every particle row (projection, SH, table, AABB) is one
+    launch of kernel P (``ops/cuda/project.py:project_view``) for an SH
+    model when no gradient can flow into its parameters; a gradient, or
+    NHT features, take the autograd composition (``project_view_plain``,
+    as on CPU tensors), whose ``proj.view_dir`` is set."""
     w, h = cam.resolution
     grid = ((w + TILE_X - 1) // TILE_X, (h + TILE_Y - 1) // TILE_Y)
-    proj = ut_ops.unscented_projection(
-        cam, ut_cfg, model.positions, model.rotation, model.get_scale(),
-        model.get_density()[:, 0], model.active_mask())
+    # NHT needs the canonical hit point: the general mode
     nht = is_nht(model)
-    with ScopedTimer("grut.sh"):
-        if nht:
-            feats = torch.cat([model.features, model.features.new_zeros(
-                (model.capacity, 3))], dim=1)
-        else:
-            # per-particle radiance from the sensor->particle direction,
-            # clamped at 0 like the renderer's max(features, 0) fetch
-            feats = torch.clamp(eval_sh_radiance(
-                model.sh_coeffs(), proj.view_dir, sh_degree), min=0.0)
+    shared = shared_origin(cam, rays) and not nht
+    if nht or needs_grad(model):
+        pv = project_view_plain(cam, ut_cfg, model, sh_degree, shared)
+    else:
+        pv = project_view(cam, ut_cfg, model, sh_degree, shared)
     b = binning_ops.bin_particles(
-        proj, grid, raster_cfg.max_pairs,
+        pv.proj, grid, raster_cfg.max_pairs,
         tile_culling=raster_cfg.tile_culling,
         alpha_threshold=ut_cfg.alpha_threshold)
-    # NHT needs the canonical hit point: the general mode
-    shared = shared_origin(cam, rays) and not nht
     with ScopedTimer("grut.table"):
-        table = particle_table(
-            model, ut_ops.sensor_position(cam) if shared else None, feats)
         ray_o, ray_d = camera_rays_world(cam) if rays is None else rays
         with torch.no_grad():   # rays and t-ranges carry no gradient
             ray_o = ray_o.detach().to(torch.float32)
             ray_d = ray_d.detach().to(torch.float32)
-            tmin, tmax = _ray_aabb(ray_o, ray_d, *_scene_aabb(model))
-    return ViewInputs(proj, b, table, ray_d.contiguous(), tmin.contiguous(),
-                      tmax.contiguous(),
+            tmin, tmax = _ray_aabb(ray_o, ray_d, pv.aabb_lo, pv.aabb_hi)
+    return ViewInputs(pv.proj, b, pv.table, ray_d.contiguous(),
+                      tmin.contiguous(), tmax.contiguous(),
                       None if shared else ray_o.contiguous())
 
 

@@ -209,7 +209,8 @@ def test_trainer_config_matches_jax_loader(mode, capsys):
     records_bf16 are TPU knobs the port leaves out: it says so where the
     JAX loader would round records to bf16. The NHT configs set
     particle_feature_half, which that loader reads as records_bf16 only
-    where records_bf16 is unset, and the render YAMLs set it false."""
+    where records_bf16 is unset, and the render YAMLs set it false; for
+NHT the port names the half flags as the features' precision."""
     sys.path.insert(0, REPO)
     import train_torch
 
@@ -218,7 +219,10 @@ def test_trainer_config_matches_jax_loader(mode, capsys):
     t = train_torch.trainer_config(conf)
     assert conf.render.particle_feature_half is True
     assert j.raster.records_bf16 is False
-    assert "bf16" not in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "bf16" not in err
+    # the half flags are the NHT features' precision: said as such
+    assert "ask for fp16 NHT features" in err and "loss scale" in err
     seen = _fields_equal(t, j)
     for k in ("strategy", "mcmc.noise_lr", "mcmc.max_n_gaussians",
               "optimizer.lr_features", "optimizer.features_max_steps",

@@ -118,6 +118,25 @@ def test_relocate_step_reads(scene, spans_on):
     assert tr.event_stats[1][2]["n_added"] > 0
 
 
+def test_nht_step_decoder_spans(scene, spans_on):
+    """An NHT step: the decoder's span under the loss, its EMA update
+    under the step, and the decoded rows counted (one a pixel)."""
+    from threedgrut_tpu_torch.models import nht_decoder
+
+    _, data = scene
+    conf = TrainerConfig(strategy="mcmc", n_iterations=1000)
+    conf = dataclasses.replace(conf, mcmc=conf.mcmc.replace(
+        max_n_gaussians=512))
+    tr = Trainer(conf, data, synthetic.nht_cloud(300, seed=2))
+    rows = nht_decoder.mlp.rows
+    tr.train_iteration(data[0], frame_idx=0)
+    parents = {k: v["parents"] for k, v in timer.span_table().items()}
+    assert parents["grut.decoder"] == ["grut.loss"]
+    assert parents["grut.decoder.ema"] == ["grut.step"]
+    w, h = data[0].resolution
+    assert nht_decoder.mlp.rows - rows == w * h
+
+
 def test_frame_span_tree_and_units(scene, spans_on):
     """Two served frames: the layers under grut.frame, the pair total read
     under the binning, two units, one read a frame."""

@@ -11,13 +11,23 @@ tcnn SH has D^2 components. Then ``NUM_LAYERS`` bias-free ReLU layers of
 the published model's (configs/base.yaml:50-72), which every config and
 the JAX trainer use.
 
-Precision: the JAX decoder runs its Dense layers with bfloat16 operands
-and activations on fp32 parameters (flax ``dtype=bfloat16``), and the
-reference's tcnn MLP is half precision too; this module mirrors those
-casts (bf16 operands, products and ReLU; the sigmoid in fp32), a
-deliberate exception to the port's fp32 rule. The products are plain
-matrix products, ``torch.nn.functional.linear`` (JAX leaves them to XLA
-outside any Pallas kernel).
+Precision: the configurations ask for a half-precision decoder
+(tiny-cuda-nn's fp16 network with a loss scale; the JAX package runs
+bf16 on the TPU). On the card the products take fp16 operands and the
+hidden activations are fp16, as in tcnn; the products accumulate in
+fp32, the 3 outputs and the sigmoid are fp32, and the backward scales its
+cotangents by a power of two chosen from their largest on the device
+(``_Mlp``) and writes each weight's cotangent (a sum over the rows) and
+the inputs' in fp32. Without a scale the loss's
+per-pixel cotangents (~1e-7 at a million pixels) fall below fp16's
+normal range and the weights' cotangents flush to 0; a fixed one
+overflows where a caller's cotangents are large. On the CPU the products
+are fp32. bf16's 7 mantissa bits would compute more coarsely than the
+configuration states. Measured on an H100 at 1,016,814 pixels against
+float64 (PERF.md, section 6): fp16 with a scale is 1.30e-4 off in its
+outputs and 2.6e-2 in its cotangents, TF32 products 1.25e-4 and 2.6e-2,
+bf16 1.07e-3 and 7.5e-2; the forward and backward take 4.1 ms in fp16,
+6.5 ms in TF32 (its activations are fp32, twice the bytes).
 
 EMA: a shadow copy of the weights, updated at every step as
 shadow <- EMA_DECAY * shadow + (1 - EMA_DECAY) * weights; validation
@@ -26,6 +36,7 @@ decodes through it (feature_decoder.py:106-141).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List
 
@@ -91,14 +102,90 @@ class FeatureDecoder(nn.Module):
         """RGB [..., 3] of ray features [..., F] along dirs [..., 3];
         ``use_ema`` decodes with the shadow weights."""
         ws = self.ema_shadow if use_ema else self.weights()
-        x = self.encode_input(features, dirs).to(torch.bfloat16)
-        for w in ws[:-1]:
-            x = torch.relu(F.linear(x, w.to(torch.bfloat16)))
-        x = F.linear(x, ws[-1].to(torch.bfloat16)).to(torch.float32)
-        return torch.sigmoid(x)
+        return mlp(self.encode_input(features, dirs), ws)
 
     @torch.no_grad()
     def ema_update(self):
         """shadow <- EMA_DECAY * shadow + (1 - EMA_DECAY) * weights."""
         for s, w in zip(self.ema_shadow, self.weights()):
             s.copy_(EMA_DECAY * s + (1.0 - EMA_DECAY) * w)
+
+
+# the fp16 backward scales the sigmoid's cotangent so that its largest
+# entry is 2^8: the loss's (~1e-7 a pixel at a million pixels) then lie in
+# fp16's normal range (6.1e-5 up), and the three layers they pass back
+# through stay below its largest value (65504)
+COTANGENT_MAX = 256.0
+
+
+@contextlib.contextmanager
+def _fp32_sums():
+    """cuBLAS's fp16 products sum in fp32 inside the block, their split-K
+    reductions too (PyTorch lets those sum in fp16 by default)."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_fp16_reduced_precision_reduction
+    matmul.allow_fp16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_fp16_reduced_precision_reduction = before
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, half: bool) -> torch.Tensor:
+    """a @ b written in fp32 (fp16 operands accumulate in fp32)."""
+    return torch.mm(a, b, out_dtype=torch.float32) if half else a.mm(b)
+
+
+class _Mlp(torch.autograd.Function):
+    """The bias-free ReLU layers and the sigmoid output: fp16 operands and
+    hidden activations on the card, fp32 on the CPU. On the card the
+    backward scales the cotangents by a power of two (the loss scale; the
+    largest brought to ``COTANGENT_MAX``) and writes the weights'
+    cotangents, sums over every row, and the inputs' in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, *ws):
+        half = x.is_cuda
+        ws = [w.half() for w in ws] if half else list(ws)
+        hs = [x.half() if half else x]
+        with _fp32_sums():
+            for w in ws[:-1]:
+                hs.append(torch.relu(F.linear(hs[-1], w)))
+            # the 3 outputs leave the products in fp32
+            y = torch.sigmoid(_mm(hs[-1], ws[-1].t(), half))
+        ctx.save_for_backward(y, *hs, *ws)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        y, *rest = ctx.saved_tensors
+        n = len(rest) // 2
+        hs, ws = rest[:n], rest[n:]
+        half = hs[0].dtype == torch.float16
+        g = torch.ops.aten.sigmoid_backward(gy, y)
+        scale = 1.0
+        if half:   # on the device: no host read
+            scale = torch.exp2(torch.floor(torch.log2(
+                COTANGENT_MAX / g.abs().amax().clamp_min(1e-30))))
+            g = (g * scale).half()
+        gws = [None] * n
+        with _fp32_sums():
+            for i in range(n - 1, 0, -1):
+                gws[i] = _mm(g.t(), hs[i], half) / scale
+                # through the layer and the ReLU that made hs[i]
+                g = torch.ops.aten.threshold_backward(g.mm(ws[i]), hs[i],
+                                                      0.0)
+            gws[0] = _mm(g.t(), hs[0], half) / scale
+            gx = (_mm(g, ws[0], half) / scale if ctx.needs_input_grad[0]
+                  else None)
+        return (gx, *gws)
+
+
+def mlp(x: torch.Tensor, ws: List[torch.Tensor]) -> torch.Tensor:
+    """sigmoid(W_L relu(... relu(W_1 x))) of the encoded rows x [N, K];
+    counts the rows it decodes in ``mlp.rows``."""
+    mlp.rows += x.shape[0]
+    return _Mlp.apply(x, *ws)
+
+
+mlp.rows = 0

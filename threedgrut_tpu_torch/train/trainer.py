@@ -380,9 +380,10 @@ class Trainer:
         if self.decoder is None:
             return features
         h, w, f = features.shape
-        return self.decoder(features.reshape(-1, f),
-                            out["ray_d"].reshape(-1, 3),
-                            use_ema=use_ema).reshape(h, w, 3)
+        with ScopedTimer("grut.decoder"):
+            return self.decoder(features.reshape(-1, f),
+                                out["ray_d"].reshape(-1, 3),
+                                use_ema=use_ema).reshape(h, w, 3)
 
     def post_process(self, pred: torch.Tensor, frame_idx: int = 0
                      ) -> torch.Tensor:
@@ -466,7 +467,8 @@ class Trainer:
         self._last_cam = cam
         self.global_step += 1
         if self.decoder is not None:
-            self.decoder.ema_update()
+            with ScopedTimer("grut.decoder.ema"):
+                self.decoder.ema_update()
         self._post_backward(grads, cam)
         self._post_optimizer_step()
         self._progressive_features()

@@ -42,8 +42,10 @@ relaxed kill, configs/render/3dgrt.yaml and 3dgut.yaml), trainer_config
 says so on stderr and composes the exact kill. Likewise bf16 records
 (``records_bf16``, or ``particle_feature_half`` where the former is
 unset, as the JAX loader reads them): the port keeps fp32 records and
-says so, as it does for the TPU's segment layouts
-(``aligned_segments``, ``flat_grid``), which change no image. The port
+says so, as it does for the TPU's segment layouts (``aligned_segments``,
+``flat_grid``), which change no image; for NHT the half flags ask for
+fp16 features, which the port keeps in fp32 with an fp16 decoder on the
+card, and it says so. The port
 sizes its pair buffer per view
 (``max_pairs`` and ``auto_max_pairs`` are ignored). It overwrites
 ``ckpt_periodic.npz`` every ``checkpoint.frequency`` steps, as train.py
@@ -104,7 +106,7 @@ def trainer_config(conf):
     splat = render.get("splat", {})
     strat = conf.get("strategy", {})
     mcmc = "MCMC" in str(strat.get("method", "GSStrategy"))
-    nht_features(conf)
+    nht = nht_features(conf).feature_type.value == "nht"
     if render.get("method", "3dgut") not in ("3dgut", "3dgrt"):
         raise NotImplementedError(f"render.method {render.get('method')}: "
                                   "the port has 3dgut and 3dgrt")
@@ -114,12 +116,21 @@ def trainer_config(conf):
               file=sys.stderr)
     # config/loader.py:316-317 reads particle_feature_half as
     # records_bf16 where records_bf16 is unset (the render YAMLs set it
-    # false): bf16 records, geometry included, a TPU knob
-    if render.get("records_bf16", render.get("particle_feature_half",
-                                             False)):
+    # false): bf16 records, geometry included, a TPU knob. For NHT the two
+    # half flags ask for fp16 particle and ray features (the reference's
+    # tiny-cuda-nn build)
+    if render.get("records_bf16", not nht and render.get(
+            "particle_feature_half", False)):
         print("render.records_bf16 (or particle_feature_half) asks for bf16 "
               "records, a TPU knob: the port keeps fp32 records",
               file=sys.stderr)
+    half = [k for k in ("particle_feature_half", "feature_output_half")
+            if render.get(k, False)]
+    if nht and half:
+        print(f"render.{' and render.'.join(half)} ask for fp16 NHT "
+              "features: the port keeps the particle and ray features in "
+              "fp32; the decoder runs in fp16 on the card with a loss "
+              "scale (fp32 on the CPU)", file=sys.stderr)
     # config/loader.py:318 maps aligned_segments; flat_grid is a
     # RasterConfig knob no YAML sets. Both lay out the same image for the
     # TPU: segments padded to chunk boundaries in the pair budget, a grid

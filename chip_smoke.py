@@ -312,7 +312,8 @@ The NCore apps, the denoisers, video and the live GUI (phases 45-48):
    device busy, idle share and kernels a step over 5 traced steps, ms a
    decode and a batch; A and B a step and a validation view, C, D and
    D's inversion a step, B and C in both modes (general on the rolling
-   shutter), P a validation view, no other kernel.
+   shutter), P a step and a validation view, P_b a step, no other
+   kernel.
 46. NCore 3DGRT + MCMC - the same for apps/ncore_3dgrt_mcmc (kNN scales;
    B and C in the sorted mode, W 16, degree 4: kW 16 general on the
    rolling shutter, shared-origin on the fisheye).
@@ -384,8 +385,13 @@ phase 7):
    (tests/torch_port_utils.py:projection_check: the AABB bitwise, every
    other output within rounding, validity flipped only near a decision);
    its ms by events and device time beside its bound and the plain
-   version's; the six instantiations' registers; 1 launch a served frame
-   and 0 a training render.
+   version's; the six instantiations' registers. Then its backward,
+   kernel P_b (project_view_backward, the same file), on the same rows
+   against project_view_backward_plain
+   (tests/torch_port_utils.py:projection_backward_check), its ms and
+   device time beside its byte bound and the plain backward's ms, and
+   its four instantiations' registers; 1 launch of P a served frame, and
+   1 of P and 1 of P_b a training render.
 
 Then a line "done" with the seconds since the script started, a JSON
 line with each kernel's launches (A-D from phase 11, sorted
@@ -620,10 +626,12 @@ KERNELS = {
              "threedgrut_tpu/ops/pallas/fill.py:31"),
     "fill_segmented": ("threedgrut_tpu_torch/csrc/fill.cu",
                        "threedgrut_tpu/ops/pallas/fill.py:31"),
-    # kernel P: the projection, SH and table of every row where no
-    # gradient flows; it replaces no TPU kernel (JAX's projection is plain
-    # XLA: ops/ut.py, ops/sh.py, render/gut.py)
+    # kernel P: the projection, SH and table of every row of an SH model,
+    # and P_b, its backward; they replace no TPU kernel (JAX's projection
+    # is plain XLA: ops/ut.py, ops/sh.py, render/gut.py, differentiated by
+    # JAX)
     "project": ("threedgrut_tpu_torch/csrc/project.cu", None),
+    "project_bwd": ("threedgrut_tpu_torch/csrc/project.cu", None),
 }
 
 
@@ -3862,9 +3870,10 @@ NCORE_APPS = {
 }
 
 
-# kernel P's counters: it renders the validation views, which take no
-# gradient, and never a training step
+# kernel P's counters (it renders every training step and validation view
+# of an SH model), and P_b's (every training step's backward)
 PROJECT_COUNTERS = ("project_view.launches", "project_view.launches_general")
+PROJECT_BWD_COUNTER = "project_view.launches_backward"
 
 
 class NCoreClock:
@@ -4016,9 +4025,12 @@ def ncore_phase(dev, seq, root, label):
             sum(got[k] for k in bwd) == got["fold"] == got["fold_invert"]
             == NCORE_STEPS),
         "both modes of B and C": all(got[k] > 0 for k in fwd + bwd),
-        "P a val view, never a step": sum(
-            counts.get(k, 0) for k in PROJECT_COUNTERS) == n_val,
-        "no other kernel": set(counts) <= set(names) | set(PROJECT_COUNTERS),
+        "P a step and a val view": sum(
+            counts.get(k, 0) for k in PROJECT_COUNTERS)
+        == NCORE_STEPS + n_val,
+        "P_b a step": counts.get(PROJECT_BWD_COUNTER, 0) == NCORE_STEPS,
+        "no other kernel": set(counts) <= set(names) | set(
+            PROJECT_COUNTERS) | {PROJECT_BWD_COUNTER},
     }
     failed = [k for k, ok in checks.items() if not ok]
     decode = float(np.mean(clock.decode_ms))
@@ -4870,6 +4882,15 @@ PROJECT_RES = (1920, 1080)
 # basis 44 and the radiance 99; the record 36 (a = M (o - p) 18, M 9 and
 # 1/s 3, the rest 6); the AABB 10
 PROJECT_FLOPS = 811
+# fp32 operations of one row of kernel P_b at SH degree 3 with the
+# shared-origin record (csrc/project.cu:project_bwd_kernel): the direction
+# 14; the degree-3 basis 44 and the radiance 99; the clamp's mask 3; the
+# coefficients' cotangents 48 and the basis' 75; the basis' derivative
+# 150; the normalisation's 14; the quaternion's norm and rotation 40; the
+# activations and 1/s 12; a = M (o - p) into M and p 48; M into 1/s, s
+# and R 39; the rotation's derivative 96; the quaternion's normalisation
+# 19; the density 4
+PROJECT_BWD_FLOPS = 705
 
 
 def project_phase(dev):
@@ -4879,16 +4900,23 @@ def project_phase(dev):
     tests/torch_port_utils.py:projection_check, as tests/test_torch_gpu.py
     holds it (the AABB bitwise, the rest within rounding); P's ms by
     events and device time beside its bound (every input and output byte
-    once) and the plain version's ms; the six instantiations' registers;
-    a served frame's launches of P (1) and a training render's (0).
-    Returns P's report entry and its launches a served frame."""
+    once) and the plain version's ms; the six instantiations' registers.
+    Then P's backward, kernel P_b (``project_view_backward``), on the same
+    rows against its plain version (projection_backward_check), its ms by
+    events and device time beside its bound (the parameters and the
+    cotangent read once, the gradients written once) and the plain
+    backward's ms; its four instantiations' registers. Then a served
+    frame's launches of P (1) and a training render's of P and P_b (1
+    each). Returns the report entries and launches of "project" and
+    "project_bwd"."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
-    from torch_port_utils import projection_check
+    from torch_port_utils import projection_backward_check, projection_check
 
     from threedgrut_tpu_torch.ops.cameras import make_pinhole
-    from threedgrut_tpu_torch.ops.cuda.project import (kernel_attributes,
-                                                       project_view,
-                                                       project_view_plain)
+    from threedgrut_tpu_torch.ops.cuda.project import (
+        backward_kernel_attributes, kernel_attributes, project_view,
+        project_view_backward, project_view_backward_plain,
+        project_view_plain)
     from threedgrut_tpu_torch.ops.ut import UTConfig
     from threedgrut_tpu_torch.render.common import RasterConfig
     from threedgrut_tpu_torch.render.gut import render_gut
@@ -4901,6 +4929,7 @@ def project_phase(dev):
                        device=dev)
     cfg = UTConfig()
     res = kernel_attributes()
+    res_b = backward_kernel_attributes()
     errs = projection_check(cam, cfg, model, 3, True)
     fields = {k: v for k, v in errs.items() if isinstance(v, dict)}
     with torch.no_grad():
@@ -4911,18 +4940,37 @@ def project_phase(dev):
         plain_ms = cuda_ms(
             lambda: project_view_plain(cam, cfg, model, 3, True), 5)
     outs = (*got.proj[:6], got.table, got.aabb_lo, got.aabb_hi)
-    b = bound(nbytes(*(getattr(model, k) for k in PARAM_NAMES), *outs),
-              PROJECT_FLOPS * PROJECT_ROWS)
+    params = [getattr(model, k) for k in PARAM_NAMES]
+    b = bound(nbytes(*params, *outs), PROJECT_FLOPS * PROJECT_ROWS)
+
+    errs_b = projection_backward_check(cam, model, 3, True)
+    fields_b = {k: v for k, v in errs_b.items() if isinstance(v, dict)}
+    d_table = torch.randn((PROJECT_ROWS, 16), device=dev)
+    args = (d_table, [p.detach() for p in params], cam, model.config, 3,
+            True)
+    with torch.no_grad():
+        fn_b = lambda: project_view_backward(*args)  # noqa: E731
+        grads = fn_b()
+        ms_b = cuda_ms(fn_b, 20)
+        dev_ms_b, by_kernel_b = device_ms(fn_b, 20, by_kernel=True)
+        plain_ms_b = cuda_ms(lambda: project_view_backward_plain(*args), 5)
+    b_b = bound(nbytes(*params, d_table, *grads),
+                PROJECT_BWD_FLOPS * PROJECT_ROWS)
 
     def p_launches():
-        return project_view.launches + project_view.launches_general
+        return (project_view.launches + project_view.launches_general,
+                project_view.launches_backward)
+
+    def since(before):
+        return tuple(a - c for a, c in zip(p_launches(), before))
 
     before = p_launches()
     make_serving_renderer(model, RasterConfig(), 3, cfg)([cam])
-    served = p_launches() - before
+    served = since(before)
+    before = p_launches()
     render_gut(cam, cfg, RasterConfig(), model, 3)[
         "pred_features"].mean().backward()
-    trained = p_launches() - before - served
+    trained = since(before)
     phase("kernel P", (
         f"{PROJECT_ROWS} rows, {w}x{h} pinhole, SH 3, against plain: flips "
         f"{errs['flips']}, {errs['near']} rows near a decision, "
@@ -4930,16 +4978,31 @@ def project_phase(dev):
                     for k, v in fields.items())
         + f", AABB bitwise; P {ms:.4f} ms (device {dev_ms:.4f}: "
         f"{by_kernel}), bound {b[0]:.4f} ms ({b[1]}), plain "
-        f"{plain_ms:.4f} ms; launches a served frame {served}, a training "
-        f"render {trained}; registers "
+        f"{plain_ms:.4f} ms; registers "
         + ", ".join(f"{k} {v['registers']} ({v['local_bytes']} local, "
                     f"{v['shared_bytes']} shared)" for k, v in res.items())))
-    if (served, trained) != (1, 0):
-        raise AssertionError(f"kernel P: {served} launches a served frame, "
-                             f"{trained} a training render")
-    return dict(max_err_ratio=max(v["max_ratio"] for v in fields.values()),
-                ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                **bound_keys(b)), served
+    phase("kernel P_b", (
+        f"{PROJECT_ROWS} rows, SH 3, shared records, against plain: "
+        + ", ".join(f"{k} max ratio {v['max_ratio']:.3g} ({v['over']} over)"
+                    for k, v in fields_b.items())
+        + f"; P_b {ms_b:.4f} ms (device {dev_ms_b:.4f}: {by_kernel_b}), "
+        f"bound {b_b[0]:.4f} ms ({b_b[1]}), {100 * b_b[0] / dev_ms_b:.1f}% "
+        f"of it by device time; plain {plain_ms_b:.4f} ms; registers "
+        + ", ".join(f"{k} {v['registers']} ({v['local_bytes']} local, "
+                    f"{v['shared_bytes']} shared)" for k, v in res_b.items())
+        + f"; launches of (P, P_b) a served frame {served}, a training "
+        f"render {trained}"))
+    if (served, trained) != ((1, 0), (1, 1)):
+        raise AssertionError(f"kernels P, P_b: {served} launches a served "
+                             f"frame, {trained} a training render")
+    return ({"project": dict(
+                max_err_ratio=max(v["max_ratio"] for v in fields.values()),
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, **bound_keys(b)),
+             "project_bwd": dict(
+                max_err_ratio=max(v["max_ratio"] for v in fields_b.values()),
+                ms=ms_b, device_ms=dev_ms_b, plain_ms=plain_ms_b,
+                **bound_keys(b_b))},
+            {"project": served[0], "project_bwd": trained[1]})
 
 
 def main():
@@ -5335,7 +5398,9 @@ def main():
         denoiser_training_phase(dev))
 
     # 53. kernel P at the serving cell's size
-    report["project"], launches["project"] = project_phase(dev)
+    project_reports, project_launches = project_phase(dev)
+    report.update(project_reports)
+    launches.update(project_launches)
 
     phase("done", f"every phase passed, {time.perf_counter() - _START:.1f} s "
           f"since the script started")

@@ -44,7 +44,8 @@ from threedgrut_tpu_torch.synthetic import bench_cloud
 from torch_port_utils import (ADVERSARIAL_IDS, PROJECTION_CAMERAS,
                               adversarial_ids, column_rays, faint_column,
                               far_rays, incoherent_rays, projection_camera,
-                              projection_check, projection_cloud)
+                              projection_backward_check, projection_check,
+                              projection_cloud)
 
 RC = RasterConfig()
 # the sorted settings of apps/nerf_synthetic_3dgrt and of
@@ -1802,28 +1803,125 @@ def test_project_full_size_matches_plain(cuda):
 
 
 @pytest.mark.gpu
-def test_project_launches_once_a_served_frame_never_a_training_step(cuda):
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+@pytest.mark.parametrize("kind", PROJECTION_CAMERAS)
+def test_project_backward_matches_plain(cuda, kind, degree):
+    """Kernel P_b against project_view_backward_plain on 20,224 rows with
+    every edge row of projection_cloud, at each active degree 0-3 of a
+    degree-3 model, in the shared-origin and the general records (a rolling
+    shutter: the general only; the backward reads the start pose's sensor
+    alone). Tolerances (projection_backward_check): 1e-5 relative, widened
+    by 4 x the fp32 plain version's own distance from float64 (both run
+    the same operations in the same order without FMA contraction; they
+    part where an ulp of the sensor position or of expf moves a value);
+    rows with a zero cotangent and coefficients past the degree exact
+    zeros; one launch each."""
+    model = projection_cloud(20000, device=cuda)
+    cam = projection_camera(kind, cuda)
+    for shared in ([True, False] if "rolling" not in kind else [False]):
+        projection_backward_check(cam, model, degree, shared)
+
+
+@pytest.mark.gpu
+def test_project_backward_full_size_matches_plain(cuda):
+    """Kernel P_b at the cuSFM cell's size, 2,300,160 rows on a 1920x1080
+    pinhole view at degree 3, against its plain version (as
+    test_project_backward_matches_plain holds it)."""
+    model = bench_cloud(2_300_160, seed=0, device=cuda)
+    cam = make_pinhole((1920, 1080), (1100.0, 1100.0), (960.0, 540.0),
+                       device=cuda)
+    errs = projection_backward_check(cam, model, 3, True)
+    assert errs["rows"] == 2_300_160
+
+
+@pytest.mark.gpu
+def test_project_backward_frozen_parameters_get_none(cuda):
+    """A parameter that does not require grad gets None and no memory
+    (sh_bake's frozen geometry); the others get P_b's gradients."""
+    from threedgrut_tpu_torch.models.gaussians import PARAM_NAMES
+    from threedgrut_tpu_torch.ops.cuda.project import ProjectFunction
+
+    model = projection_cloud(5000, device=cuda)
+    for k in ("positions", "rotation", "scale", "density"):
+        getattr(model, k).requires_grad_(False)
+    params = [getattr(model, k) for k in PARAM_NAMES]
+    table = ProjectFunction.apply(projection_camera("pinhole", cuda),
+                                  UTConfig(), model, 3, True, *params)[6]
+    table.backward(torch.ones_like(table))
+    assert all(getattr(model, k).grad is None
+               for k in ("positions", "rotation", "scale", "density"))
+    assert bool(model.features_albedo.grad.abs().sum() > 0)
+    assert bool(model.features_specular.grad.abs().sum() > 0)
+
+
+@pytest.mark.gpu
+def test_project_launches_once_a_served_frame_and_each_way_a_step(cuda):
     """A served frame launches kernel P once (the shared-origin records
-    for a global shutter, the general ones for a rolling one); a training
-    step, whose render takes a gradient, never does."""
+    for a global shutter, the general ones for a rolling one) and P_b
+    never; a training step of an SH model launches P once and P_b once,
+    with no grut.sh span (the composition's), and its gradients are the
+    composition's: each leaf's norm within 1e-3 of the composition's
+    (the benchmark's grad_gap limits are 3e-3 and 1e-2), and the whole
+    gradient within 1e-3 relative L2 (P's table and the composition's
+    differ in the last bits, which the raster carries through its accept
+    tests; the backwards sum in fp32 in another order)."""
+    import copy
+
     from threedgrut_tpu_torch.models.background import BackgroundConfig
+    from threedgrut_tpu_torch.ops.cuda import launch_counts
+    from threedgrut_tpu_torch.ops.cuda.project import project_view_plain
+    from threedgrut_tpu_torch.render import gut
     from threedgrut_tpu_torch.render.serve import make_serving_renderer
     from threedgrut_tpu_torch.synthetic import build_teacher, teacher_dataset
     from threedgrut_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from threedgrut_tpu_torch.utils import timer
+
+    keys = ("project_view.launches", "project_view.launches_general",
+            "project_view.launches_backward")
 
     def counts():
-        return (project_view.launches, project_view.launches_general)
+        c = launch_counts()
+        return tuple(c.get(k, 0) for k in keys)
+
+    def delta(before):
+        return tuple(a - b for a, b in zip(counts(), before))
 
     model = projection_cloud(3000, device=cuda)
-    for kind, want in (("pinhole", (1, 0)), ("pinhole_rolling", (0, 1))):
+    for kind, want in (("pinhole", (1, 0, 0)),
+                       ("pinhole_rolling", (0, 1, 0))):
         before = counts()
         make_serving_renderer(model, RC, 3)([projection_camera(kind, cuda)])
-        assert tuple(a - b for a, b in zip(counts(), before)) == want
+        assert delta(before) == want
     ds = teacher_dataset(build_teacher(2000, seed=0, device=cuda), n_views=2,
                          side=64)
-    trainer = Trainer(TrainerConfig(background=BackgroundConfig(
-        color="white")), ds, bench_cloud(1000, seed=1, device=cuda))
-    before = counts()
-    for i in range(3):
-        trainer.train_iteration(ds[i % 2], i % 2)
-    assert counts() == before
+    cloud = bench_cloud(1000, seed=1, device=cuda)
+    conf = TrainerConfig(background=BackgroundConfig(color="white"))
+    trainer = Trainer(conf, ds, cloud)
+    plain = Trainer(conf, ds, copy.deepcopy(cloud))
+    timer.timing_options.active = True
+    timer.reset_spans()
+    try:
+        before = counts()
+        trainer.train_iteration(ds[0], 0)
+        assert delta(before) == (1, 0, 1)
+        spans = timer.span_table()
+    finally:
+        timer.timing_options.active = False
+    assert "grut.ut" in spans and "grut.sh" not in spans
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gut, "project_view", project_view_plain)
+        before = counts()
+        plain.train_iteration(ds[0], 0)
+        assert delta(before) == (0, 0, 0)
+    got = {k: p.grad.double() for k, p in trainer.params().items()}
+    want = {k: p.grad.double() for k, p in plain.params().items()}
+    norms = {k: float(w.norm()) for k, w in want.items()}
+    med = float(np.median(list(norms.values())))
+    for k, w in want.items():
+        # the benchmark's leaf_gap: against the larger of the leaf's norm
+        # and the median leaf's (a leaf past the active SH degree is 0)
+        gap = abs(float(got[k].norm()) - norms[k]) / max(norms[k], med)
+        assert gap < 1e-3, (k, gap)
+    num = sum(float((got[k] - w).square().sum()) for k, w in want.items())
+    den = sum(float(w.square().sum()) for w in want.values())
+    assert (num / den) ** 0.5 < 1e-3

@@ -1,12 +1,14 @@
-"""Kernel P's dispatch and its plain version on the CPU
+"""Kernel P's and P_b's dispatch and their plain versions on the CPU
 (``threedgrut_tpu_torch/ops/cuda/project.py``).
 
 ``project_view`` runs its plain version on CPU tensors; the plain version
 is the composition the port rendered with before kernel P, and stays the
-autograd path. These tests hold it to that composition bit for bit, hold
+CPU's autograd path. These tests hold it to that composition bit for bit,
+hold P_b's plain version (``project_view_backward_plain``) and
+``ProjectFunction`` to the composition's autograd, hold
 ``prepare_view``'s choice between the kernel and the composition, and
 hold the wrapper's launch arguments to ``csrc/project.cu``'s interface.
-The kernel itself runs on the card only (tests/test_torch_gpu.py).
+The kernels themselves run on the card only (tests/test_torch_gpu.py).
 """
 
 import re
@@ -27,8 +29,8 @@ from threedgrut_tpu_torch.ops.sh import eval_sh_radiance
 from threedgrut_tpu_torch.render import gut
 from threedgrut_tpu_torch.render.common import RasterConfig
 from threedgrut_tpu_torch.synthetic import nht_cloud
-from torch_port_utils import (PROJECTION_CAMERAS, projection_camera,
-                              projection_cloud)
+from torch_port_utils import (PROJECTION_CAMERAS, as_float64,
+                              projection_camera, projection_cloud)
 
 CSRC = (Path(__file__).resolve().parents[1] / "threedgrut_tpu_torch" / "csrc"
         / "project.cu").read_text()
@@ -97,8 +99,9 @@ def test_plain_takes_the_active_degree(degree):
 
 
 def test_prepare_view_under_grad_keeps_autograd():
-    """With a gradient the table comes from the composition: it requires
-    grad, reaches every parameter, and equals the table without one."""
+    """With a gradient the CPU's table comes from the composition: it
+    requires grad, reaches every parameter, and equals the table without
+    one."""
     cam = projection_camera("pinhole")
     model = projection_cloud(800)
     cfg, rc = ut_ops.UTConfig(), RasterConfig()
@@ -116,13 +119,14 @@ def test_prepare_view_under_grad_keeps_autograd():
     assert torch.equal(w.proj.center, v.proj.center.detach())
 
 
-# prepare_view's path by what its inputs show: kernel P where no gradient
-# can flow into an SH model, the composition otherwise
+# prepare_view's path by what its inputs show: kernel P's wrapper for an
+# SH model whether a gradient can flow or not (under one, P_b is its
+# backward), the composition for NHT
 DISPATCH = {
     "no_grad": ("sh", "no_grad", True, "kernel"),
     "inference_mode": ("sh", "inference_mode", True, "kernel"),
     "frozen": ("sh", "grad", False, "kernel"),
-    "grad": ("sh", "grad", True, "composition"),
+    "grad": ("sh", "grad", True, "kernel"),
     "nht_no_grad": ("nht", "no_grad", True, "composition"),
 }
 
@@ -153,15 +157,16 @@ def test_prepare_view_dispatch(case, monkeypatch):
         v = gut.prepare_view(cam, ut_ops.UTConfig(), RasterConfig(), model,
                              0 if features == "nht" else 3)
     assert calls == [want]
-    assert v.table.requires_grad == (want == "composition"
-                                     and requires_grad and mode == "grad")
+    assert v.table.requires_grad == (requires_grad and mode == "grad")
 
 
 def test_project_view_refuses_what_the_kernel_lacks():
+    """A degree past the model's and NHT features raise; a gradient no
+    longer does (P_b is P's backward)."""
     cam = projection_camera("pinhole")
     model = projection_cloud(300)
-    with pytest.raises(ValueError, match="no backward"):
-        P.project_view(cam, ut_ops.UTConfig(), model, 3, True)
+    assert P.project_view(cam, ut_ops.UTConfig(), model, 3,
+                          True).table.requires_grad
     with torch.no_grad():
         with pytest.raises(ValueError, match="sh_degree 4"):
             P.project_view(cam, ut_ops.UTConfig(), model, 4, True)
@@ -170,16 +175,24 @@ def test_project_view_refuses_what_the_kernel_lacks():
                            False)
 
 
+def _counters():
+    return (P.project_view.launches, P.project_view.launches_general,
+            P.project_view.launches_backward)
+
+
 def test_cpu_render_launches_nothing():
-    """On the CPU the wrapper runs the plain version and counts nothing;
-    the counters are among launch_counts' wrappers."""
+    """On the CPU the wrapper runs the plain version and counts nothing,
+    with a gradient or without; the counters are among launch_counts'
+    wrappers."""
     assert P.project_view in _wrappers()
-    before = (P.project_view.launches, P.project_view.launches_general)
+    before = _counters()
     with torch.no_grad():
         gut.render_gut(projection_camera("pinhole"), ut_ops.UTConfig(),
                        RasterConfig(), projection_cloud(300), 3)
-    assert (P.project_view.launches,
-            P.project_view.launches_general) == before
+    gut.render_gut(projection_camera("pinhole"), ut_ops.UTConfig(),
+                   RasterConfig(), projection_cloud(300), 3)[
+                       "pred_features"].sum().backward()
+    assert _counters() == before
     assert not any(k.startswith("project_view") for k in launch_counts())
 
 
@@ -288,3 +301,143 @@ def test_cloud_activations_keep_the_activated_values():
                               rtol=1e-6, atol=0)
         assert torch.allclose(base.get_density(), other.get_density(),
                               rtol=1e-5, atol=0)
+
+
+# the (scale, density) activations of P_b's cases: the default model's,
+# projection_cloud's other variant, and the third of each
+BACKWARD_ACTIVATIONS = {"exp_sigmoid": ("exp", "sigmoid"),
+                        "none_exp": ("none", "exp"),
+                        "sigmoid_none": ("sigmoid", "none")}
+# rows of backward_cloud whose radiance sits exactly at the clamp (0), and
+# rows whose cotangent is 0 though they are active
+AT_CLAMP = slice(200, 210)
+ZERO_ROWS = slice(210, 230)
+
+
+def _at_clamp_albedo():
+    """The float64 albedo a with SH_C0 a + 0.5 == 0 exactly."""
+    from threedgrut_tpu_torch.ops.sh import SH_C0
+
+    a = -0.5 / SH_C0
+    for _ in range(8):
+        if SH_C0 * a == -0.5:
+            return a
+        a = float(np.nextafter(a, -np.inf if SH_C0 * a > -0.5 else np.inf))
+    raise AssertionError("no albedo puts the radiance at the clamp")
+
+
+def backward_cloud(acts, n=600):
+    """projection_cloud's rows in float64 on the given activations, with
+    AT_CLAMP rows whose degree-0 radiance + 0.5 is exactly 0 (no specular
+    coefficients), and a seeded cotangent of the table [C, 16]: normal
+    everywhere (past n_active too) but the ZERO_ROWS."""
+    scale_act, density_act = acts
+    model = projection_cloud(n, config=GaussianModelConfig(
+        scale_activation=scale_act, density_activation=density_act))
+    model = model.to(torch.float64)
+    with torch.no_grad():
+        model.features_albedo[AT_CLAMP] = _at_clamp_albedo()
+        model.features_specular[AT_CLAMP] = 0.0
+    rng = np.random.default_rng(11)
+    d_table = torch.tensor(rng.normal(size=(model.capacity, 16)))
+    d_table[ZERO_ROWS] = 0.0
+    return model, d_table
+
+
+def _composition_grads(cam, model, d_table, degree, shared):
+    """Autograd's gradients of <table, d_table> through
+    project_view_plain."""
+    for p in model.parameters():
+        p.grad = None
+        p.requires_grad_(True)
+    pv = P.project_view_plain(cam, ut_ops.UTConfig(), model, degree, shared)
+    pv.table.backward(d_table)
+    return [getattr(model, k).grad.clone() for k in PARAM_NAMES]
+
+
+def _close_where_finite(got, want, name):
+    """got equals want to float64 rounding on the rows where want is
+    finite (0 x inf makes NaN on the rows whose scale is 0)."""
+    rows = torch.isfinite(want).all(dim=1)
+    assert int(rows.sum()) >= 0.9 * rows.numel(), name
+    torch.testing.assert_close(got[rows], want[rows], rtol=1e-10,
+                               atol=1e-12 * float(want[rows].abs().max()),
+                               msg=name)
+
+
+@pytest.mark.parametrize("acts", sorted(BACKWARD_ACTIVATIONS))
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+def test_backward_plain_equals_autograd(degree, shared, acts):
+    """project_view_backward_plain (P_b's plain version) against autograd
+    through the composition in float64, on a model of SH degree 3 at each
+    active degree, in the shared-origin and the general records, for each
+    pair of activations: equal to float64 rounding where the composition's
+    gradient is finite; rows past n_active get their chain rule too,
+    rows with a zero cotangent exact zeros, the coefficients past the
+    active degree exact zeros, and the rows at the clamp their gradient
+    (torch.clamp passes it at 0)."""
+    cam = projection_camera("pinhole" if shared else "fisheye")
+    cam64 = as_float64(projection_cloud(300), cam)[1]
+    model, d_table = backward_cloud(BACKWARD_ACTIVATIONS[acts])
+    want = _composition_grads(cam64, model, d_table, degree, shared)
+    params = [getattr(model, k).detach() for k in PARAM_NAMES]
+    got = P.project_view_backward_plain(d_table, params, cam64, model.config,
+                                        degree, shared)
+    for name, g, w, p in zip(PARAM_NAMES, got, want, params):
+        assert g.shape == p.shape and g.dtype == torch.float64, name
+        _close_where_finite(g, w, name)
+        assert bool((g[ZERO_ROWS] == 0).all()), name
+        if name != "features_specular" or degree > 0:
+            assert bool(g[model.n_active:].abs().sum() > 0), name
+    nb = (degree + 1) ** 2
+    assert bool((got[5][:, 3 * (nb - 1):] == 0).all())
+    albedo = got[4][AT_CLAMP]
+    assert bool((albedo != 0).all()) and torch.equal(albedo,
+                                                     want[4][AT_CLAMP])
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_function_on_cpu_gives_the_composition(shared):
+    """ProjectFunction on CPU tensors (the plain forward and backward)
+    gives the composition's outputs and gradients; a frozen parameter
+    gets None."""
+    cam = projection_camera("pinhole")
+    cam64 = as_float64(projection_cloud(300), cam)[1]
+    model, d_table = backward_cloud(BACKWARD_ACTIVATIONS["exp_sigmoid"])
+    want = _composition_grads(cam64, model, d_table, 3, shared)
+    for p in model.parameters():
+        p.grad = None
+    model.rotation.requires_grad_(False)
+    cfg = ut_ops.UTConfig()
+    params = [getattr(model, k) for k in PARAM_NAMES]
+    outs = P.ProjectFunction.apply(cam64, cfg, model, 3, shared, *params)
+    with torch.no_grad():
+        ref = P.project_view_plain(cam64, cfg, model, 3, shared)
+    assert _same(outs[6], ref.table) and outs[6].requires_grad
+    assert not any(o.requires_grad for k, o in enumerate(outs) if k != 6)
+    assert torch.equal(outs[7], torch.stack([ref.aabb_lo, ref.aabb_hi]))
+    outs[6].backward(d_table)
+    assert model.rotation.grad is None
+    for name, w in zip(PARAM_NAMES, want):
+        if name != "rotation":
+            _close_where_finite(getattr(model, name).grad, w, name)
+
+
+def test_backward_launch_arguments_match_the_kernel_interface():
+    """P_b's launch arguments against csrc/project.cu: the pointers (the
+    six inputs, the cotangent, the six gradients, the camera's t_start
+    and q_start) and BwdParams' fields by name."""
+    assert _cu_int("kNumBwdPtrs") == 2 * len(PARAM_NAMES) + 3
+    assert P.NUM_BWD_INTS == _cu_int("kNumBwdInts")
+    body = re.search(r"struct BwdParams \{(.*?)\};", CSRC, re.S).group(1)
+    names = re.findall(r"(\w+)[,;]", body)
+    model = projection_cloud(300, config=GaussianModelConfig(
+        scale_activation="none", density_activation="exp"))
+    got = P.backward_params(model.capacity, model.config, 2, 45, True)
+    assert len(names) == len(got) == P.NUM_BWD_INTS
+    assert dict(zip(names, got)) == {
+        "n": model.capacity, "sh_degree": 2, "sh_stride": 45,
+        "scale_act": 0, "density_act": 1, "shared": 1}
+    assert re.search(r"PROJECT_BWD_KERNELS\(X\) X\(0\) X\(1\) X\(2\) X\(3\)",
+                     CSRC)

@@ -465,3 +465,73 @@ def projection_check(cam, cfg, model, degree, shared, flip_share=1e-4,
             or any(errs[k]["over"] or errs[k]["nonfinite"] for k in fields)):
         raise AssertionError(f"kernel P against its plain version: {errs}")
     return errs
+
+
+def projection_backward_check(cam, model, degree, shared, seed=5,
+                              rtol=1e-5, slack=4.0):
+    """Kernel P_b (the backward of ``ProjectFunction``) against its plain
+    version, ``project_view_backward_plain``, on ``model``'s device, in
+    fp32 and in float64, for a seeded normal cotangent of the table that
+    is 0, as the raster leaves it, past n_active and on every 7th row.
+    Per parameter, on the rows whose fp32 plain gradient is finite, every
+    element within rtol |ref| + slack |ref - ref64| + atol (atol 1e-6 of
+    the column's largest |ref64| there): both run the same operations in
+    the same order, built without FMA contraction, so they part only
+    where an ulp of the sensor position (PyTorch's product against the
+    kernel's) or of expf moves a value, which the plain's own distance
+    from float64 bounds. Where the plain's gradient is not finite, the
+    kernel's must not be either; rows with a zero cotangent and the
+    coefficients past ``degree`` must be exact zeros; one launch. Raises
+    AssertionError; returns the errors."""
+    from threedgrut_tpu_torch.models.gaussians import PARAM_NAMES
+    from threedgrut_tpu_torch.ops.cuda.project import (
+        ProjectFunction, project_view, project_view_backward_plain)
+    from threedgrut_tpu_torch.ops.ut import UTConfig
+
+    dev = model.device
+    rng = np.random.default_rng(seed)
+    d_table = torch.tensor(rng.standard_normal(
+        (model.capacity, 16)).astype(np.float32), device=dev)
+    zero = torch.zeros(model.capacity, dtype=torch.bool, device=dev)
+    zero[model.n_active:] = True
+    zero[::7] = True
+    d_table[zero] = 0.0
+    params = [getattr(model, k) for k in PARAM_NAMES]
+    before = project_view.launches_backward
+    table = ProjectFunction.apply(cam, UTConfig(), model, degree, shared,
+                                  *params)[6]
+    got = torch.autograd.grad(table, params, d_table)
+    launches = project_view.launches_backward - before
+    with torch.no_grad():
+        ref = project_view_backward_plain(d_table, params, cam,
+                                          model.config, degree, shared)
+        m64, c64 = as_float64(model, cam, dev)
+        ref64 = project_view_backward_plain(
+            d_table.double(), [getattr(m64, k) for k in PARAM_NAMES], c64,
+            model.config, degree, shared)
+    errs = {"launches": launches, "rows": model.capacity}
+    nb = (degree + 1) ** 2
+    for name, g, r, r64 in zip(PARAM_NAMES, got, ref, ref64):
+        g, r, r64 = (t.detach().double() for t in (g, r, r64))
+        rows = torch.isfinite(r).all(dim=1)
+        col = r64[rows].abs().amax(dim=0) if bool(rows.any()) else \
+            torch.zeros(r.shape[1], dtype=torch.float64, device=dev)
+        atol = 1e-6 * col + 1e-30
+        fin = torch.isfinite(r)
+        err = torch.where(fin, (g - r).abs(), torch.zeros_like(r))
+        bound = rtol * r.abs() + slack * (r - r64).abs() + atol
+        over = fin & ~(err <= bound)
+        ratio = torch.where(fin, err / (rtol * r.abs() + atol),
+                            torch.zeros_like(err))
+        errs[name] = {
+            "max_ratio": float(ratio.max()), "over": int(over.sum()),
+            "finite_rows": int(rows.sum()),
+            "nonfinite": int((~fin & torch.isfinite(g)).sum()),
+            "zero_rows_nonzero": int((g[zero] != 0).sum())}
+    errs["past_degree_nonzero"] = int(
+        (got[5][:, 3 * (nb - 1):] != 0).sum())
+    if (launches != 1 or errs["past_degree_nonzero"]
+            or any(errs[k]["over"] or errs[k]["nonfinite"]
+                   or errs[k]["zero_rows_nonzero"] for k in PARAM_NAMES)):
+        raise AssertionError(f"kernel P_b against its plain version: {errs}")
+    return errs

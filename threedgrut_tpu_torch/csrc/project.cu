@@ -6,10 +6,10 @@
 // ops/sh.py:eval_sh_radiance, render/gut.py:particle_table and
 // _scene_aabb): some 500 launches a view, each sweeping every row, 19.6 ms
 // of a 2.3M-row 1920x1080 frame's 23.4 ms of kernels on an H100. It serves
-// every forward that needs no gradient (the served frame, validation and
-// the other renders under no_grad); the autograd path keeps the
-// composition, which ops/cuda/project.py:project_view_plain holds as this
-// kernel's plain version.
+// every render of an SH model on the card; under a gradient
+// ops/cuda/project.py:ProjectFunction pairs it with its backward, kernel
+// P_b (below). ops/cuda/project.py:project_view_plain, the composition,
+// is its plain version.
 //
 // Per row, in fp32: the activations of scale and density; the UT
 // projection (7 sigma points through the camera model and shutter, the
@@ -744,6 +744,377 @@ extern "C" int project_attributes(int* out) {
   const void* fns[] = {PROJECT_KERNELS(PROJECT_FN)};
 #undef PROJECT_FN
   for (int i = 0; i < 6; ++i) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[4 * i + 0] = a.numRegs;
+    out[4 * i + 1] = static_cast<int>(a.localSizeBytes);
+    out[4 * i + 2] = static_cast<int>(a.sharedSizeBytes);
+    out[4 * i + 3] = 0;
+  }
+  return 0;
+}
+
+// Kernel P_b: the backward of kernel P under a gradient, the cotangent of
+// its table to the six raw parameters (ops/cuda/project.py:ProjectFunction).
+//
+// Replaces no TPU kernel: JAX differentiates the XLA composition, and the
+// port ran the composition's autograd (ops/cuda/project.py:
+// project_view_backward_plain writes the same chain rule out in PyTorch,
+// in this kernel's order). The gradient enters the projection only through
+// the table (the UT's outputs feed the binning, which carries none), and
+// each record depends on its row's parameters alone, so this is one map
+// over the rows with no reduction: a = M (o - p) (p in the general mode),
+// M = diag(1/s) R(q / |q|)^T, the density, and rgb = max(SH(dir) . coeffs
+// + 0.5, 0) with dir = (p - o) / max(|p - o|, 1e-12) from the start pose's
+// sensor o. Nothing depends on the camera model or the shutter. Rows whose
+// cotangent is 0 (past n_active, or touched by no pixel) get exact zeros,
+// as do the SH coefficients past the active degree; the clamp passes its
+// gradient at 0, as torch.clamp's.
+//
+// Bound on this card: memory. A row reads 236 B of parameters at SH degree
+// 3 and 64 B of cotangent, and writes 236 B of gradients: 536 B, 0.37 ms
+// at 3.35 TB/s for 2,300,160 rows, against ~700 fp32 operations a row
+// (~0.02 ms at 67 TFLOP/s; chip_smoke.py:PROJECT_BWD_FLOPS).
+// Design: P's layout. One thread a row, kRows rows a block; the block
+// stages its contiguous slices of the six inputs and of the cotangent in
+// shared memory with 16-byte cp.async copies, all in flight before any
+// thread computes; each thread writes its row's gradients over its row's
+// inputs in shared memory, and the block stores each gradient's slice back
+// as coalesced float4 stores, where a thread's own stores would stride 180
+// bytes. A gradient nobody asked for (a frozen parameter) is neither
+// computed into memory nor stored. Templated on the SH degree, so the
+// basis and its derivative unroll. Built as P is, without FMA contraction
+// and with precise division, expf and sqrtf.
+namespace {
+
+constexpr int kBwdStageFloats = (3 + 4 + 3 + 1 + 3 + kMaxSpec + 16) * kRows;
+
+// the order of project_bwd_launch's arrays (ops/cuda/project.py mirrors it)
+// 6 inputs, d_table, 6 gradients, t_start, q_start
+constexpr int kNumBwdPtrs = 15;
+constexpr int kNumBwdInts = 6;
+
+struct BwdParams {
+  int n, sh_degree, sh_stride, scale_act, density_act, shared;
+};
+
+static_assert(sizeof(BwdParams) == kNumBwdInts * sizeof(int),
+              "BwdParams: kNumBwdInts ints");
+
+// the gradients, in the inputs' layouts; null where none is wanted
+struct Grads {
+  float *pos, *rot, *scale, *dens, *albedo, *spec;
+};
+
+// g d activate(x) / dx from the activated value y (torch's exp and sigmoid
+// backward: g y and g (1 - y) y)
+__device__ __forceinline__ float activate_grad(float g, float y, int act) {
+  if (act == kExp) return g * y;
+  if (act == kSigmoid) return g * (1.0f - y) * y;
+  return g;
+}
+
+// the unit direction's cotangent from d(sum_k gb[k] basis_k) at (x, y, z),
+// k < (kDeg + 1)^2 (the derivative of sh_basis, term by term)
+template <int kDeg>
+__device__ __forceinline__ void sh_basis_vjp(float x, float y, float z,
+                                             const float* gb, float* gd) {
+  float gx = 0.f, gy = 0.f, gz = 0.f;
+  if (kDeg >= 1) {
+    const float c1 = 0.4886025119029199f;
+    gy = gy - c1 * gb[1];
+    gz = gz + c1 * gb[2];
+    gx = gx - c1 * gb[3];
+  }
+  if (kDeg >= 2) {
+    float t = 1.0925484305920792f * gb[4];
+    gx = gx + t * y;
+    gy = gy + t * x;
+    t = -1.0925484305920792f * gb[5];
+    gy = gy + t * z;
+    gz = gz + t * y;
+    t = 0.31539156525252005f * gb[6];
+    gx = gx - t * (2.0f * x);
+    gy = gy - t * (2.0f * y);
+    gz = gz + t * (4.0f * z);
+    t = -1.0925484305920792f * gb[7];
+    gx = gx + t * z;
+    gz = gz + t * x;
+    t = 0.5462742152960396f * gb[8];
+    gx = gx + t * (2.0f * x);
+    gy = gy - t * (2.0f * y);
+  }
+  if (kDeg >= 3) {
+    const float xx = x * x, yy = y * y, zz = z * z;
+    const float xy = x * y, yz = y * z, xz = x * z;
+    float t = -0.5900435899266435f * gb[9];
+    gx = gx + t * (6.0f * xy);
+    gy = gy + t * (3.0f * xx - 3.0f * yy);
+    t = 2.890611442640554f * gb[10];
+    gx = gx + t * yz;
+    gy = gy + t * xz;
+    gz = gz + t * xy;
+    t = -0.4570457994644658f * gb[11];
+    gx = gx - t * (2.0f * xy);
+    gy = gy + t * (4.0f * zz - xx - 3.0f * yy);
+    gz = gz + t * (8.0f * yz);
+    t = 0.3731763325901154f * gb[12];
+    gx = gx - t * (6.0f * xz);
+    gy = gy - t * (6.0f * yz);
+    gz = gz + t * (6.0f * zz - 3.0f * xx - 3.0f * yy);
+    t = -0.4570457994644658f * gb[13];
+    gx = gx + t * (4.0f * zz - 3.0f * xx - yy);
+    gy = gy - t * (2.0f * xy);
+    gz = gz + t * (8.0f * xz);
+    t = 1.445305721320277f * gb[14];
+    gx = gx + t * (2.0f * xz);
+    gy = gy - t * (2.0f * yz);
+    gz = gz + t * (xx - yy);
+    t = -0.5900435899266435f * gb[15];
+    gx = gx + t * (3.0f * xx - 3.0f * yy);
+    gy = gy - t * (6.0f * xy);
+  }
+  gd[0] = gx;
+  gd[1] = gy;
+  gd[2] = gz;
+}
+
+// the cotangent of u / max(|u|, 1e-12) to u, from the unit vector v, the
+// clamped norm ns, the norm n and the output's cotangent g (n of them);
+// torch's clamp passes the norm's gradient where n >= 1e-12
+template <int kN>
+__device__ __forceinline__ void normalize_vjp(const float* v, float ns,
+                                              float n, float* g) {
+  float vg = v[0] * g[0];
+  for (int i = 1; i < kN; ++i) vg = vg + v[i] * g[i];
+  if (n < 1e-12f) vg = 0.f;
+  for (int i = 0; i < kN; ++i) g[i] = (g[i] - v[i] * vg) / ns;
+}
+
+template <int kDeg>
+__global__ void __launch_bounds__(kRows)
+project_bwd_kernel(Inputs in, const float* d_table, Grads out,
+                   const float* t_start, const float* q_start, BwdParams p) {
+  constexpr int kNb = (kDeg + 1) * (kDeg + 1);
+  __shared__ __align__(16) float s_buf[kBwdStageFloats];
+  __shared__ float s_o[3];
+
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * kRows;
+  const int nr = min(kRows, p.n - r0);
+  const int stride = p.sh_stride;
+  float* s_pos = s_buf;
+  float* s_rot = s_pos + 3 * kRows;
+  float* s_scale = s_rot + 4 * kRows;
+  float* s_dens = s_scale + 3 * kRows;
+  float* s_alb = s_dens + kRows;
+  float* s_spec = s_alb + 3 * kRows;
+  float* s_dt = s_spec + kMaxSpec * kRows;
+
+  // 1. every copy of the block's rows in flight, then the sensor position
+  stage_in(s_pos, in.pos + 3 * static_cast<int64_t>(r0), 3 * nr);
+  stage_in(s_rot, in.rot + 4 * static_cast<int64_t>(r0), 4 * nr);
+  stage_in(s_scale, in.scale + 3 * static_cast<int64_t>(r0), 3 * nr);
+  stage_in(s_dens, in.dens + r0, nr);
+  stage_in(s_alb, in.albedo + 3 * static_cast<int64_t>(r0), 3 * nr);
+  if (kDeg > 0) {
+    stage_in(s_spec, in.spec + stride * static_cast<int64_t>(r0),
+             stride * nr);
+  }
+  stage_in(s_dt, d_table + 16 * static_cast<int64_t>(r0), 16 * nr);
+  asm volatile("cp.async.commit_group;\n" ::);
+  if (t == 0) {
+    // ops/ut.py:sensor_position, as kernel P's derive_camera: -(R^T t)
+    float r[9];
+    rotmat(q_start[0], q_start[1], q_start[2], q_start[3], r);
+    for (int i = 0; i < 3; ++i) {
+      s_o[i] = -(r[i] * t_start[0] + r[3 + i] * t_start[1] +
+                 r[6 + i] * t_start[2]);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  // 2. one row a thread; its gradients over its inputs in shared memory
+  if (t < nr) {
+    float g[16];
+    const float4* g4 = reinterpret_cast<const float4*>(s_dt + 16 * t);
+    bool zero = true;
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = g4[i];
+      g[4 * i] = v.x;
+      g[4 * i + 1] = v.y;
+      g[4 * i + 2] = v.z;
+      g[4 * i + 3] = v.w;
+      zero = zero && v.x == 0.f && v.y == 0.f && v.z == 0.f && v.w == 0.f;
+    }
+    float* spec = s_spec + stride * t;
+    float gp[3] = {0.f, 0.f, 0.f}, gq[4] = {0.f, 0.f, 0.f, 0.f};
+    float gs[3] = {0.f, 0.f, 0.f}, ga[3] = {0.f, 0.f, 0.f}, gd = 0.f;
+    if (!zero) {
+      const float pw[3] = {s_pos[3 * t], s_pos[3 * t + 1], s_pos[3 * t + 2]};
+
+      // the radiance: rgb = max(SH(dir) . coeffs + 0.5, 0)
+      const float sr[3] = {pw[0] - s_o[0], pw[1] - s_o[1], pw[2] - s_o[2]};
+      const float dist = sqrtf(sr[0] * sr[0] + sr[1] * sr[1] + sr[2] * sr[2]);
+      const float ds = fmaxf(dist, 1e-12f);
+      const float v[3] = {sr[0] / ds, sr[1] / ds, sr[2] / ds};
+      float basis[16];
+      sh_basis(v[0], v[1], v[2], kDeg, basis);
+      float gpre[3];
+      for (int ch = 0; ch < 3; ++ch) {
+        float acc = basis[0] * s_alb[3 * t + ch];
+#pragma unroll
+        for (int k = 1; k < kNb; ++k) {
+          acc = acc + basis[k] * spec[3 * (k - 1) + ch];
+        }
+        gpre[ch] = acc + 0.5f >= 0.f ? g[13 + ch] : 0.f;
+        ga[ch] = basis[0] * gpre[ch];
+      }
+      // each coefficient's cotangent in its place, and the basis'
+      float gb[16];
+#pragma unroll
+      for (int k = 1; k < kNb; ++k) {
+        float* c = spec + 3 * (k - 1);
+        gb[k] = c[0] * gpre[0] + c[1] * gpre[1] + c[2] * gpre[2];
+        for (int ch = 0; ch < 3; ++ch) c[ch] = basis[k] * gpre[ch];
+      }
+      sh_basis_vjp<kDeg>(v[0], v[1], v[2], gb, gp);
+      normalize_vjp<3>(v, ds, dist, gp);
+
+      // M = diag(1/s) R(q / |q|)^T
+      const float4 q4 = reinterpret_cast<const float4*>(s_rot)[t];
+      const float q[4] = {q4.x, q4.y, q4.z, q4.w};
+      const float qn = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] +
+                             q[3] * q[3]);
+      const float qs = fmaxf(qn, 1e-12f);
+      const float qh[4] = {q[0] / qs, q[1] / qs, q[2] / qs, q[3] / qs};
+      float r[9];
+      rotmat(qh[0], qh[1], qh[2], qh[3], r);
+      float s[3], inv[3];
+      for (int i = 0; i < 3; ++i) {
+        s[i] = activate(s_scale[3 * t + i], p.scale_act);
+        inv[i] = 1.0f / s[i];
+      }
+      // the table's M columns, and a = M (o - p) into M and p
+      float gm[9];
+      for (int i = 0; i < 9; ++i) gm[i] = g[3 + i];
+      if (p.shared) {
+        const float d[3] = {s_o[0] - pw[0], s_o[1] - pw[1], s_o[2] - pw[2]};
+        for (int i = 0; i < 3; ++i) {
+          for (int j = 0; j < 3; ++j) {
+            gm[3 * i + j] = gm[3 * i + j] + g[i] * d[j];
+          }
+        }
+        for (int j = 0; j < 3; ++j) {
+          gp[j] = gp[j] - (inv[0] * r[3 * j] * g[0] +
+                           inv[1] * r[3 * j + 1] * g[1] +
+                           inv[2] * r[3 * j + 2] * g[2]);
+        }
+      } else {
+        for (int i = 0; i < 3; ++i) gp[i] = gp[i] + g[i];
+      }
+      // M[i][j] = inv[i] R[j][i]: to 1/s, then the raw scale; to R, then q
+      float gr[9];
+      for (int i = 0; i < 3; ++i) {
+        const float g_inv = gm[3 * i] * r[i] + gm[3 * i + 1] * r[3 + i] +
+                            gm[3 * i + 2] * r[6 + i];
+        gs[i] = activate_grad(-g_inv * (inv[i] * inv[i]), s[i], p.scale_act);
+        for (int j = 0; j < 3; ++j) gr[3 * j + i] = gm[3 * i + j] * inv[i];
+      }
+      // ops/quaternion.py:quat_to_rotmat's derivative at (w, x, y, z)
+      const float w = qh[0], x = qh[1], y = qh[2], z = qh[3];
+      gq[0] = 2.0f * (-z * gr[1] + y * gr[2] + z * gr[3] - x * gr[5] -
+                      y * gr[6] + x * gr[7]);
+      gq[1] = 2.0f * (y * gr[1] + z * gr[2] + y * gr[3] - 2.0f * x * gr[4] -
+                      w * gr[5] + z * gr[6] + w * gr[7] - 2.0f * x * gr[8]);
+      gq[2] = 2.0f * (-2.0f * y * gr[0] + x * gr[1] + w * gr[2] + x * gr[3] +
+                      z * gr[5] - w * gr[6] + z * gr[7] - 2.0f * y * gr[8]);
+      gq[3] = 2.0f * (-2.0f * z * gr[0] - w * gr[1] + x * gr[2] + w * gr[3] -
+                      2.0f * z * gr[4] + y * gr[5] + x * gr[6] + y * gr[7]);
+      normalize_vjp<4>(qh, qs, qn, gq);
+
+      const float dens = activate(s_dens[t], p.density_act);
+      gd = activate_grad(g[12], dens, p.density_act);
+    }
+    // the coefficients past the active degree, and every one of a zero row
+    for (int k = zero ? 0 : 3 * (kNb - 1); k < stride; ++k) spec[k] = 0.f;
+    for (int i = 0; i < 3; ++i) {
+      s_pos[3 * t + i] = gp[i];
+      s_scale[3 * t + i] = gs[i];
+      s_alb[3 * t + i] = ga[i];
+    }
+    reinterpret_cast<float4*>(s_rot)[t] = make_float4(gq[0], gq[1], gq[2],
+                                                      gq[3]);
+    s_dens[t] = gd;
+  }
+  __syncthreads();
+
+  // 3. each wanted gradient's slice out by coalesced float4 stores
+  if (out.pos) {
+    stage_out(out.pos + 3 * static_cast<int64_t>(r0), s_pos, 3 * nr);
+  }
+  if (out.rot) {
+    stage_out(out.rot + 4 * static_cast<int64_t>(r0), s_rot, 4 * nr);
+  }
+  if (out.scale) {
+    stage_out(out.scale + 3 * static_cast<int64_t>(r0), s_scale, 3 * nr);
+  }
+  if (out.dens) stage_out(out.dens + r0, s_dens, nr);
+  if (out.albedo) {
+    stage_out(out.albedo + 3 * static_cast<int64_t>(r0), s_alb, 3 * nr);
+  }
+  if (out.spec) {
+    stage_out(out.spec + stride * static_cast<int64_t>(r0), s_spec,
+              stride * nr);
+  }
+}
+
+#define PROJECT_BWD_KERNELS(X) X(0) X(1) X(2) X(3)
+
+}  // namespace
+
+// ptrs: the six inputs as project_launch takes them, d_table [N,16], the
+// six gradients in the inputs' shapes (null where none is wanted), then
+// the camera's t_start [3] and q_start [4]. ints: BwdParams' fields in
+// order. Returns the first CUDA error.
+extern "C" int project_bwd_launch(const void* const* ptrs, const int* ints,
+                                  void* stream) {
+  BwdParams p;
+  memcpy(&p, ints, sizeof(p));
+  if (p.sh_stride > kMaxSpec || p.sh_degree < 0 || p.sh_degree > 3 ||
+      p.sh_stride < 3 * ((p.sh_degree + 1) * (p.sh_degree + 1) - 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto in_ptr = [ptrs](int i) { return static_cast<const float*>(ptrs[i]); };
+  auto out_ptr = [ptrs](int i) {
+    return static_cast<float*>(const_cast<void*>(ptrs[7 + i]));
+  };
+  const Inputs in{in_ptr(0), in_ptr(1), in_ptr(2),
+                  in_ptr(3), in_ptr(4), in_ptr(5)};
+  const Grads out{out_ptr(0), out_ptr(1), out_ptr(2),
+                  out_ptr(3), out_ptr(4), out_ptr(5)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.n > 0) {
+    const int blocks = (p.n + kRows - 1) / kRows;
+#define PROJECT_BWD_CASE(D)                                          \
+  if (p.sh_degree == D) {                                            \
+    project_bwd_kernel<D><<<blocks, kRows, 0, s>>>(                  \
+        in, in_ptr(6), out, in_ptr(13), in_ptr(14), p);              \
+  }
+    PROJECT_BWD_KERNELS(PROJECT_BWD_CASE)
+#undef PROJECT_BWD_CASE
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As project_attributes, for P_b's four instantiations, SH degrees 0-3.
+extern "C" int project_bwd_attributes(int* out) {
+#define PROJECT_BWD_FN(D) reinterpret_cast<const void*>(project_bwd_kernel<D>),
+  const void* fns[] = {PROJECT_BWD_KERNELS(PROJECT_BWD_FN)};
+#undef PROJECT_BWD_FN
+  for (int i = 0; i < 4; ++i) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
     if (err != cudaSuccess) return static_cast<int>(err);

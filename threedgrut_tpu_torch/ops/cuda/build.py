@@ -120,16 +120,17 @@ def load_all(names: List[str], verbose: bool = False
     return {name: _LIBS[name] for name in names}
 
 
-def attributes(name: str, kernels) -> Dict[str, Dict[str, int]]:
+def attributes(name: str, kernels, function: Optional[str] = None
+               ) -> Dict[str, Dict[str, int]]:
     """{kernel: {registers, local_bytes, shared_bytes, dynamic_shared_bytes}}
     of the kernels of library ``name``, in the order its
-    ``<name>_attributes`` C function lists them (cudaFuncGetAttributes:
-    registers a thread, local memory a thread for spills and stack, static
-    shared memory a block; and the dynamic shared memory a launch asks
-    for)."""
+    ``<name>_attributes`` C function (or ``function``) lists them
+    (cudaFuncGetAttributes: registers a thread, local memory a thread for
+    spills and stack, static shared memory a block; and the dynamic shared
+    memory a launch asks for)."""
     lib = load(name)
     out = (ctypes.c_int * (4 * len(kernels)))()
-    fn = getattr(lib, f"{name}_attributes")
+    fn = getattr(lib, function or f"{name}_attributes")
     fn.argtypes = [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     check_launch(f"{name}_attributes", fn(ctypes.addressof(out)), lib)

@@ -4,8 +4,9 @@ Projects each Gaussian through the camera (any model, global or rolling
 shutter) with 7 sigma points, giving a
 2D mean and covariance, the conic, the (mip-scaled) opacity, the screen
 extent and the sort depth (reference gutProjector.cuh:32-322). Plain
-elementwise PyTorch over particles, the autograd path; a forward that
-needs no gradient runs kernel P (ops/cuda/project.py) instead.
+elementwise PyTorch over particles: the CPU path and NHT's; on the card an
+SH model's projection is kernel P (ops/cuda/project.py), with its backward
+P_b under a gradient.
 """
 
 from __future__ import annotations

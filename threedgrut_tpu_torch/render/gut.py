@@ -23,14 +23,14 @@ The raster kernel gathers each pair's record from the per-particle table
 itself, so no [P, 16] records array is built, and writes straight into
 [H, W, .] images, so no tile-packed rays or outputs exist either.
 
-Differentiable in the model parameters: the table and the SH features
-are built with autograd, and the raster's backward (kernels C and D)
-returns the table's gradient. The projection enters the binning only
+Differentiable in the model parameters: the raster's backward (kernels
+C and D) returns the table's gradient, and kernel P_b (the backward of
+kernel P, ``ops/cuda/project.py``, which makes the projection, SH and
+table of every particle in one launch) takes it to the parameters; NHT's
+table is built with autograd. The projection enters the binning only
 structurally (detached), as in JAX; rays and t-ranges get no gradient.
-Under ``torch.no_grad()`` (the serving path) the raster kernels run
-without saving anything for a backward, and kernel P
-(``ops/cuda/project.py``) makes the projection, SH and table of every
-particle in one launch.
+Under ``torch.no_grad()`` (the serving path) the raster kernels and P run
+without saving anything for a backward.
 
 Returned dict mirrors the JAX package: ``pred_features`` [H,W,3] (NHT:
 [H,W,2d]),
@@ -52,7 +52,7 @@ from ..models.gaussians import GaussianModel
 from ..ops import binning as binning_ops
 from ..ops import ut as ut_ops
 from ..ops.cameras import CameraModel, ShutterType
-from ..ops.cuda.project import needs_grad, project_view, project_view_plain
+from ..ops.cuda.project import project_view, project_view_plain
 from ..ops.cuda.raster import FoldMeta, rasterize_tiles
 from ..ops.cuda.wmax import pair_weight_max, particle_weight_max
 from ..ops.quaternion import quat_normalize, quat_to_rotmat
@@ -137,15 +137,16 @@ def prepare_view(cam: CameraModel, ut_cfg: UTConfig, raster_cfg: RasterConfig,
 
     The work over every particle row (projection, SH, table, AABB) is one
     launch of kernel P (``ops/cuda/project.py:project_view``) for an SH
-    model when no gradient can flow into its parameters; a gradient, or
-    NHT features, take the autograd composition (``project_view_plain``,
-    as on CPU tensors), whose ``proj.view_dir`` is set."""
+    model, whose backward, where a gradient can flow into its parameters,
+    is kernel P_b; NHT features take the autograd composition
+    (``project_view_plain``, as on CPU tensors), whose ``proj.view_dir``
+    is set."""
     w, h = cam.resolution
     grid = ((w + TILE_X - 1) // TILE_X, (h + TILE_Y - 1) // TILE_Y)
     # NHT needs the canonical hit point: the general mode
     nht = is_nht(model)
     shared = shared_origin(cam, rays) and not nht
-    if nht or needs_grad(model):
+    if nht:
         pv = project_view_plain(cam, ut_cfg, model, sh_degree, shared)
     else:
         pv = project_view(cam, ut_cfg, model, sh_degree, shared)
